@@ -13,13 +13,28 @@ Phases, one line each (any failure raises and exits non-zero):
              images against the same weights in f32 through the plain path on
              the CPU
   P4 timing  hybrid and standard (deit_huge_patch14_LS) forward, img/s
+  P5 train kernels  each kernel of the train path that P2 does not cover
+             (standard_attention_bwd, octic_attention forward and backward,
+             linear_d8_fused with and without GELU) against its plain version
+             at the ViT-H/14 B=32 bf16 shapes and at the ragged shape, with
+             the stated tolerance and CUDA-event median times
+  P6 train slice  hybrid ViT-H/14 (f32 parameters, bf16 compute, remat) takes
+             one DeiT III step at B=32 (LAMB, clip 1.0, EMA, BCE on
+             mixup/cutmix targets, drop path 0.45): finite loss and gradients,
+             launches of every train kernel; a deterministic step on 2 images
+             (mixup off, drop path 0) against the same weights in f32 through
+             the plain path on the CPU (loss and gradient cosine); the
+             convergence check of scripts/smoke_train_tpu.py (60 AdamW steps)
+  P7 train timing  hybrid and standard train step at B=32 224^2: median ms,
+             img/s, ratio, peak device memory
 The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -28,6 +43,7 @@ import time
 import torch
 
 BATCH, IMG = 64, 224
+TRAIN_BATCH = 32
 SEED = 0
 # bf16 kernel vs f32 plain version (both rounded to bf16 at the same points):
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. Covers one or two
@@ -36,10 +52,22 @@ ATOL, RTOL = 1e-2, 2e-2
 # P3: relative L2 error of bf16-on-card logits against f32-on-CPU logits
 # over 32 blocks of bf16 activations
 SLICE_REL_TOL = 5e-2
+# Backward kernels: |kernel - plain| <= BWD_TOL * (max|plain| + |plain|). A
+# gradient sums 2N = 514 products whose operands the kernel rounds to bf16
+# (P and dS, as the JAX bf16 kernel does) while the plain version keeps them
+# in f32; the error of a sum scales with the size of the whole gradient, not
+# with each element, so the bar is set against max|plain|.
+BWD_TOL = 2e-2
+# P6: cosine similarity of the whole flattened gradient, bf16 on the card
+# against f32 on the CPU. Elementwise bf16 noise of relative size e gives a
+# cosine of ~1 - e^2/2 (0.999 at e = 4e-2); a wrong gradient of any large
+# tensor drops it far below. The loss shares the P3 bar.
+GRAD_COS_MIN = 0.99
+T0 = time.perf_counter()
 
 
 def phase(tag: str, msg: str) -> None:
-    print(f"{tag} {msg}", flush=True)
+    print(f"{tag} [{time.perf_counter() - T0:.1f} s] {msg}", flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -100,29 +128,195 @@ def kernel_cases(gen, b, n, c, heads, bias):
     ]
 
 
-def compare(out, ref):
+def train_kernel_cases(gen, b, n, c, heads, bias):
+    """(name, kernel op, reference op, args, scaled bar) of the train-path
+    kernels P2 does not cover, at one shape: the ViT-H MLP widths for
+    linear_d8_fused (fc1 c -> 4c with GELU, fc2 4c -> c)."""
+    from octic_vits_tpu_torch import ops
+
+    c8, h8 = c // 8, c // 2
+    opt = lambda t: t if bias else None  # noqa: E731
+    qkv, g = randn(gen, b, n, 3 * c), randn(gen, b, n, c)
+    ef = randn(gen, b, n, 12 * c8)  # flat-E qkv: e0, e1 are its column halves
+    qs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + (ef[..., :6 * c8], ef[..., 6 * c8:])
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 2 * c8) for _ in range(2))
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    hs = tuple(randn(gen, b, n, h8) for _ in range(4)) + (randn(gen, b, n, 4 * h8),)
+    fc1 = (xs, randn(gen, 4, c8, h8, scale=c8 ** -0.5),
+           randn(gen, 2 * c8, 2 * h8, scale=(2 * c8) ** -0.5), opt(randn(gen, h8, scale=0.1)),
+           True)
+    fc2 = (hs, randn(gen, 4, h8, c8, scale=h8 ** -0.5),
+           randn(gen, 2 * h8, 2 * c8, scale=(2 * h8) ** -0.5), opt(randn(gen, c8, scale=0.1)),
+           False)
+    return [
+        ("standard_attention_bwd", ops.standard_attention_bwd,
+         ops.standard_attention_bwd_reference, (qkv, g, heads), True),
+        ("octic_attention", ops.octic_attention, ops.octic_attention_reference,
+         (*qs, heads), False),
+        ("octic_attention_bwd", ops.octic_attention_bwd, ops.octic_attention_bwd_reference,
+         (qs, gs, heads), True),
+        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc1, False),
+        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc2, False),
+    ]
+
+
+def compare(out, ref, scaled: bool = False):
+    """Max abs error and whether every output is finite and inside its bar:
+    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`."""
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     err, ok = 0.0, True
     for o, r in zip(outs, refs, strict=True):
         if o.shape != r.shape or o.dtype != r.dtype:
             raise AssertionError(f"shape/dtype {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
-        d = (o.float() - r.float()).abs()
+        r = r.float()
+        d = (o.float() - r).abs()
         err = max(err, d.max().item())
-        ok &= bool((d <= ATOL + RTOL * r.float().abs()).all()) and bool(o.isfinite().all())
+        bar = BWD_TOL * (r.abs().max() + r.abs()) if scaled else ATOL + RTOL * r.abs()
+        ok &= bool((d <= bar).all()) and bool(o.isfinite().all())
     return err, ok
 
 
+# kernel -> (source, replaced JAX function at file:line, the path whose run
+# gives its launch count)
 META = {
     "standard_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
-                           "octic_vits_tpu/ops/pallas_attention.py:1234"),
+                           "octic_vits_tpu/ops/pallas_attention.py:1234", "inference"),
     "octic_attention_fused_qkv": ("octic_vits_tpu_torch/csrc/attention.cu",
-                                  "octic_vits_tpu/ops/pallas_attention.py:538"),
-    "dense_gelu": ("octic_vits_tpu_torch/csrc/dense.cu", "octic_vits_tpu/ops/pallas_dense.py:111"),
+                                  "octic_vits_tpu/ops/pallas_attention.py:538", "inference"),
+    "dense_gelu": ("octic_vits_tpu_torch/csrc/dense.cu", "octic_vits_tpu/ops/pallas_dense.py:111",
+                   "inference"),
     "mlp_d8_fused": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
-                     "octic_vits_tpu/ops/pallas_linear.py:550"),
+                     "octic_vits_tpu/ops/pallas_linear.py:550", "inference"),
+    "standard_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+                               "octic_vits_tpu/ops/pallas_attention.py:1259", "train"),
+    "octic_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
+                        "octic_vits_tpu/ops/pallas_attention.py:356", "train"),
+    "octic_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+                            "octic_vits_tpu/ops/pallas_attention.py:391", "train"),
+    "linear_d8_fused": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
+                        "octic_vits_tpu/ops/pallas_linear.py:196", "train"),
 }
-EXTRA_SOURCES = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"]}
+# launches of each kernel in one hybrid ViT-H/14 train step under remat: the
+# attention kernels run once forward and once backward per block (remat saves
+# their inputs and outputs); fc1/fc2 and dense_gelu run again in the replay
+TRAIN_LAUNCHES = {"standard_attention": 16, "standard_attention_bwd": 16, "octic_attention": 16,
+                  "octic_attention_bwd": 16, "linear_d8_fused": 64, "dense_gelu": 32,
+                  "octic_attention_fused_qkv": 0, "mlp_d8_fused": 0}
+
+
+def kernel_phase(tag, cases_fn, shapes, gen, summary):
+    """Run each case at each shape against its plain version; time the
+    first shape. Raises if a kernel is outside its bar or its counter did
+    not move."""
+    failed = []
+    for label, shape in shapes:
+        with torch.no_grad():
+            for name, kern, ref, args, scaled in cases_fn(gen, *shape):
+                out = kern(*args)
+                torch.cuda.synchronize()
+                expected = ref(*args)
+                err, ok = compare(out, expected, scaled)
+                entry = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
+                line = f"{name} [{label}] max_abs_err {err:.3e} (tol {bar}) "
+                line += "ok" if ok else "FAIL"
+                if label == shapes[0][0]:
+                    before = kern.launches
+                    ms = time_ms(lambda: kern(*args))
+                    plain_ms = time_ms(lambda: ref(*args), iters=10)
+                    if kern.launches <= before:
+                        raise AssertionError(f"{name}: launch counter did not move")
+                    # a kernel with several cases (fc1 and fc2) sums their times
+                    entry["ms"] += ms
+                    entry["plain_ms"] += plain_ms
+                    line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                phase(tag, line)
+                if not ok:
+                    failed.append(f"{name}[{label}]")
+                del out, expected
+    if failed:
+        raise AssertionError(f"kernels outside tolerance: {failed}")
+
+
+def p2_cases(gen, *shape):
+    return [case + (False,) for case in kernel_cases(gen, *shape)]
+
+
+def grad_cosine(card_model, cpu_model) -> tuple:
+    """Cosine similarity of the two models' whole flattened gradients (f64
+    sums, one parameter at a time), their norms, and the number of values."""
+    dot = nn_a = nn_b = 0.0
+    count = 0
+    for a, b in zip(card_model.parameters(), cpu_model.parameters(), strict=True):
+        ga, gb = a.grad.detach().cpu().double(), b.grad.detach().double()
+        dot += (ga * gb).sum().item()
+        nn_a += ga.square().sum().item()
+        nn_b += gb.square().sum().item()
+        count += ga.numel()
+    return dot / math.sqrt(nn_a * nn_b), math.sqrt(nn_a), math.sqrt(nn_b), count
+
+
+def set_drop_path(model, rate: float) -> None:
+    for m in model.modules():
+        if hasattr(m, "draw"):  # DropPath / DropPathD8
+            m.rate = rate
+
+
+def train_setup(model, cfg):
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+
+    opt = engine.build_optimizer(cfg, model)
+    return common.create_train_state(model, opt, ema=True), engine.make_deit_train_step(
+        model, cfg, opt)
+
+
+def time_train_steps(state, step, images, labels, gen, steps=10, warmup=2):
+    """Median host-clock ms of one synchronized train step."""
+    times = []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError("non-finite loss while timing")
+    return statistics.median(times), times
+
+
+def convergence_check(steps: int = 60) -> tuple:
+    """scripts/smoke_train_tpu.py:supervised_smoke on the port: a small hybrid
+    (embed 128, depth 4, 4 heads) in bf16 compute fits 32 fixed images
+    with AdamW 3e-4 (optax.adamw's default decay 1e-4); the loss must fall
+    below half its first value."""
+    from octic_vits_tpu_torch import init_weights
+    from octic_vits_tpu_torch.models import OcticVisionTransformer
+    from octic_vits_tpu_torch.train.common import cross_entropy_loss
+
+    model = OcticVisionTransformer(img_size=64, patch_size=8, embed_dim=128, depth=4,
+                                   num_heads=4, mlp_ratio=2.0, qkv_bias=True, num_classes=8,
+                                   init_scale=1.0,
+                                   compute_dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator("cuda").manual_seed(SEED + 2))
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    images = torch.randn(32, 64, 64, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, 8, (32,), generator=gen, device="cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    model.train()
+    losses = []
+    for _ in range(steps + 1):
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(images), labels)
+        losses.append(loss.item())
+        if len(losses) <= steps:
+            loss.backward()
+            opt.step()
+    return losses[0], losses[steps - 1], losses[steps]
 
 
 def main() -> int:
@@ -138,6 +332,8 @@ def main() -> int:
 
     from octic_vits_tpu_torch import create_model, init_weights, ops
     from octic_vits_tpu_torch.kernels import build, library
+    from octic_vits_tpu_torch.train.common import bce_target_loss
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
 
     lib_path, seconds = build(verbose=True)
     library()
@@ -145,34 +341,12 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     summary = {}
-    failed = []
-    for label, shape in (("vith14_b64", (BATCH, 257, 1280, 16, True)),
-                         ("ragged", (3, 65, 64, 2, False))):
-        with torch.no_grad():
-            for name, kern, ref, args in kernel_cases(gen, *shape):
-                out = kern(*args)
-                torch.cuda.synchronize()
-                expected = ref(*args)
-                err, ok = compare(out, expected)
-                entry = summary.setdefault(name, {"max_abs_err": 0.0})
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                line = f"{name} [{label}] max_abs_err {err:.3e} (tol {ATOL}+{RTOL}*|ref|) "
-                line += "ok" if ok else "FAIL"
-                if label == "vith14_b64":
-                    before = kern.launches
-                    entry["ms"] = time_ms(lambda: kern(*args))
-                    entry["plain_ms"] = time_ms(lambda: ref(*args), iters=10)
-                    if kern.launches <= before:
-                        raise AssertionError(f"{name}: launch counter did not move")
-                    line += f" | kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms"
-                phase("P2", line)
-                if not ok:
-                    failed.append(f"{name}[{label}]")
-                del out, expected
-    if failed:
-        raise AssertionError(f"kernels outside tolerance: {failed}")
+    kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
+                                  ("ragged", (3, 65, 64, 2, False))), gen, summary)
 
-    # ---- P3: the slice, full-width hybrid ViT-H/14 ----
+    # ---- P3: the inference slice, full-width hybrid ViT-H/14 ----
+    # on the CPU every op is its plain version: this model is the f32
+    # reference of P3 (inference) and of P6 (training)
     torch.manual_seed(SEED)
     cpu_model = create_model("hybrid_deit_huge_patch14", init_scale=1.0).eval()
     init_weights(cpu_model, torch.Generator().manual_seed(SEED))
@@ -185,7 +359,7 @@ def main() -> int:
     with torch.no_grad():
         logits = model(images_gpu)
     torch.cuda.synchronize()
-    launches = {op.__name__: op.launches for op in ops.KERNEL_OPS}
+    launches = {op.__name__: op.launches for op in ops.INFERENCE_OPS}
     if tuple(logits.shape) != (BATCH, 1000) or not bool(logits.isfinite().all()):
         raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
     if any(v != 16 for v in launches.values()):
@@ -200,9 +374,8 @@ def main() -> int:
                 f"|ref| max {ref.abs().max().item():.3e}")
     if not rel <= SLICE_REL_TOL:
         raise AssertionError("hybrid logits disagree with the CPU f32 plain path")
-    del cpu_model
 
-    # ---- P4: timing, hybrid vs standard ----
+    # ---- P4: inference timing, hybrid vs standard ----
     std = create_model("deit_huge_patch14_LS", device="cuda", dtype=torch.bfloat16).eval()
     init_weights(std, torch.Generator("cuda").manual_seed(SEED))
     with torch.no_grad():
@@ -213,16 +386,105 @@ def main() -> int:
     phase("P4", f"B={BATCH} 224^2 bf16 on {card}: hybrid {ips_h:.1f} img/s "
                 f"({ms_h:.2f} / {ms_h2:.2f} ms), standard {ips_s:.1f} img/s ({ms_s:.2f} ms), "
                 f"ratio hybrid/standard {ips_h / ips_s:.4f}")
+    del model, std, logits, images_gpu
+    torch.cuda.empty_cache()
 
+    # ---- P5: the train path's kernels ----
+    kernel_phase("P5", train_kernel_cases, (("vith14_b32", (TRAIN_BATCH, 257, 1280, 16, True)),
+                                            ("ragged", (3, 65, 64, 2, False))), gen, summary)
+    torch.cuda.empty_cache()
+
+    # ---- P6: the train slice, full-width full-depth hybrid ViT-H/14 ----
+    cfg = DeiTConfig()  # the paper recipe: LAMB, clip 1.0, EMA, BCE, mixup/cutmix
+    train_model = create_model("hybrid_deit_huge_patch14", init_scale=1.0, remat=True, drop_path_rate=cfg.drop_path,
+                               compute_dtype=torch.bfloat16, device="cuda")
+    train_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    state, step = train_setup(train_model, cfg)
+    tgen = torch.Generator().manual_seed(SEED + 3)
+    timages = torch.randn(TRAIN_BATCH, IMG, IMG, 3, generator=tgen).cuda()
+    tlabels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=tgen).cuda()
+    ops.reset_launch_counts()
+    state, metrics = step(state, timages, tlabels, tgen)
+    torch.cuda.synchronize()
+    train_launches = ops.launch_counts()
+    finite_grads = all(bool(torch.isfinite(p.grad).all()) for p in train_model.parameters())
+    loss = metrics["loss"].item()
+    phase("P6", f"hybrid_deit_huge_patch14 train step B={TRAIN_BATCH} (f32 params, bf16 compute, "
+                f"remat, LAMB, mixup/cutmix, drop path {cfg.drop_path}): loss {loss:.4f}, "
+                f"grad norm {metrics['grad_norm'].item():.4f}, finite grads {finite_grads}, "
+                f"launches {train_launches}")
+    if not (math.isfinite(loss) and finite_grads):
+        raise AssertionError("non-finite loss or gradients in the train step")
+    if train_launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"train launches {train_launches}, expected {TRAIN_LAUNCHES}")
+
+    # deterministic step on 2 images against the CPU f32 plain path
+    det_cfg = DeiTConfig(mixup_alpha=0.0, cutmix_alpha=0.0, drop_path=0.0)
+    set_drop_path(train_model, 0.0)
+    train_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    det_state, det_step = train_setup(train_model, det_cfg)
+    dimages = torch.randn(2, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 4))
+    dimages = dimages.to(torch.bfloat16).float()
+    dlabels = torch.tensor([3, 977])
+    det_state, det_metrics = det_step(det_state, dimages.cuda(), dlabels.cuda(),
+                                      torch.Generator().manual_seed(SEED))
+    cpu_model.train()
+    targets = torch.nn.functional.one_hot(dlabels, 1000).float()
+    cpu_loss = bce_target_loss(cpu_model(dimages), targets)
+    cpu_loss.backward()
+    cos, _, norm_cpu, count = grad_cosine(train_model, cpu_model)
+    loss_rel = abs(det_metrics["loss"].item() - cpu_loss.item()) / abs(cpu_loss.item())
+    phase("P6", f"deterministic step, 2 images: loss card {det_metrics['loss'].item():.6f} vs CPU "
+                f"f32 {cpu_loss.item():.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); "
+                f"gradient cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; grad "
+                f"norm card {det_metrics['grad_norm'].item():.4f} vs CPU {norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("train step disagrees with the CPU f32 plain path")
+    del cpu_model, det_state, det_step
+
+    first, last, after = convergence_check()
+    phase("P6", f"convergence (embed 128, depth 4, 4 heads, B=32, AdamW 3e-4, 60 steps, bf16): "
+                f"loss {first:.4f} -> {last:.4f} (after the last update {after:.4f}); "
+                f"must fall below {0.5 * first:.4f}")
+    if not (math.isfinite(last) and last < 0.5 * first):
+        raise AssertionError("the small model did not fit its batch")
+
+    # ---- P7: train-step timing, hybrid vs standard ----
+    set_drop_path(train_model, cfg.drop_path)
+    state, step = train_setup(train_model, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms_th, times_h = time_train_steps(state, step, timages, tlabels, tgen)
+    mem_h = torch.cuda.max_memory_allocated()
+    del state, step, train_model
+    torch.cuda.empty_cache()
+    std_model = create_model("deit_huge_patch14_LS", remat=True, drop_path_rate=cfg.drop_path,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    init_weights(std_model, torch.Generator("cuda").manual_seed(SEED))
+    state, step = train_setup(std_model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ms_ts, times_s = time_train_steps(state, step, timages, tlabels, tgen)
+    mem_s = torch.cuda.max_memory_allocated()
+    del state, step, std_model
+    phase("P7", f"train step B={TRAIN_BATCH} 224^2 (f32 params, bf16 compute, remat, LAMB, EMA) "
+                f"on {card}: hybrid {ms_th:.2f} ms ({TRAIN_BATCH / ms_th * 1e3:.1f} img/s, "
+                f"peak {mem_h / 2**30:.2f} GiB), standard {ms_ts:.2f} ms "
+                f"({TRAIN_BATCH / ms_ts * 1e3:.1f} img/s, peak {mem_s / 2**30:.2f} GiB), "
+                f"ratio hybrid/standard img/s {ms_ts / ms_th:.4f}; "
+                f"step ms hybrid {[round(t, 2) for t in times_h]}, "
+                f"standard {[round(t, 2) for t in times_s]}")
+
+    counts = {"inference": launches, "train": train_launches}
     kernels = []
-    for name, (source, replaces) in META.items():
+    for name, (source, replaces, path) in META.items():
         e = summary[name]
-        item = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                "plain_ms": e["plain_ms"]}
-        if name in EXTRA_SOURCES:
-            item["also"] = EXTRA_SOURCES[name]
-        kernels.append(item)
+        n = counts[path][name]
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on the {path} path")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": n, "path": path, "max_abs_err": e["max_abs_err"],
+                        "ms": e["ms"], "plain_ms": e["plain_ms"]})
+    kernels[1]["also"] = ["octic_vits_tpu_torch/csrc/lin_d8.cu"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -231,7 +493,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
     rc = main()
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", file=sys.stderr)
     sys.exit(rc)

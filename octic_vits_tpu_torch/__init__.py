@@ -1,16 +1,26 @@
 """octic_vits_tpu_torch — the PyTorch + CUDA port of octic_vits_tpu.
 
-The inference slice of the hybrid octic ViT: the D8 group algebra, the
-equivariant and standard layers, the hybrid and standard models, and the
-four hand-written Hopper kernels the main path runs (``csrc/``, built and
-bound by ``kernels/``). The JAX package stays the reference; this package
-imports torch and never jax.
+The inference and DeiT III training slices of the hybrid octic ViT: the D8
+group algebra, the equivariant and standard layers, the hybrid and standard
+models, mixup/cutmix (``data``), the train state, LAMB and the DeiT III
+train step (``train``), and the hand-written Hopper kernels those paths run
+(``csrc/``, built and bound by ``kernels/``). The JAX package stays the
+reference; this package imports torch and never jax.
 
     from octic_vits_tpu_torch import create_model, init_weights
     model = create_model("hybrid_deit_huge_patch14", device="cuda",
                          dtype=torch.bfloat16).eval()
     init_weights(model, torch.Generator("cuda").manual_seed(0))
     logits = model(images_nhwc)
+
+Training (f32 parameters, bf16 compute, remat; see train/deit/engine.py):
+
+    model = create_model("hybrid_deit_huge_patch14",
+                         remat=True, drop_path_rate=cfg.drop_path,
+                         compute_dtype=torch.bfloat16, device="cuda")
+    opt = build_optimizer(cfg, model)
+    state, step = create_train_state(model, opt, ema=True), make_deit_train_step(model, cfg, opt)
+    state, metrics = step(state, images, labels, torch.Generator().manual_seed(0))
 """
 
 from octic_vits_tpu_torch.layers.init import init_weights

@@ -5,12 +5,14 @@
 // Replaces
 //   octic_vits_tpu/ops/pallas_attention.py:standard_attention
 //     (`_std_fwd_kernel`): qkv [B,N,3C] in (3, H, dh) order -> [B,N,C];
-//   the attention half of octic_attention_fused_qkv
-//     (`_qkv_attn_store`, `_group_attn_fwd`): head h's dh = 4*d1 + 2*de
-//     channels are a1|a2|b1|b2 at column (s*H + h)*d1 of the four 1-d qkv
-//     arrays [B,N,3C/8] plus e0|e1 at column (s*H + h)*de of the two E rows
-//     of the flat-E qkv [B,N,3C/2] = [row0 | row1]; the output goes back
-//     to 4 x [B,N,C/8] + 2 x [B,N,C/4] in irrep layout.
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention (`_octic_fwd_kernel`)
+//     and the attention half of octic_attention_fused_qkv (`_qkv_attn_store`,
+//     `_group_attn_fwd`): head h's dh = 4*d1 + 2*de channels are a1|a2|b1|b2
+//     at column (s*H + h)*d1 of the four 1-d qkv arrays [B,N,3C/8] plus
+//     e0|e1 at column (s*H + h)*de of the two E rows [B,N,3C/4] (each with
+//     its own row stride: on the train path they are the two column halves
+//     of one flat-E qkv); the output goes back to 4 x [B,N,C/8] +
+//     2 x [B,N,C/4] in irrep layout. The backward is csrc/attention_bwd.cu.
 //
 // What bounds it on the H100: at ViT-H/14, B=64 (N = 257, H = 16, dh = 80)
 // one layer is 2 * 2 * 64*16 * 257^2 * 80 = 10.8 GFLOP over 126 MB of qkv:
@@ -52,25 +54,6 @@ struct Layout {
   int N, H, dh;
   int vec;  // elements per gather load: 8, 4, 2 or 1 (chosen by the host)
   float scale;
-};
-
-template <int V>
-struct VecOf;
-template <>
-struct VecOf<8> {
-  typedef uint4 T;
-};
-template <>
-struct VecOf<4> {
-  typedef uint2 T;
-};
-template <>
-struct VecOf<2> {
-  typedef uint32_t T;
-};
-template <>
-struct VecOf<1> {
-  typedef unsigned short T;
 };
 
 // Gather q, k and v of head h (batch b) into shared memory: q and k as
@@ -321,34 +304,31 @@ OVT_EXPORT int ovt_attention_std(const void* qkv, void* out, int B, int N, int H
   return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
 }
 
-// Octic head layout. q1..q4 [B,N,3*H*d1] (the 1-d qkv, (3, H, d1) order),
-// qef [B,N,6*H*de] = [row0 | row1], each row in (3, H, de) order;
-// o1..o4 [B,N,H*d1], oe0, oe1 [B,N,H*de]. Head dim dh = 4*d1 + 2*de and
-// the scale is dh^-0.5 (= (C/H)^-0.5).
-OVT_EXPORT int ovt_attention_octic(const void* q1, const void* q2, const void* q3,
-                                   const void* q4, const void* qef, void* o1, void* o2, void* o3,
-                                   void* o4, void* oe0, void* oe1, int B, int N, int H, int d1,
-                                   int de, void* stream) {
+// Octic head layout, each input with its own token row stride (elements):
+// q1..q4 [B,N,3*H*d1] (the 1-d qkv, (3, H, d1) column order), e0 and e1
+// [B,N,3*H*de] (the two E rows, (3, H, de) order; on the train path they
+// are the two halves of one flat-E qkv [B,N,6*H*de], so ld = 6*H*de);
+// o1..o4 [B,N,H*d1], oe0, oe1 [B,N,H*de] contiguous. Head dim
+// dh = 4*d1 + 2*de and the scale is dh^-0.5 (= (C/H)^-0.5).
+OVT_EXPORT int ovt_attention_octic_rows(const void* q1, const void* q2, const void* q3,
+                                        const void* q4, const void* e0, const void* e1, int ld1,
+                                        int ld2, int ld3, int ld4, int lde0, int lde1, void* o1,
+                                        void* o2, void* o3, void* o4, void* oe0, void* oe1, int B,
+                                        int N, int H, int d1, int de, void* stream) {
   using ovt::bf16;
   ovt::attn::Layout L = {};
   L.nseg = 6;
-  const void* ins[4] = {q1, q2, q3, q4};
-  void* outs[4] = {o1, o2, o3, o4};
-  for (int i = 0; i < 4; ++i) {
+  const void* ins[6] = {q1, q2, q3, q4, e0, e1};
+  const int lds[6] = {ld1, ld2, ld3, ld4, lde0, lde1};
+  void* outs[6] = {o1, o2, o3, o4, oe0, oe1};
+  for (int i = 0; i < 6; ++i) {
+    const int w = i < 4 ? d1 : de;
     L.in[i] = static_cast<const bf16*>(ins[i]);
-    L.in_ld[i] = 3 * H * d1;
+    L.in_ld[i] = lds[i];
     L.out[i] = static_cast<bf16*>(outs[i]);
-    L.out_ld[i] = H * d1;
-    L.width[i] = d1;
+    L.out_ld[i] = H * w;
+    L.width[i] = w;
   }
-  const int row = 3 * H * de;
-  L.in[4] = static_cast<const bf16*>(qef);
-  L.in[5] = static_cast<const bf16*>(qef) + row;
-  L.in_ld[4] = L.in_ld[5] = 2 * row;
-  L.out[4] = static_cast<bf16*>(oe0);
-  L.out[5] = static_cast<bf16*>(oe1);
-  L.out_ld[4] = L.out_ld[5] = H * de;
-  L.width[4] = L.width[5] = de;
   L.N = N;
   L.H = H;
   L.dh = 4 * d1 + 2 * de;

@@ -1,0 +1,532 @@
+// K-attn-bwd: the gradient of softmax(Q K^T * scale) V with respect to q, k
+// and v for each (batch, head), recomputing the probabilities from q and k
+// (the only residual is the qkv, as in the JAX custom VJP). Per head:
+//   P  = softmax(s Q K^T)        dV = P^T dO        dP = dO V^T
+//   dS = P o (dP - rowsum(dP o P)) s                dQ = dS K      dK = dS^T Q
+//
+// Replaces
+//   octic_vits_tpu/ops/pallas_attention.py:standard_attention backward
+//     (`_std_bwd_rule`, `_std_bwd_kernel`): qkv [B,N,3C] in (3, H, dh) order
+//     and g [B,N,C] -> dqkv [B,N,3C];
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention backward
+//     (`_octic_bwd_rule`, `_octic_bwd_kernel`): the six irrep qkv arrays
+//     (a1..b2 [B,N,3C/8] in (3, H, d1) order, e0, e1 [B,N,3C/4] in (3, H, de)
+//     order) and the six output cotangents -> the six input gradients.
+// Both go through the per-segment (pointer, row stride, width) table of the
+// forward (csrc/attention.cu), so each (s, head) column slice of every
+// gradient is written exactly once: no zeroing, no accumulation across heads.
+//
+// What bounds it on the H100: at ViT-H/14, B=32 (N = 257, H = 16, dh = 80)
+// the backward is 5 products of 2 * 32*16 * 257^2 * 80 FLOP each per pass
+// structure below (~27 GFLOP a layer, ~2.5x the forward) over 63 MB of qkv
+// and 21 MB of g: below the card's ridge, and, as in the forward, each head
+// is small and its octic pieces are 20- and 40-byte, not 16-byte aligned.
+// q, k, v and dO of one head, zero-padded to 272 tokens x 88 channels, take
+// 191 KB of the 227 KB of shared memory: there is no room for f32 dK and dV
+// accumulators of the whole head, so the Pallas one-step schedule does not
+// carry over.
+//
+// What the design does about it: two kernels in FlashAttention-2 style, one
+// CTA of 8 warps per (head, batch), each gathering the head's q, k, v and dO
+// rows once into shared memory with the widest load the segments allow.
+// 1. Query pass: each warp owns 16 query rows; a first sweep over 64-key
+//    blocks carries the online max, the softmax sum and the online sum of
+//    exp(s - m) * dP (so rowsum(dP o P) needs no third sweep); a second sweep
+//    recomputes P and dP, forms dS and accumulates dQ in MMA fragments. The
+//    row log-sum-exp and rowsum(dP o P) go to f32 scratch [B,H,N].
+// 2. Key pass: each warp owns 16 key rows and sweeps 32-query blocks,
+//    recomputing P^T and dS^T from the scratch statistics, and accumulates
+//    dV = P^T dO and dK = dS^T Q in registers. No atomics, so the sums have
+//    a fixed order. The transposed operands come from the row tiles through
+//    ldmatrix.trans. P and dS are rounded to bf16 only as MMA operands, as
+//    in the JAX bf16 path; scores, softmax statistics and sums are f32.
+#include <math_constants.h>
+
+#include "common.cuh"
+
+namespace ovt {
+namespace attn_bwd {
+
+constexpr int WARPS = 8, THREADS = WARPS * 32, KB = 64, QB = 32, UNROLL = 4;
+constexpr int MAX_SEG = 6;
+
+struct Table {
+  const bf16* p[MAX_SEG];
+  int ld[MAX_SEG];  // token row stride of the segment
+};
+
+struct Args {
+  int nseg;
+  int width[MAX_SEG];   // channels of one head in this segment
+  Table qkv;            // column of head h: (s*H + h) * width
+  Table g;              // output cotangent, column h * width
+  bf16* dqkv[MAX_SEG];  // gradients, contiguous, in the layout of qkv
+  int d_ld[MAX_SEG];
+  float* lse;   // [B,H,N] scratch: log2-sum-exp2 of the scaled scores
+  float* dsum;  // [B,H,N] scratch: rowsum(dP o P)
+  int N, H, dh;
+  int vec_qkv, vec_g;  // elements per gather load, chosen by the host
+  int pair_out;        // 1: the gradients take 4-byte bf16x2 stores
+  float scale;
+};
+
+// rows [kpad][DS] of one table at column index `col` (s*H + h or h); rows
+// >= N and channels >= dh are zero. Consecutive threads take consecutive
+// V-element chunks of a row.
+template <int DHP, int V>
+__device__ __forceinline__ void gather_rows(const Table& T, const Args& A,
+                                            const unsigned char* seg_of,
+                                            const unsigned char* w_of, int col, int b, int kpad,
+                                            bf16* dst) {
+  typedef typename VecOf<V>::T Vec;
+  constexpr int DS = DHP + 8, CPR = DHP / V;
+  const int total = kpad * CPR;
+  for (int base = threadIdx.x; base < total; base += THREADS * UNROLL) {
+    Vec v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int idx = base + u * THREADS;
+      const int n = idx / CPR, d0 = (idx - n * CPR) * V;
+      v[u] = Vec{};
+      if (idx < total && n < A.N && d0 < A.dh) {
+        const int i = seg_of[d0];
+        v[u] = *reinterpret_cast<const Vec*>(T.p[i] + ((size_t)b * A.N + n) * T.ld[i] +
+                                             (size_t)col * A.width[i] + w_of[d0]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int idx = base + u * THREADS;
+      if (idx >= total) continue;
+      const int n = idx / CPR, d0 = (idx - n * CPR) * V;
+      *reinterpret_cast<Vec*>(dst + n * DS + d0) = v[u];
+    }
+  }
+}
+
+template <int DHP>
+__device__ __forceinline__ void gather_any(const Table& T, int vec, const Args& A,
+                                           const unsigned char* seg_of, const unsigned char* w_of,
+                                           int col, int b, int kpad, bf16* dst) {
+  switch (vec) {
+    case 8: gather_rows<DHP, 8>(T, A, seg_of, w_of, col, b, kpad, dst); break;
+    case 4: gather_rows<DHP, 4>(T, A, seg_of, w_of, col, b, kpad, dst); break;
+    case 2: gather_rows<DHP, 2>(T, A, seg_of, w_of, col, b, kpad, dst); break;
+    default: gather_rows<DHP, 1>(T, A, seg_of, w_of, col, b, kpad, dst); break;
+  }
+}
+
+// shared memory: q, k, v, dO rows [kpad][DHP+8] bf16, the statistics
+// [2][kpad] f32, the channel -> (segment, offset) tables
+__host__ __device__ constexpr int smem_bytes(int kpad, int dhp) {
+  return 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp;
+}
+
+struct Smem {
+  bf16 *qs, *ks, *vs, *gs;
+  float *lse, *dsum;
+  unsigned char *seg_of, *w_of;
+};
+
+// carve shared memory, build the channel tables and gather the head
+template <int DHP>
+__device__ __forceinline__ Smem load_head(const Args& A, unsigned char* raw, int kpad, int b,
+                                          int h) {
+  constexpr int DS = DHP + 8;
+  Smem S;
+  S.qs = reinterpret_cast<bf16*>(raw);
+  S.ks = S.qs + kpad * DS;
+  S.vs = S.ks + kpad * DS;
+  S.gs = S.vs + kpad * DS;
+  S.lse = reinterpret_cast<float*>(S.gs + kpad * DS);
+  S.dsum = S.lse + kpad;
+  S.seg_of = reinterpret_cast<unsigned char*>(S.dsum + kpad);
+  S.w_of = S.seg_of + DHP;
+  for (int d = threadIdx.x; d < DHP; d += THREADS) {
+    int i = 0, base = 0;
+    while (i < A.nseg - 1 && d >= base + A.width[i]) base += A.width[i++];
+    S.seg_of[d] = static_cast<unsigned char>(i);
+    S.w_of[d] = static_cast<unsigned char>(d - base);
+  }
+  __syncthreads();
+  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, h, b, kpad, S.qs);
+  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, A.H + h, b, kpad, S.ks);
+  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, 2 * A.H + h, b, kpad, S.vs);
+  gather_any<DHP>(A.g, A.vec_g, A, S.seg_of, S.w_of, h, b, kpad, S.gs);
+  return S;
+}
+
+// A fragments (16 rows from r0, all DHP channels) of a row tile
+template <int DHP>
+__device__ __forceinline__ void load_a(uint32_t (&f)[DHP / 16][4], const bf16* rows, int r0,
+                                       int lane) {
+  constexpr int DS = DHP + 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < DHP / 16; ++kc) {
+    const bf16* p = rows + (r0 + g) * DS + kc * 16 + 2 * t;
+    f[kc][0] = *reinterpret_cast<const uint32_t*>(p);
+    f[kc][1] = *reinterpret_cast<const uint32_t*>(p + 8 * DS);
+    f[kc][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+    f[kc][3] = *reinterpret_cast<const uint32_t*>(p + 8 * DS + 8);
+  }
+}
+
+// c += A(16 x DHP) * rows[n0..n0+8)^T: one m16n8 tile of a "row-times-row"
+// product (scores, dP), the B operand read as 32-bit pairs from row tiles
+template <int DHP>
+__device__ __forceinline__ void mma_rows(float (&c)[4], const uint32_t (&a)[DHP / 16][4],
+                                         const bf16* rows, int n0, int lane) {
+  constexpr int DS = DHP + 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < DHP / 16; ++kc) {
+    const bf16* p = rows + (n0 + g) * DS + kc * 16 + 2 * t;
+    mma_bf16(c, a[kc], *reinterpret_cast<const uint32_t*>(p),
+             *reinterpret_cast<const uint32_t*>(p + 8));
+  }
+}
+
+// acc[DHP/8] += A(16 x 16) * rows[k0..k0+16)[0..DHP): the B operand is the
+// row tile itself (k = token), read transposed with ldmatrix.trans
+template <int DHP>
+__device__ __forceinline__ void mma_trans(float (&acc)[DHP / 8][4], const uint32_t (&a)[4],
+                                          const bf16* rows, int k0, int lane) {
+  constexpr int DS = DHP + 8;
+#pragma unroll
+  for (int nj = 0; nj < DHP / 16; ++nj) {
+    uint32_t bfr[4];
+    ldmatrix_x4_trans(bfr, rows + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS + nj * 16 +
+                               (lane >> 4) * 8);
+    mma_bf16(acc[2 * nj], a, bfr[0], bfr[1]);
+    mma_bf16(acc[2 * nj + 1], a, bfr[2], bfr[3]);
+  }
+}
+
+// C fragments of two adjacent n-tiles -> one A fragment (16 x 16), bf16
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16x2(c0[0], c0[1]);
+  a[1] = pack_bf16x2(c0[2], c0[3]);
+  a[2] = pack_bf16x2(c1[0], c1[1]);
+  a[3] = pack_bf16x2(c1[2], c1[3]);
+}
+
+// write the accumulator tile of 16 rows from r0 into gradient slice s
+template <int DHP>
+__device__ __forceinline__ void store_rows(const Args& A, const Smem& S, const float (&acc)[DHP / 8][4],
+                                           int s, int b, int h, int r0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < DHP / 8; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = r0 + g + hf * 8;
+      const int d = i * 8 + 2 * t;  // even; dh is a multiple of 8
+      if (n >= A.N || d >= A.dh) continue;
+      const int sg = S.seg_of[d];
+      bf16* dst = A.dqkv[sg] + ((size_t)b * A.N + n) * A.d_ld[sg] +
+                  (size_t)(s * A.H + h) * A.width[sg] + S.w_of[d];
+      const float v0 = acc[i][2 * hf], v1 = acc[i][2 * hf + 1];
+      if (A.pair_out) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v0, v1);
+      } else {
+        dst[0] = __float2bfloat16(v0);
+        const int sg1 = S.seg_of[d + 1];
+        A.dqkv[sg1][((size_t)b * A.N + n) * A.d_ld[sg1] + (size_t)(s * A.H + h) * A.width[sg1] +
+                    S.w_of[d + 1]] = __float2bfloat16(v1);
+      }
+    }
+}
+
+// Query pass: dQ, and the row statistics into scratch.
+template <int DHP>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(const Args A) {
+  constexpr int KC = DHP / 16, NT = DHP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = A.N, kpad = (N + 15) / 16 * 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3, g = lane >> 2;
+  const Smem S = load_head<DHP>(A, smem_raw, kpad, b, h);
+  __syncthreads();
+  const float sl2 = A.scale * 1.4426950408889634f;
+
+  for (int r0 = warp * 16; r0 < kpad; r0 += WARPS * 16) {
+    uint32_t qf[KC][4], gf[KC][4];
+    load_a<DHP>(qf, S.qs, r0, lane);
+    load_a<DHP>(gf, S.gs, r0, lane);
+
+    // sweep 1: online max m, sum l of exp2(s - m), and sum of exp2(s - m) dP
+    float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F}, lrow[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};
+    for (int kb = 0; kb < kpad; kb += KB) {
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+        if (kb + nt * 8 < kpad) {
+          mma_rows<DHP>(s[nt], qf, S.ks, kb + nt * 8, lane);
+          mma_rows<DHP>(dp[nt], gf, S.vs, kb + nt * 8, lane);
+        }
+      }
+      // every block holds a real key (kb <= kpad - 16 < N): the max is finite
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb + nt * 8 + 2 * t + (e & 1);
+          s[nt][e] = key < N ? s[nt][e] * sl2 : -CUDART_INF_F;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mnew = fmaxf(mrow[r], mx[r]);
+        const float alpha = exp2f(mrow[r] - mnew);
+        mrow[r] = mnew;
+        lrow[r] *= alpha;
+        drow[r] *= alpha;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nt][e] - mrow[e >> 1]);
+          lrow[e >> 1] += p;
+          drow[e >> 1] += p * dp[nt][e];
+        }
+    }
+    float lse[2], dsum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+      drow[r] += __shfl_xor_sync(0xffffffffu, drow[r], 1);
+      drow[r] += __shfl_xor_sync(0xffffffffu, drow[r], 2);
+      lse[r] = mrow[r] + log2f(lrow[r]);
+      dsum[r] = drow[r] / lrow[r];
+    }
+
+    // sweep 2: P, dP -> dS -> dQ += dS K
+    float dq[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+    for (int kb = 0; kb < kpad; kb += KB) {
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+        if (kb + nt * 8 < kpad) {
+          mma_rows<DHP>(s[nt], qf, S.ks, kb + nt * 8, lane);
+          mma_rows<DHP>(dp[nt], gf, S.vs, kb + nt * 8, lane);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb + nt * 8 + 2 * t + (e & 1), r = e >> 1;
+          const float p = key < N ? exp2f(s[nt][e] * sl2 - lse[r]) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - dsum[r]) * A.scale;
+        }
+#pragma unroll
+      for (int kc = 0; kc < KB / 16; ++kc) {
+        if (kb + kc * 16 >= kpad) break;
+        uint32_t af[4];
+        c_to_a(af, s[2 * kc], s[2 * kc + 1]);
+        mma_trans<DHP>(dq, af, S.ks, kb + kc * 16, lane);
+      }
+    }
+    store_rows<DHP>(A, S, dq, 0, b, h, r0, lane);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = r0 + g + r * 8;
+        if (n < N) {
+          const size_t o = ((size_t)b * A.H + h) * N + n;
+          A.lse[o] = lse[r];
+          A.dsum[o] = dsum[r];
+        }
+      }
+    }
+  }
+}
+
+// Key pass: dK and dV from the statistics of the query pass.
+template <int DHP>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(const Args A) {
+  constexpr int KC = DHP / 16, NT = DHP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = A.N, kpad = (N + 15) / 16 * 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const Smem S = load_head<DHP>(A, smem_raw, kpad, b, h);
+  for (int n = threadIdx.x; n < kpad; n += THREADS) {
+    const size_t o = ((size_t)b * A.H + h) * N + n;
+    S.lse[n] = n < N ? A.lse[o] : 0.f;
+    S.dsum[n] = n < N ? A.dsum[o] : 0.f;
+  }
+  __syncthreads();
+  const float sl2 = A.scale * 1.4426950408889634f;
+
+  for (int j0 = warp * 16; j0 < kpad; j0 += WARPS * 16) {
+    uint32_t kf[KC][4], vf[KC][4];
+    load_a<DHP>(kf, S.ks, j0, lane);
+    load_a<DHP>(vf, S.vs, j0, lane);
+    float dk[NT][4], dv[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+    for (int ib = 0; ib < kpad; ib += QB) {
+      // transposed tiles: rows = this warp's keys, columns = queries
+      float st[QB / 8][4], dpt[QB / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < QB / 8; ++nt) {
+        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
+        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+        if (ib + nt * 8 < kpad) {
+          mma_rows<DHP>(st[nt], kf, S.qs, ib + nt * 8, lane);
+          mma_rows<DHP>(dpt[nt], vf, S.gs, ib + nt * 8, lane);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < QB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = ib + nt * 8 + 2 * t + (e & 1);
+          const float p = q < N ? exp2f(st[nt][e] * sl2 - S.lse[q]) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - S.dsum[q]) * A.scale;
+        }
+#pragma unroll
+      for (int kc = 0; kc < QB / 16; ++kc) {
+        if (ib + kc * 16 >= kpad) break;
+        uint32_t pa[4], da[4];
+        c_to_a(pa, st[2 * kc], st[2 * kc + 1]);
+        c_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+        mma_trans<DHP>(dv, pa, S.gs, ib + kc * 16, lane);
+        mma_trans<DHP>(dk, da, S.qs, ib + kc * 16, lane);
+      }
+    }
+    store_rows<DHP>(A, S, dk, 1, b, h, j0, lane);
+    store_rows<DHP>(A, S, dv, 2, b, h, j0, lane);
+  }
+}
+
+template <int DHP>
+int launch(const Args& A, int B, cudaStream_t stream) {
+  const int kpad = (A.N + 15) / 16 * 16;
+  const int smem = smem_bytes(kpad, DHP);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DHP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<DHP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<DHP><<<dim3(A.H, B), THREADS, smem, stream>>>(A);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<DHP><<<dim3(A.H, B), THREADS, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+// widest load (elements) that every segment's width, row stride and base
+// address allow, as in the forward (csrc/attention.cu:choose_vec)
+int choose_vec(const Table& T, const int* width, int nseg) {
+  for (int v = 8; v > 1; v /= 2) {
+    bool ok = true;
+    for (int i = 0; i < nseg; ++i)
+      ok = ok && width[i] % v == 0 && T.ld[i] % v == 0 &&
+           reinterpret_cast<uintptr_t>(T.p[i]) % (2 * v) == 0;
+    if (ok) return v;
+  }
+  return 1;
+}
+
+int dispatch(Args& A, int B, cudaStream_t stream) {
+  A.vec_qkv = choose_vec(A.qkv, A.width, A.nseg);
+  A.vec_g = choose_vec(A.g, A.width, A.nseg);
+  A.pair_out = 1;
+  for (int i = 0; i < A.nseg; ++i)
+    A.pair_out = A.pair_out && A.width[i] % 2 == 0 && A.d_ld[i] % 2 == 0 &&
+                 reinterpret_cast<uintptr_t>(A.dqkv[i]) % 4 == 0;
+  A.scale = 1.0f / sqrtf(static_cast<float>(A.dh));
+  switch ((A.dh + 15) / 16 * 16) {
+    case 16: return launch<16>(A, B, stream);
+    case 32: return launch<32>(A, B, stream);
+    case 48: return launch<48>(A, B, stream);
+    case 64: return launch<64>(A, B, stream);
+    case 80: return launch<80>(A, B, stream);
+    case 96: return launch<96>(A, B, stream);
+    case 128: return launch<128>(A, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace attn_bwd
+}  // namespace ovt
+
+// qkv [B,N,3*H*dh] contiguous in (3, H, dh) column order, g [B,N,H*dh] with
+// token row stride ld_g, dqkv [B,N,3*H*dh] contiguous; lse and dsum f32
+// scratch [B,H,N]. Returns the cudaError_t of the launches.
+OVT_EXPORT int ovt_attention_std_bwd(const void* qkv, const void* g, int ld_g, void* dqkv,
+                                     void* lse, void* dsum, int B, int N, int H, int dh,
+                                     void* stream) {
+  ovt::attn_bwd::Args A = {};
+  A.nseg = 1;
+  A.width[0] = dh;
+  A.qkv.p[0] = static_cast<const ovt::bf16*>(qkv);
+  A.qkv.ld[0] = 3 * H * dh;
+  A.g.p[0] = static_cast<const ovt::bf16*>(g);
+  A.g.ld[0] = ld_g;
+  A.dqkv[0] = static_cast<ovt::bf16*>(dqkv);
+  A.d_ld[0] = 3 * H * dh;
+  A.lse = static_cast<float*>(lse);
+  A.dsum = static_cast<float*>(dsum);
+  A.N = N;
+  A.H = H;
+  A.dh = dh;
+  return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
+}
+
+// Octic head layout (see ovt_attention_octic_rows in csrc/attention.cu):
+// q1..q4 [B,N,3*H*d1] and e0, e1 [B,N,3*H*de], each with its own token row
+// stride; g1..g4 [B,N,H*d1] and ge0, ge1 [B,N,H*de], each with its own row
+// stride; d1..d4, de0, de1 contiguous, shaped as q1..q4, e0, e1.
+OVT_EXPORT int ovt_attention_octic_bwd(
+    const void* q1, const void* q2, const void* q3, const void* q4, const void* e0,
+    const void* e1, int lq1, int lq2, int lq3, int lq4, int le0, int le1, const void* g1,
+    const void* g2, const void* g3, const void* g4, const void* ge0, const void* ge1, int lg1,
+    int lg2, int lg3, int lg4, int lge0, int lge1, void* d1p, void* d2p, void* d3p, void* d4p,
+    void* de0, void* de1, void* lse, void* dsum, int B, int N, int H, int d1, int de,
+    void* stream) {
+  using ovt::bf16;
+  ovt::attn_bwd::Args A = {};
+  A.nseg = 6;
+  const void* ins[6] = {q1, q2, q3, q4, e0, e1};
+  const int lq[6] = {lq1, lq2, lq3, lq4, le0, le1};
+  const void* gs[6] = {g1, g2, g3, g4, ge0, ge1};
+  const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
+  void* ds[6] = {d1p, d2p, d3p, d4p, de0, de1};
+  for (int i = 0; i < 6; ++i) {
+    const int w = i < 4 ? d1 : de;
+    A.width[i] = w;
+    A.qkv.p[i] = static_cast<const bf16*>(ins[i]);
+    A.qkv.ld[i] = lq[i];
+    A.g.p[i] = static_cast<const bf16*>(gs[i]);
+    A.g.ld[i] = lg[i];
+    A.dqkv[i] = static_cast<bf16*>(ds[i]);
+    A.d_ld[i] = 3 * H * w;
+  }
+  A.lse = static_cast<float*>(lse);
+  A.dsum = static_cast<float*>(dsum);
+  A.N = N;
+  A.H = H;
+  A.dh = 4 * d1 + 2 * de;
+  return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
+}

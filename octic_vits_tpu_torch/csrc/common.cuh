@@ -67,6 +67,26 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the unsigned type of V bf16 elements: the vector load of V elements
+template <int V>
+struct VecOf;
+template <>
+struct VecOf<8> {
+  typedef uint4 T;
+};
+template <>
+struct VecOf<4> {
+  typedef uint2 T;
+};
+template <>
+struct VecOf<2> {
+  typedef uint32_t T;
+};
+template <>
+struct VecOf<1> {
+  typedef unsigned short T;
+};
+
 // exact-erf GELU (the plain versions use torch.erf; erff is within 2 ulp).
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));

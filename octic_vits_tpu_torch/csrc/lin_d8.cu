@@ -2,6 +2,9 @@
 // with an optional D8-GELU epilogue.
 //
 // Replaces the block-diagonal products of
+//   octic_vits_tpu/ops/pallas_linear.py:linear_d8_fused (`_kernel`, without
+//     the LayerScale + residual epilogue): the train path's octic fc1 (GELU
+//     epilogue) and fc2; its backward is plain torch (ops/linear.py);
 //   octic_vits_tpu/ops/pallas_linear.py:mlp_d8_fused (`_mlp_kernel`): fc1
 //     with the GELU epilogue, then fc2 (two launches here);
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention_fused_qkv

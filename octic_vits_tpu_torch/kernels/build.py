@@ -1,7 +1,8 @@
 """Build the CUDA sources in ``csrc/`` into one shared library and bind it.
 
 The sources have a plain C interface, so ``nvcc`` compiles them in seconds
-without PyTorch's headers. The library lands in
+without PyTorch's headers; each ``.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into the library. The library lands in
 ``<repo>/build/octic_vits_tpu_torch/<hash>/`` at first use, keyed by a hash
 of the sources and flags, so a fresh checkout builds everything on its
 first kernel call and an unchanged tree reuses the earlier build.
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "octic_vits_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 LIB_NAME = "libocticvits_kernels.so"
 
@@ -38,7 +39,9 @@ SIGNATURES = {
     "ovt_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ovt_lin_d8": [_P] * 13 + [_I, _I, _I, _I, _P],
     "ovt_attention_std": [_P, _P, _I, _I, _I, _I, _P],
-    "ovt_attention_octic": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
+    "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
+    "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
@@ -72,18 +75,41 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+        nvcc.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([*nvcc, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    logs = []
+    try:
+        for src, proc in zip(sorted(CSRC.glob("*.cu")), procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                                   f"{err[-8000:]}")
+            logs.append(err)
+    finally:
+        for proc in procs:  # a failed or cut-off build leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    proc = subprocess.run([*nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    if verbose:
+        print("".join(logs) + proc.stderr)
     os.replace(tmp, lib)
     return lib, seconds
 

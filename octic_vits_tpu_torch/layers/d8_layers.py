@@ -1,25 +1,30 @@
-"""D8-equivariant ViT layers as torch ``nn.Module``s, eval-mode forward on
-the flat-E 5-tuple ``(a1, a2, b1, b2, ef)`` (a* ``[B, N, C/8]``,
-``ef [B, N, C/2] = [row0 | row1]``).
+"""D8-equivariant ViT layers as torch ``nn.Module``s on the flat-E 5-tuple
+``(a1, a2, b1, b2, ef)`` (a* ``[B, N, C/8]``, ``ef [B, N, C/2] = [row0 | row1]``).
 
-Counterpart of the inference paths of octic_vits_tpu/layers/d8_layers.py
-that the benchmark flags reach (flat-E carry, fused qkv + attention, fused
-MLP). Parameter names and shapes follow the flax tree so
+Counterpart of the paths of octic_vits_tpu/layers/d8_layers.py that the
+benchmark flags (eval mode: fused qkv + attention, fused MLP) and the DeiT
+III train flags (train mode: ``octic_attention`` over a plain qkv LinearD8, fc1 and fc2
+as two ``linear_d8_fused`` kernels, drop path, per-block remat) reach, with
+the flat-E carry. Parameter names and shapes follow the flax tree so
 :func:`octic_vits_tpu_torch.utils.convert.params_from_jax` maps them one to
-one; every module takes an explicit ``device`` and ``dtype`` and is filled by
-``reset_parameters(generator)``.
+one; every module takes an explicit ``device`` and ``dtype`` (the parameter
+dtype), is filled by ``reset_parameters(generator)``, and casts its
+parameters to the dtype of its input activations at use, as the flax
+modules cast ``param_dtype`` parameters to the compute ``dtype``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_4, pack_8_to_5f
-from octic_vits_tpu_torch.ops.attention import octic_attention_fused_qkv
-from octic_vits_tpu_torch.ops.linear import linear_d8, mlp_d8_fused
+from octic_vits_tpu_torch.layers.common import DropPathMask, cast, remat
+from octic_vits_tpu_torch.ops.attention import octic_attention, octic_attention_fused_qkv
+from octic_vits_tpu_torch.ops.linear import linear_d8, linear_d8_fused, mlp_d8_fused
 
 
 def trunc_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -41,16 +46,35 @@ def _param(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
 
+def drop_path_d8(xs: tuple, mask: Optional[torch.Tensor]) -> tuple:
+    """Stochastic depth with ONE shared per-sample mask across all 5 tuple
+    elements (d8_layers.py:drop_path_d8); ``None`` is the identity."""
+    return xs if mask is None else tuple(x * mask for x in xs)
+
+
+class DropPathD8(DropPathMask):
+    """Drop path of the octic block: one mask on all 5 tuple elements."""
+
+    def forward(self, xs: tuple, mask: Optional[torch.Tensor] = None) -> tuple:
+        return drop_path_d8(xs, mask)
+
+
 class LinearD8(nn.Module):
     """Block-diagonal equivariant linear map: one weight per 1-d irrep
     (``kernel_1d [4, C/8, F/8]``), one E weight applied to each E row
-    (``kernel_e [C/4, F/4]``), bias on A1 only. Plain torch products: in the
-    slice this is the octic attention's proj; qkv and the MLP read its
-    parameters and run them in the kernels."""
+    (``kernel_e [C/4, F/4]``), bias on A1 only. ``use_kernel`` runs it as
+    :func:`linear_d8_fused` (K-lin-d8, optionally with the D8-GELU epilogue,
+    ``fuse_gelu``), as the flax module's ``use_pallas``; otherwise plain
+    torch products (the octic attention's qkv on the train path and its
+    proj)."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True, *,
-                 device=None, dtype=None):
+                 use_kernel: bool = False, fuse_gelu: bool = False, device=None, dtype=None):
         super().__init__()
+        if fuse_gelu and not use_kernel:
+            raise ValueError("fuse_gelu needs use_kernel")
+        self.use_kernel = use_kernel
+        self.fuse_gelu = fuse_gelu
         if in_features % 8 or features % 8:
             raise ValueError("features must be divisible by 8")
         c8, f8 = in_features // 8, features // 8
@@ -66,7 +90,11 @@ class LinearD8(nn.Module):
             nn.init.zeros_(self.bias_a1)
 
     def forward(self, xs: tuple) -> tuple:
-        return linear_d8(xs, self.kernel_1d, self.kernel_e, self.bias_a1)
+        dt = xs[0].dtype
+        w1, we, bias = (cast(p, dt) for p in (self.kernel_1d, self.kernel_e, self.bias_a1))
+        if self.use_kernel:
+            return linear_d8_fused(xs, w1, we, bias, self.fuse_gelu)
+        return linear_d8(xs, w1, we, bias)
 
 
 class ScaleD8(nn.Module):
@@ -90,11 +118,13 @@ class ScaleD8(nn.Module):
             nn.init.zeros_(self.beta_a1)
 
     def forward(self, xs: tuple) -> tuple:
-        a = self.alpha_1d
+        dt = xs[0].dtype
+        a = self.alpha_1d.to(dt)
         oa1 = a[0] * xs[0]
         if self.beta_a1 is not None:
-            oa1 = oa1 + self.beta_a1
-        ae = torch.cat((self.alpha_e, self.alpha_e))
+            oa1 = oa1 + self.beta_a1.to(dt)
+        ae = self.alpha_e.to(dt)
+        ae = torch.cat((ae, ae))
         return (oa1, a[1] * xs[1], a[2] * xs[2], a[3] * xs[3], ae * xs[4])
 
 
@@ -198,32 +228,45 @@ class PatchEmbedD8(nn.Module):
         p = self.patch_size
         if h % (2 * p) or w % (2 * p):
             raise ValueError(f"image ({h}x{w}) must be an even multiple of patch size {p}")
-        mat = self.lifted_matrix()
-        feats = torch.matmul(_patchify(x.to(mat.dtype), p), mat)
+        mat = self.lifted_matrix().to(x.dtype)
+        feats = torch.matmul(_patchify(x, p), mat)
         feats = feats.reshape(b, (h // p) * (w // p), 8, self.out8)
-        feats = torch.cat((feats[..., :1, :] + self.bias_a1, feats[..., 1:, :]), dim=-2)
+        feats = torch.cat((feats[..., :1, :] + self.bias_a1.to(x.dtype), feats[..., 1:, :]),
+                          dim=-2)
         return pack_8_to_5f(tuple(feats[..., i, :] for i in range(8)))
 
 
 class MlpD8(nn.Module):
-    """fc1 -> D8 GELU -> fc2 through the fused octic MLP op (hidden rounded
-    to the working dtype between the two products)."""
+    """fc1 -> D8 GELU -> fc2. In eval mode it runs the fused octic MLP op
+    (the bench flags, ``fuse_mlp``), which has no backward and refuses to run
+    where autograd would record it. In train mode fc1 and fc2 are two
+    :func:`linear_d8_fused` kernels, fc1 with the D8-GELU epilogue, as the
+    JAX train configuration runs them (``use_pallas_linear``, no
+    ``fuse_mlp``). The hidden is rounded to the working dtype between them."""
 
     def __init__(self, in_features: int, hidden_features: int, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.fc1 = LinearD8(in_features, hidden_features, **kw)
-        self.fc2 = LinearD8(hidden_features, in_features, **kw)
+        self.fc1 = LinearD8(in_features, hidden_features, use_kernel=True, fuse_gelu=True, **kw)
+        self.fc2 = LinearD8(hidden_features, in_features, use_kernel=True, **kw)
 
     def forward(self, xs: tuple) -> tuple:
+        if self.training:
+            return self.fc2(self.fc1(xs))
+        dt = xs[0].dtype
         f1, f2 = self.fc1, self.fc2
-        return mlp_d8_fused(xs, f1.kernel_1d, f1.kernel_e, f1.bias_a1,
-                            f2.kernel_1d, f2.kernel_e, f2.bias_a1)
+        return mlp_d8_fused(xs, *(cast(p, dt) for p in (
+            f1.kernel_1d, f1.kernel_e, f1.bias_a1, f2.kernel_1d, f2.kernel_e, f2.bias_a1)))
 
 
 class AttentionD8(nn.Module):
-    """Equivariant multi-head attention: the qkv LinearD8 and the softmax
-    attention run in the fused qkv + attention op; the proj is a LinearD8."""
+    """Equivariant multi-head attention. In eval mode (the bench flags,
+    ``fuse_qkv``) the qkv LinearD8 and the softmax attention run in the fused
+    qkv + attention op, which has no backward and refuses to run where
+    autograd would record it. In train mode (the train flags) the qkv is a
+    plain LinearD8 (:meth:`qkv_arrays`), then :func:`octic_attention`, which
+    takes the two E rows of the flat-E qkv as column slices. The proj is a
+    plain LinearD8 (:meth:`project`)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, *,
                  device=None, dtype=None):
@@ -235,31 +278,70 @@ class AttentionD8(nn.Module):
         self.qkv = LinearD8(dim, 3 * dim, qkv_bias, **kw)
         self.proj = LinearD8(dim, dim, **kw)
 
-    def forward(self, xs: tuple) -> tuple:
+    def qkv_arrays(self, xs: tuple) -> tuple:
+        """The attention kernel's six inputs (a1..b2 ``[B, N, 3C/8]``, e0, e1
+        ``[B, N, 3C/4]`` as views of the flat-E qkv): the ``attn_in`` the
+        flax module tags for remat."""
+        qkv = self.qkv(xs)
+        half = qkv[4].shape[-1] // 2
+        return qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:])
+
+    def attend(self, xs: tuple) -> tuple:
+        """The six attention outputs (``attn_out``) of the normed input."""
+        if self.training:
+            return octic_attention(*self.qkv_arrays(xs), self.num_heads)
+        dt = xs[0].dtype
         q = self.qkv
-        o1, o2, o3, o4, oe0, oe1 = octic_attention_fused_qkv(
-            *xs, q.kernel_1d, q.kernel_e, q.bias_a1, self.num_heads)
+        return octic_attention_fused_qkv(
+            *xs, *(cast(p, dt) for p in (q.kernel_1d, q.kernel_e, q.bias_a1)), self.num_heads)
+
+    def project(self, outs: tuple) -> tuple:
+        o1, o2, o3, o4, oe0, oe1 = outs
         return self.proj((o1, o2, o3, o4, torch.cat((oe0, oe1), dim=-1)))
+
+    def forward(self, xs: tuple) -> tuple:
+        return self.project(self.attend(xs))
 
 
 class BlockD8(nn.Module):
     """Pre-norm equivariant transformer block with LayerScale (``ls1``,
-    ``ls2``), the DeiT III block."""
+    ``ls2``) and drop path, the DeiT III block. ``forward(xs, masks,
+    remat_block)``: `masks` are the two drop-path masks from
+    :meth:`draw_masks` (or None); with `remat_block` the norm1 + qkv and the
+    proj ... MLP halves are rematerialized around the attention kernel."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, layerscale_init: float = 1e-4, *,
-                 device=None, dtype=None):
+                 qkv_bias: bool = True, layerscale_init: float = 1e-4,
+                 drop_path: float = 0.0, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = LayerNormD8(dim, **kw)
         self.attn = AttentionD8(dim, num_heads, qkv_bias, **kw)
         self.ls1 = ScaleD8(dim, layerscale_init, **kw)
+        self.drop_path1 = DropPathD8(drop_path)
         self.norm2 = LayerNormD8(dim, **kw)
         self.mlp = MlpD8(dim, int(dim * mlp_ratio), **kw)
         self.ls2 = ScaleD8(dim, layerscale_init, **kw)
+        self.drop_path2 = DropPathD8(drop_path)
 
-    def forward(self, xs: tuple) -> tuple:
-        ys = self.ls1(self.attn(self.norm1(xs)))
+    def draw_masks(self, batch: int, generator: Optional[torch.Generator], *, device=None,
+                   dtype=None) -> tuple:
+        kw = dict(device=device, dtype=dtype)
+        return (self.drop_path1.draw(batch, generator, **kw),
+                self.drop_path2.draw(batch, generator, **kw))
+
+    def _attn_in(self, *xs) -> tuple:
+        return self.attn.qkv_arrays(self.norm1(xs))
+
+    def _attn_out(self, *args) -> tuple:
+        xs, outs, (m1, m2) = args[:5], args[5:11], args[11:]
+        ys = self.drop_path1(self.ls1(self.attn.project(outs)), m1)
         xs = tuple(x + y for x, y in zip(xs, ys))
-        ys = self.ls2(self.mlp(self.norm2(xs)))
+        ys = self.drop_path2(self.ls2(self.mlp(self.norm2(xs))), m2)
         return tuple(x + y for x, y in zip(xs, ys))
+
+    def forward(self, xs: tuple, masks: tuple = (None, None), remat_block: bool = False) -> tuple:
+        if not remat_block:
+            return self._attn_out(*xs, *self.attn.attend(self.norm1(xs)), *masks)
+        outs = octic_attention(*remat(self._attn_in, *xs), self.attn.num_heads)
+        return remat(self._attn_out, *xs, *outs, *masks)

@@ -1,30 +1,41 @@
-"""Hybrid octic Vision Transformer, inference (counterpart of
-octic_vits_tpu/models/octic_vit.py in the configuration the benchmark runs:
-flat-E carry, fused qkv + attention and fused MLP kernels in the octic
-blocks, the attention and fc1 + GELU kernels in the standard blocks).
+"""Hybrid octic Vision Transformer (counterpart of
+octic_vits_tpu/models/octic_vit.py in the configurations the benchmark and
+the DeiT III trainer run: flat-E carry; in the octic blocks the fused
+qkv + attention and fused MLP kernels in eval mode, and
+``octic_attention`` and two ``linear_d8_fused`` kernels in train mode; the
+attention and fc1 + GELU kernels in the standard blocks).
 
 The first ``break_layer`` blocks are D8-equivariant and carry the flat-E
 5-tuple; at the break the tuple is concatenated to ``[B, N, C]`` in
 isotypic slot order and standard blocks finish the network. Images are
-NHWC. The flax ``lax.scan`` trunk becomes a plain ``nn.ModuleList``.
+NHWC. The flax ``lax.scan`` trunk becomes a plain ``nn.ModuleList``;
+``remat`` is its per-block rematerialization. ``dtype`` is the parameter
+dtype and ``compute_dtype`` the activations' (the flax ``param_dtype`` and
+``dtype``); parameters are cast at use. In training mode with
+``drop_path_rate > 0`` the forward takes a ``torch.Generator`` and draws
+every block's drop-path masks from it before the trunk runs.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_2, pack_8_to_5f, unpack_5f_to_8
 from octic_vits_tpu_torch.d8.posembed import resize_posembed, unfold_quadrant
+from octic_vits_tpu_torch.layers.common import draw_block_masks
 from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, trunc_normal_
-from octic_vits_tpu_torch.layers.vit_layers import Block
+from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, Linear
 
 
 class OcticVisionTransformer(nn.Module):
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = False, init_scale: float = 1e-4, *,
-                 device=None, dtype=None):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = False, init_scale: float = 1e-4,
+                 drop_path_rate: float = 0.0, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, *, device=None, dtype=None):
         super().__init__()
         if embed_dim % 8:
             raise ValueError("embed_dim must be divisible by 8")
@@ -38,19 +49,22 @@ class OcticVisionTransformer(nn.Module):
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.break_layer = depth // 2  # the first half of the blocks is octic
+        self.remat = remat
+        self.compute_dtype = compute_dtype
         self.patch_embed = PatchEmbedD8(patch_size, embed_dim, **kw)
         # 6 quadrant tensors stacked: [6, grid/2, grid/2, C/8]
         self.pos_embed = nn.Parameter(torch.empty(6, grid // 2, grid // 2, c8, **kw))
         # only the A1 slot of the cls token is a parameter; the others are 0
         self.cls_token_a1 = nn.Parameter(torch.empty(1, 1, c8, **kw))
-        common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale, **kw)
+        common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale,
+                      drop_path=drop_path_rate, **kw)
         self.blocks = nn.ModuleList(
             BlockD8(embed_dim, num_heads, **common) if i < self.break_layer
             else Block(embed_dim, num_heads, norm_eps=1e-6, **common)
             for i in range(depth)
         )
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-6, **kw)
-        self.head = nn.Linear(embed_dim, num_classes, **kw)
+        self.norm = LayerNorm(embed_dim, eps=1e-6, **kw)
+        self.head = Linear(embed_dim, num_classes, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         std = 8 * 0.02
@@ -77,17 +91,21 @@ class OcticVisionTransformer(nn.Module):
         """Equivariance break: [A1|A2|B1|B2|E11|E21|E12|E22] along channels."""
         return torch.cat(unpack_5f_to_8(xs), dim=-1)
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, _ = x.shape
+        x = x.to(self.compute_dtype or self.pos_embed.dtype)
+        masks = draw_block_masks(self.blocks, b, generator, device=x.device, dtype=x.dtype)
+        rb = self.remat and self.training
         grid_hw = (h // self.patch_size, w // self.patch_size)
         xs = self.patch_embed(x)
         xs = self._cat_cls(self._add_pos(xs, grid_hw), b)
-        for blk in self.blocks[: self.break_layer]:
-            xs = blk(xs)
+        for blk, m in zip(self.blocks[: self.break_layer], masks):
+            xs = blk(xs, m, rb)
         z = self._break_to_flat(xs)
-        for blk in self.blocks[self.break_layer:]:
-            z = blk(z)
+        for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
+            z = blk(z, m, rb)
         return self.norm(z)[:, 0]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.forward_features(x))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(self.forward_features(x, generator))

@@ -1,4 +1,4 @@
-"""Named model configurations of the inference slice (counterpart of the
+"""Named model configurations of the ported slices (counterpart of the
 matching entries of octic_vits_tpu/models/registry.py)."""
 
 from __future__ import annotations

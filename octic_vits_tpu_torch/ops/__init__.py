@@ -3,17 +3,36 @@ CUDA tensors and runs its ``*_reference`` plain version for CPU tensors;
 ``<op>.launches`` counts its kernel launches."""
 
 from octic_vits_tpu_torch.ops.attention import (
+    octic_attention,
+    octic_attention_bwd,
+    octic_attention_bwd_reference,
     octic_attention_fused_qkv,
     octic_attention_fused_qkv_reference,
+    octic_attention_reference,
     standard_attention,
+    standard_attention_bwd,
+    standard_attention_bwd_reference,
     standard_attention_reference,
 )
-from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_reference
-from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_eager, gelu_exact
-from octic_vits_tpu_torch.ops.linear import linear_d8, mlp_d8_fused, mlp_d8_fused_reference
+from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
+from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_bwd, gelu_d8_eager, gelu_exact, gelu_grad
+from octic_vits_tpu_torch.ops.linear import (
+    linear_d8,
+    linear_d8_fused,
+    linear_d8_fused_bwd,
+    linear_d8_fused_reference,
+    linear_d8_tuple,
+    mlp_d8_fused,
+    mlp_d8_fused_reference,
+)
 
-#: the four kernel ops of the inference slice
-KERNEL_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_d8_fused)
+#: the four kernel ops of the inference path
+INFERENCE_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_d8_fused)
+#: every kernel op, each with its own launch counter (the train path runs
+#: standard_attention, its backward, octic_attention, its backward,
+#: linear_d8_fused and dense_gelu)
+KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
+                              linear_d8_fused)
 
 
 def reset_launch_counts() -> None:
@@ -21,18 +40,37 @@ def reset_launch_counts() -> None:
         op.launches = 0
 
 
+def launch_counts() -> dict:
+    return {op.__name__: op.launches for op in KERNEL_OPS}
+
+
 __all__ = [
+    "INFERENCE_OPS",
     "KERNEL_OPS",
     "dense_gelu",
+    "dense_gelu_bwd",
     "dense_gelu_reference",
+    "gelu_d8_bwd",
     "gelu_d8_eager",
     "gelu_exact",
+    "gelu_grad",
+    "launch_counts",
     "linear_d8",
+    "linear_d8_fused",
+    "linear_d8_fused_bwd",
+    "linear_d8_fused_reference",
+    "linear_d8_tuple",
     "mlp_d8_fused",
     "mlp_d8_fused_reference",
+    "octic_attention",
+    "octic_attention_bwd",
+    "octic_attention_bwd_reference",
     "octic_attention_fused_qkv",
     "octic_attention_fused_qkv_reference",
+    "octic_attention_reference",
     "reset_launch_counts",
     "standard_attention",
+    "standard_attention_bwd",
+    "standard_attention_bwd_reference",
     "standard_attention_reference",
 ]

@@ -2,11 +2,18 @@
 layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
 
 * :func:`standard_attention`: qkv ``[B, N, 3C]`` in (3, H, dh) column
-  order -> ``[B, N, C]``.
-* :func:`octic_attention_fused_qkv`: the flat-E tuple after the norm plus
-  the block-diagonal qkv weights -> the attention outputs in irrep layout.
+  order -> ``[B, N, C]``; differentiable, its backward is the K-attn-bwd
+  kernel (csrc/attention_bwd.cu) on the card.
+* :func:`octic_attention`: the six irrep qkv arrays (a1..b2 ``[B, N, 3C/8]``
+  in (3, H, d1) order, the E rows e0, e1 ``[B, N, 3C/4]`` in (3, H, de)
+  order) -> ``(o1..o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``; differentiable.
   Head h's dh = C/H channels are a1|a2|b1|b2 (d1 = C/(8H) each) and the two
   E rows (de = C/(4H) each); the scale is dh^-0.5, as in the standard case.
+* :func:`octic_attention_fused_qkv`: the flat-E tuple after the norm plus
+  the block-diagonal qkv weights -> the same outputs (inference only).
+
+As in the JAX custom VJPs, the backward saves only the qkv and recomputes
+the probabilities.
 """
 
 from __future__ import annotations
@@ -16,19 +23,35 @@ from typing import Optional
 import torch
 
 from octic_vits_tpu_torch import kernels
-from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
+from octic_vits_tpu_torch.ops._dispatch import (
+    check_kernel_arg,
+    forward_only,
+    on_cuda,
+    row_stride,
+)
 from octic_vits_tpu_torch.ops.linear import lin_d8_launch, linear_d8
 
-MAX_HEAD_DIM = 128  # the kernel's widest instantiation (csrc/attention.cu)
+MAX_HEAD_DIM = 128  # the kernels' widest instantiation (csrc/attention*.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 
 
 def _check_attention_shape(n: int, dh: int) -> None:
-    """The kernel keeps a whole head's q, k and v^T in shared memory."""
+    """The forward kernel keeps a whole head's q, k and v^T in shared memory."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     smem = (2 * kpad * (dhp + 8) + dhp * (kpad + 8)) * 2 + 2 * dhp
     if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
         raise ValueError(f"attention kernel: N={n}, head dim {dh} unsupported "
+                         f"(head dim a multiple of 8 up to {MAX_HEAD_DIM}; "
+                         f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available)")
+
+
+def _check_attention_bwd_shape(n: int, dh: int) -> None:
+    """The backward kernels keep a whole head's q, k, v and dO rows and two
+    f32 row statistics in shared memory (csrc/attention_bwd.cu:smem_bytes)."""
+    kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
+    smem = 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp
+    if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
+        raise ValueError(f"attention backward kernel: N={n}, head dim {dh} unsupported "
                          f"(head dim a multiple of 8 up to {MAX_HEAD_DIM}; "
                          f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available)")
 
@@ -40,45 +63,221 @@ def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
-def standard_attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Plain version: f32 math, result in ``qkv.dtype``."""
-    b, n, w = qkv.shape
-    c = w // 3
-    q, k, v = qkv.float().reshape(b, n, 3, num_heads, c // num_heads).unbind(2)
-    return _softmax_attention(q, k, v).reshape(b, n, c).to(qkv.dtype)
+def _softmax_attention_bwd(q, k, v, g) -> tuple:
+    """(dq, dk, dv) of :func:`_softmax_attention` for the output cotangent g,
+    written out as the JAX kernel's `_attn_head_bwd` (f32):
+    P = softmax(s Q K^T), dV = P^T dO, dP = dO V^T,
+    dS = P (dP - rowsum(dP P)) s, dQ = dS K, dK = dS^T Q."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k), torch.einsum("bhqk,bqhd->bkhd", ds, q), dv)
 
 
-def standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """softmax(Q K^T / sqrt(dh)) V per (batch, head). CPU tensors take
-    :func:`standard_attention_reference`; CUDA tensors launch K-attn
-    (csrc/attention.cu) in its standard head layout."""
-    if not on_cuda((qkv,)):
-        return standard_attention_reference(qkv, num_heads)
+# ---------------------------------------------------------------------------
+# standard head layout
+# ---------------------------------------------------------------------------
+
+
+def _std_dims(qkv: torch.Tensor, num_heads: int) -> tuple:
     b, n, w = qkv.shape
     c = w // 3
     dh = c // num_heads
     if w != 3 * c or c != num_heads * dh:
         raise ValueError(f"standard_attention: width {w} with {num_heads} heads unsupported")
+    return b, n, c, dh
+
+
+def standard_attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version: f32 math, result in ``qkv.dtype``."""
+    b, n, c, dh = _std_dims(qkv, num_heads)
+    q, k, v = qkv.float().reshape(b, n, 3, num_heads, dh).unbind(2)
+    return _softmax_attention(q, k, v).reshape(b, n, c).to(qkv.dtype)
+
+
+def standard_attention_bwd_reference(qkv: torch.Tensor, g: torch.Tensor,
+                                     num_heads: int) -> torch.Tensor:
+    """Plain backward: dqkv ``[B, N, 3C]`` from qkv and the output cotangent
+    g ``[B, N, C]``, f32 math, result in ``qkv.dtype``."""
+    b, n, c, dh = _std_dims(qkv, num_heads)
+    q, k, v = qkv.float().reshape(b, n, 3, num_heads, dh).unbind(2)
+    grads = _softmax_attention_bwd(q, k, v, g.float().reshape(b, n, num_heads, dh))
+    return torch.stack(grads, dim=2).reshape(b, n, 3 * c).to(qkv.dtype)
+
+
+def _standard_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if not on_cuda((qkv,)):
+        return standard_attention_reference(qkv, num_heads)
+    b, n, c, dh = _std_dims(qkv, num_heads)
     _check_attention_shape(n, dh)
-    check_kernel_arg(qkv, "qkv", (b, n, w))
+    check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
     out = torch.empty(b, n, c, device=qkv.device, dtype=qkv.dtype)
     standard_attention.launches += 1
     kernels.launch("ovt_attention_std", qkv, out, b, n, num_heads, dh)
     return out
 
 
+def standard_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """dqkv from qkv and g. CPU tensors take
+    :func:`standard_attention_bwd_reference`; CUDA tensors launch K-attn-bwd
+    (csrc/attention_bwd.cu) in its standard head layout."""
+    if not on_cuda((qkv, g)):
+        return standard_attention_bwd_reference(qkv, g, num_heads)
+    b, n, c, dh = _std_dims(qkv, num_heads)
+    _check_attention_bwd_shape(n, dh)
+    check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
+    ld_g = row_stride(g, "g", (b, n, c))
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
+    standard_attention_bwd.launches += 1
+    kernels.launch("ovt_attention_std_bwd", qkv, g, ld_g, dqkv, stats[0], stats[1],
+                   b, n, num_heads, dh)
+    return dqkv
+
+
+class _StandardAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _standard_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return standard_attention_bwd(qkv, g, ctx.num_heads), None
+
+
+def standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """softmax(Q K^T / sqrt(dh)) V per (batch, head). CPU tensors take
+    :func:`standard_attention_reference`; CUDA tensors launch K-attn
+    (csrc/attention.cu) in its standard head layout. The gradient goes
+    through :func:`standard_attention_bwd`; only qkv is saved."""
+    return _StandardAttention.apply(qkv, num_heads)
+
+
 standard_attention.launches = 0
+standard_attention_bwd.launches = 0
 
 
-def _octic_heads(qkv5: tuple, num_heads: int, s: int) -> torch.Tensor:
-    """Head-assembled q (s=0), k (1) or v (2) ``[B, N, H, dh]`` from the qkv
-    5-tuple (1-d arrays ``[B, N, 3C/8]``, flat E ``[B, N, 3C/2]``)."""
-    b, n, w1 = qkv5[0].shape
-    d1 = w1 // (3 * num_heads)
-    rows = qkv5[4].reshape(b, n, 2, 3, num_heads, 2 * d1)
-    parts = [t.reshape(b, n, 3, num_heads, d1)[:, :, s] for t in qkv5[:4]]
-    parts += [rows[:, :, 0, s], rows[:, :, 1, s]]
+# ---------------------------------------------------------------------------
+# octic head layout
+# ---------------------------------------------------------------------------
+
+
+def _octic_dims(qs: tuple, num_heads: int) -> tuple:
+    b, n, w1 = qs[0].shape
+    c8 = w1 // 3
+    d1 = c8 // num_heads
+    if w1 != 3 * c8 or c8 != num_heads * d1:
+        raise ValueError(f"octic_attention: qkv width {w1} with {num_heads} heads unsupported")
+    return b, n, c8, d1, 2 * d1
+
+
+def _octic_heads(qs: tuple, num_heads: int, s: int) -> torch.Tensor:
+    """Head-assembled q (s=0), k (1) or v (2) ``[B, N, H, dh]`` in f32 from
+    the six qkv arrays (a1..b2 ``[B, N, 3C/8]``, e0, e1 ``[B, N, 3C/4]``)."""
+    b, n, _, d1, de = _octic_dims(qs, num_heads)
+    parts = [t.float().reshape(b, n, 3, num_heads, d1 if i < 4 else de)[:, :, s]
+             for i, t in enumerate(qs)]
     return torch.cat(parts, dim=-1)
+
+
+def _octic_split(o: torch.Tensor, d1: int) -> tuple:
+    """``[B, N, H, dh]`` -> the six irrep arrays (4 x ``[B, N, H*d1]``,
+    2 x ``[B, N, H*2*d1]``)."""
+    b, n = o.shape[:2]
+    de = 2 * d1
+    widths = [d1] * 4 + [de] * 2
+    starts = [g * d1 for g in range(4)] + [4 * d1, 4 * d1 + de]
+    return tuple(o[..., s0:s0 + w].reshape(b, n, -1) for s0, w in zip(starts, widths))
+
+
+def octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    """Plain version: f32 math, results in the input dtype."""
+    qs = (a1, a2, b1, b2, e0, e1)
+    q, k, v = (_octic_heads(qs, num_heads, s) for s in range(3))
+    o = _softmax_attention(q, k, v)
+    return tuple(t.to(a1.dtype) for t in _octic_split(o, _octic_dims(qs, num_heads)[3]))
+
+
+def octic_attention_bwd_reference(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """Plain backward: the gradients of the six qkv arrays `qs` from the six
+    output cotangents `gs`, f32 math, results in the input dtype."""
+    b, n, _, d1, _ = _octic_dims(qs, num_heads)
+    q, k, v = (_octic_heads(qs, num_heads, s) for s in range(3))
+    g = torch.cat([t.float().reshape(b, n, num_heads, -1) for t in gs], dim=-1)
+    dq, dk, dv = (_octic_split(t, d1) for t in _softmax_attention_bwd(q, k, v, g))
+    # gradient of array i: its (3, H, w) columns are (dq, dk, dv)'s pieces
+    return tuple(
+        torch.stack([t[i].reshape(b, n, num_heads, -1) for t in (dq, dk, dv)], dim=2)
+        .reshape(b, n, -1).to(qs[0].dtype)
+        for i in range(6)
+    )
+
+
+def _octic_rows_launch(qs: tuple, num_heads: int) -> tuple:
+    """One K-attn launch in the octic layout; each qkv array may be a column
+    slice of a larger tensor (the E rows of a flat-E qkv). Counts nothing."""
+    b, n, c8, d1, de = _octic_dims(qs, num_heads)
+    _check_attention_shape(n, 8 * d1)
+    lds = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
+           for i, t in enumerate(qs)]
+    kw = dict(device=qs[0].device, dtype=qs[0].dtype)
+    outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
+    kernels.launch("ovt_attention_octic_rows", *qs, *lds, *outs, b, n, num_heads, d1, de)
+    return outs
+
+
+def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """The six qkv gradients from the six qkv arrays and the six output
+    cotangents. CPU tensors take :func:`octic_attention_bwd_reference`; CUDA
+    tensors launch K-attn-bwd (csrc/attention_bwd.cu) in its octic layout."""
+    if not on_cuda(tuple(qs) + tuple(gs)):
+        return octic_attention_bwd_reference(qs, gs, num_heads)
+    b, n, c8, d1, de = _octic_dims(qs, num_heads)
+    _check_attention_bwd_shape(n, 8 * d1)
+    lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
+          for i, t in enumerate(qs)]
+    lg = [row_stride(t, f"g[{i}]", (b, n, c8 if i < 4 else 2 * c8)) for i, t in enumerate(gs)]
+    kw = dict(device=qs[0].device, dtype=qs[0].dtype)
+    grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
+    stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
+    octic_attention_bwd.launches += 1
+    kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
+                   b, n, num_heads, d1, de)
+    return grads
+
+
+class _OcticAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, *qs):
+        ctx.save_for_backward(*qs)
+        ctx.num_heads = num_heads
+        if not on_cuda(qs):
+            return octic_attention_reference(*qs, num_heads)
+        octic_attention.launches += 1
+        return _octic_rows_launch(qs, num_heads)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + octic_attention_bwd(ctx.saved_tensors, gs, ctx.num_heads)
+
+
+def octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    """Attention over the LinearD8 qkv outputs in their natural layouts
+    (signature of the JAX ``octic_attention``). CPU tensors take
+    :func:`octic_attention_reference`; CUDA tensors launch K-attn
+    (csrc/attention.cu) in its octic head layout, taking e0 and e1 as
+    column slices of one flat-E qkv without a copy. The gradient goes
+    through :func:`octic_attention_bwd`; only the six qkv arrays are saved."""
+    return _OcticAttention.apply(num_heads, a1, a2, b1, b2, e0, e1)
+
+
+octic_attention.launches = 0
+octic_attention_bwd.launches = 0
 
 
 def octic_attention_fused_qkv_reference(a1, a2, b1, b2, ef, w1, we,
@@ -89,16 +288,10 @@ def octic_attention_fused_qkv_reference(a1, a2, b1, b2, ef, w1, we,
     dt = a1.dtype
     xs = tuple(t.float() for t in (a1, a2, b1, b2, ef))
     qkv = linear_d8(xs, w1.float(), we.float(), None if bias is None else bias.float())
-    qkv = tuple(t.to(dt).float() for t in qkv)
-    q, k, v = (_octic_heads(qkv, num_heads, s) for s in range(3))
-    o = _softmax_attention(q, k, v)  # [B, N, H, dh]
-    b, n, c8 = a1.shape
-    d1 = c8 // num_heads
-    de = 2 * d1
-    outs = tuple(o[..., g * d1:(g + 1) * d1].reshape(b, n, c8) for g in range(4))
-    oes = tuple(o[..., 4 * d1 + r * de:4 * d1 + (r + 1) * de].reshape(b, n, 2 * c8)
-                for r in range(2))
-    return tuple(t.to(dt) for t in outs + oes)
+    qkv = tuple(t.to(dt) for t in qkv)
+    half = qkv[4].shape[-1] // 2
+    return octic_attention_reference(*qkv[:4], qkv[4][..., :half], qkv[4][..., half:],
+                                     num_heads)
 
 
 def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.Tensor],
@@ -108,24 +301,22 @@ def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.T
     -> ``(o1, o2, o3, o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``.
 
     CPU tensors take the reference; CUDA tensors launch K-lin-d8 (the qkv
-    5-tuple, no epilogue) and then K-attn in its octic head layout."""
+    5-tuple, no epilogue) and then K-attn in its octic head layout. Inference
+    only on the card: there is no backward kernel for the fused op."""
     if not on_cuda((a1, a2, b1, b2, ef, w1, we, bias)):
         return octic_attention_fused_qkv_reference(a1, a2, b1, b2, ef, w1, we, bias, num_heads)
+    forward_only("octic_attention_fused_qkv", (a1, a2, b1, b2, ef, w1, we, bias))
     b, n, c8 = a1.shape
     if c8 % num_heads:
         raise ValueError(f"octic_attention_fused_qkv: C={8 * c8} with {num_heads} heads unsupported")
     if tuple(w1.shape) != (4, c8, 3 * c8):
         raise ValueError(f"octic_attention_fused_qkv: w1 {tuple(w1.shape)}, "
                          f"expected {(4, c8, 3 * c8)}")
-    d1 = c8 // num_heads
-    _check_attention_shape(n, 8 * d1)
+    _check_attention_shape(n, c8 // num_heads * 8)
     octic_attention_fused_qkv.launches += 1
     qkv = lin_d8_launch((a1, a2, b1, b2, ef), w1, we, bias, gelu=False)
-    kw = dict(device=a1.device, dtype=a1.dtype)
-    outs = tuple(torch.empty(b, n, c8, **kw) for _ in range(4))
-    oes = tuple(torch.empty(b, n, 2 * c8, **kw) for _ in range(2))
-    kernels.launch("ovt_attention_octic", *qkv, *outs, *oes, b, n, num_heads, d1, 2 * d1)
-    return outs + oes
+    half = 3 * c8 * 2
+    return _octic_rows_launch(qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:]), num_heads)
 
 
 octic_attention_fused_qkv.launches = 0

@@ -1,6 +1,7 @@
 """gelu(x @ W^T + b): the standard MLP's fc1 with the exact-erf GELU applied
 before the single store (counterpart of octic_vits_tpu/ops/pallas_dense.py:
-dense_gelu). The weight is in torch Linear layout ``[F, C]``."""
+dense_gelu). The weight is in torch Linear layout ``[F, C]``. Its backward
+is plain torch, as the JAX one is the eager composite's VJP."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
-from octic_vits_tpu_torch.ops.gelu_d8 import gelu_exact
+from octic_vits_tpu_torch.ops.gelu_d8 import gelu_exact, gelu_grad
 
 
 def dense_gelu_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -22,12 +23,8 @@ def dense_gelu_reference(x: torch.Tensor, weight: torch.Tensor,
     return gelu_exact(y).to(x.dtype)
 
 
-def dense_gelu(x: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x [..., C]``, ``weight [F, C]``, ``bias [F]`` -> ``[..., F]``.
-
-    CPU tensors take :func:`dense_gelu_reference`; CUDA tensors launch the
-    K-dense kernel (csrc/dense.cu): bf16, contiguous, C and F multiples of 8."""
+def _dense_gelu_fwd(x: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor]) -> torch.Tensor:
     if not on_cuda((x, weight, bias)):
         return dense_gelu_reference(x, weight, bias)
     f, c = weight.shape
@@ -42,6 +39,49 @@ def dense_gelu(x: torch.Tensor, weight: torch.Tensor,
     dense_gelu.launches += 1
     kernels.launch("ovt_dense_gelu", x, weight, bias, y, m, f, c)
     return y
+
+
+def dense_gelu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                   g: torch.Tensor) -> tuple:
+    """(dx, dweight, dbias) of gelu(x W^T + b), in plain torch as the JAX
+    backward is the eager composite's VJP. Every product, the recompute of
+    the pre-activation included, runs in the operands' dtype: bf16 with f32
+    accumulation on the card (what XLA's default precision does with the JAX
+    f32-cast products on the TPU, except that cuBLAS rounds the recomputed
+    pre-activation to bf16), f32 on the CPU. The elementwise math is f32."""
+    f, c = weight.shape
+    dt = x.dtype
+    wd = weight.to(dt)
+    u = torch.matmul(x, wd.t()).float()
+    if bias is not None:
+        u = u + bias.float()
+    du = g.float() * gelu_grad(u)
+    dbias = None if bias is None else du.reshape(-1, f).sum(0).to(bias.dtype)
+    dud = du.to(dt)
+    dx = torch.matmul(dud, wd)
+    dw = torch.matmul(dud.reshape(-1, f).t(), x.reshape(-1, c))
+    return dx, dw.to(weight.dtype), dbias
+
+
+class _DenseGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return _dense_gelu_fwd(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dense_gelu_bwd(*ctx.saved_tensors, g)
+
+
+def dense_gelu(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x [..., C]``, ``weight [F, C]``, ``bias [F]`` -> ``[..., F]``.
+
+    CPU tensors take :func:`dense_gelu_reference`; CUDA tensors launch the
+    K-dense kernel (csrc/dense.cu): bf16, contiguous, C and F multiples of 8.
+    The backward (:func:`dense_gelu_bwd`) saves x and the weights only."""
+    return _DenseGelu.apply(x, weight, bias)
 
 
 dense_gelu.launches = 0

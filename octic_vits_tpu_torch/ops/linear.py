@@ -1,7 +1,11 @@
-"""Block-diagonal D8-equivariant linear maps on the flat-E 5-tuple, and the
-octic MLP fc1 -> D8-GELU -> fc2 (counterpart of
-octic_vits_tpu/ops/pallas_linear.py:mlp_d8_fused and the mlp_d8_tuple
-wrapper, which here takes the five tensors directly).
+"""Block-diagonal D8-equivariant linear maps on the flat-E 5-tuple
+(counterpart of octic_vits_tpu/ops/pallas_linear.py):
+
+* :func:`linear_d8_fused`, with its ``linear_d8_tuple`` wrapper: one LinearD8
+  with an optional D8-GELU epilogue, differentiable (the train path's octic
+  fc1 and fc2);
+* :func:`mlp_d8_fused`: the octic MLP fc1 -> D8-GELU -> fc2 for inference
+  (the JAX mlp_d8_tuple wrapper, here taking the five tensors directly).
 
 Layouts: ``xs = (a1, a2, b1, b2, ef)`` with ``a* [..., c]`` and
 ``ef [..., 4c] = [row0 | row1]``; weights ``w1 [4, c, f]`` (one per 1-d
@@ -16,14 +20,15 @@ from typing import Optional
 import torch
 
 from octic_vits_tpu_torch import kernels
-from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
-from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_eager
+from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, forward_only, on_cuda
+from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_bwd, gelu_d8_eager
 
 
 def linear_d8(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
               bias: Optional[torch.Tensor]) -> tuple:
     """The LinearD8 map in the inputs' dtype with plain torch products (the
-    octic attention's proj runs this; so do the plain versions, in f32)."""
+    octic attention's proj, and its qkv in train mode, run this; so
+    do the plain versions, in f32)."""
     c = xs[0].shape[-1]
     outs = [torch.matmul(xs[g], w1[g]) for g in range(4)]
     if bias is not None:
@@ -79,9 +84,12 @@ def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:
     """Octic MLP: fc1 (c -> h) with the D8-GELU epilogue, fc2 (h -> c').
 
     CPU tensors take :func:`mlp_d8_fused_reference`; CUDA tensors launch
-    K-lin-d8 twice (fc1 writes the bf16 hidden, fc2 reads it)."""
+    K-lin-d8 twice (fc1 writes the bf16 hidden, fc2 reads it). Inference
+    only on the card: training runs fc1 and fc2 as two
+    :func:`linear_d8_fused` calls, as the JAX train configuration does."""
     if not on_cuda(tuple(xs) + (w1a, wea, b1, w1b, web, b2)):
         return mlp_d8_fused_reference(xs, w1a, wea, b1, w1b, web, b2)
+    forward_only("mlp_d8_fused", tuple(xs) + (w1a, wea, b1, w1b, web, b2))
     if w1b.shape[1] != w1a.shape[2]:
         raise ValueError("mlp_d8_fused: fc2 input width must equal fc1 output width")
     mlp_d8_fused.launches += 1
@@ -90,3 +98,90 @@ def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:
 
 
 mlp_d8_fused.launches = 0
+
+
+def linear_d8_fused_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                              bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
+    """Plain version: f32 math and exact erf, results in the input dtype."""
+    y = linear_d8(tuple(x.float() for x in xs), w1.float(), we.float(), _f32(bias))
+    if fuse_gelu:
+        y = gelu_d8_eager(y)
+    return tuple(t.to(xs[0].dtype) for t in y)
+
+
+def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                        bias: Optional[torch.Tensor], gs: tuple, fuse_gelu: bool) -> tuple:
+    """The plain backward of :func:`linear_d8_fused`, as the JAX one is
+    eager XLA (pallas_linear.py:_bwd_rule): with the GELU epilogue it
+    recomputes the pre-activation z and pushes the cotangent through the
+    D8-GELU as ``R(gelu'(S z) (S g))`` in f32, then forms the input and
+    weight products. Every product, the recompute included, runs in the
+    operands' dtype: bf16 operands with f32 accumulation on the card (what
+    XLA's default precision does with the f32-cast products on the TPU,
+    except that the recomputed z is rounded to bf16), f32 on the CPU. The
+    E-slot order is kept
+    by working on the flat-E tuple throughout (``gelu_d8_bwd`` unpacks
+    E11|E12|E21|E22 to the isotypic order and back).
+
+    Returns ``(dxs (5-tuple), dw1, dwe, dbias or None)``."""
+    dt = xs[0].dtype
+    c, f = w1.shape[1], w1.shape[2]
+    g = tuple(t.float() for t in gs)
+    w1d, wed = w1.to(dt), we.to(dt)
+    if fuse_gelu:
+        z = tuple(t.float() for t in linear_d8(xs, w1d, wed, None))
+        if bias is not None:
+            z = (z[0] + bias.float(),) + z[1:]
+        g = gelu_d8_bwd(z, g)
+    dbias = None if bias is None else g[0].reshape(-1, f).sum(0).to(bias.dtype)
+    gd = tuple(t.to(dt) for t in g)
+    dxs = [torch.matmul(gd[i], w1d[i].t()) for i in range(4)]
+    dw1 = torch.stack([torch.matmul(xs[i].reshape(-1, c).t(), gd[i].reshape(-1, f))
+                       for i in range(4)])
+    grows = gd[4].reshape(-1, 2, 2 * f)
+    xrows = xs[4].reshape(-1, 2, 2 * c)
+    dxs.append(torch.matmul(grows, wed.t()).reshape(xs[4].shape))
+    dwe = sum(torch.matmul(xrows[:, r].t(), grows[:, r]).float() for r in range(2))
+    return tuple(dxs), dw1.to(w1.dtype), dwe.to(we.dtype), dbias
+
+
+class _LinearD8Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w1, we, bias, fuse_gelu, *xs):
+        ctx.save_for_backward(w1, we, bias, *xs)
+        ctx.fuse_gelu = fuse_gelu
+        if not on_cuda(tuple(xs) + (w1, we, bias)):
+            return linear_d8_fused_reference(xs, w1, we, bias, fuse_gelu)
+        linear_d8_fused.launches += 1
+        return lin_d8_launch(xs, w1, we, bias, gelu=fuse_gelu)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        w1, we, bias, *xs = ctx.saved_tensors
+        dxs, dw1, dwe, dbias = linear_d8_fused_bwd(tuple(xs), w1, we, bias, gs, ctx.fuse_gelu)
+        return (dw1, dwe, dbias, None) + dxs
+
+
+def linear_d8_fused(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                    bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
+    """One block-diagonal LinearD8 on the flat-E 5-tuple ``xs`` (a* ``[..., c]``,
+    ef ``[..., 4c]``), weights ``w1 [4, c, f]``, ``we [2c, 2f]``, A1 bias
+    ``[f]``, optionally with the D8-GELU epilogue. CPU tensors take
+    :func:`linear_d8_fused_reference`; CUDA tensors launch K-lin-d8
+    (csrc/lin_d8.cu). The backward is :func:`linear_d8_fused_bwd` (plain
+    torch); it saves the inputs and weights only."""
+    return _LinearD8Fused.apply(w1, we, bias, fuse_gelu, *xs)
+
+
+linear_d8_fused.launches = 0
+
+
+def linear_d8_tuple(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                    bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
+    """5-tuple wrapper (pallas_linear.py:linear_d8_tuple): E may be flat
+    ``[..., 4c]`` or ``[..., 2, 2c]``; the result comes back in the same
+    container at width f."""
+    e = xs[4]
+    flat_e = e.ndim == xs[0].ndim
+    ys = linear_d8_fused(xs if flat_e else xs[:4] + (e.flatten(-2),), w1, we, bias, fuse_gelu)
+    return ys if flat_e else ys[:4] + (ys[4].unflatten(-1, (2, -1)),)

@@ -65,7 +65,7 @@ def params_from_jax(flax_params: Mapping, model: nn.Module) -> Dict[str, torch.T
         elif leaf == "scale":
             path = path[:-1] + ("weight",)
         key = ".".join(path)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(arr, order="C"))  # a copy: JAX arrays are read-only
         if key in own:
             t = t.to(device=own[key].device, dtype=own[key].dtype)
         sd[key] = t

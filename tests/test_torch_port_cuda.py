@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card (bf16), and the small hybrid model on the card against the same
-weights in f32 on the CPU. Skipped without a CUDA device. This file imports
+on the card (bf16), forward and backward, and the small hybrid model on the
+card (inference, and one train step) against the same weights in f32 on the
+CPU. Skipped without a CUDA device. This file imports
 no JAX; on a machine without JAX run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_cuda.py
@@ -94,6 +95,100 @@ def test_mlp_d8_fused_kernel(gen, b, n, c, heads, bias):
     _assert_close(_counted(ops.mlp_d8_fused, *args), ops.mlp_d8_fused_reference(*args))
 
 
+# Backward kernels: |kernel - plain| <= BWD_TOL * (max|plain| + |plain|). The
+# gradients sum 2N products whose operands the kernel rounds to bf16 (P and
+# dS, as the JAX bf16 kernel does) while the plain version keeps f32, so the
+# bar is set against the scale of the whole gradient, not each element.
+BWD_TOL = 2e-2
+
+
+def _assert_close_scaled(out, ref, tol=BWD_TOL):
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    assert len(outs) == len(refs)
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        assert o.shape == r.shape and o.dtype == r.dtype == torch.bfloat16
+        o, r = o.float(), r.float()
+        assert torch.isfinite(o).all()
+        err = (o - r).abs()
+        bar = tol * (r.abs().max() + r.abs())
+        assert bool((err <= bar).all()), f"output {i}: max err {err.max().item():.3e}, " \
+            f"max |ref| {r.abs().max().item():.3e}"
+
+
+def _octic_qkv(gen, b, n, c):
+    """a1..b2 [B,N,3C/8] and e0, e1 as the two column halves of one flat-E
+    qkv [B,N,3C/2] (strided views, as on the train path)."""
+    c8 = c // 8
+    ones = tuple(_randn(gen, b, n, 3 * c8) for _ in range(4))
+    ef = _randn(gen, b, n, 12 * c8)
+    return ones + (ef[..., :6 * c8], ef[..., 6 * c8:])
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_standard_attention_bwd_kernel(gen, b, n, c, heads, bias):
+    qkv, g = _randn(gen, b, n, 3 * c), _randn(gen, b, n, c)
+    _assert_close_scaled(_counted(ops.standard_attention_bwd, qkv, g, heads),
+                         ops.standard_attention_bwd_reference(qkv, g, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_kernel(gen, b, n, c, heads, bias):
+    qs = _octic_qkv(gen, b, n, c)
+    _assert_close(_counted(ops.octic_attention, *qs, heads),
+                  ops.octic_attention_reference(*qs, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_bwd_kernel(gen, b, n, c, heads, bias):
+    qs = _octic_qkv(gen, b, n, c)
+    c8 = c // 8
+    gs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + tuple(
+        _randn(gen, b, n, 2 * c8) for _ in range(2))
+    _assert_close_scaled(_counted(ops.octic_attention_bwd, qs, gs, heads),
+                         ops.octic_attention_bwd_reference(qs, gs, heads))
+
+
+@pytest.mark.parametrize("gelu", [True, False])
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_linear_d8_fused_kernel(gen, b, n, c, heads, bias, gelu):
+    c8, f8 = c // 8, c // 2
+    xs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+    args = (xs, _randn(gen, 4, c8, f8, scale=c8 ** -0.5),
+            _randn(gen, 2 * c8, 2 * f8, scale=(2 * c8) ** -0.5),
+            _randn(gen, f8, scale=0.1) if bias else None, gelu)
+    _assert_close(_counted(ops.linear_d8_fused, *args), ops.linear_d8_fused_reference(*args))
+
+
+def test_attention_autograd_launches_backward_kernels(gen):
+    qkv = _randn(gen, 2, 17, 192).requires_grad_()
+    qs = tuple(t.detach().requires_grad_() for t in _octic_qkv(gen, 2, 17, 64))
+    ops.reset_launch_counts()
+    out = ops.standard_attention(qkv, 2).float().sum()
+    out = out + sum(o.float().sum() for o in ops.octic_attention(*qs, 2))
+    out.backward()
+    counts = ops.launch_counts()
+    assert counts["standard_attention_bwd"] == counts["octic_attention_bwd"] == 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (qkv,) + qs)
+
+
+def test_fused_inference_ops_refuse_autograd(gen):
+    xs = [_randn(gen, 1, 5, 8).requires_grad_() for _ in range(4)]
+    xs.append(_randn(gen, 1, 5, 32))
+    with pytest.raises(RuntimeError):
+        ops.octic_attention_fused_qkv(*xs, _randn(gen, 4, 8, 24), _randn(gen, 16, 48), None, 1)
+
+
+def test_eval_mode_model_refuses_autograd(gen):
+    """In eval mode the octic blocks take the fused inference kernels, which
+    have no backward: a forward that autograd would record raises."""
+    model = create_model("hybrid_vit_small_test", device="cuda", dtype=torch.bfloat16).eval()
+    init_weights(model, torch.Generator("cuda").manual_seed(0))
+    img = _randn(gen, 1, 64, 64, 3)
+    with pytest.raises(RuntimeError, match="without a backward"):
+        model(img)
+
+
 def test_kernels_reject_f32(gen):
     with pytest.raises(TypeError):
         ops.standard_attention(torch.zeros(1, 4, 48, device="cuda"), 2)
@@ -119,8 +214,44 @@ def test_small_hybrid_model_on_card(gen):
     with torch.no_grad():
         out = gpu(img.cuda()).float().cpu()
         ref = cpu(img.float())
-    assert {op.__name__: op.launches for op in ops.KERNEL_OPS} == {
+    assert ops.launch_counts() == {
         "standard_attention": 2, "octic_attention_fused_qkv": 2, "dense_gelu": 2,
-        "mlp_d8_fused": 2}
+        "mlp_d8_fused": 2, "standard_attention_bwd": 0, "octic_attention": 0,
+        "octic_attention_bwd": 0, "linear_d8_fused": 0}
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 5e-2
+
+
+def test_small_hybrid_train_step_on_card(gen):
+    """One DeiT III step of the small hybrid (train flags, remat, bf16
+    compute over f32 parameters) on the card against the same weights in f32
+    on the CPU: loss within 5e-2 and gradient cosine above 0.99 (the bars of
+    chip_smoke.py P6), every train kernel launched."""
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = create_model("hybrid_vit_small_test", init_scale=1.0,
+                        remat=True, compute_dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    cfg = engine.DeiTConfig(num_classes=10, mixup_alpha=0.0, cutmix_alpha=0.0, drop_path=0.0)
+    opt = engine.build_optimizer(cfg, card)
+    step = engine.make_deit_train_step(card, cfg, opt)
+    img = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    img = img.to(torch.bfloat16).float()
+    labels = torch.tensor([1, 4, 7, 9])
+    ops.reset_launch_counts()
+    _, metrics = step(common.create_train_state(card, opt), img.cuda(), labels.cuda(),
+                      torch.Generator().manual_seed(0))
+    counts = ops.launch_counts()
+    assert counts["standard_attention_bwd"] == counts["octic_attention_bwd"] == 2
+    assert counts["octic_attention"] == counts["standard_attention"] == 2
+    assert counts["linear_d8_fused"] == 8 and counts["dense_gelu"] == 4
+    cpu.train()
+    loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
+    loss.backward()
+    assert abs(metrics["loss"].item() - loss.item()) <= 5e-2 * abs(loss.item())
+    a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
+    b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
