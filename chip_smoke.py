@@ -27,8 +27,26 @@ Phases, one line each (any failure raises and exits non-zero):
              convergence check of scripts/smoke_train_tpu.py (60 AdamW steps)
   P7 train timing  hybrid and standard train step at B=32 224^2: median ms,
              img/s, ratio, peak device memory
-The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Each phase prints its seconds.
+  P8 SSL kernels  the backward of the fused octic qkv + attention (the chain
+             K-lin-d8 -> K-attn-bwd -> K-lin-d8-bwd) against its plain version at
+             the hybrid ViT-L/16 B=32 shapes (global crops 64 x 197 tokens, local
+             crops 256 x 37) and at the ragged shape, with CUDA-event times of
+             the chain, its plain version and K-lin-d8-bwd alone; every other
+             kernel of the SSL step at the L/16 shapes (correctness only)
+  P9 SSL slice  hybrid_dinov2_vit_large_patch16 (full width and depth, f32
+             parameters, bf16 compute, remat, drop path 0.3, DINO/iBOT head
+             65536 wide) takes one DINOv2 step at B=32 (2 x 32 global 224^2 and
+             8 x 32 local 96^2 crops, iBOT masks from collate_crops_and_masks):
+             finite loss, gradients and centers, launches of every kernel; a
+             deterministic step on B=2 (drop path 0) against the same weights in
+             f32 through the plain path on the CPU (loss and gradient cosine)
+  P10 SSL timing  hybrid against dinov2_vit_large_patch16 at B=32: median ms
+             over 10 steps after 2 warm-up, range, img/s (B images a step),
+             ratio, peak device memory
+The line before the last is the per-kernel JSON summary (with each kernel's
+bound on the card and, where one PyTorch call computes the same function,
+that call's time); the last line is ``{"ok": true, "device": {...}}``. Each
+phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -44,7 +62,12 @@ import torch
 
 BATCH, IMG = 64, 224
 TRAIN_BATCH = 32
+SSL_BATCH, LOCAL_IMG = 32, 96  # configs/train/hybrid_vitl16.yaml: batch_size_per_gpu 32
 SEED = 0
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
+# cores and HBM3; a kernel's bound is the larger of its operations and its
+# bytes (each input read once, each output written once) over these rates
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # bf16 kernel vs f32 plain version (both rounded to bf16 at the same points):
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. Covers one or two
 # bf16 ulps of the output and the summation order of f32 accumulators.
@@ -98,8 +121,40 @@ def randn(gen, *shape, scale=1.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
 
 
+def sdpa_views(qkv, heads):
+    """q, k, v ``[B, H, N, dh]`` as views of a standard qkv ``[B, N, 3C]``."""
+    b, n, w = qkv.shape
+    return qkv.view(b, n, 3, heads, w // (3 * heads)).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def library_sdpa(qkv, heads):
+    """One PyTorch call computing standard_attention: SDPA on the qkv views."""
+    q, k, v = sdpa_views(qkv, heads)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def library_sdpa_bwd(qkv, g, heads):
+    """One PyTorch call computing standard_attention_bwd: the autograd
+    backward of SDPA on the qkv views (dqkv for the cotangent g), after one
+    recorded forward."""
+    leaf = qkv.detach().requires_grad_()
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(*sdpa_views(leaf, heads))
+    b, n, c = g.shape
+    gv = g.view(b, n, heads, c // heads).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaf, gv, retain_graph=True)
+
+
+def library_dense_gelu(x, w, bias):
+    """One PyTorch call computing dense + GELU: cuBLASLt's GELU epilogue
+    (the tanh form of GELU, within ~1e-3 of the erf form the kernel uses)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return lambda: torch._addmm_activation(bias, x2, w.t(), use_gelu=True)
+
+
 def kernel_cases(gen, b, n, c, heads, bias):
-    """(name, kernel op, reference op, args) of the four kernels at one shape."""
+    """(name, kernel op, reference op, args, library call or None) of the four
+    kernels at one shape."""
     from octic_vits_tpu_torch import ops
 
     c8 = c // 8
@@ -119,19 +174,20 @@ def kernel_cases(gen, b, n, c, heads, bias):
                                                                             scale=0.1)
     return [
         ("standard_attention", ops.standard_attention, ops.standard_attention_reference,
-         (qkv, heads)),
+         (qkv, heads), library_sdpa(qkv, heads)),
         ("octic_attention_fused_qkv", ops.octic_attention_fused_qkv,
-         ops.octic_attention_fused_qkv_reference, (*xs, wq1, wqe, opt(bq), heads)),
-        ("dense_gelu", ops.dense_gelu, ops.dense_gelu_reference, (x, w_fc1, opt(b_fc1))),
+         ops.octic_attention_fused_qkv_reference, (*xs, wq1, wqe, opt(bq), heads), None),
+        ("dense_gelu", ops.dense_gelu, ops.dense_gelu_reference, (x, w_fc1, opt(b_fc1)),
+         library_dense_gelu(x, w_fc1, b_fc1) if bias else None),
         ("mlp_d8_fused", ops.mlp_d8_fused, ops.mlp_d8_fused_reference,
-         (xs, w1a, wea, opt(b1), w1b, web, opt(b2))),
+         (xs, w1a, wea, opt(b1), w1b, web, opt(b2)), None),
     ]
 
 
 def train_kernel_cases(gen, b, n, c, heads, bias):
-    """(name, kernel op, reference op, args, scaled bar) of the train-path
-    kernels P2 does not cover, at one shape: the ViT-H MLP widths for
-    linear_d8_fused (fc1 c -> 4c with GELU, fc2 4c -> c)."""
+    """(name, kernel op, reference op, args, scaled bar, library call or None)
+    of the train-path kernels P2 does not cover, at one shape: the MLP widths
+    for linear_d8_fused (fc1 c -> 4c with GELU, fc2 4c -> c)."""
     from octic_vits_tpu_torch import ops
 
     c8, h8 = c // 8, c // 2
@@ -151,23 +207,84 @@ def train_kernel_cases(gen, b, n, c, heads, bias):
            False)
     return [
         ("standard_attention_bwd", ops.standard_attention_bwd,
-         ops.standard_attention_bwd_reference, (qkv, g, heads), True),
+         ops.standard_attention_bwd_reference, (qkv, g, heads), True,
+         library_sdpa_bwd(qkv, g, heads)),
         ("octic_attention", ops.octic_attention, ops.octic_attention_reference,
-         (*qs, heads), False),
+         (*qs, heads), False, None),
         ("octic_attention_bwd", ops.octic_attention_bwd, ops.octic_attention_bwd_reference,
-         (qs, gs, heads), True),
-        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc1, False),
-        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc2, False),
+         (qs, gs, heads), True, None),
+        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc1, False, None),
+        ("linear_d8_fused", ops.linear_d8_fused, ops.linear_d8_fused_reference, fc2, False, None),
     ]
+
+
+def ssl_kernel_cases(gen, b, n, c, heads, bias):
+    """The kernel the SSL step adds: the backward of the fused octic qkv +
+    attention from its residuals (flat-E input, qkv weights) and the six
+    output cotangents, the E ones as column slices of one [B, N, C/2] tensor
+    (the proj's input gradient on the train path). Scaled bar: the chain
+    runs the attention backward kernel."""
+    from octic_vits_tpu_torch import ops
+
+    c8 = c // 8
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    w1 = randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5)
+    we = randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5)
+    bq = randn(gen, 3 * c8, scale=0.1) if bias else None
+    ge = randn(gen, b, n, 4 * c8)
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (ge[..., :2 * c8], ge[..., 2 * c8:])
+    return [("octic_attention_fused_qkv_bwd", ops.octic_attention_fused_qkv_bwd,
+             ops.octic_attention_fused_qkv_bwd_reference, (xs, w1, we, bq, gs, heads), True,
+             None)]
+
+
+def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
+    """(bytes, operations) that kernel `name` must move and do at one shape
+    of the cases above: each input read once, each output written once (bf16),
+    and the tensor-core products of its function (2 per multiply-add)."""
+    m, c8, e = b * n, c // 8, 2
+    attn_fwd = 4 * b * n * n * c   # S = QK^T and PV over every head
+    attn_bwd = 10 * b * n * n * c  # S again, dV = P^T dO, dP = dO V^T, dQ, dK
+    qkv_w = 24 * c8 * c8           # w1 [4, C/8, 3C/8] + we [C/4, 3C/4]
+    qkv_ops = 72 * m * c8 * c8     # the block-diagonal qkv product
+    lin4_w, lin4_ops = 32 * c8 * c8, 96 * m * c8 * c8  # one octic LinearD8 C <-> 4C
+    bq = 3 * c8 if bias else 0
+    if name in ("standard_attention", "octic_attention"):
+        return m * 4 * c * e, attn_fwd
+    if name in ("standard_attention_bwd", "octic_attention_bwd"):
+        return m * 7 * c * e, attn_bwd
+    if name == "octic_attention_fused_qkv":
+        return (2 * m * c + qkv_w + bq) * e, qkv_ops + attn_fwd
+    if name == "octic_attention_fused_qkv_bwd":  # x, g, w in; dx, dw, dbias out
+        return (3 * m * c + 2 * qkv_w + 2 * bq) * e, 3 * qkv_ops + attn_bwd
+    if name == "dense_gelu":
+        return (m * c + 4 * c * c + 4 * c + 4 * m * c) * e, 8 * m * c * c
+    if name == "mlp_d8_fused":
+        return (2 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops
+    if name == "linear_d8_fused":  # fc1 (C -> 4C) and fc2 (4C -> C), the two timed cases
+        return (10 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops
+    raise KeyError(name)
+
+
+def bound(name: str, shape: tuple) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for the work."""
+    nbytes, ops_ = work(name, *shape)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops_ / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare(out, ref, scaled: bool = False):
     """Max abs error and whether every output is finite and inside its bar:
-    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`."""
+    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`.
+    An output that is None (no bias, no bias gradient) must be None on both
+    sides."""
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     err, ok = 0.0, True
     for o, r in zip(outs, refs, strict=True):
+        if o is None or r is None:
+            ok &= o is None and r is None
+            continue
         if o.shape != r.shape or o.dtype != r.dtype:
             raise AssertionError(f"shape/dtype {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
         r = r.float()
@@ -197,33 +314,55 @@ META = {
                             "octic_vits_tpu/ops/pallas_attention.py:391", "train"),
     "linear_d8_fused": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
                         "octic_vits_tpu/ops/pallas_linear.py:196", "train"),
+    "octic_attention_fused_qkv_bwd": ("octic_vits_tpu_torch/csrc/lin_d8_bwd.cu",
+                                      "octic_vits_tpu/ops/pallas_attention.py:737", "ssl"),
 }
+# kernels whose chain launches more than the source named in META
+ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
+        "octic_attention_fused_qkv_bwd": ["octic_vits_tpu_torch/csrc/lin_d8.cu",
+                                          "octic_vits_tpu_torch/csrc/attention_bwd.cu"]}
+# launches of each kernel in one hybrid ViT-L/16 DINOv2 step at B=32 (12 octic
+# and 12 standard blocks) under remat. The teacher's forward (eval mode) runs
+# the fused inference kernels once per block: 12 octic_attention_fused_qkv,
+# 12 mlp_d8_fused, 12 standard_attention, 12 dense_gelu. Each of the two
+# student passes (global and local crops, train mode) runs per octic block the
+# fused qkv + attention forward once (outside remat) and its backward chain
+# once, fc1 and fc2 twice (forward and replay), and per standard block the
+# attention forward and backward once and dense_gelu twice.
+SSL_LAUNCHES = {"octic_attention_fused_qkv": 12 + 2 * 12, "octic_attention_fused_qkv_bwd": 2 * 12,
+                "mlp_d8_fused": 12, "linear_d8_fused": 2 * 12 * 2 * 2,
+                "standard_attention": 12 + 2 * 12, "standard_attention_bwd": 2 * 12,
+                "dense_gelu": 12 + 2 * 12 * 2, "octic_attention": 0, "octic_attention_bwd": 0}
 # launches of each kernel in one hybrid ViT-H/14 train step under remat: the
 # attention kernels run once forward and once backward per block (remat saves
 # their inputs and outputs); fc1/fc2 and dense_gelu run again in the replay
 TRAIN_LAUNCHES = {"standard_attention": 16, "standard_attention_bwd": 16, "octic_attention": 16,
                   "octic_attention_bwd": 16, "linear_d8_fused": 64, "dense_gelu": 32,
-                  "octic_attention_fused_qkv": 0, "mlp_d8_fused": 0}
+                  "octic_attention_fused_qkv": 0, "mlp_d8_fused": 0,
+                  "octic_attention_fused_qkv_bwd": 0}
 
 
-def kernel_phase(tag, cases_fn, shapes, gen, summary):
-    """Run each case at each shape against its plain version; time the
-    first shape. Raises if a kernel is outside its bar or its counter did
-    not move."""
+def kernel_phase(tag, cases_fn, shapes, gen, summary, record=True):
+    """Run each case at each shape against its plain version. With `record`,
+    time the first shape (kernel, plain version and, where there is one, the
+    library call) and keep the times and that shape for the summary; without
+    it the shapes are checked only. Raises if a kernel is outside its bar or
+    its counter did not move."""
     failed = []
     for label, shape in shapes:
         with torch.no_grad():
-            for name, kern, ref, args, scaled in cases_fn(gen, *shape):
+            for name, kern, ref, args, scaled, lib in cases_fn(gen, *shape):
                 out = kern(*args)
                 torch.cuda.synchronize()
                 expected = ref(*args)
                 err, ok = compare(out, expected, scaled)
-                entry = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+                entry = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                                  "library_ms": None})
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
                 line = f"{name} [{label}] max_abs_err {err:.3e} (tol {bar}) "
                 line += "ok" if ok else "FAIL"
-                if label == shapes[0][0]:
+                if record and label == shapes[0][0]:
                     before = kern.launches
                     ms = time_ms(lambda: kern(*args))
                     plain_ms = time_ms(lambda: ref(*args), iters=10)
@@ -232,7 +371,11 @@ def kernel_phase(tag, cases_fn, shapes, gen, summary):
                     # a kernel with several cases (fc1 and fc2) sums their times
                     entry["ms"] += ms
                     entry["plain_ms"] += plain_ms
+                    entry["shape"] = shape
                     line += f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    if lib is not None:
+                        entry["library_ms"] = time_ms(lib)
+                        line += f", library call {entry['library_ms']:.4f} ms"
                 phase(tag, line)
                 if not ok:
                     failed.append(f"{name}[{label}]")
@@ -242,7 +385,7 @@ def kernel_phase(tag, cases_fn, shapes, gen, summary):
 
 
 def p2_cases(gen, *shape):
-    return [case + (False,) for case in kernel_cases(gen, *shape)]
+    return [case[:4] + (False, case[4]) for case in kernel_cases(gen, *shape)]
 
 
 def grad_cosine(card_model, cpu_model) -> tuple:
@@ -317,6 +460,67 @@ def convergence_check(steps: int = 60) -> tuple:
             loss.backward()
             opt.step()
     return losses[0], losses[steps - 1], losses[steps]
+
+
+def ssl_batch(b: int, seed: int, n_local: int = 8) -> dict:
+    """A DINOv2 batch of random crops (2b global 224^2, n_local * b local 96^2)
+    through the port's collate: iBOT masks on half the global crops, the
+    masked-token buffer padded to its bound (octic_vits_tpu/train/dinov2/
+    cli.py builds the generator the same way)."""
+    import random
+
+    import numpy as np
+
+    from octic_vits_tpu_torch.train.dinov2.masking import MaskingGenerator, collate_crops_and_masks
+
+    npr = np.random.default_rng(seed)
+    grid = IMG // 16
+    gc = npr.standard_normal((2 * b, IMG, IMG, 3), dtype=np.float32)
+    lc = npr.standard_normal((n_local * b, LOCAL_IMG, LOCAL_IMG, 3), dtype=np.float32)
+    gen = MaskingGenerator(grid, num_masking_patches=grid * grid // 2)
+    return collate_crops_and_masks(gc, lc, grid * grid, gen, mask_probability=0.5,
+                                   mask_ratio_tuple=(0.1, 0.5), rng=random.Random(seed))
+
+
+def chain_times(gen, b, n, c, heads) -> dict:
+    """CUDA-event ms of each launch of the fused backward chain at one shape
+    (with bias): the K-lin-d8 qkv recompute, K-attn-bwd, and K-lin-d8-bwd
+    alone, which is also held against its plain version."""
+    from octic_vits_tpu_torch.ops import attention as A
+    from octic_vits_tpu_torch.ops import linear as Lin
+
+    ((_, _, _, (xs, w1, we, bq, gs, _), _, _),) = ssl_kernel_cases(gen, b, n, c, heads, True)
+    with torch.no_grad():
+        rows = A._qkv_rows(Lin.lin_d8_launch(xs, w1, we, bq, gelu=False))
+        dq = A._octic_bwd_launch(rows, gs, heads)
+        out = Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], True)
+        torch.cuda.synchronize()
+        ref = Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4], dq[4:], bq)
+        err, ok = compare(out[0] + out[1:], ref[0] + ref[1:])
+        return {
+            "qkv_recompute": time_ms(lambda: Lin.lin_d8_launch(xs, w1, we, bq, gelu=False)),
+            "attention_bwd": time_ms(lambda: A._octic_bwd_launch(rows, gs, heads)),
+            "lin_d8_bwd": time_ms(lambda: Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:],
+                                                               True)),
+            "lin_d8_bwd_plain": time_ms(lambda: Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4],
+                                                                        dq[4:], bq), iters=10),
+            "lin_d8_bwd_err": err, "lin_d8_bwd_ok": ok,
+        }
+
+
+def time_ssl_steps(state, step, batch, sched, gen, steps=10, warmup=2):
+    """Median host-clock ms of one synchronized SSL step, and every step's."""
+    times = []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, sched, gen)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(metrics["total_loss"])):
+        raise AssertionError("non-finite SSL loss while timing")
+    return statistics.median(times), times
 
 
 def main() -> int:
@@ -474,22 +678,148 @@ def main() -> int:
                 f"step ms hybrid {[round(t, 2) for t in times_h]}, "
                 f"standard {[round(t, 2) for t in times_s]}")
 
-    counts = {"inference": launches, "train": train_launches}
+    torch.cuda.empty_cache()
+    ssl_launches = ssl_phases(gen, summary, card)
+
+    counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
         n = counts[path][name]
         if n == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
+        bound_ms, bound_by = bound(name, e["shape"])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": n, "path": path, "max_abs_err": e["max_abs_err"],
-                        "ms": e["ms"], "plain_ms": e["plain_ms"]})
-    kernels[1]["also"] = ["octic_vits_tpu_torch/csrc/lin_d8.cu"]
+                        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": e["library_ms"],
+                        "shape": list(e["shape"])})
+        if name in ALSO:
+            kernels[-1]["also"] = ALSO[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def ssl_phases(gen, summary, card) -> dict:
+    """P8-P10, the DINOv2 slice. Returns the launches of the P9 step."""
+    from octic_vits_tpu_torch import init_weights, ops
+    from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    # ---- P8: the SSL kernels at the hybrid ViT-L/16 B=32 shapes ----
+    l16 = (("vitl16_global_b32", (2 * SSL_BATCH, 197, 1024, 16, True)),
+           ("vitl16_local_b32", (8 * SSL_BATCH, 37, 1024, 16, True)),
+           ("ragged", (3, 65, 64, 2, False)))
+    kernel_phase("P8", ssl_kernel_cases, l16, gen, summary)
+    ct = chain_times(gen, *l16[0][1][:4])
+    lb_ms, lb_by = bound_lin_d8_bwd(*l16[0][1][:3])
+    phase("P8", f"fused qkv + attention backward chain at {l16[0][0]}: K-lin-d8 recompute "
+                f"{ct['qkv_recompute']:.4f} ms, K-attn-bwd {ct['attention_bwd']:.4f} ms, "
+                f"K-lin-d8-bwd {ct['lin_d8_bwd']:.4f} ms (bound {lb_ms:.4f} ms by {lb_by}; "
+                f"plain {ct['lin_d8_bwd_plain']:.4f} ms; max_abs_err {ct['lin_d8_bwd_err']:.3e} "
+                f"{'ok' if ct['lin_d8_bwd_ok'] else 'FAIL'})")
+    if not ct["lin_d8_bwd_ok"]:
+        raise AssertionError("K-lin-d8-bwd outside tolerance")
+    # the SSL step runs every other kernel at these shapes too: correctness only
+    kernel_phase("P8", p2_cases, l16[:2], gen, summary, record=False)
+    kernel_phase("P8", train_kernel_cases, l16[:2], gen, summary, record=False)
+    torch.cuda.empty_cache()
+
+    # ---- P9: one DINOv2 step of the full-size hybrid ViT-L/16 at B=32 ----
+    cfg = SSLConfig(backbone_remat=True)  # drop path 0.3, heads 65536, bf16 compute
+    arch = SSLMetaArch(cfg, device="cuda")
+    state = arch.init(torch.Generator("cuda").manual_seed(SEED))
+    step = arch.make_train_step()
+    lr = sqrt_lr_scaling(4e-3, SSL_BATCH)  # the recipe's base lr after warmup
+    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
+    batch = batch_to_device(ssl_batch(SSL_BATCH, SEED + 5), "cuda")
+    sgen = torch.Generator().manual_seed(SEED + 6)
+    ops.reset_launch_counts()
+    state, metrics = step(state, batch, sched, sgen)
+    torch.cuda.synchronize()
+    ssl_launches = ops.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in state.student.parameters())
+    finite &= bool(torch.isfinite(state.dino_center).all() and torch.isfinite(
+        state.ibot_center).all()) and state.dino_center.abs().max().item() > 0
+    loss = metrics["total_loss"].item()
+    terms = {k: round(v.item(), 5) for k, v in metrics.items()}
+    n_params = sum(p.numel() for p in state.student.parameters())
+    phase("P9", f"{cfg.arch} SSL step B={SSL_BATCH} ({2 * SSL_BATCH} global 224^2 + "
+                f"{8 * SSL_BATCH} local 96^2 crops, {int(batch['n_masked_patches'])} masked "
+                f"tokens of a {batch['mask_indices'].numel()} buffer; f32 params "
+                f"({n_params} in the student), bf16 compute, remat, drop path "
+                f"{cfg.drop_path_rate}): {terms}; finite grads and centers {finite}; "
+                f"launches {ssl_launches}")
+    if not (math.isfinite(loss) and finite):
+        raise AssertionError("non-finite SSL loss, gradients or centers")
+    if ssl_launches != SSL_LAUNCHES:
+        raise AssertionError(f"SSL launches {ssl_launches}, expected {SSL_LAUNCHES}")
+
+    # deterministic step on B=2 against the same weights in f32 on the CPU
+    # (LayerScale 1.0 so that the blocks are not hidden behind 1e-5)
+    det = dict(drop_path_rate=0.0)
+    cpu_arch = SSLMetaArch(SSLConfig(compute_dtype=None, **det), device="cpu", init_scale=1.0)
+    cpu_student = cpu_arch.build_student()
+    init_weights(cpu_student, torch.Generator().manual_seed(SEED))
+    card_arch = SSLMetaArch(SSLConfig(backbone_remat=True, **det), device="cuda", init_scale=1.0)
+    card_student = card_arch.build_student()
+    card_student.load_state_dict(cpu_student.state_dict(), strict=True)
+    dbatch = ssl_batch(2, SEED + 7)
+    card_loss, _ = card_arch.forward_backward(card_arch.state_from_student(card_student),
+                                              batch_to_device(dbatch, "cuda"), 0.04)
+    cpu_loss, _ = cpu_arch.forward_backward(cpu_arch.state_from_student(cpu_student),
+                                            batch_to_device(dbatch, "cpu"), 0.04)
+    cos, _, norm_cpu, count = grad_cosine(card_student, cpu_student)
+    loss_rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    phase("P9", f"deterministic SSL step, B=2: loss card {card_loss.item():.6f} vs CPU f32 "
+                f"{cpu_loss.item():.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); gradient "
+                f"cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; CPU grad norm "
+                f"{norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("SSL step disagrees with the CPU f32 plain path")
+    del cpu_student, card_student, cpu_arch, card_arch
+
+    # ---- P10: SSL step timing, hybrid against the standard ViT-L/16 ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms_h, times_h = time_ssl_steps(state, step, batch, sched, sgen)
+    mem_h = torch.cuda.max_memory_allocated()
+    del state, step, arch
+    torch.cuda.empty_cache()
+    std_arch = SSLMetaArch(SSLConfig(arch="dinov2_vit_large_patch16", backbone_remat=True),
+                           device="cuda")
+    std_state = std_arch.init(torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    ms_s, times_s = time_ssl_steps(std_state, std_arch.make_train_step(), batch, sched, sgen)
+    mem_s = torch.cuda.max_memory_allocated()
+    del std_state, std_arch
+    torch.cuda.empty_cache()
+    phase("P10", f"SSL step B={SSL_BATCH} (L/16, 2 global + 8 local crops per image, f32 params, "
+                 f"bf16 compute, remat, AdamW, EMA) on {card}: hybrid {ms_h:.2f} ms "
+                 f"({SSL_BATCH / ms_h * 1e3:.1f} img/s, range {min(times_h):.2f}-"
+                 f"{max(times_h):.2f} ms, peak {mem_h / 2**30:.2f} GiB), standard {ms_s:.2f} ms "
+                 f"({SSL_BATCH / ms_s * 1e3:.1f} img/s, range {min(times_s):.2f}-"
+                 f"{max(times_s):.2f} ms, peak {mem_s / 2**30:.2f} GiB), ratio hybrid/standard "
+                 f"img/s {ms_s / ms_h:.4f}; step ms hybrid {[round(t, 2) for t in times_h]}, "
+                 f"standard {[round(t, 2) for t in times_s]}")
+    return ssl_launches
+
+
+def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:
+    """(bound_ms, bound_by) of K-lin-d8-bwd alone: x and dqkv in, dx out, the
+    weights in and their gradients out; dx and dW products."""
+    m, c8 = b * n, c // 8
+    nbytes = (m * (c + 3 * c + c) + 2 * 24 * c8 * c8) * 2
+    ops_ = 144 * m * c8 * c8
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops_ / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 if __name__ == "__main__":

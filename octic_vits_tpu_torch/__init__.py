@@ -1,9 +1,10 @@
 """octic_vits_tpu_torch — the PyTorch + CUDA port of octic_vits_tpu.
 
-The inference and DeiT III training slices of the hybrid octic ViT: the D8
-group algebra, the equivariant and standard layers, the hybrid and standard
-models, mixup/cutmix (``data``), the train state, LAMB and the DeiT III
-train step (``train``), and the hand-written Hopper kernels those paths run
+The inference, DeiT III and DINOv2 training slices of the hybrid octic ViT:
+the D8 group algebra, the equivariant and standard layers, the hybrid and
+standard models with the DINOv2 backbones and head, mixup/cutmix
+(``data``), the train state, LAMB, the DeiT III train step and the DINOv2
+SSL step (``train``), and the hand-written Hopper kernels those paths run
 (``csrc/``, built and bound by ``kernels/``). The JAX package stays the
 reference; this package imports torch and never jax.
 

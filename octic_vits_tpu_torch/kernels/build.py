@@ -42,6 +42,7 @@ SIGNATURES = {
     "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
     "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 5 + [_P],
+    "ovt_lin_d8_bwd": [_P] * 22 + [_I] * 4 + [_P],
 }
 
 

@@ -2,10 +2,11 @@
 ``(a1, a2, b1, b2, ef)`` (a* ``[B, N, C/8]``, ``ef [B, N, C/2] = [row0 | row1]``).
 
 Counterpart of the paths of octic_vits_tpu/layers/d8_layers.py that the
-benchmark flags (eval mode: fused qkv + attention, fused MLP) and the DeiT
+benchmark flags (eval mode: fused qkv + attention, fused MLP), the DeiT
 III train flags (train mode: ``octic_attention`` over a plain qkv LinearD8, fc1 and fc2
-as two ``linear_d8_fused`` kernels, drop path, per-block remat) reach, with
-the flat-E carry. Parameter names and shapes follow the flax tree so
+as two ``linear_d8_fused`` kernels, drop path, per-block remat) and the
+DINOv2 train flags (the same, with the qkv inside the fused qkv + attention
+op, ``fuse_qkv``) reach, with the flat-E carry. Parameter names and shapes follow the flax tree so
 :func:`octic_vits_tpu_torch.utils.convert.params_from_jax` maps them one to
 one; every module takes an explicit ``device`` and ``dtype`` (the parameter
 dtype), is filled by ``reset_parameters(generator)``, and casts its
@@ -31,6 +32,14 @@ def trunc_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> No
     """Truncated normal at +-2 std (drawn in f32, then cast)."""
     tmp = torch.empty(p.shape, device=p.device, dtype=torch.float32)
     nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std, generator=generator)
+    with torch.no_grad():
+        p.copy_(tmp)
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Normal (flax ``nn.initializers.normal``), drawn in f32, then cast."""
+    tmp = torch.empty(p.shape, device=p.device, dtype=torch.float32)
+    nn.init.normal_(tmp, std=std, generator=generator)
     with torch.no_grad():
         p.copy_(tmp)
 
@@ -244,11 +253,13 @@ class MlpD8(nn.Module):
     JAX train configuration runs them (``use_pallas_linear``, no
     ``fuse_mlp``). The hidden is rounded to the working dtype between them."""
 
-    def __init__(self, in_features: int, hidden_features: int, *, device=None, dtype=None):
+    def __init__(self, in_features: int, hidden_features: int, bias: bool = True, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.fc1 = LinearD8(in_features, hidden_features, use_kernel=True, fuse_gelu=True, **kw)
-        self.fc2 = LinearD8(hidden_features, in_features, use_kernel=True, **kw)
+        self.fc1 = LinearD8(in_features, hidden_features, bias, use_kernel=True, fuse_gelu=True,
+                            **kw)
+        self.fc2 = LinearD8(hidden_features, in_features, bias, use_kernel=True, **kw)
 
     def forward(self, xs: tuple) -> tuple:
         if self.training:
@@ -260,23 +271,24 @@ class MlpD8(nn.Module):
 
 
 class AttentionD8(nn.Module):
-    """Equivariant multi-head attention. In eval mode (the bench flags,
-    ``fuse_qkv``) the qkv LinearD8 and the softmax attention run in the fused
-    qkv + attention op, which has no backward and refuses to run where
-    autograd would record it. In train mode (the train flags) the qkv is a
-    plain LinearD8 (:meth:`qkv_arrays`), then :func:`octic_attention`, which
-    takes the two E rows of the flat-E qkv as column slices. The proj is a
-    plain LinearD8 (:meth:`project`)."""
+    """Equivariant multi-head attention. In eval mode (the bench flags) the
+    qkv LinearD8 and the softmax attention run in the fused qkv + attention
+    op. In train mode with ``fuse_qkv`` (the DINOv2 flags) they run in the
+    same op, whose backward recomputes the qkv; without it (the DeiT III
+    flags) the qkv is a plain LinearD8 (:meth:`qkv_arrays`), then
+    :func:`octic_attention`, which takes the two E rows of the flat-E qkv as
+    column slices. The proj is a plain LinearD8 (:meth:`project`)."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, *,
-                 device=None, dtype=None):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, proj_bias: bool = True,
+                 fuse_qkv: bool = False, *, device=None, dtype=None):
         super().__init__()
         if (dim // num_heads) % 8:
             raise ValueError("head dim must be divisible by 8")
         kw = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
+        self.fuse_qkv = fuse_qkv
         self.qkv = LinearD8(dim, 3 * dim, qkv_bias, **kw)
-        self.proj = LinearD8(dim, dim, **kw)
+        self.proj = LinearD8(dim, dim, proj_bias, **kw)
 
     def qkv_arrays(self, xs: tuple) -> tuple:
         """The attention kernel's six inputs (a1..b2 ``[B, N, 3C/8]``, e0, e1
@@ -288,7 +300,7 @@ class AttentionD8(nn.Module):
 
     def attend(self, xs: tuple) -> tuple:
         """The six attention outputs (``attn_out``) of the normed input."""
-        if self.training:
+        if self.training and not self.fuse_qkv:
             return octic_attention(*self.qkv_arrays(xs), self.num_heads)
         dt = xs[0].dtype
         q = self.qkv
@@ -305,22 +317,26 @@ class AttentionD8(nn.Module):
 
 class BlockD8(nn.Module):
     """Pre-norm equivariant transformer block with LayerScale (``ls1``,
-    ``ls2``) and drop path, the DeiT III block. ``forward(xs, masks,
-    remat_block)``: `masks` are the two drop-path masks from
-    :meth:`draw_masks` (or None); with `remat_block` the norm1 + qkv and the
-    proj ... MLP halves are rematerialized around the attention kernel."""
+    ``ls2``) and drop path: the DeiT III block, and the DINOv2 block with
+    ``fuse_qkv``. ``forward(xs, masks, remat_block)``: `masks` are the two
+    drop-path masks from :meth:`draw_masks` (or None); with `remat_block`
+    the proj ... MLP half is rematerialized, and so is the half before the
+    attention kernel: norm1 + qkv, or norm1 alone when the fused qkv +
+    attention op takes the normed input (its forward is not replayed: the
+    normed input it saves and its six outputs are what remat keeps)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, layerscale_init: float = 1e-4,
-                 drop_path: float = 0.0, *, device=None, dtype=None):
+                 drop_path: float = 0.0, proj_bias: bool = True, ffn_bias: bool = True,
+                 fuse_qkv: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = LayerNormD8(dim, **kw)
-        self.attn = AttentionD8(dim, num_heads, qkv_bias, **kw)
+        self.attn = AttentionD8(dim, num_heads, qkv_bias, proj_bias, fuse_qkv, **kw)
         self.ls1 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path1 = DropPathD8(drop_path)
         self.norm2 = LayerNormD8(dim, **kw)
-        self.mlp = MlpD8(dim, int(dim * mlp_ratio), **kw)
+        self.mlp = MlpD8(dim, int(dim * mlp_ratio), ffn_bias, **kw)
         self.ls2 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path2 = DropPathD8(drop_path)
 
@@ -329,6 +345,9 @@ class BlockD8(nn.Module):
         kw = dict(device=device, dtype=dtype)
         return (self.drop_path1.draw(batch, generator, **kw),
                 self.drop_path2.draw(batch, generator, **kw))
+
+    def _normed(self, *xs) -> tuple:
+        return self.norm1(xs)
 
     def _attn_in(self, *xs) -> tuple:
         return self.attn.qkv_arrays(self.norm1(xs))
@@ -343,5 +362,8 @@ class BlockD8(nn.Module):
     def forward(self, xs: tuple, masks: tuple = (None, None), remat_block: bool = False) -> tuple:
         if not remat_block:
             return self._attn_out(*xs, *self.attn.attend(self.norm1(xs)), *masks)
-        outs = octic_attention(*remat(self._attn_in, *xs), self.attn.num_heads)
+        if self.attn.fuse_qkv:
+            outs = self.attn.attend(remat(self._normed, *xs))
+        else:
+            outs = octic_attention(*remat(self._attn_in, *xs), self.attn.num_heads)
         return remat(self._attn_out, *xs, *outs, *masks)

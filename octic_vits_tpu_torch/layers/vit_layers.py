@@ -53,11 +53,12 @@ class DropPath(DropPathMask):
 
 
 class Mlp(nn.Module):
-    def __init__(self, in_features: int, hidden_features: int, *, device=None, dtype=None):
+    def __init__(self, in_features: int, hidden_features: int, bias: bool = True, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.fc1 = Linear(in_features, hidden_features, **kw)
-        self.fc2 = Linear(hidden_features, in_features, **kw)
+        self.fc1 = Linear(in_features, hidden_features, bias=bias, **kw)
+        self.fc2 = Linear(hidden_features, in_features, bias=bias, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -65,13 +66,13 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False, *,
-                 device=None, dtype=None):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False, proj_bias: bool = True,
+                 *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, **kw)
-        self.proj = Linear(dim, dim, **kw)
+        self.proj = Linear(dim, dim, bias=proj_bias, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(standard_attention(self.qkv(x), self.num_heads))
@@ -85,16 +86,17 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, layerscale_init: float = 1e-4, norm_eps: float = 1e-6,
-                 drop_path: float = 0.0, *, device=None, dtype=None):
+                 drop_path: float = 0.0, proj_bias: bool = True, ffn_bias: bool = True, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.layerscale_init = layerscale_init
         self.norm1 = LayerNorm(dim, eps=norm_eps, **kw)
-        self.attn = Attention(dim, num_heads, qkv_bias, **kw)
+        self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, **kw)
         self.gamma_1 = nn.Parameter(torch.empty(dim, **kw))
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=norm_eps, **kw)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), ffn_bias, **kw)
         self.gamma_2 = nn.Parameter(torch.empty(dim, **kw))
         self.drop_path2 = DropPath(drop_path)
 

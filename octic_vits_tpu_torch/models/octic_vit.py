@@ -1,9 +1,11 @@
 """Hybrid octic Vision Transformer (counterpart of
-octic_vits_tpu/models/octic_vit.py in the configurations the benchmark and
-the DeiT III trainer run: flat-E carry; in the octic blocks the fused
-qkv + attention and fused MLP kernels in eval mode, and
-``octic_attention`` and two ``linear_d8_fused`` kernels in train mode; the
-attention and fc1 + GELU kernels in the standard blocks).
+octic_vits_tpu/models/octic_vit.py in the configurations the benchmark, the
+DeiT III trainer and the DINOv2 trainer run: flat-E carry; in the octic
+blocks the fused qkv + attention and fused MLP kernels in eval mode, and
+``octic_attention`` (or, with ``fuse_qkv``, the fused qkv + attention) and
+two ``linear_d8_fused`` kernels in train mode; the attention and fc1 + GELU
+kernels in the standard blocks). The DINOv2 interface (mask tokens, the
+token dict) is models/dinov2_vit.py.
 
 The first ``break_layer`` blocks are D8-equivariant and carry the flat-E
 5-tuple; at the break the tuple is concatenated to ``[B, N, C]`` in
@@ -26,16 +28,25 @@ from torch import nn
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_2, pack_8_to_5f, unpack_5f_to_8
 from octic_vits_tpu_torch.d8.posembed import resize_posembed, unfold_quadrant
 from octic_vits_tpu_torch.layers.common import draw_block_masks
-from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, trunc_normal_
+from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, normal_, trunc_normal_
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, Linear
 
 
 class OcticVisionTransformer(nn.Module):
+    """``num_classes=0`` leaves out the head (``forward`` returns the
+    features); ``cls_init`` is "deit" (truncated normal 0.16) or "dinov2"
+    (normal 1e-6); ``fuse_qkv`` runs the octic blocks' qkv inside the fused
+    qkv + attention op in training too (the DINOv2 flags). Registers and the
+    invariant break are not ported yet and raise."""
+
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = False, init_scale: float = 1e-4,
-                 drop_path_rate: float = 0.0, remat: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None, *, device=None, dtype=None):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = False, proj_bias: bool = True,
+                 ffn_bias: bool = True, init_scale: float = 1e-4,
+                 drop_path_rate: float = 0.0, cls_init: str = "deit", fuse_qkv: bool = False,
+                 remat: bool = False, compute_dtype: Optional[torch.dtype] = None,
+                 num_register_tokens: int = 0, invariant: bool = False, *, device=None,
+                 dtype=None):
         super().__init__()
         if embed_dim % 8:
             raise ValueError("embed_dim must be divisible by 8")
@@ -44,11 +55,17 @@ class OcticVisionTransformer(nn.Module):
             raise ValueError("patch grid must be even for the quadrant pos-embed")
         if depth % 2:
             raise ValueError("depth must be even")
+        if num_register_tokens or invariant:
+            raise NotImplementedError("registers and the invariant break are not ported yet")
+        if cls_init not in ("deit", "dinov2"):
+            raise ValueError(f"cls_init must be 'deit' or 'dinov2', got {cls_init!r}")
         kw = dict(device=device, dtype=dtype)
         c8 = embed_dim // 8
         self.embed_dim = embed_dim
         self.patch_size = patch_size
+        self.depth = depth
         self.break_layer = depth // 2  # the first half of the blocks is octic
+        self.cls_init = cls_init
         self.remat = remat
         self.compute_dtype = compute_dtype
         self.patch_embed = PatchEmbedD8(patch_size, embed_dim, **kw)
@@ -57,23 +74,29 @@ class OcticVisionTransformer(nn.Module):
         # only the A1 slot of the cls token is a parameter; the others are 0
         self.cls_token_a1 = nn.Parameter(torch.empty(1, 1, c8, **kw))
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale,
-                      drop_path=drop_path_rate, **kw)
+                      drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
         self.blocks = nn.ModuleList(
-            BlockD8(embed_dim, num_heads, **common) if i < self.break_layer
+            BlockD8(embed_dim, num_heads, fuse_qkv=fuse_qkv, **common) if i < self.break_layer
             else Block(embed_dim, num_heads, norm_eps=1e-6, **common)
             for i in range(depth)
         )
         self.norm = LayerNorm(embed_dim, eps=1e-6, **kw)
-        self.head = Linear(embed_dim, num_classes, **kw)
+        self.head = Linear(embed_dim, num_classes, **kw) if num_classes > 0 else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         std = 8 * 0.02
         trunc_normal_(self.pos_embed, SQRT2_OVER_2 * std, generator)
-        trunc_normal_(self.cls_token_a1, std, generator)
+        if self.cls_init == "deit":
+            trunc_normal_(self.cls_token_a1, std, generator)
+        else:
+            normal_(self.cls_token_a1, 1e-6, generator)
+
+    def _pos_embed_8tuple(self, grid_hw: tuple) -> tuple:
+        pos8 = unfold_quadrant(tuple(self.pos_embed[i] for i in range(6)), dim=0)
+        return resize_posembed(pos8, grid_hw)
 
     def _add_pos(self, xs: tuple, grid_hw: tuple) -> tuple:
-        pos8 = unfold_quadrant(tuple(self.pos_embed[i] for i in range(6)), dim=0)
-        pos5 = pack_8_to_5f(resize_posembed(pos8, grid_hw))
+        pos5 = pack_8_to_5f(self._pos_embed_8tuple(grid_hw))
         dt = xs[0].dtype
         return tuple(x + p.reshape(-1, p.shape[-1]).to(dt) for x, p in zip(xs, pos5))
 
@@ -91,21 +114,29 @@ class OcticVisionTransformer(nn.Module):
         """Equivariance break: [A1|A2|B1|B2|E11|E21|E12|E22] along channels."""
         return torch.cat(unpack_5f_to_8(xs), dim=-1)
 
-    def forward_features(self, x: torch.Tensor,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, h, w, _ = x.shape
-        x = x.to(self.compute_dtype or self.pos_embed.dtype)
-        masks = draw_block_masks(self.blocks, b, generator, device=x.device, dtype=x.dtype)
+    def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The blocks on the token tuple: octic blocks, the break, standard
+        blocks. Every block's drop-path masks are drawn from `generator`
+        before the first block runs. Returns the pre-norm ``[B, N, C]``."""
+        masks = draw_block_masks(self.blocks, xs[0].shape[0], generator, device=xs[0].device,
+                                 dtype=xs[0].dtype)
         rb = self.remat and self.training
-        grid_hw = (h // self.patch_size, w // self.patch_size)
-        xs = self.patch_embed(x)
-        xs = self._cat_cls(self._add_pos(xs, grid_hw), b)
         for blk, m in zip(self.blocks[: self.break_layer], masks):
             xs = blk(xs, m, rb)
         z = self._break_to_flat(xs)
         for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
             z = blk(z, m, rb)
-        return self.norm(z)[:, 0]
+        return z
+
+    def forward_features(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        x = x.to(self.compute_dtype or self.pos_embed.dtype)
+        grid_hw = (h // self.patch_size, w // self.patch_size)
+        xs = self._cat_cls(self._add_pos(self.patch_embed(x), grid_hw), b)
+        return self.norm(self._trunk(xs, generator))[:, 0]
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.head(self.forward_features(x, generator))
+        z = self.forward_features(x, generator)
+        return z if self.head is None else self.head(z)
+

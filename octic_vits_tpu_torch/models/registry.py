@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from octic_vits_tpu_torch.models.dinov2_vit import DinoVisionTransformer, OcticDinoVisionTransformer
 from octic_vits_tpu_torch.models.octic_vit import OcticVisionTransformer
 from octic_vits_tpu_torch.models.vit import VisionTransformer
 
@@ -48,4 +49,51 @@ def hybrid_vit_small_test(img_size=64, **kwargs):
     return OcticVisionTransformer(
         img_size=img_size, patch_size=8, embed_dim=64, depth=4, num_heads=2,
         mlp_ratio=2.0, qkv_bias=True, num_classes=10, **kwargs,
+    )
+
+
+# DINOv2 backbones (the SSL recipe: LayerScale init 1e-5 unless the caller
+# sets another, biases on)
+
+
+@register_model
+def hybrid_dinov2_vit_large_patch16(img_size=224, **kwargs):
+    return OcticDinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=4.0, **{"init_scale": 1e-5, **kwargs},
+    )
+
+
+@register_model
+def hybrid_dinov2_vit_huge_patch16(img_size=224, **kwargs):
+    return OcticDinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1280, depth=32, num_heads=16,
+        mlp_ratio=4.0, **{"init_scale": 1e-5, **kwargs},
+    )
+
+
+@register_model
+def dinov2_vit_large_patch16(img_size=224, **kwargs):
+    return DinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=4.0, **{"layerscale_init": 1e-5, **kwargs},
+    )
+
+
+@register_model
+def dinov2_vit_huge_patch16(img_size=224, **kwargs):
+    return DinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1280, depth=32, num_heads=16,
+        mlp_ratio=4.0, **{"layerscale_init": 1e-5, **kwargs},
+    )
+
+
+@register_model
+def hybrid_dinov2_vit_tiny_test(img_size=32, **kwargs):
+    """The micro octic DINOv2 backbone of the SSL tests
+    (tests/test_ssl_training.py:_test_octic_dinov2)."""
+    kwargs.setdefault("drop_path_rate", 0.0)
+    return OcticDinoVisionTransformer(
+        img_size=img_size, patch_size=8, embed_dim=32, depth=2, num_heads=2,
+        mlp_ratio=2.0, **{"init_scale": 1e-5, **kwargs},
     )

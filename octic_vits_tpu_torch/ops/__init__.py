@@ -7,6 +7,8 @@ from octic_vits_tpu_torch.ops.attention import (
     octic_attention_bwd,
     octic_attention_bwd_reference,
     octic_attention_fused_qkv,
+    octic_attention_fused_qkv_bwd,
+    octic_attention_fused_qkv_bwd_reference,
     octic_attention_fused_qkv_reference,
     octic_attention_reference,
     standard_attention,
@@ -17,6 +19,8 @@ from octic_vits_tpu_torch.ops.attention import (
 from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_bwd, gelu_d8_eager, gelu_exact, gelu_grad
 from octic_vits_tpu_torch.ops.linear import (
+    lin_d8_bwd_launch,
+    lin_d8_bwd_reference,
     linear_d8,
     linear_d8_fused,
     linear_d8_fused_bwd,
@@ -28,11 +32,12 @@ from octic_vits_tpu_torch.ops.linear import (
 
 #: the four kernel ops of the inference path
 INFERENCE_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_d8_fused)
-#: every kernel op, each with its own launch counter (the train path runs
-#: standard_attention, its backward, octic_attention, its backward,
-#: linear_d8_fused and dense_gelu)
+#: every kernel op, each with its own launch counter (the DeiT III train path
+#: runs standard_attention, its backward, octic_attention, its backward,
+#: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
+#: fused qkv + attention)
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
-                              linear_d8_fused)
+                              linear_d8_fused, octic_attention_fused_qkv_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +60,8 @@ __all__ = [
     "gelu_exact",
     "gelu_grad",
     "launch_counts",
+    "lin_d8_bwd_launch",
+    "lin_d8_bwd_reference",
     "linear_d8",
     "linear_d8_fused",
     "linear_d8_fused_bwd",
@@ -66,6 +73,8 @@ __all__ = [
     "octic_attention_bwd",
     "octic_attention_bwd_reference",
     "octic_attention_fused_qkv",
+    "octic_attention_fused_qkv_bwd",
+    "octic_attention_fused_qkv_bwd_reference",
     "octic_attention_fused_qkv_reference",
     "octic_attention_reference",
     "reset_launch_counts",

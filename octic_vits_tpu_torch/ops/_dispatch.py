@@ -59,9 +59,9 @@ def row_stride(t: torch.Tensor, name: str, shape: tuple) -> int:
 
 
 def forward_only(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
-    """A fused inference kernel with no backward kernel (ROADMAP Queue 2)
+    """A fused inference kernel with no backward kernel (the fused octic MLP)
     refuses to run where autograd would record it: its output would carry
     no gradient."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: inference kernel without a backward; train through "
-                           "octic_attention and linear_d8_fused")
+                           "linear_d8_fused")

@@ -10,10 +10,13 @@ layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
   Head h's dh = C/H channels are a1|a2|b1|b2 (d1 = C/(8H) each) and the two
   E rows (de = C/(4H) each); the scale is dh^-0.5, as in the standard case.
 * :func:`octic_attention_fused_qkv`: the flat-E tuple after the norm plus
-  the block-diagonal qkv weights -> the same outputs (inference only).
+  the block-diagonal qkv weights -> the same outputs; differentiable, its
+  backward recomputes the qkv and ends in the K-lin-d8-bwd kernel
+  (csrc/lin_d8_bwd.cu) on the card.
 
-As in the JAX custom VJPs, the backward saves only the qkv and recomputes
-the probabilities.
+As in the JAX custom VJPs, each backward saves only the op's inputs (the
+qkv arrays; for the fused op the normed input and the qkv weights) and
+recomputes the probabilities (and, for the fused op, the qkv).
 """
 
 from __future__ import annotations
@@ -23,13 +26,13 @@ from typing import Optional
 import torch
 
 from octic_vits_tpu_torch import kernels
-from octic_vits_tpu_torch.ops._dispatch import (
-    check_kernel_arg,
-    forward_only,
-    on_cuda,
-    row_stride,
+from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_stride
+from octic_vits_tpu_torch.ops.linear import (
+    lin_d8_bwd_launch,
+    lin_d8_bwd_reference,
+    lin_d8_launch,
+    linear_d8,
 )
-from octic_vits_tpu_torch.ops.linear import lin_d8_launch, linear_d8
 
 MAX_HEAD_DIM = 128  # the kernels' widest instantiation (csrc/attention*.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
@@ -231,12 +234,9 @@ def _octic_rows_launch(qs: tuple, num_heads: int) -> tuple:
     return outs
 
 
-def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
-    """The six qkv gradients from the six qkv arrays and the six output
-    cotangents. CPU tensors take :func:`octic_attention_bwd_reference`; CUDA
-    tensors launch K-attn-bwd (csrc/attention_bwd.cu) in its octic layout."""
-    if not on_cuda(tuple(qs) + tuple(gs)):
-        return octic_attention_bwd_reference(qs, gs, num_heads)
+def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """One K-attn-bwd launch in the octic layout; the qkv arrays and the
+    cotangents may be column slices of larger tensors. Counts nothing."""
     b, n, c8, d1, de = _octic_dims(qs, num_heads)
     _check_attention_bwd_shape(n, 8 * d1)
     lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
@@ -245,10 +245,19 @@ def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     kw = dict(device=qs[0].device, dtype=qs[0].dtype)
     grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
     stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
-    octic_attention_bwd.launches += 1
     kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
                    b, n, num_heads, d1, de)
     return grads
+
+
+def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """The six qkv gradients from the six qkv arrays and the six output
+    cotangents. CPU tensors take :func:`octic_attention_bwd_reference`; CUDA
+    tensors launch K-attn-bwd (csrc/attention_bwd.cu) in its octic layout."""
+    if not on_cuda(tuple(qs) + tuple(gs)):
+        return octic_attention_bwd_reference(qs, gs, num_heads)
+    octic_attention_bwd.launches += 1
+    return _octic_bwd_launch(qs, gs, num_heads)
 
 
 class _OcticAttention(torch.autograd.Function):
@@ -288,10 +297,85 @@ def octic_attention_fused_qkv_reference(a1, a2, b1, b2, ef, w1, we,
     dt = a1.dtype
     xs = tuple(t.float() for t in (a1, a2, b1, b2, ef))
     qkv = linear_d8(xs, w1.float(), we.float(), None if bias is None else bias.float())
-    qkv = tuple(t.to(dt) for t in qkv)
+    return octic_attention_reference(*_qkv_rows(tuple(t.to(dt) for t in qkv)), num_heads)
+
+
+def _fused_qkv_dims(xs: tuple, w1: torch.Tensor, num_heads: int) -> tuple:
+    b, n, c8 = xs[0].shape
+    if c8 % num_heads:
+        raise ValueError(f"octic_attention_fused_qkv: C={8 * c8} with {num_heads} heads unsupported")
+    if tuple(w1.shape) != (4, c8, 3 * c8):
+        raise ValueError(f"octic_attention_fused_qkv: w1 {tuple(w1.shape)}, "
+                         f"expected {(4, c8, 3 * c8)}")
+    return b, n, c8
+
+
+def _qkv_rows(qkv: tuple) -> tuple:
+    """The attention kernel's six inputs from a flat-E qkv 5-tuple: e0, e1
+    are the column halves of its E tensor (views, no copy)."""
     half = qkv[4].shape[-1] // 2
-    return octic_attention_reference(*qkv[:4], qkv[4][..., :half], qkv[4][..., half:],
-                                     num_heads)
+    return qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:])
+
+
+def octic_attention_fused_qkv_bwd_reference(xs: tuple, w1, we, bias: Optional[torch.Tensor],
+                                            gs: tuple, num_heads: int) -> tuple:
+    """Plain backward of the fused op, the eager rule of the JAX package
+    (pallas_attention.py:_fused_bwd_rule_eager) in f32: recompute the qkv
+    (rounded to the input dtype, where the kernel chain stores it), the
+    attention backward (its dqkv rounded likewise), then the LinearD8
+    transpose and weight products (:func:`lin_d8_bwd_reference`).
+
+    Returns ``(da1, da2, db1, db2, def, dw1, dwe, dbias or None)``."""
+    dt = xs[0].dtype
+    qkv = linear_d8(tuple(t.float() for t in xs), w1.float(), we.float(),
+                    None if bias is None else bias.float())
+    dq = octic_attention_bwd_reference(_qkv_rows(tuple(t.to(dt) for t in qkv)), gs, num_heads)
+    dxs, dw1, dwe, dbias = lin_d8_bwd_reference(xs, w1, we, dq[:4], dq[4:], bias)
+    return dxs + (dw1, dwe, dbias)
+
+
+def octic_attention_fused_qkv_bwd(xs: tuple, w1, we, bias: Optional[torch.Tensor], gs: tuple,
+                                  num_heads: int) -> tuple:
+    """Backward of :func:`octic_attention_fused_qkv` from its residuals (the
+    flat-E input tuple `xs` and the qkv weights, what the JAX custom VJP
+    saves) and the six output cotangents `gs`.
+
+    CPU tensors take :func:`octic_attention_fused_qkv_bwd_reference`. CUDA
+    tensors run the chain K-lin-d8 (recompute the flat-E qkv) -> K-attn-bwd
+    in its octic layout (the E rows as column slices) -> K-lin-d8-bwd
+    (csrc/lin_d8_bwd.cu: dx, dw1, dwe and dbias, no atomics); the qkv and
+    its gradient live only between these launches.
+
+    Returns ``(da1, da2, db1, db2, def, dw1, dwe, dbias or None)``."""
+    if not on_cuda(tuple(xs) + (w1, we, bias) + tuple(gs)):
+        return octic_attention_fused_qkv_bwd_reference(xs, w1, we, bias, gs, num_heads)
+    _, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
+    _check_attention_bwd_shape(n, c8 // num_heads * 8)
+    octic_attention_fused_qkv_bwd.launches += 1
+    qkv = lin_d8_launch(tuple(xs), w1, we, bias, gelu=False)
+    dq = _octic_bwd_launch(_qkv_rows(qkv), tuple(gs), num_heads)
+    dxs, dw1, dwe, dbias = lin_d8_bwd_launch(tuple(xs), w1, we, dq[:4], dq[4:], bias is not None)
+    return dxs + (dw1, dwe, dbias)
+
+
+class _OcticAttentionFusedQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, w1, we, bias, *xs):
+        ctx.save_for_backward(w1, we, bias, *xs)
+        ctx.num_heads = num_heads
+        if not on_cuda(xs + (w1, we, bias)):
+            return octic_attention_fused_qkv_reference(*xs, w1, we, bias, num_heads)
+        _, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
+        _check_attention_shape(n, c8 // num_heads * 8)
+        octic_attention_fused_qkv.launches += 1
+        return _octic_rows_launch(_qkv_rows(lin_d8_launch(xs, w1, we, bias, gelu=False)),
+                                  num_heads)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        w1, we, bias, *xs = ctx.saved_tensors
+        grads = octic_attention_fused_qkv_bwd(tuple(xs), w1, we, bias, gs, ctx.num_heads)
+        return (None,) + grads[5:] + grads[:5]
 
 
 def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.Tensor],
@@ -301,22 +385,11 @@ def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.T
     -> ``(o1, o2, o3, o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``.
 
     CPU tensors take the reference; CUDA tensors launch K-lin-d8 (the qkv
-    5-tuple, no epilogue) and then K-attn in its octic head layout. Inference
-    only on the card: there is no backward kernel for the fused op."""
-    if not on_cuda((a1, a2, b1, b2, ef, w1, we, bias)):
-        return octic_attention_fused_qkv_reference(a1, a2, b1, b2, ef, w1, we, bias, num_heads)
-    forward_only("octic_attention_fused_qkv", (a1, a2, b1, b2, ef, w1, we, bias))
-    b, n, c8 = a1.shape
-    if c8 % num_heads:
-        raise ValueError(f"octic_attention_fused_qkv: C={8 * c8} with {num_heads} heads unsupported")
-    if tuple(w1.shape) != (4, c8, 3 * c8):
-        raise ValueError(f"octic_attention_fused_qkv: w1 {tuple(w1.shape)}, "
-                         f"expected {(4, c8, 3 * c8)}")
-    _check_attention_shape(n, c8 // num_heads * 8)
-    octic_attention_fused_qkv.launches += 1
-    qkv = lin_d8_launch((a1, a2, b1, b2, ef), w1, we, bias, gelu=False)
-    half = 3 * c8 * 2
-    return _octic_rows_launch(qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:]), num_heads)
+    5-tuple, no epilogue) and then K-attn in its octic head layout. The
+    gradient goes through :func:`octic_attention_fused_qkv_bwd`; only the
+    inputs and the weights are saved, as in the JAX custom VJP."""
+    return _OcticAttentionFusedQKV.apply(num_heads, w1, we, bias, a1, a2, b1, b2, ef)
 
 
 octic_attention_fused_qkv.launches = 0
+octic_attention_fused_qkv_bwd.launches = 0

@@ -5,7 +5,10 @@
   with an optional D8-GELU epilogue, differentiable (the train path's octic
   fc1 and fc2);
 * :func:`mlp_d8_fused`: the octic MLP fc1 -> D8-GELU -> fc2 for inference
-  (the JAX mlp_d8_tuple wrapper, here taking the five tensors directly).
+  (the JAX mlp_d8_tuple wrapper, here taking the five tensors directly);
+* :func:`lin_d8_bwd_launch`: K-lin-d8-bwd, the transpose and weight
+  gradients of one LinearD8, which the backward of the fused octic qkv +
+  attention (ops/attention.py) ends with.
 
 Layouts: ``xs = (a1, a2, b1, b2, ef)`` with ``a* [..., c]`` and
 ``ef [..., 4c] = [row0 | row1]``; weights ``w1 [4, c, f]`` (one per 1-d
@@ -78,6 +81,63 @@ def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     yef = torch.empty(*lead, 4 * f, **kw)
     kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, yef, m, c, f, int(gelu))
     return ys + (yef,)
+
+
+NUM_SMS = 132  # streaming multiprocessors of the H100 (SXM)
+
+
+def lin_d8_bwd_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, de: tuple,
+                         bias: Optional[torch.Tensor]) -> tuple:
+    """Plain version of K-lin-d8-bwd: the transpose and the weight gradients
+    of the LinearD8 ``xs -> (q_1..q_4, [e_0 | e_1])`` for the cotangents
+    ``dq`` (4 x ``[..., F]``) and ``de`` (2 x ``[..., 2F]``, one per E row).
+    f32 math; dx in the input dtype, dW and dbias in the weights' dtype.
+
+    Returns ``(dxs (5-tuple), dw1, dwe, dbias or None)``."""
+    dt = xs[0].dtype
+    c, f = w1.shape[1], w1.shape[2]
+    w1f, wef = w1.float(), we.float()
+    dqf = [t.float().reshape(-1, f) for t in dq]
+    def_ = [t.float().reshape(-1, 2 * f) for t in de]
+    x1 = [t.float().reshape(-1, c) for t in xs[:4]]
+    rows = xs[4].float().reshape(-1, 2, 2 * c)
+    lead = xs[0].shape[:-1]
+    dxs = tuple(torch.matmul(dqf[g], w1f[g].t()).reshape(*lead, c).to(dt) for g in range(4))
+    dxe = torch.cat([torch.matmul(def_[r], wef.t()) for r in range(2)], dim=-1)
+    dw1 = torch.stack([torch.matmul(x1[g].t(), dqf[g]) for g in range(4)])
+    dwe = sum(torch.matmul(rows[:, r].t(), def_[r]) for r in range(2))
+    dbias = None if bias is None else dqf[0].sum(0).to(bias.dtype)
+    return (dxs + (dxe.reshape(*lead, 4 * c).to(dt),), dw1.to(w1.dtype), dwe.to(we.dtype),
+            dbias)
+
+
+def lin_d8_bwd_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, de: tuple,
+                      with_bias: bool) -> tuple:
+    """One launch of K-lin-d8-bwd (csrc/lin_d8_bwd.cu: three kernels in
+    stream order, no atomics) on CUDA bf16 tensors; the same outputs as
+    :func:`lin_d8_bwd_reference`. The weight gradients reduce the token axis
+    in ``splits`` fixed chunks, enough for the 96 64x64 weight tiles of
+    ViT-L/16 to fill the card, through an f32 scratch. Counts nothing."""
+    _, c, f = w1.shape
+    if c % 8 or f % 8:
+        raise ValueError(f"lin_d8_bwd: widths c={c}, f={f} must be multiples of 8")
+    lead = _check_tuple(xs, c)
+    check_kernel_arg(w1, "w1", (4, c, f))
+    check_kernel_arg(we, "we", (2 * c, 2 * f))
+    for g in range(4):
+        check_kernel_arg(dq[g], f"dq[{g}]", lead + (f,))
+    for r in range(2):
+        check_kernel_arg(de[r], f"de[{r}]", lead + (2 * f,))
+    m = xs[0].numel() // c
+    tiles = 4 * -(-c // 64) * -(-f // 64) + -(-2 * c // 64) * -(-2 * f // 64)
+    splits = max(1, min(8, -(-4 * NUM_SMS // tiles), m // 512))
+    dxs = tuple(torch.empty_like(x) for x in xs)
+    dw1, dwe = torch.empty_like(w1), torch.empty_like(we)
+    dbias = torch.empty(f, device=w1.device, dtype=w1.dtype) if with_bias else None
+    scratch = torch.empty(splits * (8 * c * f + f), device=w1.device, dtype=torch.float32)
+    kernels.launch("ovt_lin_d8_bwd", *xs, w1, we, *dq, *de, *dxs, dw1, dwe, dbias, scratch,
+                   m, c, f, splits)
+    return dxs, dw1, dwe, dbias
 
 
 def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:

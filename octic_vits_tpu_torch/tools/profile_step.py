@@ -1,0 +1,156 @@
+"""Where the time of one train step goes on the card: ``torch.profiler`` over
+one step of the hybrid and of the standard model of a cell, after warm-up.
+
+    python3 -m octic_vits_tpu_torch.tools.profile_step ssl    # DINOv2, ViT-L/16, B=32
+    python3 -m octic_vits_tpu_torch.tools.profile_step deit   # DeiT III, ViT-H/14, B=32
+
+For each model it prints the profiled step's wall time, the device's busy
+time (the sum of the kernels' device time; one stream) and idle share, the
+number of kernel launches, the device time by kind (the hand-written
+kernels of this package, library GEMMs, everything else), the top kernels
+and every hand-written one, and last one JSON line with those numbers. The
+profiler adds host time to every launch, so the profiled wall time is longer
+than an unprofiled step's. The models, batches and step settings are those
+of ``chip_smoke.py`` P7 and P10 (which time the unprofiled steps), with
+seeded random weights and inputs. Run from the repository root (it imports
+``chip_smoke``); needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+SEED = 0
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _ssl_cell(arch_name: str):
+    import chip_smoke
+    from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    arch = SSLMetaArch(SSLConfig(arch=arch_name, backbone_remat=True), device="cuda")
+    state = arch.init(torch.Generator("cuda").manual_seed(SEED))
+    step = arch.make_train_step()
+    lr = sqrt_lr_scaling(4e-3, chip_smoke.SSL_BATCH)
+    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
+    batch = batch_to_device(chip_smoke.ssl_batch(chip_smoke.SSL_BATCH, SEED + 5), "cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0], batch, sched, gen)
+
+    return run
+
+
+def _deit_cell(arch_name: str):
+    import chip_smoke
+    from octic_vits_tpu_torch import create_model, init_weights
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
+
+    cfg = DeiTConfig()
+    model = create_model(arch_name, remat=True, drop_path_rate=cfg.drop_path,
+                         compute_dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator("cuda").manual_seed(SEED))
+    state, step = chip_smoke.train_setup(model, cfg)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    images = torch.randn(chip_smoke.TRAIN_BATCH, 224, 224, 3, generator=gen).cuda()
+    labels = torch.randint(0, 1000, (chip_smoke.TRAIN_BATCH,), generator=gen).cuda()
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0], images, labels, gen)
+
+    return run
+
+
+CELLS = {
+    "ssl": (_ssl_cell, ("hybrid_dinov2_vit_large_patch16", "dinov2_vit_large_patch16")),
+    "deit": (_deit_cell, ("hybrid_deit_huge_patch14", "deit_huge_patch14_LS")),
+}
+
+
+def _kind(name: str) -> str:
+    if "ovt::" in name or name.startswith("ovt"):
+        return "hand-written"
+    if any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
+        return "library GEMM"
+    return "other"
+
+
+def profile(run, warmup: int = 3, top: int = 12) -> dict:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if e.key.startswith("cudaLaunchKernel"):
+            launches += e.count
+        dev = getattr(e, "self_device_time_total", 0.0)
+        # ranges such as "Optimizer.step#Lamb.step" carry the device time of
+        # the kernels inside them a second time: kernels only (a kernel's own
+        # name may hold a "#", as in "{lambda()#3}")
+        annotation = getattr(e, "is_user_annotation", False) or e.key.startswith(
+            ("Optimizer.", "ProfilerStep"))
+        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA and not annotation:
+            kernels[e.key] = (kernels.get(e.key, (0, 0.0))[0] + e.count,
+                              kernels.get(e.key, (0, 0.0))[1] + dev / 1e3)
+    busy = sum(ms for _, ms in kernels.values())
+    by_kind = {}
+    for name, (_, ms) in kernels.items():
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    shown = ranked[:top] + [kv for kv in ranked[top:] if _kind(kv[0]) == "hand-written"]
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "kernel_launches": launches, "by_kind_ms": by_kind,
+            "top": [(name[:90], count, ms) for name, (count, ms) in shown]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 2
+    cell = sys.argv[1] if len(sys.argv) > 1 else "ssl"
+    build, names = CELLS[cell]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card()
+    print(card, flush=True)
+    results = {}
+    for name in names:
+        res = profile(build(name))
+        results[name] = res
+        print(f"{cell} {name}: wall {res['wall_ms']:.2f} ms, device busy "
+              f"{res['device_busy_ms']:.2f} ms, idle share {res['idle_share']:.3f}, "
+              f"{res['kernel_launches']} kernel launches; by kind (ms) "
+              f"{ {k: round(v, 2) for k, v in res['by_kind_ms'].items()} }", flush=True)
+        for kname, count, ms in res["top"]:
+            print(f"    {ms:9.3f} ms {count:6d}x  {kname}", flush=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"cell": cell, "card": card, "results": results}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,8 +10,12 @@ mechanical:
   hybrid model continuing after ``model.break_layer``;
 * flax ``Dense.kernel [in, out]`` -> torch ``Linear.weight [out, in]``;
 * flax ``LayerNorm.scale`` -> ``weight`` (``bias`` keeps its name);
-* every other leaf (the D8 parameters, pos-embed, cls token, LayerScale
-  gammas) keeps its name and layout.
+* every other leaf (the D8 parameters, pos-embed, cls and mask tokens,
+  LayerScale gammas, the DINO head's ``last_layer`` ``v`` and ``g``) keeps
+  its name and layout.
+
+A tree of several models (the DINOv2 student ``{"backbone": ..., "dino_head":
+...}``) maps onto an ``nn.ModuleDict`` with the same keys.
 """
 
 from __future__ import annotations
@@ -36,15 +40,20 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
 
 
 def _unstack(flat: Dict[tuple, np.ndarray], model: nn.Module) -> Dict[tuple, np.ndarray]:
+    """Trunk paths -> ``blocks.{i}``; the trunk may sit below a prefix (the
+    ``backbone`` of an SSL student), whose module gives the break layer."""
     out = {}
     for path, arr in flat.items():
-        head = path[0]
-        if head in _SCANNED and len(path) > 2 and path[1] == "block":
-            offset = getattr(model, "break_layer", 0) if _SCANNED[head] else 0
-            for i in range(arr.shape[0]):
-                out[("blocks", str(i + offset)) + path[2:]] = arr[i]
-        elif head.startswith("blocks_"):
-            out[("blocks", head[len("blocks_"):]) + path[1:]] = arr
+        for k, head in enumerate(path):
+            if head in _SCANNED and len(path) > k + 2 and path[k + 1] == "block":
+                trunk = model.get_submodule(".".join(path[:k]))
+                offset = getattr(trunk, "break_layer", 0) if _SCANNED[head] else 0
+                for i in range(arr.shape[0]):
+                    out[path[:k] + ("blocks", str(i + offset)) + path[k + 2:]] = arr[i]
+                break
+            if head.startswith("blocks_"):
+                out[path[:k] + ("blocks", head[len("blocks_"):]) + path[k + 1:]] = arr
+                break
         else:
             out[path] = arr
     return out

@@ -173,10 +173,14 @@ def test_attention_autograd_launches_backward_kernels(gen):
 
 
 def test_fused_inference_ops_refuse_autograd(gen):
-    xs = [_randn(gen, 1, 5, 8).requires_grad_() for _ in range(4)]
-    xs.append(_randn(gen, 1, 5, 32))
-    with pytest.raises(RuntimeError):
-        ops.octic_attention_fused_qkv(*xs, _randn(gen, 4, 8, 24), _randn(gen, 16, 48), None, 1)
+    """The fused octic MLP has no backward kernel: a forward that autograd
+    would record raises (the fused qkv + attention has one since the DINOv2
+    slice: test_octic_attention_fused_qkv_autograd_launches_bwd_chain)."""
+    xs = tuple(_randn(gen, 1, 5, 8).requires_grad_() for _ in range(4)) + (
+        _randn(gen, 1, 5, 32),)
+    with pytest.raises(RuntimeError, match="without a backward"):
+        ops.mlp_d8_fused(xs, _randn(gen, 4, 8, 16), _randn(gen, 16, 32), None,
+                         _randn(gen, 4, 16, 8), _randn(gen, 32, 16), None)
 
 
 def test_eval_mode_model_refuses_autograd(gen):
@@ -217,7 +221,7 @@ def test_small_hybrid_model_on_card(gen):
     assert ops.launch_counts() == {
         "standard_attention": 2, "octic_attention_fused_qkv": 2, "dense_gelu": 2,
         "mlp_d8_fused": 2, "standard_attention_bwd": 0, "octic_attention": 0,
-        "octic_attention_bwd": 0, "linear_d8_fused": 0}
+        "octic_attention_bwd": 0, "linear_d8_fused": 0, "octic_attention_fused_qkv_bwd": 0}
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 5e-2
 
@@ -252,6 +256,117 @@ def test_small_hybrid_train_step_on_card(gen):
     loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
     loss.backward()
     assert abs(metrics["loss"].item() - loss.item()) <= 5e-2 * abs(loss.item())
+    a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
+    b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
+
+
+# ---- the DINOv2 slice: K-lin-d8-bwd and the backward of the fused qkv + attention
+
+
+def _fused_bwd_args(gen, b, n, c, bias):
+    """Residuals of the fused op (flat-E input, qkv weights) and its six
+    output cotangents, the E ones as column slices of one [B, N, C/2]
+    tensor (the proj's input gradient on the train path)."""
+    c8 = c // 8
+    xs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+    w1 = _randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5)
+    we = _randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5)
+    bq = _randn(gen, 3 * c8, scale=0.1) if bias else None
+    ge = _randn(gen, b, n, 4 * c8)
+    gs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (ge[..., :2 * c8], ge[..., 2 * c8:])
+    return xs, w1, we, bq, gs
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_lin_d8_bwd_kernel(gen, b, n, c, heads, bias):
+    """K-lin-d8-bwd alone: bf16 operands, f32 sums, one bf16 rounding of each
+    output on both sides, so the elementwise bar of the forward kernels."""
+    c8 = c // 8
+    xs, w1, we, bq, _ = _fused_bwd_args(gen, b, n, c, bias)
+    dq = tuple(_randn(gen, b, n, 3 * c8) for _ in range(4))
+    de = tuple(_randn(gen, b, n, 6 * c8) for _ in range(2))
+    dxs, dw1, dwe, db = ops.lin_d8_bwd_launch(xs, w1, we, dq, de, bias)
+    torch.cuda.synchronize()
+    rxs, rw1, rwe, rb = ops.lin_d8_bwd_reference(xs, w1, we, dq, de, bq)
+    _assert_close(dxs + (dw1, dwe), rxs + (rw1, rwe))
+    assert (db is None) == (rb is None)
+    if bias:
+        _assert_close(db, rb)
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_fused_qkv_bwd_kernel(gen, b, n, c, heads, bias):
+    """The chain K-lin-d8 -> K-attn-bwd -> K-lin-d8-bwd against the plain
+    backward, with the scaled bar of the attention backward kernels."""
+    xs, w1, we, bq, gs = _fused_bwd_args(gen, b, n, c, bias)
+    out = _counted(ops.octic_attention_fused_qkv_bwd, xs, w1, we, bq, gs, heads)
+    ref = ops.octic_attention_fused_qkv_bwd_reference(xs, w1, we, bq, gs, heads)
+    assert (out[7] is None) == (not bias)
+    _assert_close_scaled(tuple(t for t in out if t is not None),
+                         tuple(t for t in ref if t is not None))
+
+
+def test_octic_attention_fused_qkv_autograd_launches_bwd_chain(gen):
+    xs, w1, we, bq, gs = _fused_bwd_args(gen, 2, 37, 128, True)
+    leaves = tuple(t.detach().requires_grad_() for t in xs + (w1, we, bq))
+    ops.reset_launch_counts()
+    outs = ops.octic_attention_fused_qkv(*leaves, 2)
+    torch.autograd.backward(outs, gs)
+    counts = ops.launch_counts()
+    assert counts["octic_attention_fused_qkv"] == counts["octic_attention_fused_qkv_bwd"] == 1
+    assert counts["octic_attention_bwd"] == 0  # the chain counts once, under its own name
+    ref = ops.octic_attention_fused_qkv_bwd_reference(xs, w1, we, bq, gs, 2)
+    _assert_close_scaled(tuple(t.grad for t in leaves), ref)
+
+
+def test_small_ssl_step_on_card(gen):
+    """One DINOv2 step of a small hybrid (embed 64, the DINOv2 train flags,
+    remat, bf16 compute over f32 parameters) on the card against the same
+    weights in f32 on the CPU: loss within 5e-2 and gradient cosine above
+    0.99 (the bars of chip_smoke.py P9); every SSL kernel launched."""
+    import random
+
+    import numpy as np
+
+    from octic_vits_tpu_torch import init_weights as init
+    from octic_vits_tpu_torch.models import DINOHead, OcticDinoVisionTransformer
+    from octic_vits_tpu_torch.train.dinov2.masking import MaskingGenerator, collate_crops_and_masks
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    def student(device, dtype, remat):
+        backbone = OcticDinoVisionTransformer(
+            img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=2, mlp_ratio=2.0,
+            init_scale=1.0, fuse_qkv=True, remat=remat, compute_dtype=dtype, device=device)
+        return torch.nn.ModuleDict({"backbone": backbone,
+                                    "dino_head": DINOHead(64, 128, 64, 32, device=device)})
+
+    kw = dict(img_size=32, local_crop_size=16, patch_size=8, drop_path_rate=0.0, dino_out_dim=128,
+              ibot_out_dim=128, n_local_crops=2)
+    cpu = student("cpu", None, False)
+    init(cpu, torch.Generator().manual_seed(0))
+    card = student("cuda", torch.bfloat16, True)
+    card.load_state_dict(cpu.state_dict())
+    npr = np.random.RandomState(0)
+    batch = collate_crops_and_masks(npr.randn(4, 32, 32, 3), npr.randn(4, 16, 16, 3), 16,
+                                    MaskingGenerator(4, num_masking_patches=8),
+                                    rng=random.Random(0))
+    results = []
+    for model, dtype, device in ((card, torch.bfloat16, "cuda"), (cpu, None, "cpu")):
+        arch = SSLMetaArch(SSLConfig(compute_dtype=dtype, **kw), device=device)
+        state = arch.state_from_student(model)
+        ops.reset_launch_counts()
+        loss, _ = arch.forward_backward(state, batch_to_device(batch, device), 0.04)
+        results.append((loss.item(), ops.launch_counts()))
+    (card_loss, counts), (cpu_loss, _) = results
+    assert counts["octic_attention_fused_qkv_bwd"] == 2 and counts["octic_attention_bwd"] == 0
+    assert counts["octic_attention_fused_qkv"] == 3 and counts["mlp_d8_fused"] == 1
+    assert counts["linear_d8_fused"] == 8 and counts["standard_attention_bwd"] == 2
+    assert abs(card_loss - cpu_loss) <= 5e-2 * abs(cpu_loss)
     a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
     b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99

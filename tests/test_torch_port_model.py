@@ -2,8 +2,9 @@
 the hybrid OcticVisionTransformer with the exact bench.py flag set and the
 standard VisionTransformer, from both the unscanned and the scanned flax
 parameter trees (params_from_jax, strict loading). atol 1e-4 is the bar of
-tests/test_models_kernels.py. Also: chip_smoke.py refuses to run without a
-CUDA device."""
+tests/test_models_kernels.py. Also: a scanned DINOv2 backbone below the SSL
+student's "backbone" key, and chip_smoke.py refusing to run without a CUDA
+device."""
 
 import os
 import subprocess
@@ -95,3 +96,30 @@ def test_chip_smoke_fails_without_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_scanned_dinov2_backbone_below_a_prefix():
+    """The JAX SSL state's student tree, {"backbone": <scanned backbone>,
+    "dino_head": ...}, loads strictly into the port's student ModuleDict:
+    the trunk sits below the "backbone" key, whose module gives the break
+    layer at which the standard stack continues. The backbone's cls features
+    then match the flax model's."""
+    from octic_vits_tpu.models import OcticDinoVisionTransformer as JOcticDino
+    from octic_vits_tpu.models.dino_head import DINOHead as JDINOHead
+    from octic_vits_tpu_torch.models import DINOHead, OcticDinoVisionTransformer
+
+    cfg = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=2, mlp_ratio=2.0,
+               init_scale=1.0)
+    img = _images(32, seed=6)
+    jmodel = JOcticDino(**cfg, scan_blocks=True)
+    params = _perturbed_params(jmodel, img, seed=7)
+    ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(img)))
+    head = JDINOHead(out_dim=16, hidden_dim=8, bottleneck_dim=8).init(
+        jax.random.PRNGKey(8), jnp.zeros((1, 64)))["params"]
+    student = torch.nn.ModuleDict({"backbone": OcticDinoVisionTransformer(**cfg),
+                                   "dino_head": DINOHead(64, 16, 8, 8)})
+    sd = params_from_jax({"backbone": params, "dino_head": head}, student)
+    student.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        ours = student["backbone"].eval()(torch.from_numpy(img)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=ATOL)
