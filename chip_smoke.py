@@ -43,6 +43,24 @@ Phases, one line each (any failure raises and exits non-zero):
   P10 SSL timing  hybrid against dinov2_vit_large_patch16 at B=32: median ms
              over 10 steps after 2 warm-up, range, img/s (B images a step),
              ratio, peak device memory
+  P11 glue kernels  the octic block's fused-glue kernels against their plain
+             versions: the D8 LayerNorm forward with its affine, the
+             statistics-only LN pair, the proj with the LayerScale + residual
+             epilogue and the fused MLP branch at ViT-H/14 B=64; the affine LN
+             backward and the D8-GELU forward and backward on the MLP hidden at
+             B=32; all of them at the ragged shape; then one forward and
+             backward of LayerNormD8(elementwise_affine=False), the only caller
+             of the statistics-only pair
+  P12 path A  hybrid ViT-H/14 B=64 bf16 with fuse_mlp_branch and the LN kernel
+             (OCTIC_PALLAS_LN): launches of every kernel, logits of two images
+             against P3's CPU f32 logits (same weights)
+  P13 path B  the same with fuse_block_epilogues; then img/s of P4's hybrid and
+             paths A and B in turns
+  P14 path C  the DeiT III step of P6 with plain octic linears, the D8-GELU
+             kernel and the LN kernel (use_pallas_linear=False,
+             use_pallas_gelu=True): launches; a deterministic 2-image step
+             against P6's CPU f32 step (loss, gradient cosine); median step ms
+             of P7's hybrid and path C in turns
 The line before the last is the per-kernel JSON summary (with each kernel's
 bound on the card and, where one PyTorch call computes the same function,
 that call's time); the last line is ``{"ok": true, "device": {...}}``. Each
@@ -65,9 +83,10 @@ TRAIN_BATCH = 32
 SSL_BATCH, LOCAL_IMG = 32, 96  # configs/train/hybrid_vitl16.yaml: batch_size_per_gpu 32
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
-# cores and HBM3; a kernel's bound is the larger of its operations and its
-# bytes (each input read once, each output written once) over these rates
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# cores, float32 outside the tensor cores, and HBM3; a kernel's bound is the
+# larger of its operations over the rate of their type and its bytes (each
+# input read once, each output written once) over the memory rate
+PEAK_FLOPS, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # bf16 kernel vs f32 plain version (both rounded to bf16 at the same points):
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. Covers one or two
 # bf16 ulps of the output and the summation order of f32 accumulators.
@@ -239,9 +258,14 @@ def ssl_kernel_cases(gen, b, n, c, heads, bias):
 
 
 def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
-    """(bytes, operations) that kernel `name` must move and do at one shape
-    of the cases above: each input read once, each output written once (bf16),
-    and the tensor-core products of its function (2 per multiply-add)."""
+    """(bytes, tensor-core operations, float32 operations) that kernel `name`
+    must move and do at one shape of the cases above: each input read once,
+    each output written once (bf16 activations; the LN's f32 parameters,
+    gradients and variance at 4 bytes), the products of its function (2 per
+    multiply-add), and for the elementwise glue kernels the float32
+    arithmetic a value takes in the kernel, a transcendental counted as one
+    (LN forward 7, its affine backward 17, the statistics-only backward 8;
+    D8-GELU forward 13, backward 22)."""
     m, c8, e = b * n, c // 8, 2
     attn_fwd = 4 * b * n * n * c   # S = QK^T and PV over every head
     attn_bwd = 10 * b * n * n * c  # S again, dV = P^T dO, dP = dO V^T, dQ, dK
@@ -250,38 +274,66 @@ def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
     lin4_w, lin4_ops = 32 * c8 * c8, 96 * m * c8 * c8  # one octic LinearD8 C <-> 4C
     bq = 3 * c8 if bias else 0
     if name in ("standard_attention", "octic_attention"):
-        return m * 4 * c * e, attn_fwd
+        return m * 4 * c * e, attn_fwd, 0
     if name in ("standard_attention_bwd", "octic_attention_bwd"):
-        return m * 7 * c * e, attn_bwd
+        return m * 7 * c * e, attn_bwd, 0
     if name == "octic_attention_fused_qkv":
-        return (2 * m * c + qkv_w + bq) * e, qkv_ops + attn_fwd
+        return (2 * m * c + qkv_w + bq) * e, qkv_ops + attn_fwd, 0
     if name == "octic_attention_fused_qkv_bwd":  # x, g, w in; dx, dw, dbias out
-        return (3 * m * c + 2 * qkv_w + 2 * bq) * e, 3 * qkv_ops + attn_bwd
+        return (3 * m * c + 2 * qkv_w + 2 * bq) * e, 3 * qkv_ops + attn_bwd, 0
     if name == "dense_gelu":
-        return (m * c + 4 * c * c + 4 * c + 4 * m * c) * e, 8 * m * c * c
+        return (m * c + 4 * c * c + 4 * c + 4 * m * c) * e, 8 * m * c * c, 0
     if name == "mlp_d8_fused":
-        return (2 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops
+        return (2 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops, 0
     if name == "linear_d8_fused":  # fc1 (C -> 4C) and fc2 (4C -> C), the two timed cases
-        return (10 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops
+        return (10 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops, 0
+    # the glue kernels (the cases of glue_b64_cases and glue_b32_cases)
+    if name == "ln_affine_d8_flat_tuple":  # x in, y out; bf16 alpha, alpha_ef, beta
+        return (2 * m * c + 9 * c8) * e, 0, 7 * m * c
+    if name == "ln_affine_d8_bwd":  # x, u in, dx out; f32 alphas in, their gradients out
+        return 3 * m * c * e + (8 * c8 + 9 * c8) * 4, 0, 17 * m * c
+    if name == "ln_d8_flat_tuple":  # x in; y and the f32 var out
+        return 2 * m * c * e + 4 * m, 0, 7 * m * c
+    if name == "ln_d8_bwd":  # y, f32 var, u in; dx out
+        return 3 * m * c * e + 4 * m, 0, 8 * m * c
+    if name == "gelu_d8":  # on the MLP hidden, 4C wide
+        return 2 * 4 * m * c * e, 0, 13 * 4 * m * c
+    if name == "gelu_d8_bwd":
+        return 3 * 4 * m * c * e, 0, 22 * 4 * m * c
+    if name == "linear_d8_epilogue":  # the proj C -> C: x, r in, y out; w, bias, ls
+        return (3 * m * c + 8 * c8 * c8 + (c8 if bias else 0) + 6 * c8) * e, 24 * m * c8 * c8, \
+            2 * m * c
+    if name == "mlp_branch_d8":  # x in, y out; LN, fc1, fc2 and LayerScale parameters
+        return (2 * m * c + 2 * lin4_w + 5 * c8 + 9 * c8 + 6 * c8) * e, 2 * lin4_ops, \
+            (7 + 13 * 4 + 2) * m * c
     raise KeyError(name)
 
 
 def bound(name: str, shape: tuple) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for the work."""
-    nbytes, ops_ = work(name, *shape)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops_ / PEAK_FLOPS
+    nbytes, tc_ops, f32_ops = work(name, *shape)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, max(tc_ops / PEAK_FLOPS, f32_ops / PEAK_F32)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(out, ref, scaled: bool = False):
+def flat(out) -> tuple:
+    """The tensors of a nested tuple, in order."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in flat(o))
+    return (out,)
+
+
+def compare(out, ref, scaled=False):
     """Max abs error and whether every output is finite and inside its bar:
-    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`.
-    An output that is None (no bias, no bias gradient) must be None on both
+    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`
+    (a bool for all outputs, or one per output of the flattened tuple). An
+    output that is None (no bias, no bias gradient) must be None on both
     sides."""
-    outs = out if isinstance(out, tuple) else (out,)
-    refs = ref if isinstance(ref, tuple) else (ref,)
+    outs, refs = flat(out), flat(ref)
+    if isinstance(scaled, bool):
+        scaled = (scaled,) * len(outs)
     err, ok = 0.0, True
-    for o, r in zip(outs, refs, strict=True):
+    for o, r, scaled in zip(outs, refs, scaled, strict=True):
         if o is None or r is None:
             ok &= o is None and r is None
             continue
@@ -316,11 +368,28 @@ META = {
                         "octic_vits_tpu/ops/pallas_linear.py:196", "train"),
     "octic_attention_fused_qkv_bwd": ("octic_vits_tpu_torch/csrc/lin_d8_bwd.cu",
                                       "octic_vits_tpu/ops/pallas_attention.py:737", "ssl"),
+    "ln_affine_d8_flat_tuple": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
+                                "octic_vits_tpu/ops/pallas_ln.py:366", "epilogue_inference"),
+    "ln_affine_d8_bwd": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
+                         "octic_vits_tpu/ops/pallas_ln.py:385", "glue_train"),
+    "ln_d8_flat_tuple": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
+                         "octic_vits_tpu/ops/pallas_ln.py:397", "ln_stats_module"),
+    "ln_d8_bwd": ("octic_vits_tpu_torch/csrc/ln_d8.cu", "octic_vits_tpu/ops/pallas_ln.py:412",
+                  "ln_stats_module"),
+    "gelu_d8": ("octic_vits_tpu_torch/csrc/gelu_d8.cu", "octic_vits_tpu/ops/pallas_gelu.py:200",
+                "glue_train"),
+    "gelu_d8_bwd": ("octic_vits_tpu_torch/csrc/gelu_d8.cu",
+                    "octic_vits_tpu/ops/pallas_gelu.py:214", "glue_train"),
+    "linear_d8_epilogue": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
+                           "octic_vits_tpu/ops/pallas_linear.py:196", "epilogue_inference"),
+    "mlp_branch_d8": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
+                      "octic_vits_tpu/ops/pallas_mlp_branch.py:251", "fused_branch_inference"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
         "octic_attention_fused_qkv_bwd": ["octic_vits_tpu_torch/csrc/lin_d8.cu",
-                                          "octic_vits_tpu_torch/csrc/attention_bwd.cu"]}
+                                          "octic_vits_tpu_torch/csrc/attention_bwd.cu"],
+        "mlp_branch_d8": ["octic_vits_tpu_torch/csrc/lin_d8.cu"]}
 # launches of each kernel in one hybrid ViT-L/16 DINOv2 step at B=32 (12 octic
 # and 12 standard blocks) under remat. The teacher's forward (eval mode) runs
 # the fused inference kernels once per block: 12 octic_attention_fused_qkv,
@@ -340,6 +409,36 @@ TRAIN_LAUNCHES = {"standard_attention": 16, "standard_attention_bwd": 16, "octic
                   "octic_attention_bwd": 16, "linear_d8_fused": 64, "dense_gelu": 32,
                   "octic_attention_fused_qkv": 0, "mlp_d8_fused": 0,
                   "octic_attention_fused_qkv_bwd": 0}
+# launches in one hybrid ViT-H/14 forward (16 octic blocks) on the two
+# fused-glue inference paths, with the LN kernel on. A: norm1 through the LN
+# kernel and norm2 ... ls2 + residual as one mlp_branch_d8 (its own LN, fc1
+# and fc2 launches count under its name); no mlp_d8_fused. B: both norms
+# through the LN kernel; proj (epilogue), fc1 (GELU) and fc2 (epilogue) as
+# linear_d8_fused, of which the proj and fc2 count under linear_d8_epilogue
+# too. The standard blocks and the fused qkv + attention as in P3.
+GLUE_INFERENCE_LAUNCHES = {
+    "fused_branch_inference": {"octic_attention_fused_qkv": 16, "standard_attention": 16,
+                               "dense_gelu": 16, "ln_affine_d8_flat_tuple": 16,
+                               "mlp_branch_d8": 16},
+    "epilogue_inference": {"octic_attention_fused_qkv": 16, "standard_attention": 16,
+                           "dense_gelu": 16, "ln_affine_d8_flat_tuple": 32, "linear_d8_fused": 48,
+                           "linear_d8_epilogue": 32},
+}
+# launches in the DeiT III step of path C (TRAIN_LAUNCHES' model, plain octic
+# linears): per octic block norm1 and norm2 run forward twice under remat
+# (the forward and the replay) and backward once, and so does the D8-GELU
+# between fc1 and fc2; no linear_d8_fused
+GLUE_TRAIN_LAUNCHES = TRAIN_LAUNCHES | {"linear_d8_fused": 0, "ln_affine_d8_flat_tuple": 64,
+                                        "ln_affine_d8_bwd": 32, "gelu_d8": 32, "gelu_d8_bwd": 16}
+# the statistics-only LN pair, one forward and one backward of the module
+LN_MODULE_LAUNCHES = {"ln_d8_flat_tuple": 1, "ln_d8_bwd": 1}
+
+
+def expected_launches(table: dict) -> dict:
+    """Every kernel op's launches: those of `table`, every other 0."""
+    from octic_vits_tpu_torch import ops
+
+    return {op.__name__: 0 for op in ops.KERNEL_OPS} | table
 
 
 def kernel_phase(tag, cases_fn, shapes, gen, summary, record=True):
@@ -359,7 +458,9 @@ def kernel_phase(tag, cases_fn, shapes, gen, summary, record=True):
                 entry = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                                   "library_ms": None})
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
+                bar = (f"{BWD_TOL}*(max|ref|+|ref|)" if scaled is True else
+                       f"{ATOL}+{RTOL}*|ref|" if scaled is False else
+                       f"{ATOL}+{RTOL}*|ref| on dx, {BWD_TOL}*(max|ref|+|ref|) on the rest")
                 line = f"{name} [{label}] max_abs_err {err:.3e} (tol {bar}) "
                 line += "ok" if ok else "FAIL"
                 if record and label == shapes[0][0]:
@@ -552,7 +653,7 @@ def main() -> int:
     # on the CPU every op is its plain version: this model is the f32
     # reference of P3 (inference) and of P6 (training)
     torch.manual_seed(SEED)
-    cpu_model = create_model("hybrid_deit_huge_patch14", init_scale=1.0).eval()
+    cpu_model = create_model("hybrid_deit_huge_patch14", init_scale=1.0, device="cpu").eval()
     init_weights(cpu_model, torch.Generator().manual_seed(SEED))
     model = create_model("hybrid_deit_huge_patch14", init_scale=1.0, device="cuda",
                          dtype=torch.bfloat16).eval()
@@ -619,7 +720,7 @@ def main() -> int:
                 f"launches {train_launches}")
     if not (math.isfinite(loss) and finite_grads):
         raise AssertionError("non-finite loss or gradients in the train step")
-    if train_launches != TRAIN_LAUNCHES:
+    if train_launches != expected_launches(TRAIN_LAUNCHES):
         raise AssertionError(f"train launches {train_launches}, expected {TRAIN_LAUNCHES}")
 
     # deterministic step on 2 images against the CPU f32 plain path
@@ -644,7 +745,7 @@ def main() -> int:
                 f"norm card {det_metrics['grad_norm'].item():.4f} vs CPU {norm_cpu:.4f}")
     if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
         raise AssertionError("train step disagrees with the CPU f32 plain path")
-    del cpu_model, det_state, det_step
+    del det_state, det_step  # cpu_model keeps its f32 gradients for P14
 
     first, last, after = convergence_check()
     phase("P6", f"convergence (embed 128, depth 4, 4 heads, B=32, AdamW 3e-4, 60 steps, bf16): "
@@ -681,7 +782,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssl_launches = ssl_phases(gen, summary, card)
 
-    counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches}
+    torch.cuda.empty_cache()
+    det = dict(cfg=cfg, det_cfg=det_cfg, images=dimages, labels=dlabels, cpu_loss=cpu_loss.item(),
+               timages=timages, tlabels=tlabels, tgen=tgen)
+    glue_launches = glue_phases(gen, summary, card, cpu_model, images, ref, det)
+
+    counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
+              **glue_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -693,7 +800,8 @@ def main() -> int:
                         "launches": n, "path": path, "max_abs_err": e["max_abs_err"],
                         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": e["library_ms"],
-                        "shape": list(e["shape"])})
+                        "shape": list(e["shape"]),
+                        "launches_by_path": {p: c[name] for p, c in counts.items() if c.get(name)}})
         if name in ALSO:
             kernels[-1]["also"] = ALSO[name]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -759,7 +867,7 @@ def ssl_phases(gen, summary, card) -> dict:
                 f"launches {ssl_launches}")
     if not (math.isfinite(loss) and finite):
         raise AssertionError("non-finite SSL loss, gradients or centers")
-    if ssl_launches != SSL_LAUNCHES:
+    if ssl_launches != expected_launches(SSL_LAUNCHES):
         raise AssertionError(f"SSL launches {ssl_launches}, expected {SSL_LAUNCHES}")
 
     # deterministic step on B=2 against the same weights in f32 on the CPU
@@ -810,6 +918,221 @@ def ssl_phases(gen, summary, card) -> dict:
                  f"img/s {ms_s / ms_h:.4f}; step ms hybrid {[round(t, 2) for t in times_h]}, "
                  f"standard {[round(t, 2) for t in times_s]}")
     return ssl_launches
+
+
+def tuple5(gen, b, n, c8, shift=0.0):
+    """A flat-E 5-tuple on the card: a* [b, n, c8], ef [b, n, 4 c8]."""
+    return tuple(randn(gen, b, n, c8) + shift for _ in range(4)) + (
+        randn(gen, b, n, 4 * c8) - shift,)
+
+
+def ln_params(gen, c8, dtype):
+    """alpha [4, c8], alpha_ef [1, 4 c8] near 1 and beta [1, c8], in `dtype`."""
+    al = 1.0 + 0.2 * torch.randn(4, c8, generator=gen, device="cuda")
+    ae = 1.0 + 0.2 * torch.randn(1, 4 * c8, generator=gen, device="cuda")
+    be = 0.2 * torch.randn(1, c8, generator=gen, device="cuda")
+    return tuple(t.to(dtype) for t in (al, ae, be))
+
+
+def glue_b64_cases(gen, b, n, c, heads, bias):
+    """P11 at the inference batch: the LN forward with its affine (bf16
+    parameters, as the bf16 model holds them), the statistics-only pair (its
+    backward from the plain version's saved output and var), the proj with
+    the LayerScale + residual epilogue, and the fused MLP branch."""
+    from octic_vits_tpu_torch import ops
+
+    c8, h8 = c // 8, c // 2
+    opt = lambda t: t if bias else None  # noqa: E731
+    xs, us = tuple5(gen, b, n, c8, shift=0.5), tuple5(gen, b, n, c8)
+    outs, var = ops.ln_d8_reference(xs)
+    w1, we = randn(gen, 4, c8, c8, scale=c8 ** -0.5), randn(gen, 2 * c8, 2 * c8,
+                                                            scale=(2 * c8) ** -0.5)
+    ls = (randn(gen, 4, c8, scale=0.5), randn(gen, 2 * c8, scale=0.5))
+    al, ae, be = ln_params(gen, c8, torch.bfloat16)
+    zero = lambda k: torch.zeros(k, device="cuda", dtype=torch.bfloat16)  # noqa: E731
+    params11 = (al, ae[0, :2 * c8], be[0] if bias else zero(c8),
+                randn(gen, 4, c8, h8, scale=c8 ** -0.5),
+                randn(gen, 2 * c8, 2 * h8, scale=(2 * c8) ** -0.5),
+                randn(gen, h8, scale=0.1) if bias else zero(h8),
+                randn(gen, 4, h8, c8, scale=h8 ** -0.5),
+                randn(gen, 2 * h8, 2 * c8, scale=(2 * h8) ** -0.5),
+                randn(gen, c8, scale=0.1) if bias else zero(c8)) + ls
+    return [
+        ("ln_affine_d8_flat_tuple", ops.ln_affine_d8_flat_tuple, ops.ln_affine_d8_reference,
+         (xs, al, ae, be), False, None),
+        ("ln_d8_flat_tuple", ops.ln_d8_flat_tuple, lambda x: ops.ln_d8_reference(x)[0], (xs,),
+         False, None),
+        ("ln_d8_bwd", ops.ln_d8_bwd, ops.ln_d8_bwd_reference, (outs, var, us), False, None),
+        ("linear_d8_epilogue", ops.linear_d8_epilogue,
+         lambda x, w, v, bb, s, r: ops.linear_d8_fused_reference(x, w, v, bb, False, s, r),
+         (xs, w1, we, opt(randn(gen, c8, scale=0.1)), ls, us), False, None),
+        ("mlp_branch_d8", ops.mlp_branch_d8, ops.mlp_branch_d8_reference, (xs, params11), False,
+         None),
+    ]
+
+
+def glue_b32_cases(gen, b, n, c, heads, bias):
+    """P11 at the train batch: the affine LN backward (f32 parameters, as the
+    train step holds them; dx against the forward bar, the parameter
+    gradients, f32 sums over the tokens, against the scaled one) and the
+    D8-GELU forward and backward on the MLP hidden (4C wide)."""
+    from octic_vits_tpu_torch import ops
+
+    c8, h8 = c // 8, c // 2
+    xs, us = tuple5(gen, b, n, c8, shift=0.5), tuple5(gen, b, n, c8)
+    al, ae, _ = ln_params(gen, c8, torch.float32)
+    hs, gs = tuple5(gen, b, n, h8), tuple5(gen, b, n, h8)
+    return [
+        ("ln_affine_d8_bwd", ops.ln_affine_d8_bwd, ops.ln_affine_d8_bwd_reference,
+         (xs, al, ae, us), (False,) * 5 + (True,) * 3, None),
+        ("gelu_d8", ops.gelu_d8, ops.gelu_d8_reference, (hs,), False, None),
+        ("gelu_d8_bwd", ops.gelu_d8_bwd, ops.gelu_d8_bwd_reference, (hs, gs), False, None),
+    ]
+
+
+def with_ln_kernel(on: bool) -> None:
+    """The D8 LayerNorm kernel switch (OCTIC_PALLAS_LN), read at each call."""
+    from octic_vits_tpu_torch.layers import d8_layers
+
+    d8_layers.OCTIC_PALLAS_LN = on
+
+
+def glue_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
+    """P11-P14, the octic block's fused glue. `cpu_model` is P3's f32 model
+    on the CPU (with P6's deterministic-step gradients), `images` P3's batch
+    and `ref` its f32 logits of the first two images; `det` holds P6's
+    configs, batches and CPU loss. Returns the launches of each path."""
+    from octic_vits_tpu_torch import create_model, ops
+    from octic_vits_tpu_torch.layers.d8_layers import LayerNormD8
+
+    h14 = (BATCH, 257, 1280, 16, True)
+    ragged = ("ragged", (3, 65, 64, 2, False))
+    # ---- P11: the glue kernels against their plain versions ----
+    kernel_phase("P11", glue_b64_cases, (("vith14_b64", h14), ragged), gen, summary)
+    kernel_phase("P11", glue_b32_cases, (("vith14_b32", (TRAIN_BATCH,) + h14[1:]), ragged), gen,
+                 summary)
+    with_ln_kernel(True)
+    c8 = h14[2] // 8
+    xs = tuple(t.requires_grad_() for t in tuple5(gen, BATCH, 257, c8, shift=0.5))
+    norm = LayerNormD8(h14[2], elementwise_affine=False, use_kernel=True)
+    ops.reset_launch_counts()
+    torch.autograd.backward(norm(xs), tuple5(gen, BATCH, 257, c8))
+    torch.cuda.synchronize()
+    module_launches = ops.launch_counts()
+    finite = all(bool(torch.isfinite(x.grad).all()) for x in xs)
+    phase("P11", f"LayerNormD8(elementwise_affine=False) forward + backward at B={BATCH}: "
+                 f"finite grads {finite}, launches {LN_MODULE_LAUNCHES}")
+    if not finite or module_launches != expected_launches(LN_MODULE_LAUNCHES):
+        raise AssertionError(f"statistics-only LN module: launches {module_launches}")
+    del xs, norm
+    counts = {"ln_stats_module": module_launches}
+
+    # ---- P12, P13: the fused-branch and the epilogue inference paths ----
+    images_gpu = images.to("cuda", torch.bfloat16)
+    models = {}
+    for tag, path, flags in (("P12", "fused_branch_inference", dict(fuse_mlp_branch=True)),
+                             ("P13", "epilogue_inference", dict(fuse_block_epilogues=True)),
+                             (None, "P4 hybrid", {})):
+        m = create_model("hybrid_deit_huge_patch14", init_scale=1.0, dtype=torch.bfloat16,
+                         **flags).eval()
+        m.load_state_dict(cpu_model.state_dict(), strict=True)
+        models[path] = m
+        if tag is None:
+            continue
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits = m(images_gpu)
+        torch.cuda.synchronize()
+        counts[path] = ops.launch_counts()
+        got = logits[:2].float().cpu()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        phase(tag, f"hybrid_deit_huge_patch14 B={BATCH} bf16, {flags}, LN kernel on: logits "
+                   f"{tuple(logits.shape)} finite {bool(logits.isfinite().all())}; launches "
+                   f"{ {k: v for k, v in counts[path].items() if v} }; 2 images vs P3's CPU f32 "
+                   f"logits: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+        if tuple(logits.shape) != (BATCH, ref.shape[-1]) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{path}: bad logits")
+        if counts[path] != expected_launches(GLUE_INFERENCE_LAUNCHES[path]):
+            raise AssertionError(f"{path}: launches differ from {GLUE_INFERENCE_LAUNCHES[path]}")
+        if not rel <= SLICE_REL_TOL:
+            raise AssertionError(f"{path}: logits disagree with the CPU f32 plain path")
+        del logits
+    # img/s in turns: P4's configuration (LN kernel off) and the two paths
+    times = {path: [] for path in models}
+    with torch.no_grad():
+        for path in ("P4 hybrid", "fused_branch_inference", "epilogue_inference",
+                     "epilogue_inference", "fused_branch_inference", "P4 hybrid"):
+            with_ln_kernel(path != "P4 hybrid")
+            times[path].append(time_ms(lambda: models[path](images_gpu), iters=10, warmup=2))
+    ips = {path: BATCH / (min(t) / 1e3) for path, t in times.items()}
+    phase("P13", f"B={BATCH} 224^2 bf16 on {card}, in turns: "
+                 + ", ".join(f"{p} {ips[p]:.1f} img/s ({' / '.join(f'{t:.2f}' for t in times[p])} "
+                             f"ms)" for p in times)
+                 + f"; ratio to P4's hybrid: A {ips['fused_branch_inference'] / ips['P4 hybrid']:.4f}"
+                 f", B {ips['epilogue_inference'] / ips['P4 hybrid']:.4f}")
+    del models, images_gpu
+    torch.cuda.empty_cache()
+
+    # ---- P14: path C, the DeiT III step with plain linears and the kernels ----
+    with_ln_kernel(True)
+    cfg = det["cfg"]
+    model_c = create_model("hybrid_deit_huge_patch14", init_scale=1.0, remat=True,
+                           drop_path_rate=cfg.drop_path, compute_dtype=torch.bfloat16,
+                           use_pallas_linear=False, use_pallas_gelu=True)
+    model_c.load_state_dict(cpu_model.state_dict(), strict=True)
+    state, step = train_setup(model_c, cfg)
+    ops.reset_launch_counts()
+    state, metrics = step(state, det["timages"], det["tlabels"], det["tgen"])
+    torch.cuda.synchronize()
+    counts["glue_train"] = ops.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model_c.parameters())
+    loss = metrics["loss"].item()
+    phase("P14", f"path C train step B={TRAIN_BATCH} (use_pallas_linear=False, use_pallas_gelu="
+                 f"True, LN kernel on; the P6 recipe): loss {loss:.4f}, grad norm "
+                 f"{metrics['grad_norm'].item():.4f}, finite grads {finite}, launches "
+                 f"{ {k: v for k, v in counts['glue_train'].items() if v} }")
+    if not (math.isfinite(loss) and finite):
+        raise AssertionError("path C: non-finite loss or gradients")
+    if counts["glue_train"] != expected_launches(GLUE_TRAIN_LAUNCHES):
+        raise AssertionError(f"path C launches differ from {GLUE_TRAIN_LAUNCHES}")
+    del state, step
+    set_drop_path(model_c, 0.0)
+    model_c.load_state_dict(cpu_model.state_dict(), strict=True)
+    det_state, det_step = train_setup(model_c, det["det_cfg"])
+    _, det_metrics = det_step(det_state, det["images"].cuda(), det["labels"].cuda(),
+                              torch.Generator().manual_seed(SEED))
+    cos, _, norm_cpu, count = grad_cosine(model_c, cpu_model)
+    card_loss = det_metrics["loss"].item()
+    loss_rel = abs(card_loss - det["cpu_loss"]) / abs(det["cpu_loss"])
+    phase("P14", f"deterministic step, 2 images: loss card {card_loss:.6f} vs P6's CPU f32 "
+                 f"{det['cpu_loss']:.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); gradient "
+                 f"cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; grad norm card "
+                 f"{det_metrics['grad_norm'].item():.4f} vs CPU {norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("path C step disagrees with the CPU f32 plain path")
+    del det_state, det_step
+    # step ms in turns: P7's hybrid (LN kernel off) and path C
+    set_drop_path(model_c, cfg.drop_path)
+    base = create_model("hybrid_deit_huge_patch14", init_scale=1.0, remat=True,
+                        drop_path_rate=cfg.drop_path, compute_dtype=torch.bfloat16)
+    base.load_state_dict(cpu_model.state_dict(), strict=True)
+    runs = {"P7 hybrid": train_setup(base, cfg), "path C": train_setup(model_c, cfg)}
+    times = {k: [] for k in runs}
+    for key in ("P7 hybrid", "path C", "path C", "P7 hybrid"):
+        with_ln_kernel(key == "path C")
+        state, step = runs[key]
+        _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
+                                steps=5, warmup=1)
+        times[key] += t
+    med = {k: statistics.median(t) for k, t in times.items()}
+    phase("P14", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+                 + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
+                             f"range {min(times[k]):.2f}-{max(times[k]):.2f})" for k in times)
+                 + f"; ratio path C / P7 img/s {med['P7 hybrid'] / med['path C']:.4f}")
+    with_ln_kernel(False)
+    del runs, base, model_c
+    torch.cuda.empty_cache()
+    return counts
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

@@ -92,30 +92,39 @@ __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
 
-// D8 GELU on one (token, channel) octet in isotypic slot order
-// (A1, A2, B1, B2, E11, E21, E12, E22): isotypic -> regular butterfly,
-// pointwise GELU, regular -> isotypic butterfly. Same arithmetic as
-// octic_vits_tpu/d8/group.py:isotypic_to_regular / regular_to_isotypic.
-__device__ __forceinline__ void gelu_d8_octet(float (&v)[8]) {
+// d/du of gelu_erf: Phi(u) + u phi(u).
+__device__ __forceinline__ float gelu_erf_grad(float u) {
+  return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) +
+         u * 0.39894228040143268f * expf(-0.5f * u * u);
+}
+
+// The isotypic -> regular butterfly on one octet, in place: slot order
+// (A1, A2, B1, B2, E11, E21, E12, E22) in, the eight regular coordinates out.
+// Same arithmetic as octic_vits_tpu/d8/group.py:isotypic_to_regular.
+__device__ __forceinline__ void iso_to_reg(float (&v)[8]) {
   const float c = 0.35355339059327376f;  // sqrt(2) / 4
-  {
-    const float s0 = v[0] + v[1], d0 = v[0] - v[1];
-    const float s1 = v[2] + v[3], d1 = v[2] - v[3];
-    const float s2 = v[4] + v[5], d2 = v[4] - v[5];
-    const float s3 = v[6] + v[7], d3 = v[6] - v[7];
-    const float u0 = s0 + s1, v0 = s0 - s1;
-    const float u1 = d0 + d1, v1 = d0 - d1;
-    const float u2 = s2 + d3, v2 = s2 - d3;
-    const float u3 = d2 + s3, v3 = d2 - s3;
-    v[0] = gelu_erf(c * (u0 + u2));
-    v[1] = gelu_erf(c * (v0 + v3));
-    v[2] = gelu_erf(c * (u0 - u2));
-    v[3] = gelu_erf(c * (v0 - v3));
-    v[4] = gelu_erf(c * (u1 - u3));
-    v[5] = gelu_erf(c * (v1 - v2));
-    v[6] = gelu_erf(c * (u1 + u3));
-    v[7] = gelu_erf(c * (v1 + v2));
-  }
+  const float s0 = v[0] + v[1], d0 = v[0] - v[1];
+  const float s1 = v[2] + v[3], d1 = v[2] - v[3];
+  const float s2 = v[4] + v[5], d2 = v[4] - v[5];
+  const float s3 = v[6] + v[7], d3 = v[6] - v[7];
+  const float u0 = s0 + s1, v0 = s0 - s1;
+  const float u1 = d0 + d1, v1 = d0 - d1;
+  const float u2 = s2 + d3, v2 = s2 - d3;
+  const float u3 = d2 + s3, v3 = d2 - s3;
+  v[0] = c * (u0 + u2);
+  v[1] = c * (v0 + v3);
+  v[2] = c * (u0 - u2);
+  v[3] = c * (v0 - v3);
+  v[4] = c * (u1 - u3);
+  v[5] = c * (v1 - v2);
+  v[6] = c * (u1 + u3);
+  v[7] = c * (v1 + v2);
+}
+
+// The regular -> isotypic butterfly (the inverse, = the transpose), in place.
+// Same arithmetic as octic_vits_tpu/d8/group.py:regular_to_isotypic.
+__device__ __forceinline__ void reg_to_iso(float (&v)[8]) {
+  const float c = 0.35355339059327376f;
   const float s0 = v[0] + v[1], d0 = v[0] - v[1];
   const float s1 = v[2] + v[3], d1 = v[2] - v[3];
   const float s2 = v[4] + v[5], d2 = v[4] - v[5];
@@ -132,6 +141,16 @@ __device__ __forceinline__ void gelu_d8_octet(float (&v)[8]) {
   v[5] = c * (w1 + w3);
   v[6] = c * (w1 - w3);
   v[7] = c * (v2 + v0);
+}
+
+// D8 GELU on one (token, channel) octet in isotypic slot order
+// (A1, A2, B1, B2, E11, E21, E12, E22): isotypic -> regular butterfly,
+// pointwise GELU, regular -> isotypic butterfly.
+__device__ __forceinline__ void gelu_d8_octet(float (&v)[8]) {
+  iso_to_reg(v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = gelu_erf(v[i]);
+  reg_to_iso(v);
 }
 
 }  // namespace ovt

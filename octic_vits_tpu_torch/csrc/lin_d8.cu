@@ -1,10 +1,13 @@
 // K-lin-d8: block-diagonal D8-equivariant linear map over the flat-E tuple,
-// with an optional D8-GELU epilogue.
+// with an optional D8-GELU epilogue or LayerScale + residual epilogue.
 //
 // Replaces the block-diagonal products of
-//   octic_vits_tpu/ops/pallas_linear.py:linear_d8_fused (`_kernel`, without
-//     the LayerScale + residual epilogue): the train path's octic fc1 (GELU
-//     epilogue) and fc2; its backward is plain torch (ops/linear.py);
+//   octic_vits_tpu/ops/pallas_linear.py:linear_d8_fused (`_kernel`, with
+//     `use_epilogue` :95-105): the train path's octic fc1 (GELU epilogue) and
+//     fc2, and the proj and fc2 of `fuse_block_epilogues`, which write
+//     y = r + ls * linear(x); its backward is plain torch (ops/linear.py);
+//   octic_vits_tpu/ops/pallas_mlp_branch.py:mlp_branch_d8 (`_mlp_branch_kernel`,
+//     its fc1 + GELU and its fc2 + LayerScale + residual; ops/mlp_branch.py);
 //   octic_vits_tpu/ops/pallas_linear.py:mlp_d8_fused (`_mlp_kernel`): fc1
 //     with the GELU epilogue, then fc2 (two launches here);
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention_fused_qkv
@@ -18,6 +21,9 @@
 //   yef[m] = [e11 | e12 | e21 | e22]          (= [row0 out | row1 out])
 // With the GELU epilogue the octet (a1,a2,b1,b2,e11,e21,e12,e22) of each
 // (m, j) goes through the isotypic->regular butterfly, erf GELU and back.
+// With the LayerScale epilogue (ls1 [4,F], lse [2F], residual r [M,F] x 4 and
+// ref [M,4F]): y_g = r_g + ls1[g] * y_g, yef = ref + [lse | lse] * yef, in
+// f32 before the one store. The two epilogues exclude each other.
 //
 // What bounds it on the H100: at ViT-H/14, B=64 (M = 16448, C = 160) the
 // MLP fc1 (F = 640) is 40.4 GFLOP and writes a 168 MB bf16 hidden; fc2 reads
@@ -58,6 +64,10 @@ struct Args {
   const bf16* bias;
   bf16* y[4];
   bf16* yef;
+  const bf16* ls1;   // LayerScale epilogue: [4, F] or null
+  const bf16* lse;   // [2F]
+  const bf16* r[4];  // the residual, [M, F] each
+  const bf16* ref;   // [M, 4F]
   int M, C, F;
 };
 
@@ -194,6 +204,18 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
     for (int s = 0; s < 8; ++s) v[s] = so[(s * BM + r) * LDO + c];
     if (a.bias != nullptr) v[0] += __bfloat162float(a.bias[j]);
     if (GELU) gelu_d8_octet(v);
+    if (a.ls1 != nullptr) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        v[s] = __bfloat162float(a.r[s][(size_t)m * F + j]) +
+               __bfloat162float(a.ls1[s * F + j]) * v[s];
+      const bf16* re = a.ref + (size_t)m * 4 * F + j;
+      const float l0 = __bfloat162float(a.lse[j]), l1 = __bfloat162float(a.lse[F + j]);
+      v[4] = __bfloat162float(re[0]) + l0 * v[4];      // e11, column j
+      v[6] = __bfloat162float(re[F]) + l1 * v[6];      // e12, column F + j
+      v[5] = __bfloat162float(re[2 * F]) + l0 * v[5];  // e21, column 2F + j
+      v[7] = __bfloat162float(re[3 * F]) + l1 * v[7];  // e22, column 3F + j
+    }
 #pragma unroll
     for (int s = 0; s < 4; ++s) a.y[s][(size_t)m * F + j] = __float2bfloat16(v[s]);
     bf16* ye = a.yef + (size_t)m * 4 * F + j;
@@ -208,12 +230,15 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
 }  // namespace ovt
 
 // x0..x3 [M,C], xef [M,4C], w1 [4,C,F], we [2C,2F], bias [F] or null,
-// y0..y3 [M,F], yef [M,4F]; all bf16, contiguous, 16-byte aligned,
-// C % 8 == 0 and F % 8 == 0 (checked by the Python wrapper).
+// y0..y3 [M,F], yef [M,4F]; the LayerScale epilogue's ls1 [4,F], lse [2F],
+// r0..r3 [M,F] and ref [M,4F], or all null; all bf16, contiguous, 16-byte
+// aligned, C % 8 == 0 and F % 8 == 0 (checked by the Python wrapper).
 OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const void* x3,
                           const void* xef, const void* w1, const void* we, const void* bias,
-                          void* y0, void* y1, void* y2, void* y3, void* yef, int M, int C, int F,
-                          int gelu, void* stream) {
+                          void* y0, void* y1, void* y2, void* y3, void* yef, const void* ls1,
+                          const void* lse, const void* r0, const void* r1, const void* r2,
+                          const void* r3, const void* ref, int M, int C, int F, int gelu,
+                          void* stream) {
   using namespace ovt::lind8;
   using ovt::bf16;
   Args a;
@@ -230,6 +255,14 @@ OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const 
   a.y[2] = static_cast<bf16*>(y2);
   a.y[3] = static_cast<bf16*>(y3);
   a.yef = static_cast<bf16*>(yef);
+  a.ls1 = static_cast<const bf16*>(ls1);
+  a.lse = static_cast<const bf16*>(lse);
+  a.r[0] = static_cast<const bf16*>(r0);
+  a.r[1] = static_cast<const bf16*>(r1);
+  a.r[2] = static_cast<const bf16*>(r2);
+  a.r[3] = static_cast<const bf16*>(r3);
+  a.ref = static_cast<const bf16*>(ref);
+  if (gelu && ls1 != nullptr) return cudaErrorInvalidValue;
   a.M = M;
   a.C = C;
   a.F = F;

@@ -34,15 +34,19 @@ LIB_NAME = "libocticvits_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "ovt_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "ovt_lin_d8": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "ovt_lin_d8": [_P] * 20 + [_I, _I, _I, _I, _P],
     "ovt_attention_std": [_P, _P, _I, _I, _I, _I, _P],
     "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
     "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 5 + [_P],
     "ovt_lin_d8_bwd": [_P] * 22 + [_I] * 4 + [_P],
+    "ovt_ln_d8_fwd": [_P] * 14 + [_I] * 4 + [_F, _P],
+    "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
+    "ovt_gelu_d8": [_P] * 15 + [_I] * 3 + [_P],
 }
 
 
@@ -132,7 +136,7 @@ def library() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call entry point `name` on the current CUDA stream and raise if the
     launch was refused. Tensors are passed by data pointer (the caller keeps
-    them alive across the call); Python ints as C ints."""
+    them alive across the call); Python ints as C ints, floats as C floats."""
     lib = library()
     cargs = []
     for a in args:
@@ -140,6 +144,8 @@ def launch(name: str, *args) -> None:
             cargs.append(ctypes.c_void_p(a.data_ptr()))
         elif a is None:
             cargs.append(ctypes.c_void_p(0))
+        elif isinstance(a, float):
+            cargs.append(ctypes.c_float(a))
         else:
             cargs.append(ctypes.c_int(int(a)))
     cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))

@@ -5,6 +5,7 @@ from octic_vits_tpu_torch.layers.d8_layers import (
     AttentionD8,
     BlockD8,
     DropPathD8,
+    GeluD8,
     LayerNormD8,
     LinearD8,
     MlpD8,
@@ -32,6 +33,7 @@ __all__ = [
     "BlockD8",
     "DropPath",
     "DropPathD8",
+    "GeluD8",
     "LayerNormD8",
     "LayerNorm",
     "Linear",

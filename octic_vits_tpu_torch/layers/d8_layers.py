@@ -6,7 +6,13 @@ benchmark flags (eval mode: fused qkv + attention, fused MLP), the DeiT
 III train flags (train mode: ``octic_attention`` over a plain qkv LinearD8, fc1 and fc2
 as two ``linear_d8_fused`` kernels, drop path, per-block remat) and the
 DINOv2 train flags (the same, with the qkv inside the fused qkv + attention
-op, ``fuse_qkv``) reach, with the flat-E carry. Parameter names and shapes follow the flax tree so
+op, ``fuse_qkv``) reach, with the flat-E carry; and of the fused-glue
+options on top of them: the D8 LayerNorm kernel (``OCTIC_PALLAS_LN``),
+``use_pallas_gelu`` with plain linears (``use_pallas_linear=False``),
+``fuse_block_epilogues`` and ``fuse_mlp_branch``. The port always runs the
+attention kernels (the JAX ``use_pallas_attention``), so its LayerNorms
+always take the LN kernel when ``OCTIC_PALLAS_LN`` is on, as the JAX norms
+do under ``use_pallas_linear or use_pallas_attention``. Parameter names and shapes follow the flax tree so
 :func:`octic_vits_tpu_torch.utils.convert.params_from_jax` maps them one to
 one; every module takes an explicit ``device`` and ``dtype`` (the parameter
 dtype), is filled by ``reset_parameters(generator)``, and casts its
@@ -17,6 +23,7 @@ modules cast ``param_dtype`` parameters to the compute ``dtype``.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -25,7 +32,16 @@ from torch import nn
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_4, pack_8_to_5f
 from octic_vits_tpu_torch.layers.common import DropPathMask, cast, remat
 from octic_vits_tpu_torch.ops.attention import octic_attention, octic_attention_fused_qkv
-from octic_vits_tpu_torch.ops.linear import linear_d8, linear_d8_fused, mlp_d8_fused
+from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8, gelu_d8_eager
+from octic_vits_tpu_torch.ops.linear import _lse_full, linear_d8, linear_d8_fused, mlp_d8_fused
+from octic_vits_tpu_torch.ops.ln_d8 import ln_affine_d8_flat_tuple, ln_d8_flat_tuple
+from octic_vits_tpu_torch.ops.mlp_branch import mlp_branch_d8
+
+# The D8 LayerNorm kernel (ops/ln_d8.py) for the LayerNormD8s built with
+# ``use_kernel``, as the JAX package's switch of the same name
+# (d8_layers.py:311): off unless OCTIC_PALLAS_LN=1 is in the environment at
+# import. Read at each call, so a caller may set it between forwards.
+OCTIC_PALLAS_LN = os.environ.get("OCTIC_PALLAS_LN", "0") == "1"
 
 
 def trunc_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -75,7 +91,11 @@ class LinearD8(nn.Module):
     :func:`linear_d8_fused` (K-lin-d8, optionally with the D8-GELU epilogue,
     ``fuse_gelu``), as the flax module's ``use_pallas``; otherwise plain
     torch products (the octic attention's qkv on the train path and its
-    proj)."""
+    proj). ``forward(xs, layerscale, residual)`` returns ``residual + ls *
+    linear(xs)`` through the kernel's LayerScale + residual epilogue, the
+    flax module's fused block epilogue: the flax proj takes the kernel
+    exactly then (``use_pallas=layerscale is not None``), and no JAX block
+    hands a LayerScale to a plain linear."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True, *,
                  use_kernel: bool = False, fuse_gelu: bool = False, device=None, dtype=None):
@@ -98,12 +118,17 @@ class LinearD8(nn.Module):
         if self.bias_a1 is not None:
             nn.init.zeros_(self.bias_a1)
 
-    def forward(self, xs: tuple) -> tuple:
+    def forward(self, xs: tuple, layerscale: Optional[tuple] = None,
+                residual: Optional[tuple] = None) -> tuple:
         dt = xs[0].dtype
         w1, we, bias = (cast(p, dt) for p in (self.kernel_1d, self.kernel_e, self.bias_a1))
-        if self.use_kernel:
-            return linear_d8_fused(xs, w1, we, bias, self.fuse_gelu)
-        return linear_d8(xs, w1, we, bias)
+        if layerscale is None:
+            if self.use_kernel:
+                return linear_d8_fused(xs, w1, we, bias, self.fuse_gelu)
+            return linear_d8(xs, w1, we, bias)
+        return linear_d8_fused(xs, w1, we, bias, self.fuse_gelu,
+                               tuple(cast(t, dt) for t in layerscale),
+                               tuple(r.to(dt) for r in residual))
 
 
 class ScaleD8(nn.Module):
@@ -158,14 +183,32 @@ def layer_norm_d8_stats(xs: tuple, eps: float = 1e-5) -> tuple:
 
 class LayerNormD8(nn.Module):
     """Equivariant LayerNorm (eps 1e-5): shared-std normalization + ScaleD8
-    affine (named ``affine`` as in the flax tree)."""
+    affine (named ``affine`` as in the flax tree; none without
+    `elementwise_affine`, no A1 bias without `use_bias`). With `use_kernel`
+    and ``OCTIC_PALLAS_LN`` on, the flat-E tuple goes through the LN kernel
+    op (d8_layers.py:483-512): :func:`ln_affine_d8_flat_tuple` with the
+    affine's parameters as they are (no cast, as the flax module passes
+    them), or :func:`ln_d8_flat_tuple` without an affine."""
 
-    def __init__(self, dim: int, *, device=None, dtype=None):
+    def __init__(self, dim: int, *, elementwise_affine: bool = True, use_bias: bool = True,
+                 use_kernel: bool = False, eps: float = 1e-5, device=None, dtype=None):
         super().__init__()
-        self.affine = ScaleD8(dim, 1.0, bias=True, device=device, dtype=dtype)
+        self.eps = eps
+        self.use_kernel = use_kernel
+        self.affine = (ScaleD8(dim, 1.0, bias=use_bias, device=device, dtype=dtype)
+                       if elementwise_affine else None)
 
     def forward(self, xs: tuple) -> tuple:
-        return self.affine(layer_norm_d8_stats(xs))
+        if self.use_kernel and OCTIC_PALLAS_LN and xs[4].ndim == xs[0].ndim:
+            a = self.affine
+            if a is None:
+                return ln_d8_flat_tuple(xs, self.eps)
+            beta = (a.beta_a1[None] if a.beta_a1 is not None
+                    else a.alpha_1d.new_zeros(1, a.alpha_1d.shape[1]))
+            return ln_affine_d8_flat_tuple(xs, a.alpha_1d, _lse_full(a.alpha_e)[None], beta,
+                                           self.eps)
+        xs = layer_norm_d8_stats(xs, self.eps)
+        return xs if self.affine is None else self.affine(xs)
 
 
 def _expand_lift_kernel(w: torch.Tensor, irrep: str) -> torch.Tensor:
@@ -245,25 +288,51 @@ class PatchEmbedD8(nn.Module):
         return pack_8_to_5f(tuple(feats[..., i, :] for i in range(8)))
 
 
+class GeluD8(nn.Module):
+    """The octic GELU (d8_layers.py:566): the kernel op :func:`gelu_d8` with
+    `use_kernel` (the flax ``use_pallas``), else the plain composite."""
+
+    def __init__(self, use_kernel: bool = False):
+        super().__init__()
+        self.use_kernel = use_kernel
+
+    def forward(self, xs: tuple) -> tuple:
+        return gelu_d8(xs) if self.use_kernel else gelu_d8_eager(xs)
+
+
 class MlpD8(nn.Module):
-    """fc1 -> D8 GELU -> fc2. In eval mode it runs the fused octic MLP op
-    (the bench flags, ``fuse_mlp``), which has no backward and refuses to run
-    where autograd would record it. In train mode fc1 and fc2 are two
-    :func:`linear_d8_fused` kernels, fc1 with the D8-GELU epilogue, as the
-    JAX train configuration runs them (``use_pallas_linear``, no
-    ``fuse_mlp``). The hidden is rounded to the working dtype between them."""
+    """fc1 -> D8 GELU -> fc2 (d8_layers.py:603-681).
+
+    With ``use_pallas_linear`` (the port's default, the bench and train
+    flags): in eval mode, without a LayerScale epilogue, it runs the fused
+    octic MLP op (the bench flags' ``fuse_mlp``), which has no backward and
+    refuses to run where autograd would record it; otherwise fc1 and fc2 are
+    two :func:`linear_d8_fused` kernels, fc1 with the D8-GELU epilogue, as
+    the JAX train configuration runs them, and fc2 takes the LayerScale +
+    residual epilogue where ``forward`` gets `layerscale` and `residual`.
+    Without it, fc1 and fc2 are plain products around :class:`GeluD8`, the
+    GELU kernel op with ``use_pallas_gelu``. The hidden is rounded to the
+    working dtype between them."""
 
     def __init__(self, in_features: int, hidden_features: int, bias: bool = True, *,
+                 use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.fc1 = LinearD8(in_features, hidden_features, bias, use_kernel=True, fuse_gelu=True,
+        self.use_pallas_linear = use_pallas_linear
+        self.fc1 = LinearD8(in_features, hidden_features, bias, use_kernel=use_pallas_linear,
+                            fuse_gelu=use_pallas_linear, **kw)
+        self.gelu = GeluD8(use_pallas_gelu)
+        self.fc2 = LinearD8(hidden_features, in_features, bias, use_kernel=use_pallas_linear,
                             **kw)
-        self.fc2 = LinearD8(hidden_features, in_features, bias, use_kernel=True, **kw)
 
-    def forward(self, xs: tuple) -> tuple:
-        if self.training:
-            return self.fc2(self.fc1(xs))
+    def forward(self, xs: tuple, layerscale: Optional[tuple] = None,
+                residual: Optional[tuple] = None) -> tuple:
+        if self.training or layerscale is not None or not self.use_pallas_linear:
+            h = self.fc1(xs)
+            if not self.use_pallas_linear:
+                h = self.gelu(h)
+            return self.fc2(h, layerscale, residual)
         dt = xs[0].dtype
         f1, f2 = self.fc1, self.fc2
         return mlp_d8_fused(xs, *(cast(p, dt) for p in (
@@ -307,12 +376,18 @@ class AttentionD8(nn.Module):
         return octic_attention_fused_qkv(
             *xs, *(cast(p, dt) for p in (q.kernel_1d, q.kernel_e, q.bias_a1)), self.num_heads)
 
-    def project(self, outs: tuple) -> tuple:
+    def project(self, outs: tuple, layerscale: Optional[tuple] = None,
+                residual: Optional[tuple] = None) -> tuple:
+        """The proj of the six attention outputs; with `layerscale` and
+        `residual`, ``residual + ls * proj(...)`` through the kernel's
+        epilogue (d8_layers.py:1055-1058, the proj's ``use_pallas=layerscale
+        is not None``)."""
         o1, o2, o3, o4, oe0, oe1 = outs
-        return self.proj((o1, o2, o3, o4, torch.cat((oe0, oe1), dim=-1)))
+        return self.proj((o1, o2, o3, o4, torch.cat((oe0, oe1), dim=-1)), layerscale, residual)
 
-    def forward(self, xs: tuple) -> tuple:
-        return self.project(self.attend(xs))
+    def forward(self, xs: tuple, layerscale: Optional[tuple] = None,
+                residual: Optional[tuple] = None) -> tuple:
+        return self.project(self.attend(xs), layerscale, residual)
 
 
 class BlockD8(nn.Module):
@@ -323,22 +398,62 @@ class BlockD8(nn.Module):
     the proj ... MLP half is rematerialized, and so is the half before the
     attention kernel: norm1 + qkv, or norm1 alone when the fused qkv +
     attention op takes the normed input (its forward is not replayed: the
-    normed input it saves and its six outputs are what remat keeps)."""
+    normed input it saves and its six outputs are what remat keeps).
+
+    The fused-glue options, with the JAX conditions and precedence
+    (d8_layers.py:1219-1269): ``fuse_block_epilogues`` (with
+    ``use_pallas_linear``, and no drop path or eval mode) writes ``x + ls *
+    y`` in the proj's and fc2's kernel epilogues; otherwise
+    ``fuse_mlp_branch`` (the same conditions) runs norm2 ... ls2 + residual
+    as :func:`mlp_branch_d8`. ``use_pallas_linear`` and ``use_pallas_gelu``
+    go to the MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, layerscale_init: float = 1e-4,
                  drop_path: float = 0.0, proj_bias: bool = True, ffn_bias: bool = True,
-                 fuse_qkv: bool = False, *, device=None, dtype=None):
+                 fuse_qkv: bool = False, use_pallas_linear: bool = True,
+                 use_pallas_gelu: bool = False, fuse_block_epilogues: bool = False,
+                 fuse_mlp_branch: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.norm1 = LayerNormD8(dim, **kw)
+        self.use_pallas_linear = use_pallas_linear
+        self.fuse_block_epilogues = fuse_block_epilogues
+        self.fuse_mlp_branch = fuse_mlp_branch
+        self.norm1 = LayerNormD8(dim, use_kernel=True, **kw)
         self.attn = AttentionD8(dim, num_heads, qkv_bias, proj_bias, fuse_qkv, **kw)
         self.ls1 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path1 = DropPathD8(drop_path)
-        self.norm2 = LayerNormD8(dim, **kw)
-        self.mlp = MlpD8(dim, int(dim * mlp_ratio), ffn_bias, **kw)
+        self.norm2 = LayerNormD8(dim, use_kernel=True, **kw)
+        self.mlp = MlpD8(dim, int(dim * mlp_ratio), ffn_bias, use_pallas_linear=use_pallas_linear,
+                         use_pallas_gelu=use_pallas_gelu, **kw)
         self.ls2 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path2 = DropPathD8(drop_path)
+
+    def _no_drop_path(self) -> bool:
+        return self.drop_path1.rate == 0.0 or not self.training
+
+    def fuse_epilogue(self) -> bool:
+        """Whether this call writes the residual adds in the kernel epilogues."""
+        return self.fuse_block_epilogues and self.use_pallas_linear and self._no_drop_path()
+
+    def fuse_branch(self) -> bool:
+        """Whether this call runs the MLP half as :func:`mlp_branch_d8`."""
+        return (self.fuse_mlp_branch and self.use_pallas_linear and self._no_drop_path()
+                and not self.fuse_epilogue())
+
+    def branch_params(self, dt: torch.dtype) -> tuple:
+        """The 11-tuple of :func:`mlp_branch_d8` from norm2, the MLP and ls2,
+        cast to `dt` (zeros where a bias is off)."""
+        na, f1, f2 = self.norm2.affine, self.mlp.fc1, self.mlp.fc2
+
+        def vec(p, n):
+            return cast(p, dt) if p is not None else torch.zeros(n, device=na.alpha_1d.device,
+                                                                 dtype=dt)
+
+        return (cast(na.alpha_1d, dt), cast(na.alpha_e, dt), vec(na.beta_a1, na.alpha_1d.shape[1]),
+                cast(f1.kernel_1d, dt), cast(f1.kernel_e, dt), vec(f1.bias_a1, f1.kernel_1d.shape[2]),
+                cast(f2.kernel_1d, dt), cast(f2.kernel_e, dt), vec(f2.bias_a1, f2.kernel_1d.shape[2]),
+                cast(self.ls2.alpha_1d, dt), cast(self.ls2.alpha_e, dt))
 
     def draw_masks(self, batch: int, generator: Optional[torch.Generator], *, device=None,
                    dtype=None) -> tuple:
@@ -354,8 +469,13 @@ class BlockD8(nn.Module):
 
     def _attn_out(self, *args) -> tuple:
         xs, outs, (m1, m2) = args[:5], args[5:11], args[11:]
+        if self.fuse_epilogue():
+            xs = self.attn.project(outs, (self.ls1.alpha_1d, self.ls1.alpha_e), xs)
+            return self.mlp(self.norm2(xs), (self.ls2.alpha_1d, self.ls2.alpha_e), xs)
         ys = self.drop_path1(self.ls1(self.attn.project(outs)), m1)
         xs = tuple(x + y for x, y in zip(xs, ys))
+        if self.fuse_branch():
+            return mlp_branch_d8(xs, self.branch_params(xs[0].dtype))
         ys = self.drop_path2(self.ls2(self.mlp(self.norm2(xs))), m2)
         return tuple(x + y for x, y in zip(xs, ys))
 

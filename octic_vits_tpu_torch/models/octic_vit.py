@@ -36,8 +36,13 @@ class OcticVisionTransformer(nn.Module):
     """``num_classes=0`` leaves out the head (``forward`` returns the
     features); ``cls_init`` is "deit" (truncated normal 0.16) or "dinov2"
     (normal 1e-6); ``fuse_qkv`` runs the octic blocks' qkv inside the fused
-    qkv + attention op in training too (the DINOv2 flags). Registers and the
-    invariant break are not ported yet and raise."""
+    qkv + attention op in training too (the DINOv2 flags).
+    ``use_pallas_linear``, ``use_pallas_gelu``, ``fuse_mlp_branch`` and
+    ``fuse_block_epilogues`` go to the octic blocks (:class:`BlockD8`), with
+    the JAX defaults except ``use_pallas_linear``: the port's octic blocks
+    always run the configurations of the bench and train flags, which set
+    it, so it defaults on here. Registers and the invariant break are not
+    ported yet and raise."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -45,8 +50,10 @@ class OcticVisionTransformer(nn.Module):
                  ffn_bias: bool = True, init_scale: float = 1e-4,
                  drop_path_rate: float = 0.0, cls_init: str = "deit", fuse_qkv: bool = False,
                  remat: bool = False, compute_dtype: Optional[torch.dtype] = None,
-                 num_register_tokens: int = 0, invariant: bool = False, *, device=None,
-                 dtype=None):
+                 num_register_tokens: int = 0, invariant: bool = False,
+                 use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
+                 fuse_mlp_branch: bool = False, fuse_block_epilogues: bool = False, *,
+                 device=None, dtype=None):
         super().__init__()
         if embed_dim % 8:
             raise ValueError("embed_dim must be divisible by 8")
@@ -75,8 +82,11 @@ class OcticVisionTransformer(nn.Module):
         self.cls_token_a1 = nn.Parameter(torch.empty(1, 1, c8, **kw))
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale,
                       drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
+        octic = dict(fuse_qkv=fuse_qkv, use_pallas_linear=use_pallas_linear,
+                     use_pallas_gelu=use_pallas_gelu, fuse_mlp_branch=fuse_mlp_branch,
+                     fuse_block_epilogues=fuse_block_epilogues)
         self.blocks = nn.ModuleList(
-            BlockD8(embed_dim, num_heads, fuse_qkv=fuse_qkv, **common) if i < self.break_layer
+            BlockD8(embed_dim, num_heads, **octic, **common) if i < self.break_layer
             else Block(embed_dim, num_heads, norm_eps=1e-6, **common)
             for i in range(depth)
         )

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import torch
+
 from octic_vits_tpu_torch.models.dinov2_vit import DinoVisionTransformer, OcticDinoVisionTransformer
 from octic_vits_tpu_torch.models.octic_vit import OcticVisionTransformer
 from octic_vits_tpu_torch.models.vit import VisionTransformer
@@ -17,12 +19,27 @@ def register_model(fn: Callable) -> Callable:
     return fn
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: `device` where the caller names
+    one, else the CUDA card. Without a card and without a named device it
+    raises: the port does not fall back to the CPU on its own; CPU callers
+    (the tests) pass ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def create_model(name: str, **kwargs):
-    """Build a registered model; ``device``, ``dtype`` and config overrides
-    go through ``kwargs``. Parameters are uninitialised: fill them with
-    ``init_weights(model, generator)`` or load them with ``params_from_jax``."""
+    """Build a registered model on ``kwargs["device"]``, the CUDA card when
+    none is given (see :func:`resolve_device`); ``dtype`` and config
+    overrides go through ``kwargs`` too. Parameters are uninitialised: fill
+    them with ``init_weights(model, generator)`` or load them with
+    ``params_from_jax``."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)}")
+    kwargs["device"] = resolve_device(kwargs.get("device"))
     return _REGISTRY[name](**kwargs)
 
 

@@ -17,11 +17,21 @@ from octic_vits_tpu_torch.ops.attention import (
     standard_attention_reference,
 )
 from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
-from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_bwd, gelu_d8_eager, gelu_exact, gelu_grad
+from octic_vits_tpu_torch.ops.gelu_d8 import (
+    gelu_d8,
+    gelu_d8_bwd,
+    gelu_d8_bwd_reference,
+    gelu_d8_eager,
+    gelu_d8_reference,
+    gelu_d8_vjp,
+    gelu_exact,
+    gelu_grad,
+)
 from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
     lin_d8_bwd_reference,
     linear_d8,
+    linear_d8_epilogue,
     linear_d8_fused,
     linear_d8_fused_bwd,
     linear_d8_fused_reference,
@@ -29,15 +39,36 @@ from octic_vits_tpu_torch.ops.linear import (
     mlp_d8_fused,
     mlp_d8_fused_reference,
 )
+from octic_vits_tpu_torch.ops.ln_d8 import (
+    ln_affine_d8_bwd,
+    ln_affine_d8_bwd_reference,
+    ln_affine_d8_flat_tuple,
+    ln_affine_d8_reference,
+    ln_d8_bwd,
+    ln_d8_bwd_reference,
+    ln_d8_flat_tuple,
+    ln_d8_reference,
+)
+from octic_vits_tpu_torch.ops.mlp_branch import (
+    mlp_branch_d8,
+    mlp_branch_d8_reference,
+    mlp_branch_eager,
+)
 
 #: the four kernel ops of the inference path
 INFERENCE_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_d8_fused)
+#: the octic block's fused-glue ops: the D8 LayerNorm (with and without
+#: the affine, forward and backward), the D8-GELU (forward and backward),
+#: the launches of linear_d8_fused with the LayerScale + residual epilogue,
+#: and the fused MLP branch
+GLUE_OPS = (ln_affine_d8_flat_tuple, ln_affine_d8_bwd, ln_d8_flat_tuple, ln_d8_bwd, gelu_d8,
+            gelu_d8_bwd, linear_d8_epilogue, mlp_branch_d8)
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
 #: fused qkv + attention)
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
-                              linear_d8_fused, octic_attention_fused_qkv_bwd)
+                              linear_d8_fused, octic_attention_fused_qkv_bwd) + GLUE_OPS
 
 
 def reset_launch_counts() -> None:
@@ -50,23 +81,40 @@ def launch_counts() -> dict:
 
 
 __all__ = [
+    "GLUE_OPS",
     "INFERENCE_OPS",
     "KERNEL_OPS",
     "dense_gelu",
     "dense_gelu_bwd",
     "dense_gelu_reference",
+    "gelu_d8",
     "gelu_d8_bwd",
+    "gelu_d8_bwd_reference",
     "gelu_d8_eager",
+    "gelu_d8_reference",
+    "gelu_d8_vjp",
     "gelu_exact",
     "gelu_grad",
     "launch_counts",
     "lin_d8_bwd_launch",
     "lin_d8_bwd_reference",
     "linear_d8",
+    "linear_d8_epilogue",
     "linear_d8_fused",
     "linear_d8_fused_bwd",
     "linear_d8_fused_reference",
     "linear_d8_tuple",
+    "ln_affine_d8_bwd",
+    "ln_affine_d8_bwd_reference",
+    "ln_affine_d8_flat_tuple",
+    "ln_affine_d8_reference",
+    "ln_d8_bwd",
+    "ln_d8_bwd_reference",
+    "ln_d8_flat_tuple",
+    "ln_d8_reference",
+    "mlp_branch_d8",
+    "mlp_branch_d8_reference",
+    "mlp_branch_eager",
     "mlp_d8_fused",
     "mlp_d8_fused_reference",
     "octic_attention",

@@ -2,8 +2,9 @@
 (counterpart of octic_vits_tpu/ops/pallas_linear.py):
 
 * :func:`linear_d8_fused`, with its ``linear_d8_tuple`` wrapper: one LinearD8
-  with an optional D8-GELU epilogue, differentiable (the train path's octic
-  fc1 and fc2);
+  with an optional D8-GELU epilogue or LayerScale + residual epilogue
+  (``y = r + ls * linear(x)``, row 6e), differentiable (the train path's
+  octic fc1 and fc2; the proj and fc2 of ``fuse_block_epilogues``);
 * :func:`mlp_d8_fused`: the octic MLP fc1 -> D8-GELU -> fc2 for inference
   (the JAX mlp_d8_tuple wrapper, here taking the five tensors directly);
 * :func:`lin_d8_bwd_launch`: K-lin-d8-bwd, the transpose and weight
@@ -24,7 +25,7 @@ import torch
 
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, forward_only, on_cuda
-from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_bwd, gelu_d8_eager
+from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_eager, gelu_d8_vjp
 
 
 def linear_d8(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
@@ -64,10 +65,13 @@ def _check_tuple(xs: tuple, c: int) -> tuple:
 
 
 def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
-                  bias: Optional[torch.Tensor], gelu: bool) -> tuple:
+                  bias: Optional[torch.Tensor], gelu: bool, layerscale: Optional[tuple] = None,
+                  residual: Optional[tuple] = None) -> tuple:
     """One launch of the K-lin-d8 kernel (csrc/lin_d8.cu) on CUDA bf16
-    tensors, with or without the D8-GELU epilogue. Counts nothing: the
-    public ops that use it count their own launches."""
+    tensors, with the D8-GELU epilogue, the LayerScale + residual epilogue
+    (`layerscale` = ``(ls1 [4, f], lse [2f])`` and the output-shaped 5-tuple
+    `residual`) or neither. Counts nothing: the public ops that use it count
+    their own launches."""
     _, c, f = w1.shape
     if c % 8 or f % 8:
         raise ValueError(f"lin_d8: widths c={c}, f={f} must be multiples of 8")
@@ -75,11 +79,24 @@ def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     check_kernel_arg(w1, "w1", (4, c, f))
     check_kernel_arg(we, "we", (2 * c, 2 * f))
     check_kernel_arg(bias, "bias", (f,))
+    ls1 = lse = None
+    rs = (None,) * 5
+    if layerscale is not None:
+        if gelu:
+            raise ValueError("lin_d8: the LayerScale epilogue and the GELU epilogue exclude "
+                             "each other")
+        ls1, lse = layerscale
+        check_kernel_arg(ls1, "ls1", (4, f))
+        check_kernel_arg(lse, "lse", (2 * f,))
+        rs = tuple(residual)
+        _check_tuple(rs, f)
+        if tuple(rs[0].shape[:-1]) != lead:
+            raise ValueError("lin_d8: the residual must have the output's shape")
     m = xs[0].numel() // c
     kw = dict(device=xs[0].device, dtype=xs[0].dtype)
     ys = tuple(torch.empty(*lead, f, **kw) for _ in range(4))
     yef = torch.empty(*lead, 4 * f, **kw)
-    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, yef, m, c, f, int(gelu))
+    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, yef, ls1, lse, *rs, m, c, f, int(gelu))
     return ys + (yef,)
 
 
@@ -160,39 +177,64 @@ def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:
 mlp_d8_fused.launches = 0
 
 
+def _lse_full(lse: torch.Tensor) -> torch.Tensor:
+    """The E LayerScale over both rows of the flat-E output: ``[lse | lse]``."""
+    return torch.cat((lse, lse))
+
+
 def linear_d8_fused_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
-                              bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
-    """Plain version: f32 math and exact erf, results in the input dtype."""
+                              bias: Optional[torch.Tensor], fuse_gelu: bool = False,
+                              layerscale: Optional[tuple] = None,
+                              residual: Optional[tuple] = None) -> tuple:
+    """Plain version: f32 math and exact erf, with the LayerScale + residual
+    epilogue ``r + ls * y`` in f32 where `layerscale` is given; results in
+    the input dtype."""
     y = linear_d8(tuple(x.float() for x in xs), w1.float(), we.float(), _f32(bias))
     if fuse_gelu:
         y = gelu_d8_eager(y)
+    if layerscale is not None:
+        ls1, lse = (t.float() for t in layerscale)
+        y = tuple(residual[g].float() + ls1[g] * y[g] for g in range(4)) + (
+            residual[4].float() + _lse_full(lse) * y[4],)
     return tuple(t.to(xs[0].dtype) for t in y)
 
 
 def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
-                        bias: Optional[torch.Tensor], gs: tuple, fuse_gelu: bool) -> tuple:
+                        bias: Optional[torch.Tensor], gs: tuple, fuse_gelu: bool,
+                        layerscale: Optional[tuple] = None) -> tuple:
     """The plain backward of :func:`linear_d8_fused`, as the JAX one is
-    eager XLA (pallas_linear.py:_bwd_rule): with the GELU epilogue it
-    recomputes the pre-activation z and pushes the cotangent through the
-    D8-GELU as ``R(gelu'(S z) (S g))`` in f32, then forms the input and
-    weight products. Every product, the recompute included, runs in the
-    operands' dtype: bf16 operands with f32 accumulation on the card (what
-    XLA's default precision does with the f32-cast products on the TPU,
-    except that the recomputed z is rounded to bf16), f32 on the CPU. The
-    E-slot order is kept
-    by working on the flat-E tuple throughout (``gelu_d8_bwd`` unpacks
-    E11|E12|E21|E22 to the isotypic order and back).
+    eager XLA (pallas_linear.py:_bwd_rule): with the LayerScale epilogue
+    ``y = r + ls z`` it recomputes z and takes ``dls = sum_m g z``, ``dz = g
+    ls`` (the residual's gradient is g itself, which the caller returns);
+    with the GELU epilogue it recomputes the pre-activation z and pushes the
+    cotangent through the D8-GELU as ``R(gelu'(S z) (S g))`` in f32; then it
+    forms the input and weight products. Every product, the recomputes
+    included, runs in the operands' dtype: bf16 operands with f32
+    accumulation on the card (what XLA's default precision does with the
+    f32-cast products on the TPU, except that the recomputed z is rounded to
+    bf16), f32 on the CPU. The E-slot order is kept by working on the flat-E
+    tuple throughout (``gelu_d8_vjp`` unpacks E11|E12|E21|E22 to the
+    isotypic order and back).
 
-    Returns ``(dxs (5-tuple), dw1, dwe, dbias or None)``."""
+    Returns ``(dxs (5-tuple), dw1, dwe, dbias or None, dls1 or None, dlse or
+    None)``."""
     dt = xs[0].dtype
     c, f = w1.shape[1], w1.shape[2]
     g = tuple(t.float() for t in gs)
     w1d, wed = w1.to(dt), we.to(dt)
-    if fuse_gelu:
+    dls1 = dlse = None
+    if fuse_gelu or layerscale is not None:
         z = tuple(t.float() for t in linear_d8(xs, w1d, wed, None))
         if bias is not None:
             z = (z[0] + bias.float(),) + z[1:]
-        g = gelu_d8_bwd(z, g)
+    if layerscale is not None:
+        ls1, lse = layerscale
+        dls1 = torch.stack([(g[i] * z[i]).reshape(-1, f).sum(0) for i in range(4)]).to(ls1.dtype)
+        dfull = (g[4] * z[4]).reshape(-1, 4 * f).sum(0)
+        dlse = (dfull[:2 * f] + dfull[2 * f:]).to(lse.dtype)
+        g = tuple(g[i] * ls1[i].float() for i in range(4)) + (g[4] * _lse_full(lse.float()),)
+    if fuse_gelu:
+        g = gelu_d8_vjp(z, g)
     dbias = None if bias is None else g[0].reshape(-1, f).sum(0).to(bias.dtype)
     gd = tuple(t.to(dt) for t in g)
     dxs = [torch.matmul(gd[i], w1d[i].t()) for i in range(4)]
@@ -202,46 +244,82 @@ def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     xrows = xs[4].reshape(-1, 2, 2 * c)
     dxs.append(torch.matmul(grows, wed.t()).reshape(xs[4].shape))
     dwe = sum(torch.matmul(xrows[:, r].t(), grows[:, r]).float() for r in range(2))
-    return tuple(dxs), dw1.to(w1.dtype), dwe.to(we.dtype), dbias
+    return tuple(dxs), dw1.to(w1.dtype), dwe.to(we.dtype), dbias, dls1, dlse
 
 
 class _LinearD8Fused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w1, we, bias, fuse_gelu, *xs):
-        ctx.save_for_backward(w1, we, bias, *xs)
+    def forward(ctx, w1, we, bias, ls1, lse, fuse_gelu, *tensors):
+        xs, residual = tensors[:5], tensors[5:] or None
+        layerscale = None if ls1 is None else (ls1, lse)
+        # the JAX residuals (pallas_linear.py:215): not the block residual
+        ctx.save_for_backward(w1, we, bias, ls1, lse, *xs)
         ctx.fuse_gelu = fuse_gelu
-        if not on_cuda(tuple(xs) + (w1, we, bias)):
-            return linear_d8_fused_reference(xs, w1, we, bias, fuse_gelu)
+        ctx.res_dtypes = () if residual is None else tuple(r.dtype for r in residual)
+        if not on_cuda(tensors + (w1, we, bias, ls1, lse)):
+            return linear_d8_fused_reference(xs, w1, we, bias, fuse_gelu, layerscale, residual)
         linear_d8_fused.launches += 1
-        return lin_d8_launch(xs, w1, we, bias, gelu=fuse_gelu)
+        if layerscale is not None:
+            linear_d8_epilogue.launches += 1
+        return lin_d8_launch(xs, w1, we, bias, fuse_gelu, layerscale, residual)
 
     @staticmethod
     def backward(ctx, *gs):
-        w1, we, bias, *xs = ctx.saved_tensors
-        dxs, dw1, dwe, dbias = linear_d8_fused_bwd(tuple(xs), w1, we, bias, gs, ctx.fuse_gelu)
-        return (dw1, dwe, dbias, None) + dxs
+        w1, we, bias, ls1, lse, *xs = ctx.saved_tensors
+        layerscale = None if ls1 is None else (ls1, lse)
+        dxs, dw1, dwe, dbias, dls1, dlse = linear_d8_fused_bwd(tuple(xs), w1, we, bias, gs,
+                                                               ctx.fuse_gelu, layerscale)
+        drs = tuple(g.to(dt) for g, dt in zip(gs, ctx.res_dtypes))  # d(r + ls z)/dr = 1
+        return (dw1, dwe, dbias, dls1, dlse, None) + dxs + drs
 
 
 def linear_d8_fused(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
-                    bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
+                    bias: Optional[torch.Tensor], fuse_gelu: bool = False,
+                    layerscale: Optional[tuple] = None,
+                    residual: Optional[tuple] = None) -> tuple:
     """One block-diagonal LinearD8 on the flat-E 5-tuple ``xs`` (a* ``[..., c]``,
     ef ``[..., 4c]``), weights ``w1 [4, c, f]``, ``we [2c, 2f]``, A1 bias
-    ``[f]``, optionally with the D8-GELU epilogue. CPU tensors take
+    ``[f]``, optionally with the D8-GELU epilogue or, with `layerscale` =
+    ``(ls1 [4, f], lse [2f])`` and the output-shaped flat-E 5-tuple
+    `residual`, the LayerScale + residual epilogue ``y = residual + ls *
+    linear(x)`` (the two exclude each other). CPU tensors take
     :func:`linear_d8_fused_reference`; CUDA tensors launch K-lin-d8
     (csrc/lin_d8.cu). The backward is :func:`linear_d8_fused_bwd` (plain
-    torch); it saves the inputs and weights only."""
-    return _LinearD8Fused.apply(w1, we, bias, fuse_gelu, *xs)
+    torch); it saves the inputs, the weights and the LayerScale, not the
+    residual."""
+    if (layerscale is None) != (residual is None):
+        raise ValueError("linear_d8_fused: layerscale and residual come together")
+    if layerscale is not None and fuse_gelu:
+        raise ValueError("linear_d8_fused: the LayerScale epilogue excludes fuse_gelu")
+    ls1, lse = layerscale if layerscale is not None else (None, None)
+    return _LinearD8Fused.apply(w1, we, bias, ls1, lse, fuse_gelu, *xs, *(residual or ()))
 
 
 linear_d8_fused.launches = 0
 
 
+def linear_d8_epilogue(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                       bias: Optional[torch.Tensor], layerscale: tuple, residual: tuple) -> tuple:
+    """:func:`linear_d8_fused` with the LayerScale + residual epilogue (kernel
+    row 6e). ``linear_d8_epilogue.launches`` counts the launches of
+    ``linear_d8_fused`` that run the epilogue (they count there too)."""
+    return linear_d8_fused(xs, w1, we, bias, layerscale=layerscale, residual=residual)
+
+
+linear_d8_epilogue.launches = 0
+
+
 def linear_d8_tuple(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
-                    bias: Optional[torch.Tensor], fuse_gelu: bool = False) -> tuple:
+                    bias: Optional[torch.Tensor], fuse_gelu: bool = False,
+                    layerscale: Optional[tuple] = None,
+                    residual: Optional[tuple] = None) -> tuple:
     """5-tuple wrapper (pallas_linear.py:linear_d8_tuple): E may be flat
-    ``[..., 4c]`` or ``[..., 2, 2c]``; the result comes back in the same
-    container at width f."""
-    e = xs[4]
-    flat_e = e.ndim == xs[0].ndim
-    ys = linear_d8_fused(xs if flat_e else xs[:4] + (e.flatten(-2),), w1, we, bias, fuse_gelu)
+    ``[..., 4c]`` or ``[..., 2, 2c]`` (in `xs` and in `residual` alike); the
+    result comes back in the same container at width f."""
+    flat_e = xs[4].ndim == xs[0].ndim
+
+    def flat(t5):
+        return t5 if t5 is None or flat_e else tuple(t5[:4]) + (t5[4].flatten(-2),)
+
+    ys = linear_d8_fused(flat(xs), w1, we, bias, fuse_gelu, layerscale, flat(residual))
     return ys if flat_e else ys[:4] + (ys[4].unflatten(-1, (2, -1)),)

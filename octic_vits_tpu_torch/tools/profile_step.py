@@ -1,8 +1,12 @@
-"""Where the time of one train step goes on the card: ``torch.profiler`` over
-one step of the hybrid and of the standard model of a cell, after warm-up.
+"""Where the time of one step goes on the card: ``torch.profiler`` over one
+train step (or one inference forward) of each model of a cell, after warm-up.
 
-    python3 -m octic_vits_tpu_torch.tools.profile_step ssl    # DINOv2, ViT-L/16, B=32
-    python3 -m octic_vits_tpu_torch.tools.profile_step deit   # DeiT III, ViT-H/14, B=32
+    python3 -m octic_vits_tpu_torch.tools.profile_step ssl        # DINOv2, ViT-L/16, B=32
+    python3 -m octic_vits_tpu_torch.tools.profile_step deit       # DeiT III, ViT-H/14, B=32
+    python3 -m octic_vits_tpu_torch.tools.profile_step deit_glue  # the hybrid's DeiT step,
+                                                                  # P7's flags vs path C
+    python3 -m octic_vits_tpu_torch.tools.profile_step infer      # one forward, ViT-H/14,
+                                                                  # B=64: P4, paths A and B
 
 For each model it prints the profiled step's wall time, the device's busy
 time (the sum of the kernels' device time; one stream) and idle share, the
@@ -11,8 +15,12 @@ kernels of this package, library GEMMs, everything else), the top kernels
 and every hand-written one, and last one JSON line with those numbers. The
 profiler adds host time to every launch, so the profiled wall time is longer
 than an unprofiled step's. The models, batches and step settings are those
-of ``chip_smoke.py`` P7 and P10 (which time the unprofiled steps), with
-seeded random weights and inputs. Run from the repository root (it imports
+of ``chip_smoke.py`` P4, P7, P10, P13 and P14 (which time the unprofiled
+steps), with seeded random weights and inputs; ``deit_glue`` profiles the
+hybrid with P7's flags and with path C's (plain octic linears, the D8-GELU
+kernel and the D8 LayerNorm kernel), ``infer`` the hybrid with P4's flags,
+paths A (``fuse_mlp_branch``) and B (``fuse_block_epilogues``), both with
+the LN kernel, and the standard model. Run from the repository root (it imports
 ``chip_smoke``); needs a CUDA device.
 """
 
@@ -24,6 +32,8 @@ import sys
 import time
 
 import torch
+
+from octic_vits_tpu_torch.layers import d8_layers
 
 SEED = 0
 
@@ -43,7 +53,7 @@ def _ssl_cell(arch_name: str):
         batch_to_device,
     )
 
-    arch = SSLMetaArch(SSLConfig(arch=arch_name, backbone_remat=True), device="cuda")
+    arch = SSLMetaArch(SSLConfig(arch=arch_name, backbone_remat=True))
     state = arch.init(torch.Generator("cuda").manual_seed(SEED))
     step = arch.make_train_step()
     lr = sqrt_lr_scaling(4e-3, chip_smoke.SSL_BATCH)
@@ -58,14 +68,14 @@ def _ssl_cell(arch_name: str):
     return run
 
 
-def _deit_cell(arch_name: str):
+def _deit_cell(arch_name: str, **flags):
     import chip_smoke
     from octic_vits_tpu_torch import create_model, init_weights
     from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
 
     cfg = DeiTConfig()
     model = create_model(arch_name, remat=True, drop_path_rate=cfg.drop_path,
-                         compute_dtype=torch.bfloat16, device="cuda")
+                         compute_dtype=torch.bfloat16, **flags)
     init_weights(model, torch.Generator("cuda").manual_seed(SEED))
     state, step = chip_smoke.train_setup(model, cfg)
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -79,9 +89,36 @@ def _deit_cell(arch_name: str):
     return run
 
 
+def _infer_cell(arch_name: str, **flags):
+    import chip_smoke
+    from octic_vits_tpu_torch import create_model, init_weights
+
+    model = create_model(arch_name, dtype=torch.bfloat16, **flags).eval()
+    init_weights(model, torch.Generator("cuda").manual_seed(SEED))
+    images = torch.randn(chip_smoke.BATCH, 224, 224, 3, generator=torch.Generator().manual_seed(
+        SEED + 1)).to("cuda", torch.bfloat16)
+
+    def run():
+        with torch.no_grad():
+            model(images)
+
+    return run
+
+
+# cell -> (the function that makes one step, the models it compares: (architecture,
+# flags, LN kernel on))
 CELLS = {
-    "ssl": (_ssl_cell, ("hybrid_dinov2_vit_large_patch16", "dinov2_vit_large_patch16")),
-    "deit": (_deit_cell, ("hybrid_deit_huge_patch14", "deit_huge_patch14_LS")),
+    "ssl": (_ssl_cell, (("hybrid_dinov2_vit_large_patch16", {}, False),
+                        ("dinov2_vit_large_patch16", {}, False))),
+    "deit": (_deit_cell, (("hybrid_deit_huge_patch14", {}, False),
+                          ("deit_huge_patch14_LS", {}, False))),
+    "infer": (_infer_cell, (("hybrid_deit_huge_patch14", {}, False),
+                            ("hybrid_deit_huge_patch14", dict(fuse_mlp_branch=True), True),
+                            ("hybrid_deit_huge_patch14", dict(fuse_block_epilogues=True), True),
+                            ("deit_huge_patch14_LS", {}, False))),
+    "deit_glue": (_deit_cell, (("hybrid_deit_huge_patch14", {}, False),
+                               ("hybrid_deit_huge_patch14",
+                                dict(use_pallas_linear=False, use_pallas_gelu=True), True))),
 }
 
 
@@ -133,13 +170,16 @@ def main() -> int:
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     cell = sys.argv[1] if len(sys.argv) > 1 else "ssl"
-    build, names = CELLS[cell]
+    build, models = CELLS[cell]
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
     print(card, flush=True)
     results = {}
-    for name in names:
-        res = profile(build(name))
+    for arch, flags, ln_kernel in models:
+        d8_layers.OCTIC_PALLAS_LN = ln_kernel
+        name = arch + "".join(f" {k}={v}" for k, v in flags.items()) + (
+            " OCTIC_PALLAS_LN" if ln_kernel else "")
+        res = profile(build(arch, **flags))
         results[name] = res
         print(f"{cell} {name}: wall {res['wall_ms']:.2f} ms, device busy "
               f"{res['device_busy_ms']:.2f} ms, idle share {res['idle_share']:.3f}, "

@@ -34,7 +34,7 @@ from torch import nn
 
 from octic_vits_tpu_torch.layers.init import init_weights
 from octic_vits_tpu_torch.models.dino_head import DINOHead
-from octic_vits_tpu_torch.models.registry import create_model
+from octic_vits_tpu_torch.models.registry import create_model, resolve_device
 from octic_vits_tpu_torch.train.dinov2 import losses as L
 from octic_vits_tpu_torch.train.dinov2.param_groups import build_multiplier_trees
 
@@ -105,13 +105,15 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 
 class SSLMetaArch:
-    """Builds the student and its state, the loss and the train step.
-    Keyword arguments beyond the config go to the backbone's constructor
-    (``init_scale=1.0`` for a check whose LayerScales must not hide the
-    blocks)."""
+    """Builds the student and its state, the loss and the train step, on
+    `device` (the CUDA card when none is given; without a card that raises,
+    see ``models.registry.resolve_device``). Keyword arguments beyond the
+    config go to the backbone's constructor (``init_scale=1.0`` for a check
+    whose LayerScales must not hide the blocks)."""
 
     def __init__(self, cfg: SSLConfig, device=None, **backbone_overrides):
         self.cfg = cfg
+        device = resolve_device(device)
         self.device = device
         octic = cfg.arch.startswith(("hybrid", "d8"))
         self.backbone_kwargs = dict(

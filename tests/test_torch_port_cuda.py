@@ -49,6 +49,11 @@ def _counted(op, *args):
     return out
 
 
+def _only(**counts) -> dict:
+    """Every kernel op's launch count: those given, every other 0."""
+    return {op.__name__: 0 for op in ops.KERNEL_OPS} | counts
+
+
 # (b, n, c, heads, bias). The octic head pieces (d1 = c/(8 heads), de = 2 d1)
 # take the attention gather's 8-byte (d1=4), 4-byte (d1=10, ViT-H) and
 # 2-byte (d1=3) load paths; the standard head dims take 16-byte loads.
@@ -207,7 +212,7 @@ def test_octic_attention_rejects_wrong_qkv_width(gen):
 
 
 def test_small_hybrid_model_on_card(gen):
-    cpu = create_model("hybrid_vit_small_test", init_scale=1.0).eval()
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cpu").eval()
     init_weights(cpu, torch.Generator().manual_seed(0))
     gpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cuda",
                        dtype=torch.bfloat16).eval()
@@ -218,10 +223,8 @@ def test_small_hybrid_model_on_card(gen):
     with torch.no_grad():
         out = gpu(img.cuda()).float().cpu()
         ref = cpu(img.float())
-    assert ops.launch_counts() == {
-        "standard_attention": 2, "octic_attention_fused_qkv": 2, "dense_gelu": 2,
-        "mlp_d8_fused": 2, "standard_attention_bwd": 0, "octic_attention": 0,
-        "octic_attention_bwd": 0, "linear_d8_fused": 0, "octic_attention_fused_qkv_bwd": 0}
+    assert ops.launch_counts() == _only(standard_attention=2, octic_attention_fused_qkv=2,
+                                        dense_gelu=2, mlp_d8_fused=2)
     assert torch.isfinite(out).all()
     assert ((out - ref).norm() / ref.norm()).item() < 5e-2
 
@@ -234,7 +237,7 @@ def test_small_hybrid_train_step_on_card(gen):
     from octic_vits_tpu_torch.train import common
     from octic_vits_tpu_torch.train.deit import engine
 
-    cpu = create_model("hybrid_vit_small_test", init_scale=1.0)
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cpu")
     init_weights(cpu, torch.Generator().manual_seed(0))
     card = create_model("hybrid_vit_small_test", init_scale=1.0,
                         remat=True, compute_dtype=torch.bfloat16, device="cuda")
@@ -367,6 +370,217 @@ def test_small_ssl_step_on_card(gen):
     assert counts["octic_attention_fused_qkv"] == 3 and counts["mlp_d8_fused"] == 1
     assert counts["linear_d8_fused"] == 8 and counts["standard_attention_bwd"] == 2
     assert abs(card_loss - cpu_loss) <= 5e-2 * abs(cpu_loss)
+    a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
+    b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
+
+
+# ---- the octic block's fused glue: K-ln-d8, K-gelu-d8, the LayerScale + residual
+# epilogue of K-lin-d8 and the fused MLP branch
+
+# (b, n, c8): the slot width c8 = C/8 takes the LN kernel's 1, 2, 4, 5 (ViT-H)
+# and 8 chunk registers a lane; M = 195 and 50 are no multiple of a CTA's rows
+GLUE_SHAPES = [(2, 17, 8), (3, 65, 8), (2, 257, 160), (1, 50, 24), (2, 9, 40), (2, 9, 96),
+               (1, 9, 256)]
+
+
+def _tuple5(gen, b, n, c8, shift=0.0):
+    return tuple(_randn(gen, b, n, c8) + shift for _ in range(4)) + (
+        _randn(gen, b, n, 4 * c8) - shift,)
+
+
+def _ln_params(gen, c8, dtype):
+    al = 1.0 + 0.2 * torch.randn(4, c8, generator=gen, device="cuda")
+    ae = 1.0 + 0.2 * torch.randn(1, 4 * c8, generator=gen, device="cuda")
+    be = 0.2 * torch.randn(1, c8, generator=gen, device="cuda")
+    return tuple(t.to(dtype) for t in (al, ae, be))
+
+
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_ln_affine_d8_kernel(gen, b, n, c8, param_dtype):
+    xs = _tuple5(gen, b, n, c8, shift=0.5)
+    params = _ln_params(gen, c8, param_dtype)
+    _assert_close(_counted(ops.ln_affine_d8_flat_tuple, xs, *params),
+                  ops.ln_affine_d8_reference(xs, *params))
+
+
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_ln_affine_d8_bwd_kernel(gen, b, n, c8, param_dtype):
+    """dx within the forward bar (f32 math on both sides, one bf16 rounding);
+    the parameter gradients (f32 sums over the tokens, in another order)
+    within the scaled bar; and the same bits on a second run, which pins the
+    fixed-order split-M reduction."""
+    xs, us = _tuple5(gen, b, n, c8, shift=0.5), _tuple5(gen, b, n, c8)
+    al, ae, _ = _ln_params(gen, c8, param_dtype)
+    out = _counted(ops.ln_affine_d8_bwd, xs, al, ae, us)
+    ref = ops.ln_affine_d8_bwd_reference(xs, al, ae, us)
+    _assert_close(out[0], ref[0])
+    for o, r in zip(out[1:], ref[1:], strict=True):
+        assert o.dtype == r.dtype == torch.float32 and o.shape == r.shape
+        assert bool(((o - r).abs() <= BWD_TOL * (r.abs().max() + r.abs())).all())
+    again = ops.ln_affine_d8_bwd(xs, al, ae, us)
+    for o, a in zip(out[1:], again[1:]):
+        assert torch.equal(o, a)
+
+
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_ln_d8_kernels(gen, b, n, c8):
+    """The statistics-only pair: the forward against its plain version, and
+    the backward from the plain version's saved output and var."""
+    xs, us = _tuple5(gen, b, n, c8, shift=-0.3), _tuple5(gen, b, n, c8)
+    outs, var = ops.ln_d8_reference(xs)
+    _assert_close(_counted(ops.ln_d8_flat_tuple, xs), outs)
+    _assert_close(_counted(ops.ln_d8_bwd, outs, var, us), ops.ln_d8_bwd_reference(outs, var, us))
+
+
+def test_ln_kernels_reject_wide_rows(gen):
+    xs = _tuple5(gen, 1, 3, 264)
+    with pytest.raises(ValueError, match="at most"):
+        ops.ln_d8_flat_tuple(xs)
+
+
+@pytest.mark.parametrize("flat_e", [True, False])
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_gelu_d8_kernels(gen, b, n, c8, flat_e):
+    """Forward and backward on the MLP hidden (width 4 c8), flat-E or with
+    the E rows as [..., 2, 2c]."""
+    h = 4 * c8
+    xs, gs = _tuple5(gen, b, n, h), _tuple5(gen, b, n, h)
+    if not flat_e:
+        xs, gs = (t[:4] + (t[4].unflatten(-1, (2, -1)),) for t in (xs, gs))
+    _assert_close(_counted(ops.gelu_d8, xs), ops.gelu_d8_reference(xs))
+    _assert_close(_counted(ops.gelu_d8_bwd, xs, gs), ops.gelu_d8_bwd_reference(xs, gs))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_linear_d8_epilogue_kernel(gen, b, n, c8, wide):
+    """y = r + ls * linear(x): the proj (c8 -> c8) and fc2 (4 c8 -> c8)."""
+    k = 4 * c8 if wide else c8
+    xs, res = _tuple5(gen, b, n, k), _tuple5(gen, b, n, c8)
+    w1, we = _randn(gen, 4, k, c8, scale=k ** -0.5), _randn(gen, 2 * k, 2 * c8,
+                                                              scale=(2 * k) ** -0.5)
+    bias = _randn(gen, c8, scale=0.1)
+    ls = (_randn(gen, 4, c8, scale=0.5), _randn(gen, 2 * c8, scale=0.5))
+    before = ops.linear_d8_fused.launches
+    out = _counted(ops.linear_d8_epilogue, xs, w1, we, bias, ls, res)
+    assert ops.linear_d8_fused.launches == before + 1
+    _assert_close(out, ops.linear_d8_fused_reference(xs, w1, we, bias, False, ls, res))
+
+
+def _branch_params(gen, c8):
+    h = 4 * c8
+    return (1.0 + _randn(gen, 4, c8, scale=0.1), 1.0 + _randn(gen, 2 * c8, scale=0.1),
+            _randn(gen, c8, scale=0.1), _randn(gen, 4, c8, h, scale=c8 ** -0.5),
+            _randn(gen, 2 * c8, 2 * h, scale=(2 * c8) ** -0.5), _randn(gen, h, scale=0.1),
+            _randn(gen, 4, h, c8, scale=h ** -0.5), _randn(gen, 2 * h, 2 * c8,
+                                                           scale=(2 * h) ** -0.5),
+            _randn(gen, c8, scale=0.1), _randn(gen, 4, c8, scale=0.5),
+            _randn(gen, 2 * c8, scale=0.5))
+
+
+@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+def test_mlp_branch_d8_kernel(gen, b, n, c8):
+    """The three launches against the plain version that rounds where they
+    do; and against the JAX bf16 kernel's rounding points (the fc1
+    pre-activation rounded to bf16 before the GELU, pallas_mlp_branch.py:
+    101-106). That one more rounding of each hidden value (relative 2^-9)
+    reaches the output through fc2 and the LayerScale as a sum of 8 c8
+    rounding errors, up to ~0.013 at these shapes: twice ATOL covers it."""
+    from octic_vits_tpu_torch.ops.mlp_branch import _norm_affine
+
+    xs, p = _tuple5(gen, b, n, c8), _branch_params(gen, c8)
+    out = _counted(ops.mlp_branch_d8, xs, p)
+    _assert_close(out, ops.mlp_branch_d8_reference(xs, p))
+    n_ = ops.ln_affine_d8_reference(xs, *_norm_affine(p))
+    z = ops.linear_d8_fused_reference(n_, p[3], p[4], p[5])  # rounded before the GELU
+    jax_points = ops.linear_d8_fused_reference(ops.gelu_d8_reference(z), p[6], p[7], p[8], False,
+                                               (p[9], p[10]), xs)
+    for o, r in zip(out, jax_points, strict=True):
+        torch.testing.assert_close(o.float(), r.float(), atol=2 * ATOL, rtol=RTOL)
+
+
+def test_glue_autograd_launches_backward_kernels(gen):
+    xs = tuple(t.requires_grad_() for t in _tuple5(gen, 2, 17, 16, shift=0.5))
+    al, ae, be = (t.requires_grad_() for t in _ln_params(gen, 16, torch.float32))
+    ops.reset_launch_counts()
+    hs = ops.gelu_d8(ops.ln_affine_d8_flat_tuple(xs, al, ae, be)[:4] + (xs[4],))
+    torch.autograd.backward(hs, _tuple5(gen, 2, 17, 16))
+    counts = ops.launch_counts()
+    assert counts == _only(ln_affine_d8_flat_tuple=1, ln_affine_d8_bwd=1, gelu_d8=1,
+                           gelu_d8_bwd=1)
+    assert all(torch.isfinite(t.grad).all() for t in xs + (al, ae, be))
+
+
+@pytest.fixture
+def pallas_ln(monkeypatch):
+    from octic_vits_tpu_torch.layers import d8_layers
+
+    monkeypatch.setattr(d8_layers, "OCTIC_PALLAS_LN", True)
+
+
+# hybrid_vit_small_test has 2 octic and 2 standard blocks
+GLUE_PATHS = {
+    "fuse_mlp_branch": dict(ln_affine_d8_flat_tuple=2, mlp_branch_d8=2),
+    "fuse_block_epilogues": dict(ln_affine_d8_flat_tuple=4, linear_d8_fused=6,
+                                 linear_d8_epilogue=4),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(GLUE_PATHS))
+def test_small_hybrid_glue_inference_on_card(gen, pallas_ln, flag):
+    """The fused-branch and epilogue inference paths against the plain model
+    in f32 on the CPU (the bar of test_small_hybrid_model_on_card)."""
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cpu").eval()
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = create_model("hybrid_vit_small_test", init_scale=1.0, device="cuda",
+                        dtype=torch.bfloat16, **{flag: True}).eval()
+    card.load_state_dict(cpu.state_dict())
+    img = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    img = img.to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = card(img.cuda()).float().cpu()
+        ref = cpu(img.float())
+    assert ops.launch_counts() == _only(standard_attention=2, octic_attention_fused_qkv=2,
+                                        dense_gelu=2, **GLUE_PATHS[flag])
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 5e-2
+
+
+def test_small_hybrid_gelu_kernel_train_step_on_card(gen, pallas_ln):
+    """One DeiT III step with plain octic linears and the D8-GELU kernel
+    (use_pallas_linear=False, use_pallas_gelu=True) and the LN kernel, under
+    remat, against the plain model in f32 on the CPU (the bars of
+    test_small_hybrid_train_step_on_card)."""
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cpu")
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = create_model("hybrid_vit_small_test", init_scale=1.0, remat=True,
+                        compute_dtype=torch.bfloat16, use_pallas_linear=False,
+                        use_pallas_gelu=True, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    cfg = engine.DeiTConfig(num_classes=10, mixup_alpha=0.0, cutmix_alpha=0.0, drop_path=0.0)
+    opt = engine.build_optimizer(cfg, card)
+    step = engine.make_deit_train_step(card, cfg, opt)
+    img = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    img = img.to(torch.bfloat16).float()
+    labels = torch.tensor([1, 4, 7, 9])
+    ops.reset_launch_counts()
+    _, metrics = step(common.create_train_state(card, opt), img.cuda(), labels.cuda(),
+                      torch.Generator().manual_seed(0))
+    # per octic block: norm1 and norm2 forward twice (remat), backward once
+    assert ops.launch_counts() == _only(
+        standard_attention=2, standard_attention_bwd=2, octic_attention=2, octic_attention_bwd=2,
+        dense_gelu=4, ln_affine_d8_flat_tuple=8, ln_affine_d8_bwd=4, gelu_d8=4, gelu_d8_bwd=2)
+    cpu.train()
+    loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
+    loss.backward()
+    assert abs(metrics["loss"].item() - loss.item()) <= 5e-2 * abs(loss.item())
     a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
     b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99

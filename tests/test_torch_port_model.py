@@ -67,7 +67,7 @@ def test_hybrid_model_matches_jax(config, scan):
     params = _perturbed_params(jmodel, img, seed=1)
     ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(img)))
     # the registry's entry for the small test config; the other by its constructor
-    tmodel = (create_model(config) if config == "hybrid_vit_small_test"
+    tmodel = (create_model(config, device="cpu") if config == "hybrid_vit_small_test"
               else OcticVisionTransformer(**cfg))
     ours = _port_logits(tmodel, params, img)
     assert ours.shape == ref.shape

@@ -231,7 +231,7 @@ def test_octic_dinov2_token_dict_matches_jax(octic_dino, size, with_masks):
     img, masks = _crops_and_masks(size, with_masks, seed=40 + size)
     params, fwd = octic_dino
     theirs = fwd(params, jnp.asarray(img), None if masks is None else jnp.asarray(masks))
-    tmodel = create_model("hybrid_dinov2_vit_tiny_test", fuse_qkv=True)
+    tmodel = create_model("hybrid_dinov2_vit_tiny_test", fuse_qkv=True, device="cpu")
     tmodel.load_state_dict(params_from_jax({"params": params}, tmodel), strict=True)
     tm = None if masks is None else torch.from_numpy(masks)
     for mode in ("eval", "train"):  # fused inference ops / the fuse_qkv train path
@@ -390,7 +390,7 @@ def _ssl_batch(cfg_kw, b=2, seed=0):
 def test_multiplier_trees_match_jax():
     jarch = JSSLMetaArch(JSSLConfig(**SSL_CFG, compute_dtype=jnp.float32))
     jparams = jax.eval_shape(jarch.init, jax.random.PRNGKey(0)).student  # names and shapes
-    student = SSLMetaArch(SSLConfig(**SSL_CFG, compute_dtype=None)).build_student()
+    student = SSLMetaArch(SSLConfig(**SSL_CFG, compute_dtype=None), device="cpu").build_student()
     names = [n for n, _ in student.named_parameters()]
     ours = build_multiplier_trees(names, 2, 0.9, 0.2)
     theirs = [params_from_jax({"params": jax.tree_util.tree_map(
@@ -437,7 +437,7 @@ def test_ssl_train_step_matches_jax(case):
 
     ((jl, jaux), jgrads), (jstate2, jmetrics) = jboth(jstate)
 
-    arch = SSLMetaArch(SSLConfig(**SSL_CFG, **extra, compute_dtype=None))
+    arch = SSLMetaArch(SSLConfig(**SSL_CFG, **extra, compute_dtype=None), device="cpu")
     student = arch.build_student()
     student.load_state_dict(params_from_jax({"params": params}, student), strict=True)
     state = arch.state_from_student(student)

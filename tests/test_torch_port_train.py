@@ -402,7 +402,7 @@ def test_deit_train_step_matches_jax(small_train_setup, case):
     jstate, jmetrics = jstep(jstate, jnp.asarray(images), jnp.asarray(labels),
                              jax.random.PRNGKey(0))
 
-    tmodel = create_model("hybrid_vit_small_test", img_size=IMG, remat=True)
+    tmodel = create_model("hybrid_vit_small_test", img_size=IMG, remat=True, device="cpu")
     tmodel.load_state_dict(params_from_jax({"params": params}, tmodel), strict=True)
     tcfg = engine.DeiTConfig(**cfg)
     opt = engine.build_optimizer(tcfg, tmodel)
@@ -431,7 +431,7 @@ def test_port_gradients_with_and_without_remat():
     grads = []
     for remat in (False, True):
         model = create_model("hybrid_vit_small_test", img_size=IMG, remat=remat,
-                             drop_path_rate=0.3, init_scale=1.0)
+                             drop_path_rate=0.3, init_scale=1.0, device="cpu")
         init_weights(model, torch.Generator().manual_seed(0))
         model.train()
         x = torch.randn(4, IMG, IMG, 3, generator=torch.Generator().manual_seed(1))
@@ -454,7 +454,7 @@ def test_octic_kernel_choice_follows_train_mode(monkeypatch):
         fn = getattr(d8_layers, name)
         monkeypatch.setattr(d8_layers, name,
                             lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
-    model = create_model("hybrid_vit_small_test", img_size=IMG)
+    model = create_model("hybrid_vit_small_test", img_size=IMG, device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     x = torch.randn(2, IMG, IMG, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -470,7 +470,7 @@ def test_eval_step_matches_jax(small_train_setup):
     models, images, labels = small_train_setup
     jmodel, params = models[True]
     jeval = jengine.make_eval_step(jmodel)(params, jnp.asarray(images), jnp.asarray(labels))
-    tmodel = create_model("hybrid_vit_small_test", img_size=IMG)
+    tmodel = create_model("hybrid_vit_small_test", img_size=IMG, device="cpu")
     sd = params_from_jax({"params": params}, tmodel)
     ours = engine.make_eval_step(tmodel)(_t(images), _t(labels).long(), params=sd)
     for k in ("top1", "top5", "n"):
