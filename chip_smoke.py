@@ -61,6 +61,24 @@ Phases, one line each (any failure raises and exits non-zero):
              use_pallas_gelu=True): launches; a deterministic 2-image step
              against P6's CPU f32 step (loss, gradient cosine); median step ms
              of P7's hybrid and path C in turns
+  P15 packed kernels  the packed-container kernels against their plain
+             versions: the fused qkv + attention (row 10) and the fused MLP
+             (row 11) on the packed [B, N, C] container at ViT-H/14 B=64, the
+             backward of row 10 (K-lin-d8 -> K-attn-bwd -> K-lin-d8-bwd writing
+             the packed dx) and of the fused MLP (row 4's, on the container's
+             views) at B=32; all of them at the ragged shape
+  P16 inv-early d8_inv_early_deit_huge_patch14 (full width and depth, seeded
+             random weights, LayerScale 1.0) forward at B=64 bf16 with the
+             flat-E carry and with packed_carry: 16 launches of each kernel,
+             logits of two images against the same weights in f32 through the
+             plain tuple path on the CPU; img/s of P4's hybrid and both
+             inv-early variants in turns
+  P17 packed train  the DeiT III step of P6 on the inv-early model with
+             packed_carry, fuse_qkv and fuse_mlp at B=32: finite loss and
+             gradients, launches against PACKED_TRAIN_LAUNCHES; a
+             deterministic 2-image step against the CPU f32 plain path (loss,
+             gradient cosine); median step ms and peak memory of P7's hybrid,
+             the inv-early model with P7's flags and the packed one, in turns
 The line before the last is the per-kernel JSON summary (with each kernel's
 bound on the card and, where one PyTorch call computes the same function,
 that call's time); the last line is ``{"ok": true, "device": {...}}``. Each
@@ -277,14 +295,18 @@ def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
         return m * 4 * c * e, attn_fwd, 0
     if name in ("standard_attention_bwd", "octic_attention_bwd"):
         return m * 7 * c * e, attn_bwd, 0
-    if name == "octic_attention_fused_qkv":
+    if name in ("octic_attention_fused_qkv", "octic_attention_fused_qkv_packed"):
         return (2 * m * c + qkv_w + bq) * e, qkv_ops + attn_fwd, 0
-    if name == "octic_attention_fused_qkv_bwd":  # x, g, w in; dx, dw, dbias out
-        return (3 * m * c + 2 * qkv_w + 2 * bq) * e, 3 * qkv_ops + attn_bwd, 0
+    if name in ("octic_attention_fused_qkv_bwd", "octic_attention_fused_qkv_packed_bwd"):
+        return (3 * m * c + 2 * qkv_w + 2 * bq) * e, 3 * qkv_ops + attn_bwd, 0  # dx, dw, dbias
     if name == "dense_gelu":
         return (m * c + 4 * c * c + 4 * c + 4 * m * c) * e, 8 * m * c * c, 0
-    if name == "mlp_d8_fused":
+    if name in ("mlp_d8_fused", "mlp_d8_fused_packed"):
         return (2 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops, 0
+    if name == "mlp_d8_fused_bwd":  # x, g, weights in; dx, weight gradients out; the
+        # hidden once more (fc1), then fc2's and fc1's transpose and weight products;
+        # the D8-GELU forward and backward on the 4C hidden
+        return (3 * m * c + 4 * lin4_w + 10 * c8) * e, 5 * lin4_ops, (13 + 22) * 4 * m * c
     if name == "linear_d8_fused":  # fc1 (C -> 4C) and fc2 (4C -> C), the two timed cases
         return (10 * m * c + 2 * lin4_w + 5 * c8) * e, 2 * lin4_ops, 0
     # the glue kernels (the cases of glue_b64_cases and glue_b32_cases)
@@ -384,12 +406,25 @@ META = {
                            "octic_vits_tpu/ops/pallas_linear.py:196", "epilogue_inference"),
     "mlp_branch_d8": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
                       "octic_vits_tpu/ops/pallas_mlp_branch.py:251", "fused_branch_inference"),
+    "octic_attention_fused_qkv_packed": ("octic_vits_tpu_torch/csrc/attention.cu",
+                                         "octic_vits_tpu/ops/pallas_attention.py:904",
+                                         "packed_inference"),
+    "octic_attention_fused_qkv_packed_bwd": ("octic_vits_tpu_torch/csrc/lin_d8_bwd.cu",
+                                             "octic_vits_tpu/ops/pallas_attention.py:959",
+                                             "packed_train"),
+    "mlp_d8_fused_packed": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
+                            "octic_vits_tpu/ops/pallas_linear.py:712", "packed_inference"),
+    "mlp_d8_fused_bwd": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
+                         "octic_vits_tpu/ops/pallas_linear.py:566", "packed_train"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
         "octic_attention_fused_qkv_bwd": ["octic_vits_tpu_torch/csrc/lin_d8.cu",
                                           "octic_vits_tpu_torch/csrc/attention_bwd.cu"],
-        "mlp_branch_d8": ["octic_vits_tpu_torch/csrc/lin_d8.cu"]}
+        "mlp_branch_d8": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
+        "octic_attention_fused_qkv_packed": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
+        "octic_attention_fused_qkv_packed_bwd": ["octic_vits_tpu_torch/csrc/lin_d8.cu",
+                                                 "octic_vits_tpu_torch/csrc/attention_bwd.cu"]}
 # launches of each kernel in one hybrid ViT-L/16 DINOv2 step at B=32 (12 octic
 # and 12 standard blocks) under remat. The teacher's forward (eval mode) runs
 # the fused inference kernels once per block: 12 octic_attention_fused_qkv,
@@ -432,6 +467,23 @@ GLUE_TRAIN_LAUNCHES = TRAIN_LAUNCHES | {"linear_d8_fused": 0, "ln_affine_d8_flat
                                         "ln_affine_d8_bwd": 32, "gelu_d8": 32, "gelu_d8_bwd": 16}
 # the statistics-only LN pair, one forward and one backward of the module
 LN_MODULE_LAUNCHES = {"ln_d8_flat_tuple": 1, "ln_d8_bwd": 1}
+# launches in one inv-early ViT-H/14 forward (16 octic blocks) with the flat-E
+# carry (P3's kernels) and with the packed carry (the packed ops instead)
+INV_INFERENCE_LAUNCHES = {
+    "inv_flat_inference": {"octic_attention_fused_qkv": 16, "mlp_d8_fused": 16,
+                           "standard_attention": 16, "dense_gelu": 16},
+    "packed_inference": {"octic_attention_fused_qkv_packed": 16, "mlp_d8_fused_packed": 16,
+                         "standard_attention": 16, "dense_gelu": 16},
+}
+# launches in the packed DeiT III step (fuse_qkv, fuse_mlp, remat): per octic
+# block the packed fused qkv + attention runs once forward (outside remat) and
+# its backward chain once; the packed MLP runs in the remat region, forward
+# and replay, and its backward (row 4's, which recomputes the hidden) once;
+# no linear_d8_fused. The standard blocks as in TRAIN_LAUNCHES
+PACKED_TRAIN_LAUNCHES = {"octic_attention_fused_qkv_packed": 16,
+                         "octic_attention_fused_qkv_packed_bwd": 16, "mlp_d8_fused_packed": 32,
+                         "mlp_d8_fused_bwd": 16, "standard_attention": 16,
+                         "standard_attention_bwd": 16, "dense_gelu": 32}
 
 
 def expected_launches(table: dict) -> dict:
@@ -787,8 +839,11 @@ def main() -> int:
                timages=timages, tlabels=tlabels, tgen=tgen)
     glue_launches = glue_phases(gen, summary, card, cpu_model, images, ref, det)
 
+    torch.cuda.empty_cache()
+    packed_launches = packed_phases(gen, summary, card, cpu_model, images, det)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
-              **glue_launches}
+              **glue_launches, **packed_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -1131,6 +1186,197 @@ def glue_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
                  + f"; ratio path C / P7 img/s {med['P7 hybrid'] / med['path C']:.4f}")
     with_ln_kernel(False)
     del runs, base, model_c
+    torch.cuda.empty_cache()
+    return counts
+
+
+def packed_b64_cases(gen, b, n, c, heads, bias):
+    """P15 at the inference batch: the fused qkv + attention (row 10) and the
+    fused MLP (row 11) on one packed [B, N, C] container, which the kernels
+    read in place through its slot views."""
+    from octic_vits_tpu_torch import ops
+
+    c8, h8 = c // 8, c // 2
+    opt = lambda t: t if bias else None  # noqa: E731
+    x = randn(gen, b, n, c)
+    wq1, wqe = randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5), randn(gen, 2 * c8, 6 * c8,
+                                                                   scale=(2 * c8) ** -0.5)
+    mlp = (randn(gen, 4, c8, h8, scale=c8 ** -0.5), randn(gen, 2 * c8, 2 * h8, scale=(2 * c8) ** -0.5),
+           opt(randn(gen, h8, scale=0.1)), randn(gen, 4, h8, c8, scale=h8 ** -0.5),
+           randn(gen, 2 * h8, 2 * c8, scale=(2 * h8) ** -0.5), opt(randn(gen, c8, scale=0.1)))
+    return [
+        ("octic_attention_fused_qkv_packed", ops.octic_attention_fused_qkv_packed,
+         ops.octic_attention_fused_qkv_packed_reference,
+         (x, wq1, wqe, opt(randn(gen, 3 * c8, scale=0.1)), heads), False, None),
+        ("mlp_d8_fused_packed", ops.mlp_d8_fused_packed, ops.mlp_d8_fused_packed_reference,
+         (x.reshape(-1, c),) + mlp, False, None),
+    ]
+
+
+def packed_b32_cases(gen, b, n, c, heads, bias):
+    """P15 at the train batch: the backward of row 10 from its residuals
+    (the packed input, the qkv weights) and six output cotangents, and the
+    fused MLP's backward (row 4's) on the slot views of a packed container,
+    as the packed MLP's backward runs it. Scaled bar: gradients that sum over
+    the tokens or through the attention backward."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    c8, h8 = c // 8, c // 2
+    opt = lambda t: t if bias else None  # noqa: E731
+    x = randn(gen, b, n, c)
+    ge = randn(gen, b, n, 4 * c8)
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (ge[..., :2 * c8], ge[..., 2 * c8:])
+    attn = (x, randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5),
+            randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5), opt(randn(gen, 3 * c8, scale=0.1)),
+            gs, heads)
+    mlp = (randn(gen, 4, c8, h8, scale=c8 ** -0.5), randn(gen, 2 * c8, 2 * h8, scale=(2 * c8) ** -0.5),
+           opt(randn(gen, h8, scale=0.1)), randn(gen, 4, h8, c8, scale=h8 ** -0.5),
+           randn(gen, 2 * h8, 2 * c8, scale=(2 * h8) ** -0.5), opt(randn(gen, c8, scale=0.1)))
+    xs, gm = unpack_packed_5f(randn(gen, b, n, c)), unpack_packed_5f(randn(gen, b, n, c))
+    return [
+        ("octic_attention_fused_qkv_packed_bwd", ops.octic_attention_fused_qkv_packed_bwd,
+         ops.octic_attention_fused_qkv_packed_bwd_reference, attn, True, None),
+        ("mlp_d8_fused_bwd", ops.mlp_d8_fused_bwd, ops.mlp_d8_fused_bwd_reference,
+         (xs,) + mlp + (gm,), True, None),
+    ]
+
+
+def packed_phases(gen, summary, card, cpu_model, images, det) -> dict:
+    """P15-P17, the packed trunk carry with the invariant-early ViT-H/14.
+    `cpu_model` is P3's f32 hybrid on the CPU (the weights of P4's and P7's
+    hybrid), `images` P3's batch, `det` P6's configs and batches. Returns the
+    launches of each path."""
+    from octic_vits_tpu_torch import create_model, init_weights, ops
+    from octic_vits_tpu_torch.train.common import bce_target_loss
+
+    h14 = (BATCH, 257, 1280, 16, True)
+    ragged = ("ragged", (3, 65, 64, 2, False))
+    # ---- P15: the packed kernels against their plain versions ----
+    kernel_phase("P15", packed_b64_cases, (("vith14_b64", h14), ragged), gen, summary)
+    kernel_phase("P15", packed_b32_cases, (("vith14_b32", (TRAIN_BATCH,) + h14[1:]), ragged), gen,
+                 summary)
+    torch.cuda.empty_cache()
+
+    # ---- P16: inv-early ViT-H/14 inference, flat-E and packed ----
+    name = "d8_inv_early_deit_huge_patch14"
+    cpu_inv = create_model(name, init_scale=1.0, device="cpu").eval()
+    init_weights(cpu_inv, torch.Generator().manual_seed(SEED + 8))
+    with torch.no_grad():
+        ref = cpu_inv(images[:2].to(torch.bfloat16).float())
+    images_gpu = images.to("cuda", torch.bfloat16)
+    counts, models = {}, {}
+    for path, flags in (("inv_flat_inference", {}), ("packed_inference", dict(packed_carry=True))):
+        m = create_model(name, init_scale=1.0, dtype=torch.bfloat16, **flags).eval()
+        m.load_state_dict(cpu_inv.state_dict(), strict=True)
+        models[path] = m
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits = m(images_gpu)
+        torch.cuda.synchronize()
+        counts[path] = ops.launch_counts()
+        got = logits[:2].float().cpu()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        phase("P16", f"{name} B={BATCH} bf16, {flags}: logits {tuple(logits.shape)} finite "
+                     f"{bool(logits.isfinite().all())}; launches "
+                     f"{ {k: v for k, v in counts[path].items() if v} }; 2 images vs CPU f32 "
+                     f"plain tuple path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL}), max abs err "
+                     f"{(got - ref).abs().max().item():.3e}, |ref| max {ref.abs().max().item():.3e}")
+        if tuple(logits.shape) != (BATCH, 1000) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{path}: bad logits")
+        if counts[path] != expected_launches(INV_INFERENCE_LAUNCHES[path]):
+            raise AssertionError(f"{path}: launches differ from {INV_INFERENCE_LAUNCHES[path]}")
+        if not rel <= SLICE_REL_TOL:
+            raise AssertionError(f"{path}: logits disagree with the CPU f32 plain path")
+        del logits
+    hybrid = create_model("hybrid_deit_huge_patch14", init_scale=1.0, dtype=torch.bfloat16).eval()
+    hybrid.load_state_dict(cpu_model.state_dict(), strict=True)
+    models["P4 hybrid"] = hybrid
+    times = {p: [] for p in ("P4 hybrid", "inv_flat_inference", "packed_inference")}
+    with torch.no_grad():
+        for path in ("P4 hybrid", "inv_flat_inference", "packed_inference", "packed_inference",
+                     "inv_flat_inference", "P4 hybrid"):
+            times[path].append(time_ms(lambda: models[path](images_gpu), iters=10, warmup=2))
+    ips = {p: BATCH / (min(t) / 1e3) for p, t in times.items()}
+    phase("P16", f"B={BATCH} 224^2 bf16 on {card}, in turns: "
+                 + ", ".join(f"{p} {ips[p]:.1f} img/s ({' / '.join(f'{t:.2f}' for t in times[p])} "
+                             f"ms)" for p in times)
+                 + f"; packed / flat-E inv-early {ips['packed_inference'] / ips['inv_flat_inference']:.4f}"
+                 f", inv-early flat-E / P4 hybrid {ips['inv_flat_inference'] / ips['P4 hybrid']:.4f}")
+    del models, hybrid, images_gpu
+    torch.cuda.empty_cache()
+
+    # ---- P17: the packed inv-early DeiT III step ----
+    cfg = det["cfg"]
+    packed_flags = dict(packed_carry=True, fuse_qkv=True, fuse_mlp=True)
+    train_kw = dict(init_scale=1.0, remat=True, drop_path_rate=cfg.drop_path,
+                    compute_dtype=torch.bfloat16)
+    model_p = create_model(name, **train_kw, **packed_flags)
+    model_p.load_state_dict(cpu_inv.state_dict(), strict=True)
+    state, step = train_setup(model_p, cfg)
+    ops.reset_launch_counts()
+    state, metrics = step(state, det["timages"], det["tlabels"], det["tgen"])
+    torch.cuda.synchronize()
+    counts["packed_train"] = ops.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model_p.parameters())
+    loss = metrics["loss"].item()
+    phase("P17", f"{name} packed train step B={TRAIN_BATCH} ({packed_flags}; the P6 recipe): "
+                 f"loss {loss:.4f}, grad norm {metrics['grad_norm'].item():.4f}, finite grads "
+                 f"{finite}, launches { {k: v for k, v in counts['packed_train'].items() if v} }")
+    if not (math.isfinite(loss) and finite):
+        raise AssertionError("packed train step: non-finite loss or gradients")
+    if counts["packed_train"] != expected_launches(PACKED_TRAIN_LAUNCHES):
+        raise AssertionError(f"packed train launches differ from {PACKED_TRAIN_LAUNCHES}")
+    del state, step
+    set_drop_path(model_p, 0.0)
+    model_p.load_state_dict(cpu_inv.state_dict(), strict=True)
+    det_state, det_step = train_setup(model_p, det["det_cfg"])
+    _, det_metrics = det_step(det_state, det["images"].cuda(), det["labels"].cuda(),
+                              torch.Generator().manual_seed(SEED))
+    cpu_inv.train()
+    cpu_loss = bce_target_loss(cpu_inv(det["images"]),
+                               torch.nn.functional.one_hot(det["labels"], 1000).float())
+    cpu_loss.backward()
+    cos, _, norm_cpu, count = grad_cosine(model_p, cpu_inv)
+    card_loss = det_metrics["loss"].item()
+    loss_rel = abs(card_loss - cpu_loss.item()) / abs(cpu_loss.item())
+    phase("P17", f"deterministic step, 2 images: loss card {card_loss:.6f} vs CPU f32 "
+                 f"{cpu_loss.item():.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); gradient "
+                 f"cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; grad norm card "
+                 f"{det_metrics['grad_norm'].item():.4f} vs CPU {norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("packed train step disagrees with the CPU f32 plain path")
+    del det_state, det_step, cpu_inv
+    # step ms in turns: P7's hybrid, the inv-early model with P7's flags, packed
+    set_drop_path(model_p, cfg.drop_path)
+    base = create_model("hybrid_deit_huge_patch14", **train_kw)
+    base.load_state_dict(cpu_model.state_dict(), strict=True)
+    inv_flat = create_model(name, **train_kw)
+    inv_flat.load_state_dict(model_p.state_dict(), strict=True)
+    runs = {"P7 hybrid": train_setup(base, cfg), "inv-early flat-E": train_setup(inv_flat, cfg),
+            "inv-early packed": train_setup(model_p, cfg)}
+    times = {k: [] for k in runs}
+    peak = dict.fromkeys(runs, 0)
+    for key in ("P7 hybrid", "inv-early flat-E", "inv-early packed", "inv-early packed",
+                "inv-early flat-E", "P7 hybrid"):
+        state, step = runs[key]
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
+                                steps=5, warmup=1)
+        # the step's own peak above what the resident train states hold
+        peak[key] = max(peak[key], torch.cuda.max_memory_allocated() - base_mem)
+        times[key] += t
+    med = {k: statistics.median(t) for k, t in times.items()}
+    phase("P17", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+                 + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
+                             f"range {min(times[k]):.2f}-{max(times[k]):.2f}, step peak "
+                             f"{peak[k] / 2**30:.2f} GiB above the states)" for k in times)
+                 + f"; packed / flat-E inv-early img/s "
+                 f"{med['inv-early flat-E'] / med['inv-early packed']:.4f}, packed / P7 hybrid "
+                 f"{med['P7 hybrid'] / med['inv-early packed']:.4f}")
+    del runs, base, inv_flat, model_p
     torch.cuda.empty_cache()
     return counts
 

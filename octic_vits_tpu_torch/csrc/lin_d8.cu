@@ -11,10 +11,21 @@
 //   octic_vits_tpu/ops/pallas_linear.py:mlp_d8_fused (`_mlp_kernel`): fc1
 //     with the GELU epilogue, then fc2 (two launches here);
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention_fused_qkv
-//     (`_octic_qkv_attn_kernel`, its qkv half): the qkv 5-tuple, no epilogue.
+//     (`_octic_qkv_attn_kernel`, its qkv half): the qkv 5-tuple, no epilogue;
+//   the packed-container variants of the last two,
+//     pallas_attention.py:octic_attention_fused_qkv_packed
+//     (`_octic_qkv_attn_kernel_packed`) and
+//     pallas_linear.py:mlp_d8_fused_packed (`_mlp_kernel_packed`): the five
+//     inputs are column views of ONE packed [M, C] container
+//     [A1|A2|B1|B2|E row0|E row1] (x_g at column g C, ef at 4C, row stride 8C)
+//     and the MLP's fc2 writes the packed [M, 8F] output in place, through the
+//     row strides below. The TPU kernels slice the views in VMEM; here each
+//     view is read in place from HBM and nothing is copied.
 //
-// Math, for every token m and output channel j < F (x_g [M,C], ef [M,4C] =
-// [row0 | row1], w1 [4,C,F], we [2C,2F], A1 bias [F]):
+// Math, for every token m and output channel j < F (x_g [M,C] with row stride
+// ldx, ef [M,4C] = [row0 | row1] with row stride ldxe, w1 [4,C,F], we [2C,2F],
+// A1 bias [F]; the outputs y_g [M,F] with row stride ldy, yef [M,4F] with
+// ldye):
 //   y_g[m,j]  = x_g[m,:] . w1[g][:,j]         (+ bias[j] for g = 0, A1)
 //   e11 = row0 . we[:,j]    e12 = row0 . we[:,F+j]
 //   e21 = row1 . we[:,j]    e22 = row1 . we[:,F+j]
@@ -69,6 +80,7 @@ struct Args {
   const bf16* r[4];  // the residual, [M, F] each
   const bf16* ref;   // [M, 4F]
   int M, C, F;
+  int ldx, ldxe, ldy, ldye;  // row strides (elements) of x_g, ef, y_g, yef
 };
 
 __device__ __forceinline__ void load_stage(bf16* st, const Args& a, int m0, int j0, int k0,
@@ -85,11 +97,11 @@ __device__ __forceinline__ void load_stage(bf16* st, const Args& a, int m0, int 
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         const bool v = mv && k < C;
-        cp_async16(sa + (g * BM + r) * LDS + kc, v ? a.x[g] + (size_t)m * C + k : a.x[g], v);
+        cp_async16(sa + (g * BM + r) * LDS + kc, v ? a.x[g] + (size_t)m * a.ldx + k : a.x[g], v);
       }
     }
     const bool ve = mv && k < 2 * C;
-    const bf16* row0 = a.xef + (size_t)m * 4 * C + k;
+    const bf16* row0 = a.xef + (size_t)m * a.ldxe + k;
     cp_async16(sa + (4 * BM + r) * LDS + kc, ve ? row0 : a.xef, ve);
     cp_async16(sa + (5 * BM + r) * LDS + kc, ve ? row0 + 2 * C : a.xef, ve);
   }
@@ -217,8 +229,8 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
       v[7] = __bfloat162float(re[3 * F]) + l1 * v[7];  // e22, column 3F + j
     }
 #pragma unroll
-    for (int s = 0; s < 4; ++s) a.y[s][(size_t)m * F + j] = __float2bfloat16(v[s]);
-    bf16* ye = a.yef + (size_t)m * 4 * F + j;
+    for (int s = 0; s < 4; ++s) a.y[s][(size_t)m * a.ldy + j] = __float2bfloat16(v[s]);
+    bf16* ye = a.yef + (size_t)m * a.ldye + j;
     ye[0] = __float2bfloat16(v[4]);      // e11
     ye[F] = __float2bfloat16(v[6]);      // e12
     ye[2 * F] = __float2bfloat16(v[5]);  // e21
@@ -229,16 +241,18 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
 }  // namespace lind8
 }  // namespace ovt
 
-// x0..x3 [M,C], xef [M,4C], w1 [4,C,F], we [2C,2F], bias [F] or null,
-// y0..y3 [M,F], yef [M,4F]; the LayerScale epilogue's ls1 [4,F], lse [2F],
-// r0..r3 [M,F] and ref [M,4F], or all null; all bf16, contiguous, 16-byte
-// aligned, C % 8 == 0 and F % 8 == 0 (checked by the Python wrapper).
+// x0..x3 [M,C] (row stride ldx), xef [M,4C] (ldxe), w1 [4,C,F], we [2C,2F],
+// bias [F] or null, y0..y3 [M,F] (ldy), yef [M,4F] (ldye); the LayerScale
+// epilogue's ls1 [4,F], lse [2F], r0..r3 [M,F] and ref [M,4F] (contiguous),
+// or all null; all bf16 with unit channel stride, every start 16-byte
+// aligned, ldx and ldxe multiples of 8, C % 8 == 0 and F % 8 == 0 (checked by
+// the Python wrapper).
 OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const void* x3,
                           const void* xef, const void* w1, const void* we, const void* bias,
                           void* y0, void* y1, void* y2, void* y3, void* yef, const void* ls1,
                           const void* lse, const void* r0, const void* r1, const void* r2,
                           const void* r3, const void* ref, int M, int C, int F, int gelu,
-                          void* stream) {
+                          int ldx, int ldxe, int ldy, int ldye, void* stream) {
   using namespace ovt::lind8;
   using ovt::bf16;
   Args a;
@@ -266,6 +280,10 @@ OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const 
   a.M = M;
   a.C = C;
   a.F = F;
+  a.ldx = ldx;
+  a.ldxe = ldxe;
+  a.ldy = ldy;
+  a.ldye = ldye;
   dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

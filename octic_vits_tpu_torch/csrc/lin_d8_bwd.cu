@@ -8,6 +8,10 @@
 // (called by _fused_bwd_kernel_call, the custom VJP _fused_bwd_rule of
 // octic_attention_fused_qkv): the part of that TPU kernel after the
 // attention backward, which folds dx and the f32 weight-gradient sums in.
+// Also the backward of the packed variant (pallas_attention.py:
+// _fused_packed_bwd_rule): x_g and ef are then column views of one packed
+// [M, C] container and dx lands in place in one packed [M, C] gradient,
+// through the row strides ldx, ldxe (inputs) and ldd, ldde (dx).
 //
 // Math, for tokens m < M (x_g [M,C], ef [M,4C] = [row0 | row1], the qkv
 // cotangents dq_g [M,F] and de_r [M,2F], w1 [4,C,F], we [2C,2F]):
@@ -281,17 +285,19 @@ __global__ void reduce_kernel(const float* scratch, long long split_stride, int 
 }  // namespace lind8bwd
 }  // namespace ovt
 
-// x0..x3 [M,C], xef [M,4C], w1 [4,C,F], we [2C,2F], dq0..dq3 [M,F],
-// de0, de1 [M,2F] -> dx0..dx3 [M,C], dxef [M,4C], dw1 [4,C,F], dwe [2C,2F],
-// dbias [F] (null: no bias). All bf16, contiguous, 16-byte aligned, C % 8 ==
-// 0 and F % 8 == 0 (checked by the Python wrapper). scratch: f32,
-// splits * (8 C F + F) values.
+// x0..x3 [M,C] (row stride ldx), xef [M,4C] (ldxe), w1 [4,C,F], we [2C,2F],
+// dq0..dq3 [M,F], de0, de1 [M,2F] -> dx0..dx3 [M,C] (ldd), dxef [M,4C]
+// (ldde), dw1 [4,C,F], dwe [2C,2F], dbias [F] (null: no bias). All bf16 with
+// unit channel stride, every start 16-byte aligned, the row strides
+// multiples of 8, dq and de contiguous, C % 8 == 0 and F % 8 == 0 (checked by
+// the Python wrapper). scratch: f32, splits * (8 C F + F) values.
 OVT_EXPORT int ovt_lin_d8_bwd(const void* x0, const void* x1, const void* x2, const void* x3,
                               const void* xef, const void* w1, const void* we, const void* dq0,
                               const void* dq1, const void* dq2, const void* dq3, const void* de0,
                               const void* de1, void* dx0, void* dx1, void* dx2, void* dx3,
                               void* dxef, void* dw1, void* dwe, void* dbias, void* scratch, int M,
-                              int C, int F, int splits, void* stream) {
+                              int C, int F, int splits, int ldx, int ldxe, int ldd, int ldde,
+                              void* stream) {
   using namespace ovt::lind8bwd;
   using ovt::bf16;
   const bf16* xs[4] = {static_cast<const bf16*>(x0), static_cast<const bf16*>(x1),
@@ -308,9 +314,9 @@ OVT_EXPORT int ovt_lin_d8_bwd(const void* x0, const void* x1, const void* x2, co
 
   XArgs xa;
   xa.M = M;
-  for (int g = 0; g < 4; ++g) xa.p[g] = {dqs[g], w1p + (size_t)g * C * F, dxs[g], F, C, C, F};
+  for (int g = 0; g < 4; ++g) xa.p[g] = {dqs[g], w1p + (size_t)g * C * F, dxs[g], F, ldd, C, F};
   for (int r = 0; r < 2; ++r)
-    xa.p[4 + r] = {des[r], wep, static_cast<bf16*>(dxef) + r * 2 * C, 2 * F, 4 * C, 2 * C, 2 * F};
+    xa.p[4 + r] = {des[r], wep, static_cast<bf16*>(dxef) + r * 2 * C, 2 * F, ldde, 2 * C, 2 * F};
   dim3 gx((2 * C + BN - 1) / BN, (M + BM - 1) / BM, 6);
   dx_kernel<<<gx, THREADS, 0, s>>>(xa);
   cudaError_t err = cudaGetLastError();
@@ -318,8 +324,8 @@ OVT_EXPORT int ovt_lin_d8_bwd(const void* x0, const void* x1, const void* x2, co
 
   WArgs wa;
   for (int g = 0; g < 4; ++g)
-    wa.p[g] = {{xs[g], xs[g]}, {dqs[g], dqs[g]}, C, F, C, F, 1, g * C * F};
-  wa.p[4] = {{efp, efp + 2 * C}, {des[0], des[1]}, 4 * C, 2 * F, 2 * C, 2 * F, 2, 4 * C * F};
+    wa.p[g] = {{xs[g], xs[g]}, {dqs[g], dqs[g]}, ldx, F, C, F, 1, g * C * F};
+  wa.p[4] = {{efp, efp + 2 * C}, {des[0], des[1]}, ldxe, 2 * F, 2 * C, 2 * F, 2, 4 * C * F};
   wa.scratch = static_cast<float*>(scratch);
   wa.split_stride = 8LL * C * F + F;
   wa.bias_off = dbias != nullptr ? 8 * C * F : -1;

@@ -7,7 +7,11 @@ Counterpart of octic_vits_tpu/d8/group.py. Containers:
 * 5-tuple: ``(A1, A2, B1, B2, E)`` with ``E`` ``[..., 2, C/4]``
   (row 0 = E11|E12, row 1 = E21|E22);
 * flat-E 5-tuple: ``E`` as one ``[..., C/2]`` tensor ``[row0 | row1]`` —
-  the layout the port's trunk and kernels carry.
+  the layout the port's trunk and kernels carry;
+* packed container: the whole octic stream as ONE ``[..., C]`` tensor
+  ``[A1 | A2 | B1 | B2 | E row0 | E row1]`` (``packed_carry``). Its slots
+  are contiguous column ranges, so the five flat-E views and the ``[..., 8,
+  C/8]`` view are free; the kernels read the views through row strides.
 """
 
 from __future__ import annotations
@@ -88,3 +92,32 @@ def unpack_5f_to_8(xs: Sequence[torch.Tensor]) -> tuple:
 def pack_8_to_5f(xs: Sequence[torch.Tensor]) -> tuple:
     """8-tuple -> flat-E 5-tuple (inverse of :func:`unpack_5f_to_8`)."""
     return xs[:4] + (torch.cat((xs[4], xs[6], xs[5], xs[7]), dim=-1),)
+
+
+def pack_5_to_flat(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """5-tuple (E ``[..., 2, C/4]`` or flat-E ``[..., C/2]``) -> the packed
+    ``[..., C]`` container: one concatenate."""
+    e = xs[4] if xs[4].ndim == xs[0].ndim else xs[4].flatten(-2)
+    return torch.cat((xs[0], xs[1], xs[2], xs[3], e), dim=-1)
+
+
+def unpack_flat_to_5(x: torch.Tensor) -> tuple:
+    """Packed ``[..., C]`` -> 5-tuple of views with E ``[..., 2, C/4]``."""
+    c8 = x.shape[-1] // 8
+    return tuple(x[..., g * c8:(g + 1) * c8] for g in range(4)) + (
+        x[..., 4 * c8:].unflatten(-1, (2, 2 * c8)),)
+
+
+def unpack_packed_5f(x: torch.Tensor) -> tuple:
+    """Packed ``[..., C]`` -> flat-E 5-tuple of column views (4 x ``[...,
+    C/8]`` and E ``[..., C/2] = [row0 | row1]``)."""
+    c8 = x.shape[-1] // 8
+    return tuple(x[..., g * c8:(g + 1) * c8] for g in range(4)) + (x[..., 4 * c8:],)
+
+
+def flat_to_break(x: torch.Tensor) -> torch.Tensor:
+    """Packed ``[..., C]`` -> the equivariance-break column order of the
+    hybrid model, ``cat(unpack_5f_to_8(...))`` = ``[A1|A2|B1|B2| E[0,:C/8] |
+    E[1,:C/8] | E[0,C/8:] | E[1,C/8:]]``."""
+    v = x.unflatten(-1, (8, x.shape[-1] // 8))
+    return v[..., (0, 1, 2, 3, 4, 6, 5, 7), :].flatten(-2)

@@ -9,10 +9,14 @@ DINOv2 train flags (the same, with the qkv inside the fused qkv + attention
 op, ``fuse_qkv``) reach, with the flat-E carry; and of the fused-glue
 options on top of them: the D8 LayerNorm kernel (``OCTIC_PALLAS_LN``),
 ``use_pallas_gelu`` with plain linears (``use_pallas_linear=False``),
-``fuse_block_epilogues`` and ``fuse_mlp_branch``. The port always runs the
-attention kernels (the JAX ``use_pallas_attention``), so its LayerNorms
-always take the LN kernel when ``OCTIC_PALLAS_LN`` is on, as the JAX norms
-do under ``use_pallas_linear or use_pallas_attention``. Parameter names and shapes follow the flax tree so
+``fuse_block_epilogues`` and ``fuse_mlp_branch``; and of the packed carry
+(``packed_carry``: the block takes and returns ONE ``[B, N, C]`` container,
+d8/group.py), whose norms, LayerScales, drop path and residual adds run as
+full-width passes and whose attention and MLP take the packed-container
+ops. The port always runs the attention kernels (the JAX
+``use_pallas_attention``), so its LayerNorms always take the LN kernel when
+``OCTIC_PALLAS_LN`` is on, as the JAX norms do under ``use_pallas_linear or
+use_pallas_attention``. Parameter names and shapes follow the flax tree so
 :func:`octic_vits_tpu_torch.utils.convert.params_from_jax` maps them one to
 one; every module takes an explicit ``device`` and ``dtype`` (the parameter
 dtype), is filled by ``reset_parameters(generator)``, and casts its
@@ -27,13 +31,29 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from octic_vits_tpu_torch.d8.group import SQRT2_OVER_4, pack_8_to_5f
+from octic_vits_tpu_torch.d8.group import (
+    SQRT2_OVER_4,
+    pack_5_to_flat,
+    pack_8_to_5f,
+    unpack_packed_5f,
+)
 from octic_vits_tpu_torch.layers.common import DropPathMask, cast, remat
-from octic_vits_tpu_torch.ops.attention import octic_attention, octic_attention_fused_qkv
+from octic_vits_tpu_torch.ops.attention import (
+    octic_attention,
+    octic_attention_fused_qkv,
+    octic_attention_fused_qkv_packed,
+)
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8, gelu_d8_eager
-from octic_vits_tpu_torch.ops.linear import _lse_full, linear_d8, linear_d8_fused, mlp_d8_fused
+from octic_vits_tpu_torch.ops.linear import (
+    _lse_full,
+    linear_d8,
+    linear_d8_fused,
+    mlp_d8_fused,
+    mlp_d8_packed,
+)
 from octic_vits_tpu_torch.ops.ln_d8 import ln_affine_d8_flat_tuple, ln_d8_flat_tuple
 from octic_vits_tpu_torch.ops.mlp_branch import mlp_branch_d8
 
@@ -73,7 +93,9 @@ def _param(*shape, device, dtype) -> nn.Parameter:
 
 def drop_path_d8(xs: tuple, mask: Optional[torch.Tensor]) -> tuple:
     """Stochastic depth with ONE shared per-sample mask across all 5 tuple
-    elements (d8_layers.py:drop_path_d8); ``None`` is the identity."""
+    elements (d8_layers.py:drop_path_d8); ``None`` is the identity. The
+    packed block applies the same mask to the whole row
+    (:meth:`BlockD8._add_branch`)."""
     return xs if mask is None else tuple(x * mask for x in xs)
 
 
@@ -151,7 +173,19 @@ class ScaleD8(nn.Module):
         if self.beta_a1 is not None:
             nn.init.zeros_(self.beta_a1)
 
-    def forward(self, xs: tuple) -> tuple:
+    def full_width(self, dt: torch.dtype) -> torch.Tensor:
+        """The scale over a packed ``[..., C]`` row: ``[alpha_1d | alpha_e |
+        alpha_e]`` in `dt` (d8_layers.py:vec_of)."""
+        return torch.cat((self.alpha_1d.reshape(-1), self.alpha_e, self.alpha_e)).to(dt)
+
+    def forward(self, xs):
+        if isinstance(xs, torch.Tensor):  # the packed container: one full-width pass
+            dt = xs.dtype
+            if self.beta_a1 is None:
+                return xs * self.full_width(dt)
+            # beta on the A1 lanes only
+            beta = F.pad(self.beta_a1.to(dt), (0, xs.shape[-1] - self.beta_a1.shape[0]))
+            return torch.addcmul(beta, xs, self.full_width(dt))
         dt = xs[0].dtype
         a = self.alpha_1d.to(dt)
         oa1 = a[0] * xs[0]
@@ -181,10 +215,79 @@ def layer_norm_d8_stats(xs: tuple, eps: float = 1e-5) -> tuple:
     return outs + (ec.to(dt),)
 
 
+def _slot_means(v: torch.Tensor) -> torch.Tensor:
+    """The per-slot means ``[..., 8, 1]`` (f32) of the slot view ``[..., 8,
+    C/8]`` of a packed row, the two E-row slots of a row sharing that row's
+    mean (slots 4 and 5 are E row 0, 6 and 7 E row 1): the mean removal of
+    d8_layers.py:_flat_ln_remove_means, a symmetric idempotent projector,
+    used by the forward and the VJP."""
+    m8 = v.mean(-1, dtype=torch.float32)
+    rows = m8[..., 4:].unflatten(-1, (2, 2)).mean(-1, keepdim=True).expand(*m8.shape[:-1], 2, 2)
+    return torch.cat((m8[..., :4], rows.flatten(-2)), dim=-1)[..., None]
+
+
+def _flat_ln_fwd(x: torch.Tensor, eps: float) -> tuple:
+    """(out, xc, var, inv_std) of the D8 LayerNorm statistics on the packed
+    ``[..., C]`` container (d8_layers.py:_flat_ln_fwd_impl): f32 math,
+    two-pass variance, out in the input dtype; xc is the f32 slot view
+    ``[..., 8, C/8]``. Each full-width step is one pass: the means read x, the
+    centring writes xc in f32, the moments read it, the scaling writes out."""
+    c8 = x.shape[-1] // 8
+    v = x.unflatten(-1, (8, c8))
+    xc = torch.sub(v, _slot_means(v))  # promotes to f32
+    v8 = torch.linalg.vector_norm(xc, dim=-1).square() / c8
+    # an E row's variance is the mean of its two slots' moments, and the
+    # rows are averaged: 1/4 of the four E-slot moments
+    var = v8[..., :4].sum(-1) + 0.25 * v8[..., 4:].sum(-1) + eps
+    inv_std = 1.0 / (SQRT2_OVER_4 * torch.sqrt(var))
+    out = torch.empty_like(x)
+    torch.mul(xc, inv_std[..., None, None], out=out.unflatten(-1, (8, c8)))
+    return out, xc, var, inv_std
+
+
+class _FlatLayerNormD8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, eps):
+        out, xc, var, inv_std = _flat_ln_fwd(x, eps)
+        if ctx.needs_input_grad[0]:
+            # xc in the stream dtype and two per-token scalars (d8_layers.py:324)
+            ctx.save_for_backward(xc.flatten(-2).to(x.dtype), var, inv_std)
+        return out
+
+    @staticmethod
+    def backward(ctx, u):
+        """dx = P [g (u - (u.xc / var) d xc)] with g = inv_std, P the mean
+        removal and d the per-lane variance weights (1/c8 on the 1-d lanes,
+        0.25/c8 on the E lanes; d8_layers.py:_flat_ln_custom_bwd)."""
+        xc_lo, var, inv_std = ctx.saved_tensors
+        c8 = xc_lo.shape[-1] // 8
+        xc = xc_lo.float().unflatten(-1, (8, c8))
+        u32 = u.float().unflatten(-1, (8, c8))
+        # built on the device: a tensor from host data would wait for the stream
+        d = torch.where(torch.arange(8, device=xc.device)[:, None] < 4, 1.0 / c8, 0.25 / c8)
+        coef = ((u32 * xc).sum((-2, -1)) / var)[..., None, None]
+        dxc = torch.addcmul(u32, xc, -coef * d).mul_(inv_std[..., None, None])
+        dx = torch.empty_like(xc_lo)
+        torch.sub(dxc, _slot_means(dxc), out=dx.unflatten(-1, (8, c8)))
+        return dx, None
+
+
+def layer_norm_d8_stats_flat(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`layer_norm_d8_stats` on the packed ``[..., C]`` container
+    (d8_layers.py:layer_norm_d8_stats_flat): per-irrep means (each E row its
+    own), one shared sqrt2/4-scaled std per token, eps inside the sqrt.
+    Plain torch, as the JAX package computes it in XLA, with the analytic
+    VJP of ``OCTIC_FLAT_LN_VJP`` (on by default there) as a
+    ``torch.autograd.Function``; the ``[..., 8, C/8]`` slot view is free here."""
+    return _FlatLayerNormD8.apply(x, eps)
+
+
 class LayerNormD8(nn.Module):
     """Equivariant LayerNorm (eps 1e-5): shared-std normalization + ScaleD8
     affine (named ``affine`` as in the flax tree; none without
-    `elementwise_affine`, no A1 bias without `use_bias`). With `use_kernel`
+    `elementwise_affine`, no A1 bias without `use_bias`). A packed ``[...,
+    C]`` container takes :func:`layer_norm_d8_stats_flat` and the full-width
+    affine (the JAX packed block's apply_norm, never the LN kernel). With `use_kernel`
     and ``OCTIC_PALLAS_LN`` on, the flat-E tuple goes through the LN kernel
     op (d8_layers.py:483-512): :func:`ln_affine_d8_flat_tuple` with the
     affine's parameters as they are (no cast, as the flax module passes
@@ -198,7 +301,10 @@ class LayerNormD8(nn.Module):
         self.affine = (ScaleD8(dim, 1.0, bias=use_bias, device=device, dtype=dtype)
                        if elementwise_affine else None)
 
-    def forward(self, xs: tuple) -> tuple:
+    def forward(self, xs):
+        if isinstance(xs, torch.Tensor):  # the packed container
+            y = layer_norm_d8_stats_flat(xs, self.eps)
+            return y if self.affine is None else self.affine(y)
         if self.use_kernel and OCTIC_PALLAS_LN and xs[4].ndim == xs[0].ndim:
             a = self.affine
             if a is None:
@@ -304,39 +410,47 @@ class MlpD8(nn.Module):
     """fc1 -> D8 GELU -> fc2 (d8_layers.py:603-681).
 
     With ``use_pallas_linear`` (the port's default, the bench and train
-    flags): in eval mode, without a LayerScale epilogue, it runs the fused
-    octic MLP op (the bench flags' ``fuse_mlp``), which has no backward and
-    refuses to run where autograd would record it; otherwise fc1 and fc2 are
-    two :func:`linear_d8_fused` kernels, fc1 with the D8-GELU epilogue, as
-    the JAX train configuration runs them, and fc2 takes the LayerScale +
-    residual epilogue where ``forward`` gets `layerscale` and `residual`.
-    Without it, fc1 and fc2 are plain products around :class:`GeluD8`, the
-    GELU kernel op with ``use_pallas_gelu``. The hidden is rounded to the
-    working dtype between them."""
+    flags) and without a LayerScale epilogue, it runs the fused octic MLP op
+    in eval mode (the bench flags' ``fuse_mlp``) and, with ``fuse_mlp``, in
+    train mode too (differentiable: row 4's backward); a packed ``[..., C]``
+    input then takes the packed op :func:`mlp_d8_packed` and comes back
+    packed. Otherwise a packed input is unpacked to its flat-E views (as the
+    JAX module does) and fc1 and fc2 are two :func:`linear_d8_fused`
+    kernels, fc1 with the D8-GELU epilogue, as the JAX train configuration
+    runs them, and fc2 takes the LayerScale + residual epilogue where
+    ``forward`` gets `layerscale` and `residual`. Without
+    ``use_pallas_linear``, fc1 and fc2 are plain products around
+    :class:`GeluD8`, the GELU kernel op with ``use_pallas_gelu``. The hidden
+    is rounded to the working dtype between them."""
 
     def __init__(self, in_features: int, hidden_features: int, bias: bool = True, *,
                  use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
-                 device=None, dtype=None):
+                 fuse_mlp: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_pallas_linear = use_pallas_linear
+        self.fuse_mlp = fuse_mlp
         self.fc1 = LinearD8(in_features, hidden_features, bias, use_kernel=use_pallas_linear,
                             fuse_gelu=use_pallas_linear, **kw)
         self.gelu = GeluD8(use_pallas_gelu)
         self.fc2 = LinearD8(hidden_features, in_features, bias, use_kernel=use_pallas_linear,
                             **kw)
 
-    def forward(self, xs: tuple, layerscale: Optional[tuple] = None,
-                residual: Optional[tuple] = None) -> tuple:
-        if self.training or layerscale is not None or not self.use_pallas_linear:
+    def forward(self, xs, layerscale: Optional[tuple] = None, residual: Optional[tuple] = None):
+        packed = isinstance(xs, torch.Tensor)
+        if not (self.use_pallas_linear and layerscale is None
+                and (self.fuse_mlp or not self.training)):
+            if packed:
+                xs = unpack_packed_5f(xs)
             h = self.fc1(xs)
             if not self.use_pallas_linear:
                 h = self.gelu(h)
             return self.fc2(h, layerscale, residual)
-        dt = xs[0].dtype
+        dt = xs.dtype if packed else xs[0].dtype
         f1, f2 = self.fc1, self.fc2
-        return mlp_d8_fused(xs, *(cast(p, dt) for p in (
-            f1.kernel_1d, f1.kernel_e, f1.bias_a1, f2.kernel_1d, f2.kernel_e, f2.bias_a1)))
+        params = tuple(cast(p, dt) for p in (f1.kernel_1d, f1.kernel_e, f1.bias_a1, f2.kernel_1d,
+                                             f2.kernel_e, f2.bias_a1))
+        return mlp_d8_packed(xs, *params) if packed else mlp_d8_fused(xs, *params)
 
 
 class AttentionD8(nn.Module):
@@ -346,7 +460,10 @@ class AttentionD8(nn.Module):
     same op, whose backward recomputes the qkv; without it (the DeiT III
     flags) the qkv is a plain LinearD8 (:meth:`qkv_arrays`), then
     :func:`octic_attention`, which takes the two E rows of the flat-E qkv as
-    column slices. The proj is a plain LinearD8 (:meth:`project`)."""
+    column slices. The proj is a plain LinearD8 (:meth:`project`). A packed
+    ``[B, N, C]`` input takes the packed fused op
+    (:func:`octic_attention_fused_qkv_packed`) where the fused op runs, and
+    is unpacked to its flat-E views otherwise (d8_layers.py:895-909)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, proj_bias: bool = True,
                  fuse_qkv: bool = False, *, device=None, dtype=None):
@@ -363,18 +480,22 @@ class AttentionD8(nn.Module):
         """The attention kernel's six inputs (a1..b2 ``[B, N, 3C/8]``, e0, e1
         ``[B, N, 3C/4]`` as views of the flat-E qkv): the ``attn_in`` the
         flax module tags for remat."""
-        qkv = self.qkv(xs)
+        qkv = self.qkv(unpack_packed_5f(xs) if isinstance(xs, torch.Tensor) else xs)
         half = qkv[4].shape[-1] // 2
         return qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:])
 
-    def attend(self, xs: tuple) -> tuple:
-        """The six attention outputs (``attn_out``) of the normed input."""
+    def attend(self, xs) -> tuple:
+        """The six attention outputs (``attn_out``) of the normed input (the
+        flat-E tuple or the packed container)."""
         if self.training and not self.fuse_qkv:
             return octic_attention(*self.qkv_arrays(xs), self.num_heads)
-        dt = xs[0].dtype
+        packed = isinstance(xs, torch.Tensor)
+        dt = xs.dtype if packed else xs[0].dtype
         q = self.qkv
-        return octic_attention_fused_qkv(
-            *xs, *(cast(p, dt) for p in (q.kernel_1d, q.kernel_e, q.bias_a1)), self.num_heads)
+        params = tuple(cast(p, dt) for p in (q.kernel_1d, q.kernel_e, q.bias_a1))
+        if packed:
+            return octic_attention_fused_qkv_packed(xs, *params, self.num_heads)
+        return octic_attention_fused_qkv(*xs, *params, self.num_heads)
 
     def project(self, outs: tuple, layerscale: Optional[tuple] = None,
                 residual: Optional[tuple] = None) -> tuple:
@@ -406,14 +527,23 @@ class BlockD8(nn.Module):
     y`` in the proj's and fc2's kernel epilogues; otherwise
     ``fuse_mlp_branch`` (the same conditions) runs norm2 ... ls2 + residual
     as :func:`mlp_branch_d8`. ``use_pallas_linear`` and ``use_pallas_gelu``
-    go to the MLP."""
+    go to the MLP, and so does ``fuse_mlp``.
+
+    With the packed ``[B, N, C]`` container as `xs` (``packed_carry``,
+    d8_layers.py:1289-1353) the block returns the container: the norms run
+    on it as full-width passes, and each branch's LayerScale, drop path (one
+    mask per sample over the whole row) and residual add as one multiply-add;
+    the attention and the MLP take the packed ops where they run fused, and
+    the tuple-only fusions (epilogues, MLP branch) stay off, as in JAX.
+    Remat as above: the packed normed input is what the fused op saves."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, layerscale_init: float = 1e-4,
                  drop_path: float = 0.0, proj_bias: bool = True, ffn_bias: bool = True,
                  fuse_qkv: bool = False, use_pallas_linear: bool = True,
                  use_pallas_gelu: bool = False, fuse_block_epilogues: bool = False,
-                 fuse_mlp_branch: bool = False, *, device=None, dtype=None):
+                 fuse_mlp_branch: bool = False, fuse_mlp: bool = False, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_pallas_linear = use_pallas_linear
@@ -425,7 +555,7 @@ class BlockD8(nn.Module):
         self.drop_path1 = DropPathD8(drop_path)
         self.norm2 = LayerNormD8(dim, use_kernel=True, **kw)
         self.mlp = MlpD8(dim, int(dim * mlp_ratio), ffn_bias, use_pallas_linear=use_pallas_linear,
-                         use_pallas_gelu=use_pallas_gelu, **kw)
+                         use_pallas_gelu=use_pallas_gelu, fuse_mlp=fuse_mlp, **kw)
         self.ls2 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path2 = DropPathD8(drop_path)
 
@@ -461,11 +591,12 @@ class BlockD8(nn.Module):
         return (self.drop_path1.draw(batch, generator, **kw),
                 self.drop_path2.draw(batch, generator, **kw))
 
-    def _normed(self, *xs) -> tuple:
-        return self.norm1(xs)
+    def _normed(self, *xs):
+        """norm1 of the flat-E tuple `xs`, or of the packed container ``xs[0]``."""
+        return self.norm1(xs[0] if len(xs) == 1 else xs)
 
     def _attn_in(self, *xs) -> tuple:
-        return self.attn.qkv_arrays(self.norm1(xs))
+        return self.attn.qkv_arrays(self._normed(*xs))
 
     def _attn_out(self, *args) -> tuple:
         xs, outs, (m1, m2) = args[:5], args[5:11], args[11:]
@@ -479,11 +610,31 @@ class BlockD8(nn.Module):
         ys = self.drop_path2(self.ls2(self.mlp(self.norm2(xs))), m2)
         return tuple(x + y for x, y in zip(xs, ys))
 
-    def forward(self, xs: tuple, masks: tuple = (None, None), remat_block: bool = False) -> tuple:
+    @staticmethod
+    def _add_branch(x: torch.Tensor, y: torch.Tensor, ls: ScaleD8,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """``x + drop_path(ls(y))`` on the packed container in one full-width
+        pass: the LayerScale vector times the per-sample mask, then one
+        multiply-add."""
+        a = ls.full_width(x.dtype)
+        return torch.addcmul(x, y, a if mask is None else a * mask)
+
+    def _attn_out_packed(self, x: torch.Tensor, *args) -> torch.Tensor:
+        outs, (m1, m2) = args[:6], args[6:]
+        x = self._add_branch(x, pack_5_to_flat(self.attn.project(outs)), self.ls1, m1)
+        ys = self.mlp(self.norm2(x))
+        if not isinstance(ys, torch.Tensor):
+            ys = pack_5_to_flat(ys)
+        return self._add_branch(x, ys, self.ls2, m2)
+
+    def forward(self, xs, masks: tuple = (None, None), remat_block: bool = False):
+        packed = isinstance(xs, torch.Tensor)
+        xs = (xs,) if packed else tuple(xs)
+        out_fn = self._attn_out_packed if packed else self._attn_out
         if not remat_block:
-            return self._attn_out(*xs, *self.attn.attend(self.norm1(xs)), *masks)
+            return out_fn(*xs, *self.attn.attend(self._normed(*xs)), *masks)
         if self.attn.fuse_qkv:
             outs = self.attn.attend(remat(self._normed, *xs))
         else:
             outs = octic_attention(*remat(self._attn_in, *xs), self.attn.num_heads)
-        return remat(self._attn_out, *xs, *outs, *masks)
+        return remat(out_fn, *xs, *outs, *masks)

@@ -9,8 +9,10 @@ multi-crop ``forward_features_list``. The positional embedding is resized
 to each crop's patch grid (6 x 6 for a 96^2 local crop at patch 16). In
 training with drop path, ``forward_features`` takes a ``torch.Generator``
 and draws the masks of every block from it before the trunk runs.
-``get_intermediate_layers`` (the eval probes), registers and the
-invariant-early family are not ported yet.
+``get_intermediate_layers`` (the eval probes), registers, the
+invariant-early backbones and the packed carry on the SSL trunk are not
+ported yet: the octic backbone raises for ``invariant`` and
+``packed_carry``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
 
     def __init__(self, qkv_bias: bool = True, num_classes: int = 0, cls_init: str = "dinov2",
                  **kwargs):
+        if kwargs.get("invariant") or kwargs.get("packed_carry"):
+            raise NotImplementedError("the invariant-early DINOv2 backbones and the packed carry "
+                                      "on the SSL trunk are not ported yet")
         super().__init__(qkv_bias=qkv_bias, num_classes=num_classes, cls_init=cls_init, **kwargs)
         p = self.cls_token_a1
         self.mask_token_a1 = nn.Parameter(torch.empty(1, self.embed_dim // 8, device=p.device,

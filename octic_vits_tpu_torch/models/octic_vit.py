@@ -1,6 +1,6 @@
-"""Hybrid octic Vision Transformer (counterpart of
+"""Hybrid and invariant-early octic Vision Transformers (counterpart of
 octic_vits_tpu/models/octic_vit.py in the configurations the benchmark, the
-DeiT III trainer and the DINOv2 trainer run: flat-E carry; in the octic
+DeiT III trainer and the DINOv2 trainer run: flat-E or packed carry; in the octic
 blocks the fused qkv + attention and fused MLP kernels in eval mode, and
 ``octic_attention`` (or, with ``fuse_qkv``, the fused qkv + attention) and
 two ``linear_d8_fused`` kernels in train mode; the attention and fc1 + GELU
@@ -8,8 +8,11 @@ kernels in the standard blocks). The DINOv2 interface (mask tokens, the
 token dict) is models/dinov2_vit.py.
 
 The first ``break_layer`` blocks are D8-equivariant and carry the flat-E
-5-tuple; at the break the tuple is concatenated to ``[B, N, C]`` in
-isotypic slot order and standard blocks finish the network. Images are
+5-tuple, or with ``packed_carry`` ONE packed ``[B, N, C]`` container
+(d8/group.py); at the break the octic stream is concatenated to ``[B, N,
+C]`` in isotypic slot order (hybrid) or, with ``invariant``, invariantized
+and projected back to C (invariant-early), and standard blocks finish the
+network. Images are
 NHWC. The flax ``lax.scan`` trunk becomes a plain ``nn.ModuleList``;
 ``remat`` is its per-block rematerialization. ``dtype`` is the parameter
 dtype and ``compute_dtype`` the activations' (the flax ``param_dtype`` and
@@ -25,10 +28,18 @@ from typing import Optional
 import torch
 from torch import nn
 
-from octic_vits_tpu_torch.d8.group import SQRT2_OVER_2, pack_8_to_5f, unpack_5f_to_8
+from octic_vits_tpu_torch.d8.group import (
+    SQRT2_OVER_2,
+    flat_to_break,
+    pack_5_to_flat,
+    pack_8_to_5f,
+    unpack_5f_to_8,
+    unpack_flat_to_5,
+)
 from octic_vits_tpu_torch.d8.posembed import resize_posembed, unfold_quadrant
 from octic_vits_tpu_torch.layers.common import draw_block_masks
 from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, normal_, trunc_normal_
+from octic_vits_tpu_torch.layers.invariants import make_invariant
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, Linear
 
 
@@ -41,8 +52,15 @@ class OcticVisionTransformer(nn.Module):
     ``fuse_block_epilogues`` go to the octic blocks (:class:`BlockD8`), with
     the JAX defaults except ``use_pallas_linear``: the port's octic blocks
     always run the configurations of the bench and train flags, which set
-    it, so it defaults on here. Registers and the invariant break are not
-    ported yet and raise."""
+    it, so it defaults on here. ``fuse_mlp`` runs the fused MLP op in
+    training too (differentiable). ``invariant`` breaks the equivariance with
+    ``invariant_kind`` (only "power_spectrum" is ported; the others raise)
+    and ``invariant_proj``, a ``Linear(6C/8 -> C)``. ``packed_carry`` packs
+    the octic stream into one ``[B, N, C]`` container at trunk entry; the
+    octic blocks take the packed ops where their fused ops run (eval mode,
+    or ``fuse_qkv`` and ``fuse_mlp`` in training, as the JAX docstring asks)
+    and unpack to the flat-E views elsewhere, as the JAX layers do.
+    Registers are not ported yet and raise."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -51,9 +69,10 @@ class OcticVisionTransformer(nn.Module):
                  drop_path_rate: float = 0.0, cls_init: str = "deit", fuse_qkv: bool = False,
                  remat: bool = False, compute_dtype: Optional[torch.dtype] = None,
                  num_register_tokens: int = 0, invariant: bool = False,
+                 invariant_kind: str = "power_spectrum", packed_carry: bool = False,
                  use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
-                 fuse_mlp_branch: bool = False, fuse_block_epilogues: bool = False, *,
-                 device=None, dtype=None):
+                 fuse_mlp_branch: bool = False, fuse_block_epilogues: bool = False,
+                 fuse_mlp: bool = False, *, device=None, dtype=None):
         super().__init__()
         if embed_dim % 8:
             raise ValueError("embed_dim must be divisible by 8")
@@ -62,8 +81,8 @@ class OcticVisionTransformer(nn.Module):
             raise ValueError("patch grid must be even for the quadrant pos-embed")
         if depth % 2:
             raise ValueError("depth must be even")
-        if num_register_tokens or invariant:
-            raise NotImplementedError("registers and the invariant break are not ported yet")
+        if num_register_tokens:
+            raise NotImplementedError("registers are not ported yet")
         if cls_init not in ("deit", "dinov2"):
             raise ValueError(f"cls_init must be 'deit' or 'dinov2', got {cls_init!r}")
         kw = dict(device=device, dtype=dtype)
@@ -75,16 +94,21 @@ class OcticVisionTransformer(nn.Module):
         self.cls_init = cls_init
         self.remat = remat
         self.compute_dtype = compute_dtype
+        self.packed_carry = packed_carry
         self.patch_embed = PatchEmbedD8(patch_size, embed_dim, **kw)
         # 6 quadrant tensors stacked: [6, grid/2, grid/2, C/8]
         self.pos_embed = nn.Parameter(torch.empty(6, grid // 2, grid // 2, c8, **kw))
         # only the A1 slot of the cls token is a parameter; the others are 0
         self.cls_token_a1 = nn.Parameter(torch.empty(1, 1, c8, **kw))
+        self.invariantization = self.invariant_proj = None
+        if invariant:
+            self.invariantization = make_invariant(invariant_kind, embed_dim)
+            self.invariant_proj = Linear(self.invariantization.output_dim, embed_dim, **kw)
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale,
                       drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
         octic = dict(fuse_qkv=fuse_qkv, use_pallas_linear=use_pallas_linear,
                      use_pallas_gelu=use_pallas_gelu, fuse_mlp_branch=fuse_mlp_branch,
-                     fuse_block_epilogues=fuse_block_epilogues)
+                     fuse_block_epilogues=fuse_block_epilogues, fuse_mlp=fuse_mlp)
         self.blocks = nn.ModuleList(
             BlockD8(embed_dim, num_heads, **octic, **common) if i < self.break_layer
             else Block(embed_dim, num_heads, norm_eps=1e-6, **common)
@@ -119,17 +143,31 @@ class OcticVisionTransformer(nn.Module):
         cls5 = (cls_a1, zeros, zeros, zeros, zeros_e)
         return tuple(torch.cat((c, x), dim=1) for c, x in zip(cls5, xs))
 
-    @staticmethod
-    def _break_to_flat(xs: tuple) -> torch.Tensor:
-        """Equivariance break: [A1|A2|B1|B2|E11|E21|E12|E22] along channels."""
-        return torch.cat(unpack_5f_to_8(xs), dim=-1)
+    def _break_to_flat(self, xs) -> torch.Tensor:
+        """Equivariance break of the flat-E tuple or the packed container
+        (octic_vit.py:250-271): the invariant features projected to C
+        (invariant-early), else [A1|A2|B1|B2|E11|E21|E12|E22] along
+        channels (hybrid)."""
+        if isinstance(xs, torch.Tensor):
+            if self.invariantization is None:
+                return flat_to_break(xs)
+            xs = unpack_flat_to_5(xs)
+        elif self.invariantization is None:
+            return torch.cat(unpack_5f_to_8(xs), dim=-1)
+        else:
+            xs = tuple(xs[:4]) + (xs[4].unflatten(-1, (2, -1)),)  # E [..., 2, C/4]
+        return self.invariant_proj(self.invariantization(xs))
 
     def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The blocks on the token tuple: octic blocks, the break, standard
-        blocks. Every block's drop-path masks are drawn from `generator`
-        before the first block runs. Returns the pre-norm ``[B, N, C]``."""
-        masks = draw_block_masks(self.blocks, xs[0].shape[0], generator, device=xs[0].device,
-                                 dtype=xs[0].dtype)
+        """The blocks on the token tuple (packed first with
+        ``packed_carry``): octic blocks, the break, standard blocks. Every
+        block's drop-path masks are drawn from `generator` before the first
+        block runs. Returns the pre-norm ``[B, N, C]``."""
+        x0 = xs[0]
+        masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
+                                 dtype=x0.dtype)
+        if self.packed_carry:
+            xs = pack_5_to_flat(xs)
         rb = self.remat and self.training
         for blk, m in zip(self.blocks[: self.break_layer], masks):
             xs = blk(xs, m, rb)

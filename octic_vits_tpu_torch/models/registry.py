@@ -62,6 +62,22 @@ def deit_huge_patch14_LS(img_size=224, **kwargs):
 
 
 @register_model
+def d8_inv_early_deit_large_patch16(img_size=224, **kwargs):
+    return OcticVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=4.0, qkv_bias=True, invariant=True, **kwargs,
+    )
+
+
+@register_model
+def d8_inv_early_deit_huge_patch14(img_size=224, **kwargs):
+    return OcticVisionTransformer(
+        img_size=img_size, patch_size=14, embed_dim=1280, depth=32, num_heads=16,
+        mlp_ratio=4.0, qkv_bias=True, invariant=True, **kwargs,
+    )
+
+
+@register_model
 def hybrid_vit_small_test(img_size=64, **kwargs):
     return OcticVisionTransformer(
         img_size=img_size, patch_size=8, embed_dim=64, depth=4, num_heads=2,

@@ -9,6 +9,10 @@ from octic_vits_tpu_torch.ops.attention import (
     octic_attention_fused_qkv,
     octic_attention_fused_qkv_bwd,
     octic_attention_fused_qkv_bwd_reference,
+    octic_attention_fused_qkv_packed,
+    octic_attention_fused_qkv_packed_bwd,
+    octic_attention_fused_qkv_packed_bwd_reference,
+    octic_attention_fused_qkv_packed_reference,
     octic_attention_fused_qkv_reference,
     octic_attention_reference,
     standard_attention,
@@ -29,6 +33,7 @@ from octic_vits_tpu_torch.ops.gelu_d8 import (
 )
 from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
+    lin_d8_launch,
     lin_d8_bwd_reference,
     linear_d8,
     linear_d8_epilogue,
@@ -37,7 +42,12 @@ from octic_vits_tpu_torch.ops.linear import (
     linear_d8_fused_reference,
     linear_d8_tuple,
     mlp_d8_fused,
+    mlp_d8_fused_bwd,
+    mlp_d8_fused_bwd_reference,
+    mlp_d8_fused_packed,
+    mlp_d8_fused_packed_reference,
     mlp_d8_fused_reference,
+    mlp_d8_packed,
 )
 from octic_vits_tpu_torch.ops.ln_d8 import (
     ln_affine_d8_bwd,
@@ -63,12 +73,18 @@ INFERENCE_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_
 #: and the fused MLP branch
 GLUE_OPS = (ln_affine_d8_flat_tuple, ln_affine_d8_bwd, ln_d8_flat_tuple, ln_d8_bwd, gelu_d8,
             gelu_d8_bwd, linear_d8_epilogue, mlp_branch_d8)
+#: the packed-carry ops: the fused qkv + attention on the packed container
+#: (row 10) and its backward, and the fused MLP on it (row 11), whose
+#: backward counts under mlp_d8_fused_bwd (row 4's backward)
+PACKED_OPS = (octic_attention_fused_qkv_packed, octic_attention_fused_qkv_packed_bwd,
+              mlp_d8_fused_packed)
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
-#: fused qkv + attention)
+#: fused qkv + attention; fuse_mlp training adds the fused MLP's backward)
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
-                              linear_d8_fused, octic_attention_fused_qkv_bwd) + GLUE_OPS
+                              linear_d8_fused, octic_attention_fused_qkv_bwd,
+                              mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS
 
 
 def reset_launch_counts() -> None:
@@ -84,6 +100,7 @@ __all__ = [
     "GLUE_OPS",
     "INFERENCE_OPS",
     "KERNEL_OPS",
+    "PACKED_OPS",
     "dense_gelu",
     "dense_gelu_bwd",
     "dense_gelu_reference",
@@ -97,6 +114,7 @@ __all__ = [
     "gelu_grad",
     "launch_counts",
     "lin_d8_bwd_launch",
+    "lin_d8_launch",
     "lin_d8_bwd_reference",
     "linear_d8",
     "linear_d8_epilogue",
@@ -116,13 +134,22 @@ __all__ = [
     "mlp_branch_d8_reference",
     "mlp_branch_eager",
     "mlp_d8_fused",
+    "mlp_d8_fused_bwd",
+    "mlp_d8_fused_bwd_reference",
+    "mlp_d8_fused_packed",
+    "mlp_d8_fused_packed_reference",
     "mlp_d8_fused_reference",
+    "mlp_d8_packed",
     "octic_attention",
     "octic_attention_bwd",
     "octic_attention_bwd_reference",
     "octic_attention_fused_qkv",
     "octic_attention_fused_qkv_bwd",
     "octic_attention_fused_qkv_bwd_reference",
+    "octic_attention_fused_qkv_packed",
+    "octic_attention_fused_qkv_packed_bwd",
+    "octic_attention_fused_qkv_packed_bwd_reference",
+    "octic_attention_fused_qkv_packed_reference",
     "octic_attention_fused_qkv_reference",
     "octic_attention_reference",
     "reset_launch_counts",

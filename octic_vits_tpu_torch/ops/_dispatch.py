@@ -41,27 +41,30 @@ def check_kernel_arg(t: Optional[torch.Tensor], name: str, shape: tuple) -> None
         raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def row_stride(t: torch.Tensor, name: str, shape: tuple) -> int:
-    """A bf16 ``[B, N, W]`` of exactly `shape` whose channels have unit stride
-    and whose token rows are evenly spaced: a contiguous tensor, or a column
-    slice of one (the E rows of a flat-E qkv). Returns the token row stride
-    in elements, for a kernel that takes one per segment."""
+def row_stride(t: torch.Tensor, name: str, shape: tuple, align: bool = False) -> int:
+    """A bf16 ``[..., W]`` of exactly `shape` whose channels have unit stride
+    and whose token rows (every index of the leading dims, in order) are
+    evenly spaced: a contiguous tensor, or a column slice of one (the E rows
+    of a flat-E qkv, the slot views of a packed container). Returns the row
+    stride in elements, for a kernel that takes one per segment. With
+    `align`, the view's start and its row stride must also be multiples of
+    16 bytes, as the kernels' 16-byte copies (``cp.async``) need."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    b, n, w = shape
-    ld = t.stride(1) if n > 1 else (t.stride(0) if b > 1 else w)
-    if t.stride(2) != 1 or ld < w or (b > 1 and t.stride(0) != n * ld):
+    lead, w = tuple(shape[:-1]), shape[-1]
+    # the stride of the innermost leading dim that has more than one index
+    ld = next((t.stride(i) for i in reversed(range(len(lead))) if lead[i] > 1), w)
+    span = ld
+    ok = t.stride(-1) == 1
+    for i in reversed(range(len(lead))):
+        ok &= lead[i] == 1 or t.stride(i) == span
+        span *= lead[i]
+    if not ok or ld < w:
         raise ValueError(f"{name}: needs unit channel stride and evenly spaced token rows, "
                          f"got strides {t.stride()}")
+    if align and (t.data_ptr() % 16 or ld % 8):
+        raise ValueError(f"{name}: the view's start and its row stride ({ld} elements) must "
+                         "be multiples of 16 bytes")
     return ld
-
-
-def forward_only(name: str, tensors: Sequence[Optional[torch.Tensor]]) -> None:
-    """A fused inference kernel with no backward kernel (the fused octic MLP)
-    refuses to run where autograd would record it: its output would carry
-    no gradient."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: inference kernel without a backward; train through "
-                           "linear_d8_fused")

@@ -13,6 +13,9 @@ layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
   the block-diagonal qkv weights -> the same outputs; differentiable, its
   backward recomputes the qkv and ends in the K-lin-d8-bwd kernel
   (csrc/lin_d8_bwd.cu) on the card.
+* :func:`octic_attention_fused_qkv_packed`: the same op on the packed
+  ``[B, N, C]`` container (kernel row 10); the kernels read the container's
+  slot views in place and the backward writes one packed gradient.
 
 As in the JAX custom VJPs, each backward saves only the op's inputs (the
 qkv arrays; for the fused op the normed input and the qkv weights) and
@@ -26,6 +29,7 @@ from typing import Optional
 import torch
 
 from octic_vits_tpu_torch import kernels
+from octic_vits_tpu_torch.d8.group import pack_5_to_flat, unpack_packed_5f
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_stride
 from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
@@ -393,3 +397,95 @@ def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.T
 
 octic_attention_fused_qkv.launches = 0
 octic_attention_fused_qkv_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the packed container (packed_carry): x [B, N, C] = [A1|A2|B1|B2|E row0|E row1]
+# ---------------------------------------------------------------------------
+
+
+def octic_attention_fused_qkv_packed_reference(x, w1, we, bias: Optional[torch.Tensor],
+                                               num_heads: int) -> tuple:
+    """Plain version: :func:`octic_attention_fused_qkv_reference` on the
+    container's flat-E views."""
+    return octic_attention_fused_qkv_reference(*unpack_packed_5f(x), w1, we, bias, num_heads)
+
+
+def octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bias: Optional[torch.Tensor],
+                                                   gs: tuple, num_heads: int) -> tuple:
+    """Plain backward of the packed op (pallas_attention.py:
+    _fused_packed_bwd_rule): the flat-E rule on the container's views, dx
+    packed. Returns ``(dx [B, N, C], dw1, dwe, dbias or None)``."""
+    grads = octic_attention_fused_qkv_bwd_reference(unpack_packed_5f(x), w1, we, bias, gs,
+                                                    num_heads)
+    return (pack_5_to_flat(grads[:5]),) + grads[5:]
+
+
+def _packed_dims(x: torch.Tensor, w1: torch.Tensor, num_heads: int) -> tuple:
+    if x.ndim != 3 or x.shape[-1] % 8:
+        raise ValueError(f"octic_attention_fused_qkv_packed: x must be [B, N, C] with C % 8 "
+                         f"== 0, got {tuple(x.shape)}")
+    return _fused_qkv_dims(unpack_packed_5f(x), w1, num_heads)
+
+
+def octic_attention_fused_qkv_packed_bwd(x, w1, we, bias: Optional[torch.Tensor], gs: tuple,
+                                         num_heads: int) -> tuple:
+    """Backward of :func:`octic_attention_fused_qkv_packed` from its
+    residuals (the packed input and the qkv weights) and the six output
+    cotangents. CPU tensors take the plain version. CUDA tensors run the
+    chain of row 2b on the container: K-lin-d8 recomputes the qkv from the
+    five slot views in place, K-attn-bwd in the octic layout, and
+    K-lin-d8-bwd writes the five dx pieces in place into one packed ``[B, N,
+    C]`` gradient (no concatenate).
+
+    Returns ``(dx [B, N, C], dw1, dwe, dbias or None)``."""
+    if not on_cuda((x, w1, we, bias) + tuple(gs)):
+        return octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bias, gs, num_heads)
+    _, n, c8 = _packed_dims(x, w1, num_heads)
+    _check_attention_bwd_shape(n, c8 // num_heads * 8)
+    octic_attention_fused_qkv_packed_bwd.launches += 1
+    xs = unpack_packed_5f(x)
+    qkv = lin_d8_launch(xs, w1, we, bias, gelu=False)
+    dq = _octic_bwd_launch(_qkv_rows(qkv), tuple(gs), num_heads)
+    dx = torch.empty_like(x)
+    _, dw1, dwe, dbias = lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], bias is not None,
+                                           out=unpack_packed_5f(dx))
+    return dx, dw1, dwe, dbias
+
+
+class _OcticAttentionFusedQKVPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, x, w1, we, bias):
+        ctx.save_for_backward(x, w1, we, bias)  # pallas_attention.py:_fused_packed_fwd_rule
+        ctx.num_heads = num_heads
+        if not on_cuda((x, w1, we, bias)):
+            return octic_attention_fused_qkv_packed_reference(x, w1, we, bias, num_heads)
+        _, n, c8 = _packed_dims(x, w1, num_heads)
+        _check_attention_shape(n, c8 // num_heads * 8)
+        octic_attention_fused_qkv_packed.launches += 1
+        qkv = lin_d8_launch(unpack_packed_5f(x), w1, we, bias, gelu=False)
+        return _octic_rows_launch(_qkv_rows(qkv), num_heads)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, w1, we, bias = ctx.saved_tensors
+        return (None,) + octic_attention_fused_qkv_packed_bwd(x, w1, we, bias, gs, ctx.num_heads)
+
+
+def octic_attention_fused_qkv_packed(x: torch.Tensor, w1, we, bias: Optional[torch.Tensor],
+                                     num_heads: int) -> tuple:
+    """Packed ``[B, N, C]`` input and qkv weights (w1 ``[4, C/8, 3C/8]``, we
+    ``[C/4, 3C/4]``, A1 bias ``[3C/8]``) -> the six outputs of
+    :func:`octic_attention_fused_qkv` (pallas_attention.py:
+    octic_attention_fused_qkv_packed, kernel row 10).
+
+    CPU tensors take the plain version; CUDA tensors launch K-lin-d8 on the
+    container's slot views, read in place through their row strides, then
+    K-attn in its octic head layout. The gradient goes through
+    :func:`octic_attention_fused_qkv_packed_bwd`; only the packed input and
+    the weights are saved, as in the JAX custom VJP."""
+    return _OcticAttentionFusedQKVPacked.apply(num_heads, x, w1, we, bias)
+
+
+octic_attention_fused_qkv_packed.launches = 0
+octic_attention_fused_qkv_packed_bwd.launches = 0

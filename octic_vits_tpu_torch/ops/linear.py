@@ -5,8 +5,11 @@
   with an optional D8-GELU epilogue or LayerScale + residual epilogue
   (``y = r + ls * linear(x)``, row 6e), differentiable (the train path's
   octic fc1 and fc2; the proj and fc2 of ``fuse_block_epilogues``);
-* :func:`mlp_d8_fused`: the octic MLP fc1 -> D8-GELU -> fc2 for inference
-  (the JAX mlp_d8_tuple wrapper, here taking the five tensors directly);
+* :func:`mlp_d8_fused`: the octic MLP fc1 -> D8-GELU -> fc2 (the JAX
+  mlp_d8_tuple wrapper, here taking the five tensors directly),
+  differentiable (row 4; its backward :func:`mlp_d8_fused_bwd`), and
+  :func:`mlp_d8_fused_packed` / :func:`mlp_d8_packed`, the same on the
+  packed ``[..., C]`` container (row 11);
 * :func:`lin_d8_bwd_launch`: K-lin-d8-bwd, the transpose and weight
   gradients of one LinearD8, which the backward of the fused octic qkv +
   attention (ops/attention.py) ends with.
@@ -14,7 +17,10 @@
 Layouts: ``xs = (a1, a2, b1, b2, ef)`` with ``a* [..., c]`` and
 ``ef [..., 4c] = [row0 | row1]``; weights ``w1 [4, c, f]`` (one per 1-d
 irrep), ``we [2c, 2f]`` (applied to each E row separately) and an A1-only
-bias ``[f]``. Outputs have the same layout at width f.
+bias ``[f]``. Outputs have the same layout at width f. K-lin-d8 and K-lin-d8-bwd read
+their flat-E inputs, and write their outputs, through row strides, so the
+five views may be column slices of one packed container
+(d8/group.py:unpack_packed_5f).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Optional
 import torch
 
 from octic_vits_tpu_torch import kernels
-from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, forward_only, on_cuda
+from octic_vits_tpu_torch.d8.group import pack_5_to_flat, unpack_packed_5f
+from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_stride
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_eager, gelu_d8_vjp
 
 
@@ -64,18 +71,32 @@ def _check_tuple(xs: tuple, c: int) -> tuple:
     return lead
 
 
+def _row_strides(xs: tuple, c: int, name: str) -> tuple:
+    """The row strides of the four 1-d views and of the E view of a flat-E
+    tuple, which may be column views of one packed container: 16-byte
+    aligned starts and strides, else raises (never copied)."""
+    lead = tuple(xs[0].shape[:-1])
+    ld1 = {row_stride(xs[g], f"{name}[{g}]", lead + (c,), align=True) for g in range(4)}
+    if len(ld1) != 1:
+        raise ValueError(f"{name}: the four 1-d views need one row stride, got {sorted(ld1)}")
+    return lead, ld1.pop(), row_stride(xs[4], f"{name}[4]", lead + (4 * c,), align=True)
+
+
 def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
                   bias: Optional[torch.Tensor], gelu: bool, layerscale: Optional[tuple] = None,
-                  residual: Optional[tuple] = None) -> tuple:
+                  residual: Optional[tuple] = None, out: Optional[tuple] = None) -> tuple:
     """One launch of the K-lin-d8 kernel (csrc/lin_d8.cu) on CUDA bf16
     tensors, with the D8-GELU epilogue, the LayerScale + residual epilogue
     (`layerscale` = ``(ls1 [4, f], lse [2f])`` and the output-shaped 5-tuple
-    `residual`) or neither. Counts nothing: the public ops that use it count
+    `residual`) or neither. The input views may be column slices of one
+    packed container (read in place through their row strides); `out`, a
+    flat-E 5-tuple of such views at width f, receives the result in place
+    (else it is allocated). Counts nothing: the public ops that use it count
     their own launches."""
     _, c, f = w1.shape
     if c % 8 or f % 8:
         raise ValueError(f"lin_d8: widths c={c}, f={f} must be multiples of 8")
-    lead = _check_tuple(xs, c)
+    lead, ldx, ldxe = _row_strides(xs, c, "xs")
     check_kernel_arg(w1, "w1", (4, c, f))
     check_kernel_arg(we, "we", (2 * c, 2 * f))
     check_kernel_arg(bias, "bias", (f,))
@@ -92,12 +113,17 @@ def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
         _check_tuple(rs, f)
         if tuple(rs[0].shape[:-1]) != lead:
             raise ValueError("lin_d8: the residual must have the output's shape")
+    if out is None:
+        kw = dict(device=xs[0].device, dtype=xs[0].dtype)
+        out = tuple(torch.empty(*lead, f, **kw) for _ in range(4)) + (
+            torch.empty(*lead, 4 * f, **kw),)
+    olead, ldy, ldye = _row_strides(out, f, "out")
+    if olead != lead:
+        raise ValueError("lin_d8: the output views must have the input's leading shape")
     m = xs[0].numel() // c
-    kw = dict(device=xs[0].device, dtype=xs[0].dtype)
-    ys = tuple(torch.empty(*lead, f, **kw) for _ in range(4))
-    yef = torch.empty(*lead, 4 * f, **kw)
-    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, yef, ls1, lse, *rs, m, c, f, int(gelu))
-    return ys + (yef,)
+    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *out, ls1, lse, *rs, m, c, f, int(gelu),
+                   ldx, ldxe, ldy, ldye)
+    return tuple(out)
 
 
 NUM_SMS = 132  # streaming multiprocessors of the H100 (SXM)
@@ -129,52 +155,38 @@ def lin_d8_bwd_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tupl
 
 
 def lin_d8_bwd_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, de: tuple,
-                      with_bias: bool) -> tuple:
+                      with_bias: bool, out: Optional[tuple] = None) -> tuple:
     """One launch of K-lin-d8-bwd (csrc/lin_d8_bwd.cu: three kernels in
     stream order, no atomics) on CUDA bf16 tensors; the same outputs as
-    :func:`lin_d8_bwd_reference`. The weight gradients reduce the token axis
-    in ``splits`` fixed chunks, enough for the 96 64x64 weight tiles of
+    :func:`lin_d8_bwd_reference`. The inputs `xs` may be column views of one
+    packed container, and `out` (a flat-E 5-tuple of such views) receives dx
+    in place (else it is allocated). The weight gradients reduce the token
+    axis in ``splits`` fixed chunks, enough for the 96 64x64 weight tiles of
     ViT-L/16 to fill the card, through an f32 scratch. Counts nothing."""
     _, c, f = w1.shape
     if c % 8 or f % 8:
         raise ValueError(f"lin_d8_bwd: widths c={c}, f={f} must be multiples of 8")
-    lead = _check_tuple(xs, c)
+    lead, ldx, ldxe = _row_strides(xs, c, "xs")
     check_kernel_arg(w1, "w1", (4, c, f))
     check_kernel_arg(we, "we", (2 * c, 2 * f))
     for g in range(4):
         check_kernel_arg(dq[g], f"dq[{g}]", lead + (f,))
     for r in range(2):
         check_kernel_arg(de[r], f"de[{r}]", lead + (2 * f,))
+    if out is None:
+        out = tuple(torch.empty(x.shape, device=x.device, dtype=x.dtype) for x in xs)
+    olead, ldd, ldde = _row_strides(out, c, "out")
+    if olead != lead:
+        raise ValueError("lin_d8_bwd: dx must have the input's shape")
     m = xs[0].numel() // c
     tiles = 4 * -(-c // 64) * -(-f // 64) + -(-2 * c // 64) * -(-2 * f // 64)
     splits = max(1, min(8, -(-4 * NUM_SMS // tiles), m // 512))
-    dxs = tuple(torch.empty_like(x) for x in xs)
     dw1, dwe = torch.empty_like(w1), torch.empty_like(we)
     dbias = torch.empty(f, device=w1.device, dtype=w1.dtype) if with_bias else None
     scratch = torch.empty(splits * (8 * c * f + f), device=w1.device, dtype=torch.float32)
-    kernels.launch("ovt_lin_d8_bwd", *xs, w1, we, *dq, *de, *dxs, dw1, dwe, dbias, scratch,
-                   m, c, f, splits)
-    return dxs, dw1, dwe, dbias
-
-
-def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:
-    """Octic MLP: fc1 (c -> h) with the D8-GELU epilogue, fc2 (h -> c').
-
-    CPU tensors take :func:`mlp_d8_fused_reference`; CUDA tensors launch
-    K-lin-d8 twice (fc1 writes the bf16 hidden, fc2 reads it). Inference
-    only on the card: training runs fc1 and fc2 as two
-    :func:`linear_d8_fused` calls, as the JAX train configuration does."""
-    if not on_cuda(tuple(xs) + (w1a, wea, b1, w1b, web, b2)):
-        return mlp_d8_fused_reference(xs, w1a, wea, b1, w1b, web, b2)
-    forward_only("mlp_d8_fused", tuple(xs) + (w1a, wea, b1, w1b, web, b2))
-    if w1b.shape[1] != w1a.shape[2]:
-        raise ValueError("mlp_d8_fused: fc2 input width must equal fc1 output width")
-    mlp_d8_fused.launches += 1
-    hid = lin_d8_launch(xs, w1a, wea, b1, gelu=True)
-    return lin_d8_launch(hid, w1b, web, b2, gelu=False)
-
-
-mlp_d8_fused.launches = 0
+    kernels.launch("ovt_lin_d8_bwd", *xs, w1, we, *dq, *de, *out, dw1, dwe, dbias, scratch,
+                   m, c, f, splits, ldx, ldxe, ldd, ldde)
+    return tuple(out), dw1, dwe, dbias
 
 
 def _lse_full(lse: torch.Tensor) -> torch.Tensor:
@@ -323,3 +335,142 @@ def linear_d8_tuple(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
 
     ys = linear_d8_fused(flat(xs), w1, we, bias, fuse_gelu, layerscale, flat(residual))
     return ys if flat_e else ys[:4] + (ys[4].unflatten(-1, (2, -1)),)
+
+
+# ---------------------------------------------------------------------------
+# the fused octic MLP (row 4) with its backward, and its packed-container
+# variant (row 11)
+# ---------------------------------------------------------------------------
+
+
+def _mlp_bwd_from_hidden(xs: tuple, h: tuple, w1a, wea, b1, w1b, web, b2, gs: tuple) -> tuple:
+    """fc2's backward at the rounded hidden `h`, then fc1's with the D8-GELU
+    VJP, each as :func:`linear_d8_fused_bwd` (plain products in the operands'
+    dtype, the GELU VJP in f32): the JAX rule pallas_linear.py:_mlp_bwd_rule,
+    the composition of the two linear kernels' backward rules."""
+    dh, dw1b, dweb, db2 = linear_d8_fused_bwd(h, w1b, web, b2, gs, False)[:4]
+    dxs, dw1a, dwea, db1 = linear_d8_fused_bwd(xs, w1a, wea, b1, dh, True)[:4]
+    return dxs + (dw1a, dwea, db1, dw1b, dweb, db2)
+
+
+def mlp_d8_fused_bwd_reference(xs: tuple, w1a, wea, b1, w1b, web, b2, gs: tuple) -> tuple:
+    """Plain backward of :func:`mlp_d8_fused`: the hidden from the plain fc1 +
+    GELU, rounded to the input dtype where the kernel stores it, then
+    :func:`_mlp_bwd_from_hidden` in f32. dx in the input dtype, the weight
+    and bias gradients in theirs.
+
+    Returns ``(dx (5 tensors), dw1a, dwea, db1, dw1b, dweb, db2)``."""
+    dt = xs[0].dtype
+    h = linear_d8_fused_reference(xs, w1a, wea, b1, fuse_gelu=True)
+    params = (w1a, wea, b1, w1b, web, b2)
+    grads = _mlp_bwd_from_hidden(tuple(t.float() for t in xs), tuple(t.float() for t in h),
+                                 *map(_f32, params), tuple(g.float() for g in gs))
+    return tuple(t.to(dt) for t in grads[:5]) + tuple(
+        None if g is None else g.to(p.dtype) for g, p in zip(grads[5:], params))
+
+
+def mlp_d8_fused_bwd(xs: tuple, w1a, wea, b1, w1b, web, b2, gs: tuple) -> tuple:
+    """Backward of :func:`mlp_d8_fused` from its residuals (the input tuple
+    and the six weights, what the JAX custom VJP saves) and the output
+    cotangent `gs`. CPU tensors take :func:`mlp_d8_fused_bwd_reference`.
+    CUDA tensors recompute the rounded hidden through K-lin-d8 with the
+    GELU epilogue (the JAX rule recomputes it through the fc1 + GELU kernel
+    too), then run :func:`_mlp_bwd_from_hidden` in plain torch, as the JAX
+    rule is eager XLA. The input views may be column slices of one packed
+    container (the backward of :func:`mlp_d8_fused_packed`).
+
+    Returns ``(dx (5 tensors), dw1a, dwea, db1, dw1b, dweb, db2)``."""
+    params = (w1a, wea, b1, w1b, web, b2)
+    if not on_cuda(tuple(xs) + params + tuple(gs)):
+        return mlp_d8_fused_bwd_reference(xs, *params, gs)
+    mlp_d8_fused_bwd.launches += 1
+    h = lin_d8_launch(tuple(xs), w1a, wea, b1, gelu=True)
+    return _mlp_bwd_from_hidden(tuple(xs), h, *params, tuple(gs))
+
+
+def _mlp_launch(xs: tuple, w1a, wea, b1, w1b, web, b2, out: Optional[tuple] = None) -> tuple:
+    """fc1 with the D8-GELU epilogue writes the bf16 hidden, fc2 reads it
+    and writes `out` (or a new flat-E tuple): two K-lin-d8 launches."""
+    if w1b.shape[1] != w1a.shape[2]:
+        raise ValueError("mlp_d8_fused: fc2 input width must equal fc1 output width")
+    hid = lin_d8_launch(xs, w1a, wea, b1, gelu=True)
+    return lin_d8_launch(hid, w1b, web, b2, gelu=False, out=out)
+
+
+class _MlpD8Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *tensors):
+        xs, params = tensors[:5], tensors[5:]
+        ctx.save_for_backward(*tensors)  # (xs, weights), as pallas_linear.py:_mlp_fwd_rule
+        if not on_cuda(tensors):
+            return mlp_d8_fused_reference(xs, *params)
+        mlp_d8_fused.launches += 1
+        return _mlp_launch(xs, *params)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        return mlp_d8_fused_bwd(saved[:5], *saved[5:], gs)
+
+
+def mlp_d8_fused(xs: tuple, w1a, wea, b1, w1b, web, b2) -> tuple:
+    """Octic MLP on the flat-E tuple: fc1 (c -> h) with the D8-GELU epilogue,
+    fc2 (h -> c'); the JAX mlp_d8_tuple wrapper, here taking the five tensors
+    directly. CPU tensors take :func:`mlp_d8_fused_reference`; CUDA tensors
+    launch K-lin-d8 twice (fc1 writes the bf16 hidden, fc2 reads it).
+    Differentiable: the backward is :func:`mlp_d8_fused_bwd`; only the
+    inputs and the weights are saved, as in the JAX custom VJP."""
+    return _MlpD8Fused.apply(*xs, w1a, wea, b1, w1b, web, b2)
+
+
+mlp_d8_fused.launches = 0
+mlp_d8_fused_bwd.launches = 0
+
+
+def mlp_d8_fused_packed_reference(x: torch.Tensor, w1a, wea, b1, w1b, web, b2) -> torch.Tensor:
+    """Plain version of :func:`mlp_d8_fused_packed`: the plain fused MLP on
+    the container's flat-E views, packed again."""
+    return pack_5_to_flat(mlp_d8_fused_reference(unpack_packed_5f(x), w1a, wea, b1, w1b, web,
+                                                 b2))
+
+
+class _MlpD8FusedPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1a, wea, b1, w1b, web, b2):
+        params = (w1a, wea, b1, w1b, web, b2)
+        ctx.save_for_backward(x, *params)  # as pallas_linear.py:_mlp_packed_fwd_rule
+        if not on_cuda((x,) + params):
+            return mlp_d8_fused_packed_reference(x, *params)
+        mlp_d8_fused_packed.launches += 1
+        y = torch.empty(*x.shape[:-1], 8 * w1b.shape[2], device=x.device, dtype=x.dtype)
+        _mlp_launch(unpack_packed_5f(x), *params, out=unpack_packed_5f(y))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        grads = mlp_d8_fused_bwd(unpack_packed_5f(x), *params, unpack_packed_5f(g))
+        return (pack_5_to_flat(grads[:5]),) + grads[5:]
+
+
+def mlp_d8_fused_packed(x: torch.Tensor, w1a, wea, b1, w1b, web, b2) -> torch.Tensor:
+    """The fused octic MLP on the packed container ``[M, C]`` -> ``[M, C']``
+    (pallas_linear.py:mlp_d8_fused_packed, kernel row 11). CPU tensors take
+    :func:`mlp_d8_fused_packed_reference`; CUDA tensors launch K-lin-d8
+    twice: fc1 + GELU reads the container's five slot views in place
+    through their row strides, fc2 writes the packed ``[M, 8f]`` output in
+    place. The backward is :func:`mlp_d8_fused_bwd` on the same views (its
+    launches count there); dx is packed with one concatenate."""
+    if x.ndim != 2:
+        raise ValueError(f"mlp_d8_fused_packed: x must be [M, C], got {tuple(x.shape)}")
+    return _MlpD8FusedPacked.apply(x, w1a, wea, b1, w1b, web, b2)
+
+
+mlp_d8_fused_packed.launches = 0
+
+
+def mlp_d8_packed(x: torch.Tensor, w1a, wea, b1, w1b, web, b2) -> torch.Tensor:
+    """:func:`mlp_d8_fused_packed` for any leading dims: ``[..., C]`` ->
+    ``[..., C']`` (pallas_linear.py:mlp_d8_packed)."""
+    y = mlp_d8_fused_packed(x.reshape(-1, x.shape[-1]), w1a, wea, b1, w1b, web, b2)
+    return y.reshape(*x.shape[:-1], y.shape[-1])

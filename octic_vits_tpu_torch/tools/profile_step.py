@@ -7,6 +7,12 @@ train step (or one inference forward) of each model of a cell, after warm-up.
                                                                   # P7's flags vs path C
     python3 -m octic_vits_tpu_torch.tools.profile_step infer      # one forward, ViT-H/14,
                                                                   # B=64: P4, paths A and B
+    python3 -m octic_vits_tpu_torch.tools.profile_step infer_inv  # one forward, B=64: P4's
+                                                                  # hybrid, inv-early flat-E
+                                                                  # and packed (P16)
+    python3 -m octic_vits_tpu_torch.tools.profile_step deit_packed  # DeiT III, B=32: P7's
+                                                                    # hybrid, inv-early with
+                                                                    # P7's flags, packed (P17)
 
 For each model it prints the profiled step's wall time, the device's busy
 time (the sum of the kernels' device time; one stream) and idle share, the
@@ -20,7 +26,10 @@ steps), with seeded random weights and inputs; ``deit_glue`` profiles the
 hybrid with P7's flags and with path C's (plain octic linears, the D8-GELU
 kernel and the D8 LayerNorm kernel), ``infer`` the hybrid with P4's flags,
 paths A (``fuse_mlp_branch``) and B (``fuse_block_epilogues``), both with
-the LN kernel, and the standard model. Run from the repository root (it imports
+the LN kernel, and the standard model; ``infer_inv`` and ``deit_packed``
+the hybrid against ``d8_inv_early_deit_huge_patch14`` with the flat-E carry
+and with ``packed_carry`` (in training with ``fuse_qkv`` and ``fuse_mlp``,
+the packed ops' requirements). Run from the repository root (it imports
 ``chip_smoke``); needs a CUDA device.
 """
 
@@ -119,6 +128,13 @@ CELLS = {
     "deit_glue": (_deit_cell, (("hybrid_deit_huge_patch14", {}, False),
                                ("hybrid_deit_huge_patch14",
                                 dict(use_pallas_linear=False, use_pallas_gelu=True), True))),
+    "infer_inv": (_infer_cell, (("hybrid_deit_huge_patch14", {}, False),
+                                ("d8_inv_early_deit_huge_patch14", {}, False),
+                                ("d8_inv_early_deit_huge_patch14", dict(packed_carry=True), False))),
+    "deit_packed": (_deit_cell, (("hybrid_deit_huge_patch14", {}, False),
+                                 ("d8_inv_early_deit_huge_patch14", {}, False),
+                                 ("d8_inv_early_deit_huge_patch14",
+                                  dict(packed_carry=True, fuse_qkv=True, fuse_mlp=True), False))),
 }
 
 

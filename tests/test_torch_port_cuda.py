@@ -177,25 +177,33 @@ def test_attention_autograd_launches_backward_kernels(gen):
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (qkv,) + qs)
 
 
-def test_fused_inference_ops_refuse_autograd(gen):
-    """The fused octic MLP has no backward kernel: a forward that autograd
-    would record raises (the fused qkv + attention has one since the DINOv2
-    slice: test_octic_attention_fused_qkv_autograd_launches_bwd_chain)."""
-    xs = tuple(_randn(gen, 1, 5, 8).requires_grad_() for _ in range(4)) + (
-        _randn(gen, 1, 5, 32),)
-    with pytest.raises(RuntimeError, match="without a backward"):
-        ops.mlp_d8_fused(xs, _randn(gen, 4, 8, 16), _randn(gen, 16, 32), None,
-                         _randn(gen, 4, 16, 8), _randn(gen, 32, 16), None)
+def test_mlp_d8_fused_autograd_launches_backward(gen):
+    """The fused octic MLP is differentiable since the packed-carry slice:
+    its backward (row 4's) recomputes the hidden through K-lin-d8 and matches
+    the plain backward."""
+    xs = tuple(_randn(gen, 1, 5, 8) for _ in range(4)) + (_randn(gen, 1, 5, 32),)
+    ws = (_randn(gen, 4, 8, 16), _randn(gen, 16, 32), None, _randn(gen, 4, 16, 8),
+          _randn(gen, 32, 16), None)
+    leaves = tuple(t.detach().requires_grad_() for t in xs)
+    gs = tuple(_randn(gen, *t.shape) for t in xs)
+    ops.reset_launch_counts()
+    torch.autograd.backward(ops.mlp_d8_fused(leaves, *ws), gs)
+    assert ops.launch_counts() == _only(mlp_d8_fused=1, mlp_d8_fused_bwd=1)
+    ref = ops.mlp_d8_fused_bwd_reference(xs, *ws, gs)
+    _assert_close_scaled(tuple(t.grad for t in leaves), ref[:5])
 
 
-def test_eval_mode_model_refuses_autograd(gen):
-    """In eval mode the octic blocks take the fused inference kernels, which
-    have no backward: a forward that autograd would record raises."""
+def test_eval_mode_model_differentiates(gen):
+    """In eval mode the octic blocks take the fused kernels, each with its
+    backward: the input gradient of the eval-mode model is finite."""
     model = create_model("hybrid_vit_small_test", device="cuda", dtype=torch.bfloat16).eval()
     init_weights(model, torch.Generator("cuda").manual_seed(0))
-    img = _randn(gen, 1, 64, 64, 3)
-    with pytest.raises(RuntimeError, match="without a backward"):
-        model(img)
+    img = _randn(gen, 1, 64, 64, 3).requires_grad_()
+    ops.reset_launch_counts()
+    model(img).float().sum().backward()
+    counts = ops.launch_counts()
+    assert counts["octic_attention_fused_qkv_bwd"] == counts["mlp_d8_fused_bwd"] == 2
+    assert torch.isfinite(img.grad).all()
 
 
 def test_kernels_reject_f32(gen):
@@ -577,6 +585,219 @@ def test_small_hybrid_gelu_kernel_train_step_on_card(gen, pallas_ln):
     assert ops.launch_counts() == _only(
         standard_attention=2, standard_attention_bwd=2, octic_attention=2, octic_attention_bwd=2,
         dense_gelu=4, ln_affine_d8_flat_tuple=8, ln_affine_d8_bwd=4, gelu_d8=4, gelu_d8_bwd=2)
+    cpu.train()
+    loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
+    loss.backward()
+    assert abs(metrics["loss"].item() - loss.item()) <= 5e-2 * abs(loss.item())
+    a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
+    b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
+
+
+# ---- the packed trunk carry: K-lin-d8 and K-lin-d8-bwd through row strides, the
+# packed ops (rows 10 and 11), row 4's backward and the invariant-early model
+
+
+def _packed(gen, b, n, c8):
+    """A packed [b, n, 8 c8] container and its five flat-E slot views."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    x = _randn(gen, b, n, 8 * c8)
+    return x, unpack_packed_5f(x)
+
+
+@pytest.mark.parametrize("gelu", [True, False])
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_lin_d8_strided_kernel(gen, b, n, c, heads, bias, gelu):
+    """K-lin-d8 reading the slot views of a packed container and writing the
+    slot views of another in place (fc1 widths: c8 -> 4 c8)."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    c8, f8 = c // 8, c // 2
+    _, xs = _packed(gen, b, n, c8)
+    w1, we = _randn(gen, 4, c8, f8, scale=c8 ** -0.5), _randn(gen, 2 * c8, 2 * f8,
+                                                              scale=(2 * c8) ** -0.5)
+    bq = _randn(gen, f8, scale=0.1) if bias else None
+    y = torch.full((b, n, 8 * f8), float("nan"), device="cuda", dtype=torch.bfloat16)
+    out = ops.lin_d8_launch(xs, w1, we, bq, gelu, out=unpack_packed_5f(y))
+    torch.cuda.synchronize()
+    assert all(o.data_ptr() == v.data_ptr() for o, v in zip(out, unpack_packed_5f(y)))
+    _assert_close(tuple(out), ops.linear_d8_fused_reference(xs, w1, we, bq, gelu))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_lin_d8_bwd_strided_kernel(gen, b, n, c, heads, bias):
+    """K-lin-d8-bwd reading the packed input in place and writing dx into the
+    slot views of one packed gradient."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    c8 = c // 8
+    _, w1, we, bq, _ = _fused_bwd_args(gen, b, n, c, bias)
+    _, xs = _packed(gen, b, n, c8)
+    dq = tuple(_randn(gen, b, n, 3 * c8) for _ in range(4))
+    de = tuple(_randn(gen, b, n, 6 * c8) for _ in range(2))
+    dx = torch.full((b, n, c), float("nan"), device="cuda", dtype=torch.bfloat16)
+    dxs, dw1, dwe, db = ops.lin_d8_bwd_launch(xs, w1, we, dq, de, bias, out=unpack_packed_5f(dx))
+    torch.cuda.synchronize()
+    rxs, rw1, rwe, rb = ops.lin_d8_bwd_reference(xs, w1, we, dq, de, bq)
+    _assert_close(tuple(unpack_packed_5f(dx)) + (dw1, dwe), rxs + (rw1, rwe))
+    if bias:
+        _assert_close(db, rb)
+
+
+def test_lin_d8_rejects_misaligned_views(gen):
+    """A view whose start or row stride is not a multiple of 16 bytes raises
+    (never copied): the kernels load 16 bytes at a time."""
+    x = _randn(gen, 2, 5, 72)
+    xs = tuple(x[..., 1 + 8 * g:9 + 8 * g] for g in range(4)) + (x[..., 33:65],)
+    w1, we = _randn(gen, 4, 8, 8), _randn(gen, 16, 16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.lin_d8_launch(xs, w1, we, None, False)
+    y = _randn(gen, 2, 5, 68)  # row stride 68 elements
+    ys = tuple(y[..., 8 * g:8 * g + 8] for g in range(4)) + (y[..., 32:64],)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.lin_d8_launch(ys, w1, we, None, False)
+
+
+def _packed_attn_args(gen, b, n, c, bias):
+    c8 = c // 8
+    x = _randn(gen, b, n, c)
+    w1 = _randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5)
+    we = _randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5)
+    bq = _randn(gen, 3 * c8, scale=0.1) if bias else None
+    return x, w1, we, bq
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_fused_qkv_packed_kernel(gen, b, n, c, heads, bias):
+    args = _packed_attn_args(gen, b, n, c, bias) + (heads,)
+    _assert_close(_counted(ops.octic_attention_fused_qkv_packed, *args),
+                  ops.octic_attention_fused_qkv_packed_reference(*args))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_fused_qkv_packed_bwd_kernel(gen, b, n, c, heads, bias):
+    x, w1, we, bq = _packed_attn_args(gen, b, n, c, bias)
+    gs = _fused_bwd_args(gen, b, n, c, bias)[4]
+    out = _counted(ops.octic_attention_fused_qkv_packed_bwd, x, w1, we, bq, gs, heads)
+    ref = ops.octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bq, gs, heads)
+    assert (out[3] is None) == (not bias)
+    _assert_close_scaled(tuple(t for t in out if t is not None),
+                         tuple(t for t in ref if t is not None))
+
+
+def _mlp_weights(gen, c8, bias):
+    h8 = 4 * c8
+    return (_randn(gen, 4, c8, h8, scale=c8 ** -0.5), _randn(gen, 2 * c8, 2 * h8,
+                                                             scale=(2 * c8) ** -0.5),
+            _randn(gen, h8, scale=0.1) if bias else None, _randn(gen, 4, h8, c8, scale=h8 ** -0.5),
+            _randn(gen, 2 * h8, 2 * c8, scale=(2 * h8) ** -0.5),
+            _randn(gen, c8, scale=0.1) if bias else None)
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_mlp_d8_fused_packed_kernel(gen, b, n, c, heads, bias):
+    x = _randn(gen, b * n, c)
+    ws = _mlp_weights(gen, c // 8, bias)
+    _assert_close(_counted(ops.mlp_d8_fused_packed, x, *ws),
+                  ops.mlp_d8_fused_packed_reference(x, *ws))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_mlp_d8_fused_bwd_kernel(gen, b, n, c, heads, bias, packed):
+    """Row 4's backward on a flat-E tuple, and on the slot views of a packed
+    container (the backward of row 11)."""
+    c8 = c // 8
+    if packed:
+        xs, gs = _packed(gen, b, n, c8)[1], _packed(gen, b, n, c8)[1]
+    else:
+        xs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+        gs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+    ws = _mlp_weights(gen, c8, bias)
+    out = _counted(ops.mlp_d8_fused_bwd, xs, *ws, gs)
+    ref = ops.mlp_d8_fused_bwd_reference(xs, *ws, gs)
+    _assert_close_scaled(tuple(t for t in out if t is not None),
+                         tuple(t for t in ref if t is not None))
+
+
+def test_packed_ops_autograd_launch_backward(gen):
+    """Autograd through rows 10 and 11: the packed attention's backward chain
+    and row 4's backward run, each counted once, and the packed input's
+    gradient matches the plain backwards."""
+    x, w1, we, bq = _packed_attn_args(gen, 2, 37, 128, True)
+    ws = _mlp_weights(gen, 16, True)
+    gs = _fused_bwd_args(gen, 2, 37, 128, True)[4]
+    gm = _randn(gen, 2 * 37, 128)
+    leaf = x.detach().requires_grad_()
+    ops.reset_launch_counts()
+    outs = ops.octic_attention_fused_qkv_packed(leaf, w1, we, bq, 2)
+    y = ops.mlp_d8_fused_packed(leaf.reshape(-1, 128), *ws)
+    torch.autograd.backward(outs + (y,), gs + (gm,))
+    assert ops.launch_counts() == _only(
+        octic_attention_fused_qkv_packed=1, octic_attention_fused_qkv_packed_bwd=1,
+        mlp_d8_fused_packed=1, mlp_d8_fused_bwd=1)
+    from octic_vits_tpu_torch.d8.group import pack_5_to_flat, unpack_packed_5f
+
+    dx_a = ops.octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bq, gs, 2)[0]
+    dx_m = pack_5_to_flat(ops.mlp_d8_fused_bwd_reference(
+        unpack_packed_5f(x.reshape(-1, 128)), *ws, unpack_packed_5f(gm))[:5])
+    ref = (dx_a.float() + dx_m.reshape(x.shape).float()).to(torch.bfloat16)
+    _assert_close_scaled(leaf.grad, ref)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_small_inv_early_model_on_card(gen, packed):
+    kw = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=2, mlp_ratio=2.0,
+              qkv_bias=True, invariant=True, num_classes=10, init_scale=1.0)
+    from octic_vits_tpu_torch.models import OcticVisionTransformer
+
+    cpu = OcticVisionTransformer(**kw, device="cpu").eval()
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = OcticVisionTransformer(**kw, packed_carry=packed, device="cuda",
+                                  dtype=torch.bfloat16).eval()
+    card.load_state_dict(cpu.state_dict())
+    img = torch.randn(3, 32, 32, 3, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = card(img.cuda()).float().cpu()
+        ref = cpu(img.float())
+    octic = (dict(octic_attention_fused_qkv_packed=2, mlp_d8_fused_packed=2) if packed else
+             dict(octic_attention_fused_qkv=2, mlp_d8_fused=2))
+    assert ops.launch_counts() == _only(standard_attention=2, dense_gelu=2, **octic)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).norm() / ref.norm()).item() < 5e-2
+
+
+def test_small_inv_early_packed_train_step_on_card(gen):
+    """One DeiT III step of the small inv-early model with the packed carry
+    (fuse_qkv, fuse_mlp, remat, bf16 compute over f32 parameters) on the
+    card against the same weights in f32 on the CPU (the bars of
+    test_small_hybrid_train_step_on_card), the packed kernels launched."""
+    from octic_vits_tpu_torch.models import OcticVisionTransformer
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+
+    kw = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=2, mlp_ratio=2.0,
+              qkv_bias=True, invariant=True, num_classes=10, init_scale=1.0)
+    cpu = OcticVisionTransformer(**kw, device="cpu")
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    card = OcticVisionTransformer(**kw, packed_carry=True, fuse_qkv=True, fuse_mlp=True,
+                                  remat=True, compute_dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    cfg = engine.DeiTConfig(num_classes=10, mixup_alpha=0.0, cutmix_alpha=0.0, drop_path=0.0)
+    opt = engine.build_optimizer(cfg, card)
+    step = engine.make_deit_train_step(card, cfg, opt)
+    img = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    img = img.to(torch.bfloat16).float()
+    labels = torch.tensor([1, 4, 7, 9])
+    ops.reset_launch_counts()
+    _, metrics = step(common.create_train_state(card, opt), img.cuda(), labels.cuda(),
+                      torch.Generator().manual_seed(0))
+    assert ops.launch_counts() == _only(
+        octic_attention_fused_qkv_packed=2, octic_attention_fused_qkv_packed_bwd=2,
+        mlp_d8_fused_packed=4, mlp_d8_fused_bwd=2, standard_attention=2,
+        standard_attention_bwd=2, dense_gelu=4)
     cpu.train()
     loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
     loss.backward()

@@ -443,9 +443,9 @@ def test_port_gradients_with_and_without_remat():
 
 
 def test_octic_kernel_choice_follows_train_mode(monkeypatch):
-    """Train mode runs the differentiable octic ops, also under no_grad; eval
-    mode runs the fused inference ops (on the card they refuse a forward that
-    autograd would record: tests/test_torch_port_cuda.py)."""
+    """Train mode runs the DeiT III flags' octic ops, also under no_grad; eval
+    mode runs the fused ops of the bench flags (each differentiable too:
+    tests/test_torch_port_cuda.py)."""
     from octic_vits_tpu_torch.layers import d8_layers
 
     calls = []
