@@ -79,6 +79,26 @@ Phases, one line each (any failure raises and exits non-zero):
              deterministic 2-image step against the CPU f32 plain path (loss,
              gradient cosine); median step ms and peak memory of P7's hybrid,
              the inv-early model with P7's flags and the packed one, in turns
+  P18 wide kernels  the wide-qkv kernels against their plain versions: the
+             wide-1d octic attention (row 12) and the attention over one
+             interleaved qkv (row 13a) at ViT-H/14 B=64, their backwards at B=32,
+             linear_d8_qkv_wide (row 13b) and the wide-1d qkv product at B=64;
+             all at the ragged shape and at d1 = 10 with 4 heads; then the qkv +
+             attention segments of scripts/profile_wide_qkv.py in turns, forward
+             at B=64 and forward + backward at B=32: A linear_d8_fused +
+             octic_attention, B the fused qkv + attention (row 2), C
+             linear_d8_qkv_wide + octic_attention_wide, D the wide-1d product +
+             octic_attention_wide1d (segment C's launches: the row-13 path)
+  P19 wide inference  P3's hybrid with use_wide_qkv: launches against
+             WIDE_INFERENCE_LAUNCHES, logits of two images against P3's CPU f32
+             logits, img/s in turns with P4's hybrid and path B
+  P20 wide train  P6's DeiT III step with use_wide_qkv: finite loss and
+             gradients, launches against WIDE_TRAIN_LAUNCHES; the deterministic
+             2-image step against P6's CPU f32 loss and gradients; median step
+             ms and the step's peak memory in turns with P7's hybrid
+P15 also times row 4's backward as it was (the hidden's cotangent and the
+recomputed pre-activation rounded to bf16), with the cotangent in f32, and
+with both in f32 (the shipped rule), each against the f32 plain backward.
 The line before the last is the per-kernel JSON summary (with each kernel's
 bound on the card and, where one PyTorch call computes the same function,
 that call's time); the last line is ``{"ok": true, "device": {...}}``. Each
@@ -291,10 +311,14 @@ def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
     qkv_ops = 72 * m * c8 * c8     # the block-diagonal qkv product
     lin4_w, lin4_ops = 32 * c8 * c8, 96 * m * c8 * c8  # one octic LinearD8 C <-> 4C
     bq = 3 * c8 if bias else 0
-    if name in ("standard_attention", "octic_attention"):
+    if name in ("standard_attention", "octic_attention", "octic_attention_wide1d",
+                "octic_attention_wide"):
         return m * 4 * c * e, attn_fwd, 0
-    if name in ("standard_attention_bwd", "octic_attention_bwd"):
+    if name in ("standard_attention_bwd", "octic_attention_bwd", "octic_attention_wide1d_bwd",
+                "octic_attention_wide_bwd"):
         return m * 7 * c * e, attn_bwd, 0
+    if name in ("linear_d8_qkv_wide", "linear_d8_wide1d"):  # x in, the 3C qkv out
+        return (4 * m * c + qkv_w + bq) * e, qkv_ops, 0
     if name in ("octic_attention_fused_qkv", "octic_attention_fused_qkv_packed"):
         return (2 * m * c + qkv_w + bq) * e, qkv_ops + attn_fwd, 0
     if name in ("octic_attention_fused_qkv_bwd", "octic_attention_fused_qkv_packed_bwd"):
@@ -416,6 +440,16 @@ META = {
                             "octic_vits_tpu/ops/pallas_linear.py:712", "packed_inference"),
     "mlp_d8_fused_bwd": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
                          "octic_vits_tpu/ops/pallas_linear.py:566", "packed_train"),
+    "octic_attention_wide1d": ("octic_vits_tpu_torch/csrc/attention.cu",
+                               "octic_vits_tpu/ops/pallas_attention.py:1058", "wide_inference"),
+    "octic_attention_wide1d_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+                                   "octic_vits_tpu/ops/pallas_attention.py:1087", "wide_train"),
+    "octic_attention_wide": ("octic_vits_tpu_torch/csrc/attention.cu",
+                             "octic_vits_tpu/ops/pallas_attention.py:1154", "wide_segments"),
+    "octic_attention_wide_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+                                 "octic_vits_tpu/ops/pallas_attention.py:1188", "wide_segments"),
+    "linear_d8_qkv_wide": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
+                           "octic_vits_tpu/ops/pallas_linear.py:380", "wide_segments"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -480,6 +514,22 @@ INV_INFERENCE_LAUNCHES = {
 # its backward chain once; the packed MLP runs in the remat region, forward
 # and replay, and its backward (row 4's, which recomputes the hidden) once;
 # no linear_d8_fused. The standard blocks as in TRAIN_LAUNCHES
+# launches in one hybrid ViT-H/14 forward with use_wide_qkv: per octic block the
+# wide-1d qkv product (one K-lin-d8 with the wide-1d store) and the wide-1d
+# attention in place of the fused qkv + attention; the rest as in P3
+WIDE_INFERENCE_LAUNCHES = {"linear_d8_wide1d": 16, "octic_attention_wide1d": 16,
+                           "mlp_d8_fused": 16, "standard_attention": 16, "dense_gelu": 16}
+# launches in the DeiT III step with use_wide_qkv (TRAIN_LAUNCHES' schedule):
+# remat replays norm1 + the wide-1d product in the backward (2 a block) and
+# keeps the attention's five inputs and six outputs, so the wide-1d attention
+# runs once forward and once backward a block; fc1 and fc2 and the standard
+# blocks as in TRAIN_LAUNCHES
+WIDE_TRAIN_LAUNCHES = {"linear_d8_wide1d": 32, "octic_attention_wide1d": 16,
+                       "octic_attention_wide1d_bwd": 16, "linear_d8_fused": 64,
+                       "standard_attention": 16, "standard_attention_bwd": 16, "dense_gelu": 32}
+# one forward + backward of segment C (P18): the row-13 chain
+WIDE_SEGMENT_LAUNCHES = {"linear_d8_qkv_wide": 1, "octic_attention_wide": 1,
+                         "octic_attention_wide_bwd": 1}
 PACKED_TRAIN_LAUNCHES = {"octic_attention_fused_qkv_packed": 16,
                          "octic_attention_fused_qkv_packed_bwd": 16, "mlp_d8_fused_packed": 32,
                          "mlp_d8_fused_bwd": 16, "standard_attention": 16,
@@ -842,8 +892,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     packed_launches = packed_phases(gen, summary, card, cpu_model, images, det)
 
+    torch.cuda.empty_cache()
+    wide_launches = wide_phases(gen, summary, card, cpu_model, images, ref, det)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
-              **glue_launches, **packed_launches}
+              **glue_launches, **packed_launches, **wide_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -1256,6 +1309,7 @@ def packed_phases(gen, summary, card, cpu_model, images, det) -> dict:
     kernel_phase("P15", packed_b64_cases, (("vith14_b64", h14), ragged), gen, summary)
     kernel_phase("P15", packed_b32_cases, (("vith14_b32", (TRAIN_BATCH,) + h14[1:]), ragged), gen,
                  summary)
+    row4_variants(gen, (TRAIN_BATCH,) + h14[1:3])
     torch.cuda.empty_cache()
 
     # ---- P16: inv-early ViT-H/14 inference, flat-E and packed ----
@@ -1377,6 +1431,296 @@ def packed_phases(gen, summary, card, cpu_model, images, det) -> dict:
                  f"{med['inv-early flat-E'] / med['inv-early packed']:.4f}, packed / P7 hybrid "
                  f"{med['P7 hybrid'] / med['inv-early packed']:.4f}")
     del runs, base, inv_flat, model_p
+    torch.cuda.empty_cache()
+    return counts
+
+
+def row4_variants(gen, shape) -> None:
+    """Row 4's backward at one shape, as the card ran it before the hidden's
+    cotangent was kept in f32 (dh and the recomputed pre-activation z rounded
+    to bf16), with dh in f32, and with dh and z in f32 (the shipped rule):
+    max abs error of each output against the f32 plain backward, whether all
+    are inside the backward bar, and CUDA-event ms, in turns."""
+    from octic_vits_tpu_torch.ops import linear as Lin
+
+    ((_, _, ref_fn, args, _, _),) = packed_b32_cases(gen, *shape, 16, True)[1:]
+    xs, params, gs = args[0], args[1:7], args[7]
+    ref = ref_fn(*args)
+    variants = {"before (bf16 dh, bf16 z)": dict(dh_f32=False, z_f32=False),
+                "f32 dh, bf16 z": dict(dh_f32=True, z_f32=False),
+                "after (f32 dh, f32 z)": {}}
+
+    def run(kw):
+        h = Lin.lin_d8_launch(tuple(xs), *params[:3], gelu=True)
+        return Lin._mlp_bwd_from_hidden(tuple(xs), h, *params, tuple(gs), **kw)
+
+    res, times = {}, {k: [] for k in variants}
+    with torch.no_grad():
+        for key, kw in variants.items():
+            out = run(kw)
+            torch.cuda.synchronize()
+            names = ("dx", "dw1a", "dwea", "db1", "dw1b", "dweb", "db2")
+            errs = {nm: round((o.float() - r.float()).abs().max().item(), 5)
+                    for nm, o, r in zip(names, (torch.cat([t.reshape(-1) for t in out[:5]]),)
+                                        + tuple(out[5:]), (torch.cat(
+                                            [t.reshape(-1) for t in ref[:5]]),) + tuple(ref[5:]))}
+            res[key] = (errs, compare(out, ref, True)[1])
+        for key in tuple(variants) + tuple(reversed(variants)):
+            times[key].append(time_ms(lambda: run(variants[key]), iters=10))
+    phase("P15", f"row 4's backward at B={shape[0]} N={shape[1]} C={shape[2]}, in turns: "
+                 + "; ".join(f"{k}: {' / '.join(f'{t:.4f}' for t in times[k])} ms, max abs err "
+                             f"{res[k][0]} {'ok' if res[k][1] else 'FAIL'}" for k in variants))
+    if not res["after (f32 dh, f32 z)"][1]:
+        raise AssertionError("row 4's backward outside its bar")
+
+
+def wide_b64_cases(gen, b, n, c, heads, bias):
+    """P18 at the inference batch: the wide-1d attention (row 12) on the
+    column views of one wide-1d qkv, the attention over one interleaved qkv
+    (row 13a), linear_d8_qkv_wide (row 13b) and the wide-1d qkv product."""
+    from octic_vits_tpu_torch import ops
+
+    c8 = c // 8
+    y1d, ef = randn(gen, b, n, 12 * c8), randn(gen, b, n, 12 * c8)
+    w = 4 * c8
+    qs = (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8], ef[..., 6 * c8:])
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    x1, xef = torch.stack(xs[:4]).reshape(4, b * n, c8), xs[4].reshape(b * n, 4 * c8)
+    wq = (randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5), randn(gen, 2 * c8, 6 * c8,
+                                                              scale=(2 * c8) ** -0.5),
+          randn(gen, 3 * c8, scale=0.1) if bias else None)
+    return [
+        ("octic_attention_wide1d", ops.octic_attention_wide1d,
+         ops.octic_attention_wide1d_reference, (*qs, heads), False, None),
+        ("octic_attention_wide", ops.octic_attention_wide, ops.octic_attention_wide_reference,
+         (randn(gen, b, n, 3 * c), heads), False, None),
+        ("linear_d8_qkv_wide", ops.linear_d8_qkv_wide, ops.linear_d8_qkv_wide_reference,
+         (x1, xef) + wq + (heads,), False, None),
+        ("linear_d8_wide1d", ops.linear_d8_wide1d, ops.linear_d8_wide1d_reference,
+         (xs,) + wq + (heads,), False, None),
+    ]
+
+
+def wide_b32_cases(gen, b, n, c, heads, bias):
+    """P18 at the train batch: the backwards of rows 12 and 13a from their
+    inputs and six output cotangents (scaled bar)."""
+    from octic_vits_tpu_torch import ops
+
+    c8 = c // 8
+    y1d, ef = randn(gen, b, n, 12 * c8), randn(gen, b, n, 12 * c8)
+    w = 4 * c8
+    qs = (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8], ef[..., 6 * c8:])
+    ge = randn(gen, b, n, 4 * c8)
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (ge[..., :2 * c8], ge[..., 2 * c8:])
+    return [
+        ("octic_attention_wide1d_bwd", ops.octic_attention_wide1d_bwd,
+         ops.octic_attention_wide1d_bwd_reference, (qs, gs, heads), True, None),
+        ("octic_attention_wide_bwd", ops.octic_attention_wide_bwd,
+         ops.octic_attention_wide_bwd_reference, (randn(gen, b, n, 3 * c), gs, heads), True,
+         None),
+    ]
+
+
+def qkv_segments(gen, b, n, c, heads):
+    """The qkv + attention segments of scripts/profile_wide_qkv.py on shared
+    inputs (x1 [4, M, C/8], xef [M, C/2] and the flat-E views of them) and
+    qkv weights with bias: name -> a function of (x1, xef, w1, we, bias)
+    returning the six attention outputs."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.ops.attention import _qkv_rows
+
+    c8 = c // 8
+
+    def views(x1, xef):
+        return tuple(x1[g].view(b, n, c8) for g in range(4)) + (xef.view(b, n, 4 * c8),)
+
+    segs = {
+        "A linear_d8_fused + octic_attention": lambda x1, xef, w1, we, bq: ops.octic_attention(
+            *_qkv_rows(ops.linear_d8_fused(views(x1, xef), w1, we, bq)), heads),
+        "B fused qkv + attention (row 2)": lambda x1, xef, w1, we, bq:
+            ops.octic_attention_fused_qkv(*views(x1, xef), w1, we, bq, heads),
+        "C linear_d8_qkv_wide + octic_attention_wide": lambda x1, xef, w1, we, bq:
+            ops.octic_attention_wide(ops.linear_d8_qkv_wide(x1, xef, w1, we, bq, heads).view(
+                b, n, 3 * c), heads),
+        "D wide-1d product + octic_attention_wide1d": lambda x1, xef, w1, we, bq:
+            ops.octic_attention_wide1d(*ops.linear_d8_wide1d(views(x1, xef), w1, we, bq, heads),
+                                       heads),
+    }
+    args = (randn(gen, 4, b * n, c8), randn(gen, b * n, 4 * c8),
+            randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5),
+            randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5), randn(gen, 3 * c8, scale=0.1))
+    return segs, args
+
+
+def time_segments(gen, b, n, c, heads, backward: bool) -> tuple:
+    """CUDA-event ms of each segment (forward, or forward + backward of
+    every input and weight for fixed output cotangents), in turns A B C D D C
+    B A; with `backward`, also the launches of one forward + backward of
+    segment C (counted from 0 just before it)."""
+    from octic_vits_tpu_torch import ops
+
+    segs, args = qkv_segments(gen, b, n, c, heads)
+    c8 = c // 8
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 2 * c8) for _ in range(2))
+    leaves = tuple(t.detach().requires_grad_(backward) for t in args)
+    outs = {}
+
+    def run(fn):
+        if not backward:
+            with torch.no_grad():
+                return fn(*leaves)
+        out = fn(*leaves)
+        torch.autograd.backward(out, gs)
+        return out
+
+    for name, fn in segs.items():  # the four segments compute the same attention
+        outs[name] = tuple(o.detach() for o in run(fn))
+    first = next(iter(outs.values()))
+    for name, out in outs.items():
+        err, ok = compare(out, first)
+        if not ok:
+            raise AssertionError(f"segment {name} disagrees with segment A (max abs err {err})")
+    launches = None
+    if backward:
+        ops.reset_launch_counts()
+        run(segs["C linear_d8_qkv_wide + octic_attention_wide"])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    order = list(segs) + list(reversed(segs))
+    times = {k: [] for k in segs}
+    for name in order:
+        times[name].append(time_ms(lambda: run(segs[name]), iters=10, warmup=2))
+    return times, launches
+
+
+def wide_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
+    """P18-P20, the wide-qkv slice. `cpu_model` is P3's f32 hybrid on the CPU
+    (with P6's deterministic-step gradients), `images` P3's batch, `ref` its
+    f32 logits of the first two images, `det` P6's configs, batches and CPU
+    loss. Returns the launches of each path."""
+    from octic_vits_tpu_torch import create_model, ops
+
+    h14 = (BATCH, 257, 1280, 16, True)
+    others = (("ragged", (3, 65, 64, 2, False)), ("d1_10_4heads", (2, 33, 320, 4, True)))
+    # ---- P18: the wide kernels against their plain versions, then the segments ----
+    kernel_phase("P18", wide_b64_cases, (("vith14_b64", h14),) + others, gen, summary)
+    kernel_phase("P18", wide_b32_cases, (("vith14_b32", (TRAIN_BATCH,) + h14[1:]),) + others,
+                 gen, summary)
+    counts = {}
+    for label, shape, backward in (("forward", h14[:4], False),
+                                   ("forward + backward", (TRAIN_BATCH,) + h14[1:4], True)):
+        times, launches = time_segments(gen, *shape, backward)
+        phase("P18", f"qkv + attention segments, {label}, B={shape[0]} on {card}, in turns: "
+                     + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms (min "
+                                 f"{min(v):.4f})" for k, v in times.items()))
+        if launches is not None:
+            counts["wide_segments"] = launches
+            if launches != expected_launches(WIDE_SEGMENT_LAUNCHES):
+                raise AssertionError(f"segment C launches {launches}")
+    torch.cuda.empty_cache()
+
+    # ---- P19: hybrid ViT-H/14 inference with use_wide_qkv ----
+    images_gpu = images.to("cuda", torch.bfloat16)
+    models = {}
+    for path, flags in (("wide_inference", dict(use_wide_qkv=True)), ("P4 hybrid", {}),
+                        ("path B", dict(fuse_block_epilogues=True))):
+        m = create_model("hybrid_deit_huge_patch14", init_scale=1.0, dtype=torch.bfloat16,
+                         **flags).eval()
+        m.load_state_dict(cpu_model.state_dict(), strict=True)
+        models[path] = m
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = models["wide_inference"](images_gpu)
+    torch.cuda.synchronize()
+    counts["wide_inference"] = ops.launch_counts()
+    got = logits[:2].float().cpu()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    phase("P19", f"hybrid_deit_huge_patch14 B={BATCH} bf16, use_wide_qkv: logits "
+                 f"{tuple(logits.shape)} finite {bool(logits.isfinite().all())}; launches "
+                 f"{ {k: v for k, v in counts['wide_inference'].items() if v} }; 2 images vs "
+                 f"P3's CPU f32 logits: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+    if tuple(logits.shape) != (BATCH, ref.shape[-1]) or not bool(logits.isfinite().all()):
+        raise AssertionError("wide inference: bad logits")
+    if counts["wide_inference"] != expected_launches(WIDE_INFERENCE_LAUNCHES):
+        raise AssertionError(f"wide inference: launches differ from {WIDE_INFERENCE_LAUNCHES}")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError("wide inference: logits disagree with the CPU f32 plain path")
+    del logits
+    times = {path: [] for path in models}
+    with torch.no_grad():
+        for path in ("P4 hybrid", "wide_inference", "path B", "path B", "wide_inference",
+                     "P4 hybrid"):
+            with_ln_kernel(path == "path B")
+            times[path].append(time_ms(lambda: models[path](images_gpu), iters=10, warmup=2))
+    with_ln_kernel(False)
+    ips = {path: BATCH / (min(t) / 1e3) for path, t in times.items()}
+    phase("P19", f"B={BATCH} 224^2 bf16 on {card}, in turns: "
+                 + ", ".join(f"{p} {ips[p]:.1f} img/s ({' / '.join(f'{t:.2f}' for t in times[p])} "
+                             f"ms)" for p in ("P4 hybrid", "wide_inference", "path B"))
+                 + f"; ratio wide / P4 hybrid {ips['wide_inference'] / ips['P4 hybrid']:.4f}")
+    del models, images_gpu
+    torch.cuda.empty_cache()
+
+    # ---- P20: the DeiT III step with use_wide_qkv ----
+    cfg = det["cfg"]
+    train_kw = dict(init_scale=1.0, remat=True, drop_path_rate=cfg.drop_path,
+                    compute_dtype=torch.bfloat16)
+    model_w = create_model("hybrid_deit_huge_patch14", use_wide_qkv=True, **train_kw)
+    model_w.load_state_dict(cpu_model.state_dict(), strict=True)
+    state, step = train_setup(model_w, cfg)
+    ops.reset_launch_counts()
+    state, metrics = step(state, det["timages"], det["tlabels"], det["tgen"])
+    torch.cuda.synchronize()
+    counts["wide_train"] = ops.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model_w.parameters())
+    loss = metrics["loss"].item()
+    phase("P20", f"use_wide_qkv train step B={TRAIN_BATCH} (the P6 recipe): loss {loss:.4f}, grad "
+                 f"norm {metrics['grad_norm'].item():.4f}, finite grads {finite}, launches "
+                 f"{ {k: v for k, v in counts['wide_train'].items() if v} }")
+    if not (math.isfinite(loss) and finite):
+        raise AssertionError("wide train step: non-finite loss or gradients")
+    if counts["wide_train"] != expected_launches(WIDE_TRAIN_LAUNCHES):
+        raise AssertionError(f"wide train launches differ from {WIDE_TRAIN_LAUNCHES}")
+    del state, step
+    set_drop_path(model_w, 0.0)
+    model_w.load_state_dict(cpu_model.state_dict(), strict=True)
+    det_state, det_step = train_setup(model_w, det["det_cfg"])
+    _, det_metrics = det_step(det_state, det["images"].cuda(), det["labels"].cuda(),
+                              torch.Generator().manual_seed(SEED))
+    cos, _, norm_cpu, count = grad_cosine(model_w, cpu_model)
+    card_loss = det_metrics["loss"].item()
+    loss_rel = abs(card_loss - det["cpu_loss"]) / abs(det["cpu_loss"])
+    phase("P20", f"deterministic step, 2 images: loss card {card_loss:.6f} vs P6's CPU f32 "
+                 f"{det['cpu_loss']:.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); gradient "
+                 f"cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; grad norm card "
+                 f"{det_metrics['grad_norm'].item():.4f} vs CPU {norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("wide train step disagrees with the CPU f32 plain path")
+    del det_state, det_step
+    set_drop_path(model_w, cfg.drop_path)
+    base = create_model("hybrid_deit_huge_patch14", **train_kw)
+    base.load_state_dict(cpu_model.state_dict(), strict=True)
+    runs = {"P7 hybrid": train_setup(base, cfg), "use_wide_qkv": train_setup(model_w, cfg)}
+    times = {k: [] for k in runs}
+    peak = dict.fromkeys(runs, 0)
+    for key in ("P7 hybrid", "use_wide_qkv", "use_wide_qkv", "P7 hybrid"):
+        state, step = runs[key]
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
+                                steps=5, warmup=1)
+        peak[key] = max(peak[key], torch.cuda.max_memory_allocated() - base_mem)
+        times[key] += t
+    med = {k: statistics.median(t) for k, t in times.items()}
+    phase("P20", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+                 + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
+                             f"range {min(times[k]):.2f}-{max(times[k]):.2f}, step peak "
+                             f"{peak[k] / 2**30:.2f} GiB above the states)" for k in times)
+                 + f"; ratio use_wide_qkv / P7 hybrid img/s "
+                 f"{med['P7 hybrid'] / med['use_wide_qkv']:.4f}")
+    del runs, base, model_w
     torch.cuda.empty_cache()
     return counts
 

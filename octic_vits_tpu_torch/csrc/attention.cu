@@ -12,7 +12,18 @@
 //     e0|e1 at column (s*H + h)*de of the two E rows [B,N,3C/4] (each with
 //     its own row stride: on the train path they are the two column halves
 //     of one flat-E qkv); the output goes back to 4 x [B,N,C/8] +
-//     2 x [B,N,C/4] in irrep layout. The backward is csrc/attention_bwd.cu.
+//     2 x [B,N,C/4] in irrep layout. The backward is csrc/attention_bwd.cu;
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide1d
+//     (`_octic_w1d_fwd_kernel`): head h's 1-d channels a1|a2|b1|b2 are ONE
+//     4*d1 slice at column h*4*d1 of q1d, k1d or v1d [B,N,C/2] (three arrays,
+//     one per s), its E channels as in octic_attention; the same six outputs;
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide
+//     (`_octic_wide_fwd_kernel`): head h's dh channels [a1|a2|b1|b2|e0|e1]
+//     are one slice at column (s*H + h)*dh of one qkv [B,N,3C], the standard
+//     layout's gather; the same six outputs.
+// One kernel serves every layout: a gather table says where each segment of
+// a head's channels lies (a base pointer per s, a row stride, a width and a
+// head stride) and a scatter table where the output's segments go.
 //
 // What bounds it on the H100: at ViT-H/14, B=64 (N = 257, H = 16, dh = 80)
 // one layer is 2 * 2 * 64*16 * 257^2 * 80 = 10.8 GFLOP over 126 MB of qkv:
@@ -24,8 +35,10 @@
 // What the design does about it: one CTA of 8 warps per (head, batch)
 // gathers the head's q, k and v^T once into shared memory (any head layout,
 // zero-padded to a multiple of 16 tokens and of 16 channels; 141 KB at
-// ViT-H). The gather uses the widest load every segment allows (16 bytes
-// for the standard layout, 4 bytes for the octic 20- and 40-byte pieces)
+// ViT-H). Each segment is gathered with the widest load that it allows (16
+// bytes for the standard and wide layouts and for the wide-1d layout's
+// 80-byte 1-d slice, 8 bytes for the octic 40-byte E pieces, 4 bytes for its
+// 20-byte 1-d pieces), so one narrow segment does not narrow the others,
 // with four loads in flight per thread: a first version that gathered with
 // one dependent 2-byte load per loop trip, 5 times per head, was bound by
 // load latency (3.2 ms per layer at ViT-H B=64, PERF.md). One head's whole
@@ -44,60 +57,103 @@ namespace attn {
 constexpr int WARPS = 8, THREADS = WARPS * 32, KB = 64, UNROLL = 4;
 constexpr int MAX_SEG = 6;
 
-struct Layout {
+// Where head h's dh channels of q (s = 0), k (1) and v (2) lie: segment i
+// holds `width[i]` consecutive channels of the head at column h * hs[i] of
+// the array p[i][s], whose token rows are ld[i][s] elements apart. The
+// segments follow each other in the head's channel order.
+struct Gather {
   int nseg;
-  const bf16* in[MAX_SEG];
-  int in_ld[MAX_SEG];  // token row stride of the input segment
-  bf16* out[MAX_SEG];
-  int out_ld[MAX_SEG];  // token row stride of the output segment
-  int width[MAX_SEG];   // channels of one head in this segment
+  const bf16* p[MAX_SEG][3];
+  int ld[MAX_SEG][3];
+  int width[MAX_SEG], hs[MAX_SEG];
+  int vec[MAX_SEG];  // elements per load of the segment: 8, 4, 2 or 1 (chosen by the host)
+};
+
+// Where head h's dh output channels go: segment i receives `width[i]`
+// channels at column h * hs[i] of p[i], rows ld[i] apart.
+struct Scatter {
+  int nseg;
+  bf16* p[MAX_SEG];
+  int ld[MAX_SEG], width[MAX_SEG], hs[MAX_SEG];
+};
+
+struct Layout {
+  Gather in;
+  Scatter out;
   int N, H, dh;
-  int vec;  // elements per gather load: 8, 4, 2 or 1 (chosen by the host)
   float scale;
 };
 
-// Gather q, k and v of head h (batch b) into shared memory: q and k as
-// [kpad][DS] rows, v transposed as [DHP][VS]; rows >= N and channels >= dh
-// are zero. Loads are V elements wide (V divides every segment width, row
-// stride and base offset) and UNROLL of them are in flight per thread.
-// Consecutive threads take consecutive tokens, which keeps the transposed
-// 2-byte stores into v^T free of bank conflicts.
+// Gather one segment of q, k and v (`width` channels of each from src[s],
+// the head's column in row 0 of batch 0, rows ld[s] apart) into channels
+// [d_off, d_off + width) of q and k ([kpad][DS] rows) and, transposed, of v^T
+// ([DHP][VS]); rows >= N are zero. One loop covers the three operands, so
+// a narrow segment still keeps UNROLL loads of V elements in flight per
+// thread. Consecutive threads take consecutive tokens, which keeps the
+// transposed 2-byte stores into v^T free of bank conflicts.
 template <int DHP, int V>
-__device__ __forceinline__ void gather_head(const Layout& L, const unsigned char* seg_of,
-                                            const unsigned char* w_of, int b, int h, int kpad,
-                                            bf16* qs, bf16* ks, bf16* vt, int VS) {
+__device__ __forceinline__ void gather_seg(const bf16* const* src, const int* ld, int width,
+                                           int d_off, int b, int N, int kpad, bf16* qs,
+                                           bf16* ks, bf16* vt, int VS) {
   typedef typename VecOf<V>::T Vec;
-  constexpr int DS = DHP + 8, CPR = DHP / V;
-  const int total = kpad * CPR;
-  for (int s = 0; s < 3; ++s) {
-    for (int base = threadIdx.x; base < total; base += THREADS * UNROLL) {
-      Vec v[UNROLL];
+  constexpr int DS = DHP + 8;
+  const int per_s = kpad * (width / V), total = 3 * per_s;
+  for (int base = threadIdx.x; base < total; base += THREADS * UNROLL) {
+    Vec v[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = base + u * THREADS;
-        const int c = idx / kpad, n = idx - c * kpad, d0 = c * V;
-        v[u] = Vec{};
-        if (idx < total && n < L.N && d0 < L.dh) {
-          const int i = seg_of[d0];
-          v[u] = *reinterpret_cast<const Vec*>(
-              L.in[i] + ((size_t)b * L.N + n) * L.in_ld[i] +
-              (size_t)(s * L.H + h) * L.width[i] + w_of[d0]);
-        }
-      }
+    for (int u = 0; u < UNROLL; ++u) {
+      const int idx = base + u * THREADS;
+      const int s = idx / per_s, r = idx - s * per_s;
+      const int c = r / kpad, n = r - c * kpad;
+      v[u] = Vec{};
+      if (idx < total && n < N)
+        v[u] = *reinterpret_cast<const Vec*>(src[s] + ((size_t)b * N + n) * ld[s] + c * V);
+    }
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int idx = base + u * THREADS;
-        if (idx >= total) continue;
-        const int c = idx / kpad, n = idx - c * kpad, d0 = c * V;
-        if (s == 2) {
-          const bf16* e = reinterpret_cast<const bf16*>(&v[u]);
+    for (int u = 0; u < UNROLL; ++u) {
+      const int idx = base + u * THREADS;
+      if (idx >= total) continue;
+      const int s = idx / per_s, r = idx - s * per_s;
+      const int c = r / kpad, n = r - c * kpad, d0 = d_off + c * V;
+      if (s == 2) {
+        const bf16* e = reinterpret_cast<const bf16*>(&v[u]);
 #pragma unroll
-          for (int i = 0; i < V; ++i) vt[(d0 + i) * VS + n] = e[i];
-        } else {
-          *reinterpret_cast<Vec*>((s == 0 ? qs : ks) + n * DS + d0) = v[u];
-        }
+        for (int i = 0; i < V; ++i) vt[(d0 + i) * VS + n] = e[i];
+      } else {
+        *reinterpret_cast<Vec*>((s == 0 ? qs : ks) + n * DS + d0) = v[u];
       }
     }
+  }
+}
+
+// Gather q, k and v of head h (batch b) into shared memory: q and k as
+// [kpad][DS] rows, v transposed as [DHP][VS]; rows >= N and channels >= dh
+// are zero. Each segment takes its own load width.
+template <int DHP>
+__device__ __forceinline__ void gather_head(const Layout& L, int b, int h, int kpad, bf16* qs,
+                                            bf16* ks, bf16* vt, int VS) {
+  constexpr int DS = DHP + 8;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < kpad * (DHP - L.dh); i += THREADS) {
+    const int d = L.dh + i / kpad, n = i % kpad;
+    qs[n * DS + d] = zero;
+    ks[n * DS + d] = zero;
+    vt[d * VS + n] = zero;
+  }
+  const Gather& G = L.in;
+  int d_off = 0;
+  for (int i = 0; i < G.nseg; ++i) {
+    const bf16* src[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) src[s] = G.p[i][s] + (size_t)h * G.hs[i];
+    const int w = G.width[i];
+    switch (G.vec[i]) {
+      case 8: gather_seg<DHP, 8>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
+      case 4: gather_seg<DHP, 4>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
+      case 2: gather_seg<DHP, 2>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
+      default: gather_seg<DHP, 1>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
+    }
+    d_off += w;
   }
 }
 
@@ -117,19 +173,14 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h = blockIdx.x, b = blockIdx.y;
 
+  // output channel -> (scatter segment, channel within it)
   for (int d = tid; d < DHP; d += THREADS) {
     int i = 0, base = 0;
-    while (i < L.nseg - 1 && d >= base + L.width[i]) base += L.width[i++];
+    while (i < L.out.nseg - 1 && d >= base + L.out.width[i]) base += L.out.width[i++];
     seg_of[d] = static_cast<unsigned char>(i);
     w_of[d] = static_cast<unsigned char>(d - base);
   }
-  __syncthreads();
-  switch (L.vec) {
-    case 8: gather_head<DHP, 8>(L, seg_of, w_of, b, h, kpad, qs, ks, vt, VS); break;
-    case 4: gather_head<DHP, 4>(L, seg_of, w_of, b, h, kpad, qs, ks, vt, VS); break;
-    case 2: gather_head<DHP, 2>(L, seg_of, w_of, b, h, kpad, qs, ks, vt, VS); break;
-    default: gather_head<DHP, 1>(L, seg_of, w_of, b, h, kpad, qs, ks, vt, VS); break;
-  }
+  gather_head<DHP>(L, b, h, kpad, qs, ks, vt, VS);
   __syncthreads();
 
   const int g = lane >> 2, t = lane & 3;
@@ -234,7 +285,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
         const int d = i * 8 + 2 * t + (e & 1);
         if (n < N && d < dh) {
           const int sg = seg_of[d];
-          L.out[sg][((size_t)b * N + n) * L.out_ld[sg] + (size_t)h * L.width[sg] + w_of[d]] =
+          L.out.p[sg][((size_t)b * N + n) * L.out.ld[sg] + (size_t)h * L.out.hs[sg] + w_of[d]] =
               __float2bfloat16(o[i][e] * lrow[e >> 1]);
         }
       }
@@ -252,24 +303,26 @@ int launch(const Layout& L, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// widest gather load (elements) that every input segment's width, row
-// stride and base address allow
-void choose_vec(Layout& L) {
-  for (int v = 8; v > 1; v /= 2) {
-    bool ok = true;
-    for (int i = 0; i < L.nseg; ++i)
-      ok = ok && L.width[i] % v == 0 && L.in_ld[i] % v == 0 &&
-           reinterpret_cast<uintptr_t>(L.in[i]) % (2 * v) == 0;
-    if (ok) {
-      L.vec = v;
-      return;
+// per gather segment, the widest load (elements) that its width, head
+// stride, channel offset in the head, row strides and base addresses allow
+void choose_vec(Gather& G) {
+  int d_off = 0;
+  for (int i = 0; i < G.nseg; ++i) {
+    int v = 8;
+    for (; v > 1; v /= 2) {
+      bool ok = G.width[i] % v == 0 && G.hs[i] % v == 0 && d_off % v == 0;
+      for (int s = 0; s < 3; ++s)
+        ok = ok && G.ld[i][s] % v == 0 && reinterpret_cast<uintptr_t>(G.p[i][s]) % (2 * v) == 0;
+      if (ok) break;
     }
+    G.vec[i] = v;
+    d_off += G.width[i];
   }
-  L.vec = 1;
 }
 
 int dispatch(Layout& L, int B, cudaStream_t stream) {
-  choose_vec(L);
+  choose_vec(L.in);
+  L.scale = 1.0f / sqrtf(static_cast<float>(L.dh));
   const int dhp = (L.dh + 15) / 16 * 16;
   switch (dhp) {
     case 16: return launch<16>(L, B, stream);
@@ -283,6 +336,29 @@ int dispatch(Layout& L, int B, cudaStream_t stream) {
   }
 }
 
+// gather segment i: one array [B,N,3*H*width] in (3, H, width) column order
+// (the standard and the octic layouts): the s-th block at column s*H*width
+void set_gather_3h(Gather& G, int i, const void* p, int ld, int width, int H) {
+  for (int s = 0; s < 3; ++s) {
+    G.p[i][s] = static_cast<const bf16*>(p) + (size_t)s * H * width;
+    G.ld[i][s] = ld;
+  }
+  G.width[i] = width;
+  G.hs[i] = width;
+}
+
+// the octic scatter: o1..o4 [B,N,H*d1], oe0, oe1 [B,N,H*de], contiguous
+void set_octic_scatter(Scatter& S, void* const* outs, int H, int d1, int de) {
+  S.nseg = 6;
+  for (int i = 0; i < 6; ++i) {
+    const int w = i < 4 ? d1 : de;
+    S.p[i] = static_cast<bf16*>(outs[i]);
+    S.ld[i] = H * w;
+    S.width[i] = w;
+    S.hs[i] = w;
+  }
+}
+
 }  // namespace attn
 }  // namespace ovt
 
@@ -291,16 +367,16 @@ int dispatch(Layout& L, int B, cudaStream_t stream) {
 OVT_EXPORT int ovt_attention_std(const void* qkv, void* out, int B, int N, int H, int dh,
                                  void* stream) {
   ovt::attn::Layout L = {};
-  L.nseg = 1;
-  L.in[0] = static_cast<const ovt::bf16*>(qkv);
-  L.in_ld[0] = 3 * H * dh;
-  L.out[0] = static_cast<ovt::bf16*>(out);
-  L.out_ld[0] = H * dh;
-  L.width[0] = dh;
+  L.in.nseg = 1;
+  ovt::attn::set_gather_3h(L.in, 0, qkv, 3 * H * dh, dh, H);
+  L.out.nseg = 1;
+  L.out.p[0] = static_cast<ovt::bf16*>(out);
+  L.out.ld[0] = H * dh;
+  L.out.width[0] = dh;
+  L.out.hs[0] = dh;
   L.N = N;
   L.H = H;
   L.dh = dh;
-  L.scale = 1.0f / sqrtf(static_cast<float>(dh));
   return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
 }
 
@@ -315,23 +391,62 @@ OVT_EXPORT int ovt_attention_octic_rows(const void* q1, const void* q2, const vo
                                         int ld2, int ld3, int ld4, int lde0, int lde1, void* o1,
                                         void* o2, void* o3, void* o4, void* oe0, void* oe1, int B,
                                         int N, int H, int d1, int de, void* stream) {
-  using ovt::bf16;
   ovt::attn::Layout L = {};
-  L.nseg = 6;
+  L.in.nseg = 6;
   const void* ins[6] = {q1, q2, q3, q4, e0, e1};
   const int lds[6] = {ld1, ld2, ld3, ld4, lde0, lde1};
-  void* outs[6] = {o1, o2, o3, o4, oe0, oe1};
-  for (int i = 0; i < 6; ++i) {
-    const int w = i < 4 ? d1 : de;
-    L.in[i] = static_cast<const bf16*>(ins[i]);
-    L.in_ld[i] = lds[i];
-    L.out[i] = static_cast<bf16*>(outs[i]);
-    L.out_ld[i] = H * w;
-    L.width[i] = w;
-  }
+  for (int i = 0; i < 6; ++i) ovt::attn::set_gather_3h(L.in, i, ins[i], lds[i], i < 4 ? d1 : de, H);
+  void* const outs[6] = {o1, o2, o3, o4, oe0, oe1};
+  ovt::attn::set_octic_scatter(L.out, outs, H, d1, de);
   L.N = N;
   L.H = H;
   L.dh = 4 * d1 + 2 * de;
-  L.scale = 1.0f / sqrtf(static_cast<float>(L.dh));
+  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+}
+
+// Wide-1d octic layout: q1d, k1d, v1d [B,N,4*H*d1] with columns (H, [a1|a2|
+// b1|b2], d1), each with its own token row stride (they may be column views
+// of one [B,N,12*H*d1] buffer); e0, e1 as in ovt_attention_octic_rows; the
+// same six outputs.
+OVT_EXPORT int ovt_attention_wide1d(const void* q1d, const void* k1d, const void* v1d,
+                                    const void* e0, const void* e1, int ldq, int ldk, int ldv,
+                                    int lde0, int lde1, void* o1, void* o2, void* o3, void* o4,
+                                    void* oe0, void* oe1, int B, int N, int H, int d1, int de,
+                                    void* stream) {
+  ovt::attn::Layout L = {};
+  L.in.nseg = 3;
+  const void* one[3] = {q1d, k1d, v1d};
+  const int ld1[3] = {ldq, ldk, ldv};
+  for (int s = 0; s < 3; ++s) {
+    L.in.p[0][s] = static_cast<const ovt::bf16*>(one[s]);
+    L.in.ld[0][s] = ld1[s];
+  }
+  L.in.width[0] = 4 * d1;
+  L.in.hs[0] = 4 * d1;
+  ovt::attn::set_gather_3h(L.in, 1, e0, lde0, de, H);
+  ovt::attn::set_gather_3h(L.in, 2, e1, lde1, de, H);
+  void* const outs[6] = {o1, o2, o3, o4, oe0, oe1};
+  ovt::attn::set_octic_scatter(L.out, outs, H, d1, de);
+  L.N = N;
+  L.H = H;
+  L.dh = 4 * d1 + 2 * de;
+  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+}
+
+// Wide octic layout: qkv [B,N,3*H*dh] contiguous with columns (3, H, [a1|a2|
+// b1|b2|e0|e1]), dh = 4*d1 + 2*de (the standard layout's gather); the same six
+// outputs as ovt_attention_octic_rows.
+OVT_EXPORT int ovt_attention_wide(const void* qkv, void* o1, void* o2, void* o3, void* o4,
+                                  void* oe0, void* oe1, int B, int N, int H, int d1, int de,
+                                  void* stream) {
+  ovt::attn::Layout L = {};
+  const int dh = 4 * d1 + 2 * de;
+  L.in.nseg = 1;
+  ovt::attn::set_gather_3h(L.in, 0, qkv, 3 * H * dh, dh, H);
+  void* const outs[6] = {o1, o2, o3, o4, oe0, oe1};
+  ovt::attn::set_octic_scatter(L.out, outs, H, d1, de);
+  L.N = N;
+  L.H = H;
+  L.dh = dh;
   return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
 }

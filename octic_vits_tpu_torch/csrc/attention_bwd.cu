@@ -11,10 +11,19 @@
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention backward
 //     (`_octic_bwd_rule`, `_octic_bwd_kernel`): the six irrep qkv arrays
 //     (a1..b2 [B,N,3C/8] in (3, H, d1) order, e0, e1 [B,N,3C/4] in (3, H, de)
-//     order) and the six output cotangents -> the six input gradients.
-// Both go through the per-segment (pointer, row stride, width) table of the
-// forward (csrc/attention.cu), so each (s, head) column slice of every
-// gradient is written exactly once: no zeroing, no accumulation across heads.
+//     order) and the six output cotangents -> the six input gradients;
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide1d backward
+//     (`_w1d_bwd_rule`, `_octic_w1d_bwd_kernel`): q1d, k1d, v1d [B,N,C/2]
+//     (columns (H, [a1|a2|b1|b2], d1)), e0, e1 and the six cotangents ->
+//     dq1d, dk1d, dv1d in the wide layout and de0, de1;
+//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide backward
+//     (`_octic_wide_bwd_rule`, `_octic_wide_bwd_kernel`): qkv [B,N,3C] with
+//     columns (3, H, [a1|a2|b1|b2|e0|e1]) and the six cotangents -> dqkv.
+// Three tables describe a layout, as in the forward (csrc/attention.cu): the
+// gather of q, k and v (a base pointer per s, row strides, widths, head
+// strides), the cotangent g in the six-irrep output layout, and dq, dk, dv
+// in the gather's layout. Each (s, head) column slice of every gradient is
+// written exactly once: no zeroing, no accumulation across heads.
 //
 // What bounds it on the H100: at ViT-H/14, B=32 (N = 257, H = 16, dh = 80)
 // the backward is 5 products of 2 * 32*16 * 257^2 * 80 FLOP each per pass
@@ -50,69 +59,81 @@ namespace attn_bwd {
 constexpr int WARPS = 8, THREADS = WARPS * 32, KB = 64, QB = 32, UNROLL = 4;
 constexpr int MAX_SEG = 6;
 
-struct Table {
-  const bf16* p[MAX_SEG];
-  int ld[MAX_SEG];  // token row stride of the segment
+// Head h's channels of one operand: segment i holds `width[i]` consecutive
+// channels of the head at column h * hs[i] of the array p[i][s] (s = 0, 1, 2
+// for q, k, v; the cotangent uses s = 0 only), rows ld[i][s] elements apart.
+struct Heads {
+  int nseg;
+  const bf16* p[MAX_SEG][3];
+  int ld[MAX_SEG][3];
+  int width[MAX_SEG], hs[MAX_SEG];
+  int vec[MAX_SEG];  // elements per gather load, chosen by the host
 };
 
 struct Args {
-  int nseg;
-  int width[MAX_SEG];   // channels of one head in this segment
-  Table qkv;            // column of head h: (s*H + h) * width
-  Table g;              // output cotangent, column h * width
-  bf16* dqkv[MAX_SEG];  // gradients, contiguous, in the layout of qkv
-  int d_ld[MAX_SEG];
+  Heads qkv;                // q, k, v
+  Heads g;                  // the output cotangent, in the six-irrep output layout
+  bf16* d[MAX_SEG][3];      // dq, dk, dv: the layout of qkv (its widths and head strides)
+  int d_ld[MAX_SEG][3];
   float* lse;   // [B,H,N] scratch: log2-sum-exp2 of the scaled scores
   float* dsum;  // [B,H,N] scratch: rowsum(dP o P)
   int N, H, dh;
-  int vec_qkv, vec_g;  // elements per gather load, chosen by the host
-  int pair_out;        // 1: the gradients take 4-byte bf16x2 stores
+  int pair_out;  // 1: the gradients take 4-byte bf16x2 stores
   float scale;
 };
 
-// rows [kpad][DS] of one table at column index `col` (s*H + h or h); rows
-// >= N and channels >= dh are zero. Consecutive threads take consecutive
-// V-element chunks of a row.
+// rows [kpad][DS] of one segment of one operand (`width` channels from
+// `src`, the head's column in row 0 of batch 0, rows `ld` apart) at channels
+// [d_off, d_off + width); rows >= N are zero. Each thread keeps one V-element
+// chunk of the row and steps over the rows, UNROLL loads in flight, so the
+// loop has no division; consecutive threads take consecutive chunks of a row.
 template <int DHP, int V>
-__device__ __forceinline__ void gather_rows(const Table& T, const Args& A,
-                                            const unsigned char* seg_of,
-                                            const unsigned char* w_of, int col, int b, int kpad,
-                                            bf16* dst) {
+__device__ __forceinline__ void gather_seg(const bf16* src, int ld, int width, int d_off, int b,
+                                           int N, int kpad, bf16* dst) {
   typedef typename VecOf<V>::T Vec;
-  constexpr int DS = DHP + 8, CPR = DHP / V;
-  const int total = kpad * CPR;
-  for (int base = threadIdx.x; base < total; base += THREADS * UNROLL) {
+  constexpr int DS = DHP + 8;
+  const int cpr = width / V, rows = THREADS / cpr;
+  if (threadIdx.x >= rows * cpr) return;
+  const int c = threadIdx.x % cpr;
+  const bf16* from = src + (size_t)b * N * ld + c * V;
+  bf16* to = dst + d_off + c * V;
+  for (int n = threadIdx.x / cpr; n < kpad; n += rows * UNROLL) {
     Vec v[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int idx = base + u * THREADS;
-      const int n = idx / CPR, d0 = (idx - n * CPR) * V;
+      const int m = n + u * rows;
       v[u] = Vec{};
-      if (idx < total && n < A.N && d0 < A.dh) {
-        const int i = seg_of[d0];
-        v[u] = *reinterpret_cast<const Vec*>(T.p[i] + ((size_t)b * A.N + n) * T.ld[i] +
-                                             (size_t)col * A.width[i] + w_of[d0]);
-      }
+      if (m < N) v[u] = *reinterpret_cast<const Vec*>(from + (size_t)m * ld);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int idx = base + u * THREADS;
-      if (idx >= total) continue;
-      const int n = idx / CPR, d0 = (idx - n * CPR) * V;
-      *reinterpret_cast<Vec*>(dst + n * DS + d0) = v[u];
+      const int m = n + u * rows;
+      if (m < kpad) *reinterpret_cast<Vec*>(to + m * DS) = v[u];
     }
   }
 }
 
+// rows [kpad][DS] of operand s of table T for head h; rows >= N and channels
+// >= dh are zero. Each segment takes its own load width.
 template <int DHP>
-__device__ __forceinline__ void gather_any(const Table& T, int vec, const Args& A,
-                                           const unsigned char* seg_of, const unsigned char* w_of,
-                                           int col, int b, int kpad, bf16* dst) {
-  switch (vec) {
-    case 8: gather_rows<DHP, 8>(T, A, seg_of, w_of, col, b, kpad, dst); break;
-    case 4: gather_rows<DHP, 4>(T, A, seg_of, w_of, col, b, kpad, dst); break;
-    case 2: gather_rows<DHP, 2>(T, A, seg_of, w_of, col, b, kpad, dst); break;
-    default: gather_rows<DHP, 1>(T, A, seg_of, w_of, col, b, kpad, dst); break;
+__device__ __forceinline__ void gather_rows(const Heads& T, int s, const Args& A, int b, int h,
+                                            int kpad, bf16* dst) {
+  constexpr int DS = DHP + 8;
+  const bf16 zero = __float2bfloat16(0.f);
+  const int pad = DHP - A.dh;
+  for (int i = threadIdx.x; i < kpad * pad; i += THREADS)
+    dst[(i / pad) * DS + A.dh + i % pad] = zero;
+  int d_off = 0;
+  for (int i = 0; i < T.nseg; ++i) {
+    const bf16* src = T.p[i][s] + (size_t)h * T.hs[i];
+    const int ld = T.ld[i][s], w = T.width[i];
+    switch (T.vec[i]) {
+      case 8: gather_seg<DHP, 8>(src, ld, w, d_off, b, A.N, kpad, dst); break;
+      case 4: gather_seg<DHP, 4>(src, ld, w, d_off, b, A.N, kpad, dst); break;
+      case 2: gather_seg<DHP, 2>(src, ld, w, d_off, b, A.N, kpad, dst); break;
+      default: gather_seg<DHP, 1>(src, ld, w, d_off, b, A.N, kpad, dst); break;
+    }
+    d_off += w;
   }
 }
 
@@ -128,7 +149,7 @@ struct Smem {
   unsigned char *seg_of, *w_of;
 };
 
-// carve shared memory, build the channel tables and gather the head
+// carve shared memory, build the channel table and gather the head
 template <int DHP>
 __device__ __forceinline__ Smem load_head(const Args& A, unsigned char* raw, int kpad, int b,
                                           int h) {
@@ -142,17 +163,17 @@ __device__ __forceinline__ Smem load_head(const Args& A, unsigned char* raw, int
   S.dsum = S.lse + kpad;
   S.seg_of = reinterpret_cast<unsigned char*>(S.dsum + kpad);
   S.w_of = S.seg_of + DHP;
+  // channel of q, k, v -> (gather segment, channel within it), for the stores
   for (int d = threadIdx.x; d < DHP; d += THREADS) {
     int i = 0, base = 0;
-    while (i < A.nseg - 1 && d >= base + A.width[i]) base += A.width[i++];
+    while (i < A.qkv.nseg - 1 && d >= base + A.qkv.width[i]) base += A.qkv.width[i++];
     S.seg_of[d] = static_cast<unsigned char>(i);
     S.w_of[d] = static_cast<unsigned char>(d - base);
   }
-  __syncthreads();
-  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, h, b, kpad, S.qs);
-  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, A.H + h, b, kpad, S.ks);
-  gather_any<DHP>(A.qkv, A.vec_qkv, A, S.seg_of, S.w_of, 2 * A.H + h, b, kpad, S.vs);
-  gather_any<DHP>(A.g, A.vec_g, A, S.seg_of, S.w_of, h, b, kpad, S.gs);
+  gather_rows<DHP>(A.qkv, 0, A, b, h, kpad, S.qs);
+  gather_rows<DHP>(A.qkv, 1, A, b, h, kpad, S.ks);
+  gather_rows<DHP>(A.qkv, 2, A, b, h, kpad, S.vs);
+  gather_rows<DHP>(A.g, 0, A, b, h, kpad, S.gs);
   return S;
 }
 
@@ -225,15 +246,15 @@ __device__ __forceinline__ void store_rows(const Args& A, const Smem& S, const f
       const int d = i * 8 + 2 * t;  // even; dh is a multiple of 8
       if (n >= A.N || d >= A.dh) continue;
       const int sg = S.seg_of[d];
-      bf16* dst = A.dqkv[sg] + ((size_t)b * A.N + n) * A.d_ld[sg] +
-                  (size_t)(s * A.H + h) * A.width[sg] + S.w_of[d];
+      bf16* dst = A.d[sg][s] + ((size_t)b * A.N + n) * A.d_ld[sg][s] +
+                  (size_t)h * A.qkv.hs[sg] + S.w_of[d];
       const float v0 = acc[i][2 * hf], v1 = acc[i][2 * hf + 1];
       if (A.pair_out) {
         *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v0, v1);
       } else {
         dst[0] = __float2bfloat16(v0);
         const int sg1 = S.seg_of[d + 1];
-        A.dqkv[sg1][((size_t)b * A.N + n) * A.d_ld[sg1] + (size_t)(s * A.H + h) * A.width[sg1] +
+        A.d[sg1][s][((size_t)b * A.N + n) * A.d_ld[sg1][s] + (size_t)h * A.qkv.hs[sg1] +
                     S.w_of[d + 1]] = __float2bfloat16(v1);
       }
     }
@@ -435,26 +456,35 @@ int launch(const Args& A, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// widest load (elements) that every segment's width, row stride and base
-// address allow, as in the forward (csrc/attention.cu:choose_vec)
-int choose_vec(const Table& T, const int* width, int nseg) {
-  for (int v = 8; v > 1; v /= 2) {
-    bool ok = true;
-    for (int i = 0; i < nseg; ++i)
-      ok = ok && width[i] % v == 0 && T.ld[i] % v == 0 &&
-           reinterpret_cast<uintptr_t>(T.p[i]) % (2 * v) == 0;
-    if (ok) return v;
+// per segment, the widest load (elements) that its width, head stride,
+// channel offset in the head, row strides and base addresses allow, as in the
+// forward (csrc/attention.cu:choose_vec); `ns` arrays per segment (3 for q,
+// k, v; 1 for the cotangent)
+void choose_vec(Heads& T, int ns) {
+  int d_off = 0;
+  for (int i = 0; i < T.nseg; ++i) {
+    int v = 8;
+    for (; v > 1; v /= 2) {
+      bool ok = T.width[i] % v == 0 && T.hs[i] % v == 0 && d_off % v == 0;
+      for (int s = 0; s < ns; ++s)
+        ok = ok && T.ld[i][s] % v == 0 && reinterpret_cast<uintptr_t>(T.p[i][s]) % (2 * v) == 0;
+      if (ok) break;
+    }
+    T.vec[i] = v;
+    d_off += T.width[i];
   }
-  return 1;
 }
 
 int dispatch(Args& A, int B, cudaStream_t stream) {
-  A.vec_qkv = choose_vec(A.qkv, A.width, A.nseg);
-  A.vec_g = choose_vec(A.g, A.width, A.nseg);
+  choose_vec(A.qkv, 3);
+  choose_vec(A.g, 1);
   A.pair_out = 1;
-  for (int i = 0; i < A.nseg; ++i)
-    A.pair_out = A.pair_out && A.width[i] % 2 == 0 && A.d_ld[i] % 2 == 0 &&
-                 reinterpret_cast<uintptr_t>(A.dqkv[i]) % 4 == 0;
+  for (int i = 0; i < A.qkv.nseg; ++i) {
+    A.pair_out = A.pair_out && A.qkv.width[i] % 2 == 0 && A.qkv.hs[i] % 2 == 0;
+    for (int s = 0; s < 3; ++s)
+      A.pair_out = A.pair_out && A.d_ld[i][s] % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(A.d[i][s]) % 4 == 0;
+  }
   A.scale = 1.0f / sqrtf(static_cast<float>(A.dh));
   switch ((A.dh + 15) / 16 * 16) {
     case 16: return launch<16>(A, B, stream);
@@ -468,6 +498,38 @@ int dispatch(Args& A, int B, cudaStream_t stream) {
   }
 }
 
+// segment i of q, k, v and of their gradients: one array [B,N,3*H*width] in
+// (3, H, width) column order each (the standard and the octic layouts)
+void set_qkv_3h(Args& A, int i, const void* p, int ld, void* d, int width, int H) {
+  for (int s = 0; s < 3; ++s) {
+    A.qkv.p[i][s] = static_cast<const bf16*>(p) + (size_t)s * H * width;
+    A.qkv.ld[i][s] = ld;
+    A.d[i][s] = static_cast<bf16*>(d) + (size_t)s * H * width;
+    A.d_ld[i][s] = 3 * H * width;
+  }
+  A.qkv.width[i] = width;
+  A.qkv.hs[i] = width;
+}
+
+// the cotangent in the octic output layout: g1..g4 [B,N,H*d1], ge0, ge1
+// [B,N,H*de], each with its own row stride
+void set_octic_g(Args& A, const void* const* gs, const int* lg, int d1, int de) {
+  A.g.nseg = 6;
+  for (int i = 0; i < 6; ++i) {
+    A.g.p[i][0] = static_cast<const bf16*>(gs[i]);
+    A.g.ld[i][0] = lg[i];
+    A.g.width[i] = A.g.hs[i] = i < 4 ? d1 : de;
+  }
+}
+
+void set_common(Args& A, void* lse, void* dsum, int N, int H, int dh) {
+  A.lse = static_cast<float*>(lse);
+  A.dsum = static_cast<float*>(dsum);
+  A.N = N;
+  A.H = H;
+  A.dh = dh;
+}
+
 }  // namespace attn_bwd
 }  // namespace ovt
 
@@ -478,19 +540,13 @@ OVT_EXPORT int ovt_attention_std_bwd(const void* qkv, const void* g, int ld_g, v
                                      void* lse, void* dsum, int B, int N, int H, int dh,
                                      void* stream) {
   ovt::attn_bwd::Args A = {};
-  A.nseg = 1;
-  A.width[0] = dh;
-  A.qkv.p[0] = static_cast<const ovt::bf16*>(qkv);
-  A.qkv.ld[0] = 3 * H * dh;
-  A.g.p[0] = static_cast<const ovt::bf16*>(g);
-  A.g.ld[0] = ld_g;
-  A.dqkv[0] = static_cast<ovt::bf16*>(dqkv);
-  A.d_ld[0] = 3 * H * dh;
-  A.lse = static_cast<float*>(lse);
-  A.dsum = static_cast<float*>(dsum);
-  A.N = N;
-  A.H = H;
-  A.dh = dh;
+  A.qkv.nseg = 1;
+  ovt::attn_bwd::set_qkv_3h(A, 0, qkv, 3 * H * dh, dqkv, dh, H);
+  A.g.nseg = 1;
+  A.g.p[0][0] = static_cast<const ovt::bf16*>(g);
+  A.g.ld[0][0] = ld_g;
+  A.g.width[0] = A.g.hs[0] = dh;
+  ovt::attn_bwd::set_common(A, lse, dsum, N, H, dh);
   return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
 }
 
@@ -505,28 +561,66 @@ OVT_EXPORT int ovt_attention_octic_bwd(
     int lg2, int lg3, int lg4, int lge0, int lge1, void* d1p, void* d2p, void* d3p, void* d4p,
     void* de0, void* de1, void* lse, void* dsum, int B, int N, int H, int d1, int de,
     void* stream) {
-  using ovt::bf16;
   ovt::attn_bwd::Args A = {};
-  A.nseg = 6;
+  A.qkv.nseg = 6;
   const void* ins[6] = {q1, q2, q3, q4, e0, e1};
   const int lq[6] = {lq1, lq2, lq3, lq4, le0, le1};
-  const void* gs[6] = {g1, g2, g3, g4, ge0, ge1};
-  const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
   void* ds[6] = {d1p, d2p, d3p, d4p, de0, de1};
-  for (int i = 0; i < 6; ++i) {
-    const int w = i < 4 ? d1 : de;
-    A.width[i] = w;
-    A.qkv.p[i] = static_cast<const bf16*>(ins[i]);
-    A.qkv.ld[i] = lq[i];
-    A.g.p[i] = static_cast<const bf16*>(gs[i]);
-    A.g.ld[i] = lg[i];
-    A.dqkv[i] = static_cast<bf16*>(ds[i]);
-    A.d_ld[i] = 3 * H * w;
+  for (int i = 0; i < 6; ++i)
+    ovt::attn_bwd::set_qkv_3h(A, i, ins[i], lq[i], ds[i], i < 4 ? d1 : de, H);
+  const void* const gs[6] = {g1, g2, g3, g4, ge0, ge1};
+  const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
+  ovt::attn_bwd::set_octic_g(A, gs, lg, d1, de);
+  ovt::attn_bwd::set_common(A, lse, dsum, N, H, 4 * d1 + 2 * de);
+  return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
+}
+
+// Wide-1d octic layout (see ovt_attention_wide1d in csrc/attention.cu): q1d,
+// k1d, v1d [B,N,4*H*d1] and e0, e1 [B,N,3*H*de], each with its own token row
+// stride; the six cotangents as in ovt_attention_octic_bwd; dq1d, dk1d, dv1d
+// [B,N,4*H*d1] and de0, de1 [B,N,3*H*de] contiguous.
+OVT_EXPORT int ovt_attention_wide1d_bwd(
+    const void* q1d, const void* k1d, const void* v1d, const void* e0, const void* e1, int lq,
+    int lk, int lv, int le0, int le1, const void* g1, const void* g2, const void* g3,
+    const void* g4, const void* ge0, const void* ge1, int lg1, int lg2, int lg3, int lg4,
+    int lge0, int lge1, void* dq1d, void* dk1d, void* dv1d, void* de0, void* de1, void* lse,
+    void* dsum, int B, int N, int H, int d1, int de, void* stream) {
+  ovt::attn_bwd::Args A = {};
+  A.qkv.nseg = 3;
+  const void* one[3] = {q1d, k1d, v1d};
+  const int l1[3] = {lq, lk, lv};
+  void* d1s[3] = {dq1d, dk1d, dv1d};
+  for (int s = 0; s < 3; ++s) {
+    A.qkv.p[0][s] = static_cast<const ovt::bf16*>(one[s]);
+    A.qkv.ld[0][s] = l1[s];
+    A.d[0][s] = static_cast<ovt::bf16*>(d1s[s]);
+    A.d_ld[0][s] = 4 * H * d1;
   }
-  A.lse = static_cast<float*>(lse);
-  A.dsum = static_cast<float*>(dsum);
-  A.N = N;
-  A.H = H;
-  A.dh = 4 * d1 + 2 * de;
+  A.qkv.width[0] = A.qkv.hs[0] = 4 * d1;
+  ovt::attn_bwd::set_qkv_3h(A, 1, e0, le0, de0, de, H);
+  ovt::attn_bwd::set_qkv_3h(A, 2, e1, le1, de1, de, H);
+  const void* const gs[6] = {g1, g2, g3, g4, ge0, ge1};
+  const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
+  ovt::attn_bwd::set_octic_g(A, gs, lg, d1, de);
+  ovt::attn_bwd::set_common(A, lse, dsum, N, H, 4 * d1 + 2 * de);
+  return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
+}
+
+// Wide octic layout (see ovt_attention_wide in csrc/attention.cu): qkv
+// [B,N,3*H*dh] contiguous, dh = 4*d1 + 2*de; the six cotangents as in
+// ovt_attention_octic_bwd; dqkv [B,N,3*H*dh] contiguous.
+OVT_EXPORT int ovt_attention_wide_bwd(const void* qkv, const void* g1, const void* g2,
+                                      const void* g3, const void* g4, const void* ge0,
+                                      const void* ge1, int lg1, int lg2, int lg3, int lg4,
+                                      int lge0, int lge1, void* dqkv, void* lse, void* dsum,
+                                      int B, int N, int H, int d1, int de, void* stream) {
+  ovt::attn_bwd::Args A = {};
+  const int dh = 4 * d1 + 2 * de;
+  A.qkv.nseg = 1;
+  ovt::attn_bwd::set_qkv_3h(A, 0, qkv, 3 * H * dh, dqkv, dh, H);
+  const void* const gs[6] = {g1, g2, g3, g4, ge0, ge1};
+  const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
+  ovt::attn_bwd::set_octic_g(A, gs, lg, d1, de);
+  ovt::attn_bwd::set_common(A, lse, dsum, N, H, dh);
   return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
 }

@@ -20,16 +20,30 @@
 //     [A1|A2|B1|B2|E row0|E row1] (x_g at column g C, ef at 4C, row stride 8C)
 //     and the MLP's fc2 writes the packed [M, 8F] output in place, through the
 //     row strides below. The TPU kernels slice the views in VMEM; here each
-//     view is read in place from HBM and nothing is copied.
+//     view is read in place from HBM and nothing is copied;
+//   octic_vits_tpu/ops/pallas_linear.py:linear_d8_qkv_wide (`_wide_kernel`):
+//     the qkv 5-tuple stored as ONE [M, 3C'] output whose columns are
+//     (s, head, [a1|a2|b1|b2|e0|e1]) (C' = 8F/3), so the wide attention
+//     gathers each head as one slice;
+//   the wide-1d qkv of octic_vits_tpu/layers/d8_layers.py:AttentionD8
+//     (`use_wide_qkv`, :950-989, a column-permuted block-diagonal XLA dot
+//     there): the four 1-d outputs stored as ONE [M, 4F] buffer with columns
+//     (s, head, [a1|a2|b1|b2], d1), the E output as usual.
+//   Both are grouped-column stores in the epilogue: output column j of a 1-d
+//   irrep goes to (j / g1) * s1 + j % g1 of its base pointer, column j of an
+//   E row's [e_r1 | e_r2] to (j / ge) * se + j % ge (the plain layout is g1 =
+//   F, ge = 2F). The stores are 2-byte stores, so the wide layouts' 20-byte
+//   groups need no 16-byte alignment; only the inputs are read with cp.async.
 //
 // Math, for every token m and output channel j < F (x_g [M,C] with row stride
 // ldx, ef [M,4C] = [row0 | row1] with row stride ldxe, w1 [4,C,F], we [2C,2F],
-// A1 bias [F]; the outputs y_g [M,F] with row stride ldy, yef [M,4F] with
-// ldye):
+// A1 bias [F]; the outputs y_g with row stride ldy, the E rows' outputs ye_r
+// with ldye; in the plain layout y_g [M,F] and ye_0, ye_1 the two halves of
+// yef [M,4F]):
 //   y_g[m,j]  = x_g[m,:] . w1[g][:,j]         (+ bias[j] for g = 0, A1)
 //   e11 = row0 . we[:,j]    e12 = row0 . we[:,F+j]
 //   e21 = row1 . we[:,j]    e22 = row1 . we[:,F+j]
-//   yef[m] = [e11 | e12 | e21 | e22]          (= [row0 out | row1 out])
+//   ye_0[m] = [e11 | e12],  ye_1[m] = [e21 | e22]
 // With the GELU epilogue the octet (a1,a2,b1,b2,e11,e21,e12,e22) of each
 // (m, j) goes through the isotypic->regular butterfly, erf GELU and back.
 // With the LayerScale epilogue (ls1 [4,F], lse [2F], residual r [M,F] x 4 and
@@ -74,7 +88,8 @@ struct Args {
   const bf16* we;
   const bf16* bias;
   bf16* y[4];
-  bf16* yef;
+  bf16* ye[2];  // the outputs of E row 0 and row 1
+  int g1, s1, ge, se;  // grouped-column stores (see the header)
   const bf16* ls1;   // LayerScale epilogue: [4, F] or null
   const bf16* lse;   // [2F]
   const bf16* r[4];  // the residual, [M, F] each
@@ -153,7 +168,7 @@ __device__ __forceinline__ void mma_slab(float (&acc)[2][4][4], const bf16* sa, 
   }
 }
 
-template <bool GELU>
+template <bool GELU, bool GROUPED>
 __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -190,6 +205,15 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
   }
   cp_async_wait<0>();
 
+  // the output columns of this CTA's BN channels j under the grouped-column
+  // maps (one division each per CTA instead of per element)
+  __shared__ int col1[BN], cola[BN], colb[BN];
+  if (GROUPED && tid < BN) {
+    const int j = j0 + tid, jb = a.F + j;
+    col1[tid] = (j / a.g1) * a.s1 + j % a.g1;
+    cola[tid] = (j / a.ge) * a.se + j % a.ge;    // column j of an E row's output
+    colb[tid] = (jb / a.ge) * a.se + jb % a.ge;  // column F + j
+  }
   // accumulators -> staging [slot][row][col] in isotypic octet order
   float* so = reinterpret_cast<float*>(smem_raw);
   const int g = lane >> 2, t = lane & 3;
@@ -228,13 +252,15 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
       v[5] = __bfloat162float(re[2 * F]) + l0 * v[5];  // e21, column 2F + j
       v[7] = __bfloat162float(re[3 * F]) + l1 * v[7];  // e22, column 3F + j
     }
+    const size_t c1 = (size_t)m * a.ldy + (GROUPED ? col1[c] : j);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) a.y[s][(size_t)m * a.ldy + j] = __float2bfloat16(v[s]);
-    bf16* ye = a.yef + (size_t)m * a.ldye + j;
-    ye[0] = __float2bfloat16(v[4]);      // e11
-    ye[F] = __float2bfloat16(v[6]);      // e12
-    ye[2 * F] = __float2bfloat16(v[5]);  // e21
-    ye[3 * F] = __float2bfloat16(v[7]);  // e22
+    for (int s = 0; s < 4; ++s) a.y[s][c1] = __float2bfloat16(v[s]);
+    const size_t ca = (size_t)m * a.ldye + (GROUPED ? cola[c] : j);       // column j
+    const size_t cb = (size_t)m * a.ldye + (GROUPED ? colb[c] : F + j);   // column F + j
+    a.ye[0][ca] = __float2bfloat16(v[4]);  // e11
+    a.ye[0][cb] = __float2bfloat16(v[6]);  // e12
+    a.ye[1][ca] = __float2bfloat16(v[5]);  // e21
+    a.ye[1][cb] = __float2bfloat16(v[7]);  // e22
   }
 }
 
@@ -242,17 +268,20 @@ __global__ void __launch_bounds__(THREADS) lin_d8_kernel(const Args a) {
 }  // namespace ovt
 
 // x0..x3 [M,C] (row stride ldx), xef [M,4C] (ldxe), w1 [4,C,F], we [2C,2F],
-// bias [F] or null, y0..y3 [M,F] (ldy), yef [M,4F] (ldye); the LayerScale
-// epilogue's ls1 [4,F], lse [2F], r0..r3 [M,F] and ref [M,4F] (contiguous),
-// or all null; all bf16 with unit channel stride, every start 16-byte
-// aligned, ldx and ldxe multiples of 8, C % 8 == 0 and F % 8 == 0 (checked by
-// the Python wrapper).
+// bias [F] or null; the outputs y0..y3 (row stride ldy) and ye0, ye1 (ldye)
+// with the grouped-column maps (g1, s1) and (ge, se) of the header (the
+// plain layout: y_g [M,F], ye0 and ye1 the halves of yef [M,4F], g1 = F, ge
+// = 2F); the LayerScale epilogue's ls1 [4,F], lse [2F], r0..r3 [M,F] and ref
+// [M,4F] (contiguous), or all null; all bf16 with unit channel stride, every
+// input's start 16-byte aligned, ldx and ldxe multiples of 8, C % 8 == 0 and
+// F % 8 == 0 (checked by the Python wrapper).
 OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const void* x3,
                           const void* xef, const void* w1, const void* we, const void* bias,
-                          void* y0, void* y1, void* y2, void* y3, void* yef, const void* ls1,
-                          const void* lse, const void* r0, const void* r1, const void* r2,
-                          const void* r3, const void* ref, int M, int C, int F, int gelu,
-                          int ldx, int ldxe, int ldy, int ldye, void* stream) {
+                          void* y0, void* y1, void* y2, void* y3, void* ye0, void* ye1,
+                          const void* ls1, const void* lse, const void* r0, const void* r1,
+                          const void* r2, const void* r3, const void* ref, int M, int C, int F,
+                          int gelu, int ldx, int ldxe, int ldy, int ldye, int g1, int s1, int ge,
+                          int se, void* stream) {
   using namespace ovt::lind8;
   using ovt::bf16;
   Args a;
@@ -268,7 +297,13 @@ OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const 
   a.y[1] = static_cast<bf16*>(y1);
   a.y[2] = static_cast<bf16*>(y2);
   a.y[3] = static_cast<bf16*>(y3);
-  a.yef = static_cast<bf16*>(yef);
+  a.ye[0] = static_cast<bf16*>(ye0);
+  a.ye[1] = static_cast<bf16*>(ye1);
+  if (g1 <= 0 || ge <= 0) return cudaErrorInvalidValue;
+  a.g1 = g1;
+  a.s1 = s1;
+  a.ge = ge;
+  a.se = se;
   a.ls1 = static_cast<const bf16*>(ls1);
   a.lse = static_cast<const bf16*>(lse);
   a.r[0] = static_cast<const bf16*>(r0);
@@ -286,17 +321,14 @@ OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const 
   a.ldye = ldye;
   dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (gelu) {
-    err = cudaFuncSetAttribute(lin_d8_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    lin_d8_kernel<true><<<grid, THREADS, SMEM_BYTES, s>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(lin_d8_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    lin_d8_kernel<false><<<grid, THREADS, SMEM_BYTES, s>>>(a);
-  }
+  // the plain layout keeps the store without the column tables
+  const bool grouped = !(g1 >= F && ge >= 2 * F);
+  if (grouped && gelu) return cudaErrorInvalidValue;
+  void (*kernel)(const Args) = gelu ? lin_d8_kernel<true, false>
+                               : grouped ? lin_d8_kernel<false, true> : lin_d8_kernel<false, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, SMEM_BYTES, s>>>(a);
   return cudaGetLastError();
 }

@@ -13,8 +13,9 @@ options on top of them: the D8 LayerNorm kernel (``OCTIC_PALLAS_LN``),
 (``packed_carry``: the block takes and returns ONE ``[B, N, C]`` container,
 d8/group.py), whose norms, LayerScales, drop path and residual adds run as
 full-width passes and whose attention and MLP take the packed-container
-ops. The port always runs the attention kernels (the JAX
-``use_pallas_attention``), so its LayerNorms always take the LN kernel when
+ops; and of ``use_wide_qkv`` (the wide-1d qkv and attention). The port
+always runs the attention kernels (the JAX ``use_pallas_attention``), so
+its LayerNorms always take the LN kernel when
 ``OCTIC_PALLAS_LN`` is on, as the JAX norms do under ``use_pallas_linear or
 use_pallas_attention``. Parameter names and shapes follow the flax tree so
 :func:`octic_vits_tpu_torch.utils.convert.params_from_jax` maps them one to
@@ -45,12 +46,14 @@ from octic_vits_tpu_torch.ops.attention import (
     octic_attention,
     octic_attention_fused_qkv,
     octic_attention_fused_qkv_packed,
+    octic_attention_wide1d,
 )
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8, gelu_d8_eager
 from octic_vits_tpu_torch.ops.linear import (
     _lse_full,
     linear_d8,
     linear_d8_fused,
+    linear_d8_wide1d,
     mlp_d8_fused,
     mlp_d8_packed,
 )
@@ -460,35 +463,52 @@ class AttentionD8(nn.Module):
     same op, whose backward recomputes the qkv; without it (the DeiT III
     flags) the qkv is a plain LinearD8 (:meth:`qkv_arrays`), then
     :func:`octic_attention`, which takes the two E rows of the flat-E qkv as
-    column slices. The proj is a plain LinearD8 (:meth:`project`). A packed
-    ``[B, N, C]`` input takes the packed fused op
+    column slices. With ``use_wide_qkv`` (d8_layers.py:929-1008; it takes
+    precedence over both, in either mode) the qkv is the wide-1d product
+    :func:`linear_d8_wide1d`, then :func:`octic_attention_wide1d`; the
+    parameters are the same. The proj is a plain LinearD8 (:meth:`project`).
+    A packed ``[B, N, C]`` input takes the packed fused op
     (:func:`octic_attention_fused_qkv_packed`) where the fused op runs, and
     is unpacked to its flat-E views otherwise (d8_layers.py:895-909)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, proj_bias: bool = True,
-                 fuse_qkv: bool = False, *, device=None, dtype=None):
+                 fuse_qkv: bool = False, use_wide_qkv: bool = False, *, device=None, dtype=None):
         super().__init__()
         if (dim // num_heads) % 8:
             raise ValueError("head dim must be divisible by 8")
         kw = dict(device=device, dtype=dtype)
         self.num_heads = num_heads
         self.fuse_qkv = fuse_qkv
+        self.use_wide_qkv = use_wide_qkv
         self.qkv = LinearD8(dim, 3 * dim, qkv_bias, **kw)
         self.proj = LinearD8(dim, dim, proj_bias, **kw)
 
-    def qkv_arrays(self, xs: tuple) -> tuple:
-        """The attention kernel's six inputs (a1..b2 ``[B, N, 3C/8]``, e0, e1
-        ``[B, N, 3C/4]`` as views of the flat-E qkv): the ``attn_in`` the
-        flax module tags for remat."""
-        qkv = self.qkv(unpack_packed_5f(xs) if isinstance(xs, torch.Tensor) else xs)
+    def qkv_arrays(self, xs) -> tuple:
+        """The attention kernel's inputs of the normed input (the flat-E
+        tuple or the packed container, unpacked here): the ``attn_in`` the
+        flax module tags for remat. The six of :func:`octic_attention` (a1..b2
+        ``[B, N, 3C/8]``, e0, e1 ``[B, N, 3C/4]`` as views of the flat-E qkv),
+        or with ``use_wide_qkv`` the five of :func:`octic_attention_wide1d`."""
+        if isinstance(xs, torch.Tensor):
+            xs = unpack_packed_5f(xs)
+        if self.use_wide_qkv:
+            q = self.qkv
+            params = tuple(cast(p, xs[0].dtype) for p in (q.kernel_1d, q.kernel_e, q.bias_a1))
+            return linear_d8_wide1d(xs, *params, self.num_heads)
+        qkv = self.qkv(xs)
         half = qkv[4].shape[-1] // 2
         return qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:])
+
+    def attention(self, inputs: tuple) -> tuple:
+        """The attention kernel over :meth:`qkv_arrays`' output."""
+        op = octic_attention_wide1d if self.use_wide_qkv else octic_attention
+        return op(*inputs, self.num_heads)
 
     def attend(self, xs) -> tuple:
         """The six attention outputs (``attn_out``) of the normed input (the
         flat-E tuple or the packed container)."""
-        if self.training and not self.fuse_qkv:
-            return octic_attention(*self.qkv_arrays(xs), self.num_heads)
+        if self.use_wide_qkv or (self.training and not self.fuse_qkv):
+            return self.attention(self.qkv_arrays(xs))
         packed = isinstance(xs, torch.Tensor)
         dt = xs.dtype if packed else xs[0].dtype
         q = self.qkv
@@ -535,22 +555,29 @@ class BlockD8(nn.Module):
     mask per sample over the whole row) and residual add as one multiply-add;
     the attention and the MLP take the packed ops where they run fused, and
     the tuple-only fusions (epilogues, MLP branch) stay off, as in JAX.
-    Remat as above: the packed normed input is what the fused op saves."""
+    Remat as above: the packed normed input is what the fused op saves.
+
+    ``use_wide_qkv`` goes to the attention (d8_layers.py:1181, :1252): under
+    remat norm1 + the wide-1d qkv product are rematerialized and
+    :func:`octic_attention_wide1d` saves their five outputs; a packed
+    container is unpacked to its flat-E views for the qkv, as the JAX layer
+    does."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, layerscale_init: float = 1e-4,
                  drop_path: float = 0.0, proj_bias: bool = True, ffn_bias: bool = True,
                  fuse_qkv: bool = False, use_pallas_linear: bool = True,
                  use_pallas_gelu: bool = False, fuse_block_epilogues: bool = False,
-                 fuse_mlp_branch: bool = False, fuse_mlp: bool = False, *, device=None,
-                 dtype=None):
+                 fuse_mlp_branch: bool = False, fuse_mlp: bool = False,
+                 use_wide_qkv: bool = False, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_pallas_linear = use_pallas_linear
         self.fuse_block_epilogues = fuse_block_epilogues
         self.fuse_mlp_branch = fuse_mlp_branch
         self.norm1 = LayerNormD8(dim, use_kernel=True, **kw)
-        self.attn = AttentionD8(dim, num_heads, qkv_bias, proj_bias, fuse_qkv, **kw)
+        self.attn = AttentionD8(dim, num_heads, qkv_bias, proj_bias, fuse_qkv, use_wide_qkv,
+                                **kw)
         self.ls1 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path1 = DropPathD8(drop_path)
         self.norm2 = LayerNormD8(dim, use_kernel=True, **kw)
@@ -633,8 +660,8 @@ class BlockD8(nn.Module):
         out_fn = self._attn_out_packed if packed else self._attn_out
         if not remat_block:
             return out_fn(*xs, *self.attn.attend(self._normed(*xs)), *masks)
-        if self.attn.fuse_qkv:
+        if self.attn.fuse_qkv and not self.attn.use_wide_qkv:
             outs = self.attn.attend(remat(self._normed, *xs))
         else:
-            outs = octic_attention(*remat(self._attn_in, *xs), self.attn.num_heads)
+            outs = self.attn.attention(remat(self._attn_in, *xs))
         return remat(out_fn, *xs, *outs, *masks)

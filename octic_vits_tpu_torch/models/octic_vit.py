@@ -60,7 +60,11 @@ class OcticVisionTransformer(nn.Module):
     octic blocks take the packed ops where their fused ops run (eval mode,
     or ``fuse_qkv`` and ``fuse_mlp`` in training, as the JAX docstring asks)
     and unpack to the flat-E views elsewhere, as the JAX layers do.
-    Registers are not ported yet and raise."""
+    ``use_wide_qkv`` runs the octic blocks' attention as the wide-1d qkv
+    product and :func:`~octic_vits_tpu_torch.ops.octic_attention_wide1d`
+    (kernel row 12) in both modes, over the same parameters; off by default,
+    as in JAX (models/octic_vit.py:78). Registers are not ported yet and
+    raise."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -72,7 +76,8 @@ class OcticVisionTransformer(nn.Module):
                  invariant_kind: str = "power_spectrum", packed_carry: bool = False,
                  use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
                  fuse_mlp_branch: bool = False, fuse_block_epilogues: bool = False,
-                 fuse_mlp: bool = False, *, device=None, dtype=None):
+                 fuse_mlp: bool = False, use_wide_qkv: bool = False, *, device=None,
+                 dtype=None):
         super().__init__()
         if embed_dim % 8:
             raise ValueError("embed_dim must be divisible by 8")
@@ -108,7 +113,8 @@ class OcticVisionTransformer(nn.Module):
                       drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
         octic = dict(fuse_qkv=fuse_qkv, use_pallas_linear=use_pallas_linear,
                      use_pallas_gelu=use_pallas_gelu, fuse_mlp_branch=fuse_mlp_branch,
-                     fuse_block_epilogues=fuse_block_epilogues, fuse_mlp=fuse_mlp)
+                     fuse_block_epilogues=fuse_block_epilogues, fuse_mlp=fuse_mlp,
+                     use_wide_qkv=use_wide_qkv)
         self.blocks = nn.ModuleList(
             BlockD8(embed_dim, num_heads, **octic, **common) if i < self.break_layer
             else Block(embed_dim, num_heads, norm_eps=1e-6, **common)

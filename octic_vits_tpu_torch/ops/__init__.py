@@ -15,6 +15,14 @@ from octic_vits_tpu_torch.ops.attention import (
     octic_attention_fused_qkv_packed_reference,
     octic_attention_fused_qkv_reference,
     octic_attention_reference,
+    octic_attention_wide,
+    octic_attention_wide1d,
+    octic_attention_wide1d_bwd,
+    octic_attention_wide1d_bwd_reference,
+    octic_attention_wide1d_reference,
+    octic_attention_wide_bwd,
+    octic_attention_wide_bwd_reference,
+    octic_attention_wide_reference,
     standard_attention,
     standard_attention_bwd,
     standard_attention_bwd_reference,
@@ -40,7 +48,11 @@ from octic_vits_tpu_torch.ops.linear import (
     linear_d8_fused,
     linear_d8_fused_bwd,
     linear_d8_fused_reference,
+    linear_d8_qkv_wide,
+    linear_d8_qkv_wide_reference,
     linear_d8_tuple,
+    linear_d8_wide1d,
+    linear_d8_wide1d_reference,
     mlp_d8_fused,
     mlp_d8_fused_bwd,
     mlp_d8_fused_bwd_reference,
@@ -48,6 +60,7 @@ from octic_vits_tpu_torch.ops.linear import (
     mlp_d8_fused_packed_reference,
     mlp_d8_fused_reference,
     mlp_d8_packed,
+    uninterleave_wide,
 )
 from octic_vits_tpu_torch.ops.ln_d8 import (
     ln_affine_d8_bwd,
@@ -78,13 +91,19 @@ GLUE_OPS = (ln_affine_d8_flat_tuple, ln_affine_d8_bwd, ln_d8_flat_tuple, ln_d8_b
 #: backward counts under mlp_d8_fused_bwd (row 4's backward)
 PACKED_OPS = (octic_attention_fused_qkv_packed, octic_attention_fused_qkv_packed_bwd,
               mlp_d8_fused_packed)
+#: the wide-qkv ops: the wide-1d octic attention (row 12) and its backward,
+#: with the wide-1d qkv product that feeds it (AttentionD8(use_wide_qkv));
+#: the octic attention over one interleaved qkv (row 13a) and its backward,
+#: with the qkv product that stores that layout (row 13b)
+WIDE_OPS = (octic_attention_wide1d, octic_attention_wide1d_bwd, linear_d8_wide1d,
+            octic_attention_wide, octic_attention_wide_bwd, linear_d8_qkv_wide)
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
 #: fused qkv + attention; fuse_mlp training adds the fused MLP's backward)
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
                               linear_d8_fused, octic_attention_fused_qkv_bwd,
-                              mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS
+                              mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS + WIDE_OPS
 
 
 def reset_launch_counts() -> None:
@@ -101,6 +120,7 @@ __all__ = [
     "INFERENCE_OPS",
     "KERNEL_OPS",
     "PACKED_OPS",
+    "WIDE_OPS",
     "dense_gelu",
     "dense_gelu_bwd",
     "dense_gelu_reference",
@@ -121,7 +141,11 @@ __all__ = [
     "linear_d8_fused",
     "linear_d8_fused_bwd",
     "linear_d8_fused_reference",
+    "linear_d8_qkv_wide",
+    "linear_d8_qkv_wide_reference",
     "linear_d8_tuple",
+    "linear_d8_wide1d",
+    "linear_d8_wide1d_reference",
     "ln_affine_d8_bwd",
     "ln_affine_d8_bwd_reference",
     "ln_affine_d8_flat_tuple",
@@ -152,9 +176,18 @@ __all__ = [
     "octic_attention_fused_qkv_packed_reference",
     "octic_attention_fused_qkv_reference",
     "octic_attention_reference",
+    "octic_attention_wide",
+    "octic_attention_wide1d",
+    "octic_attention_wide1d_bwd",
+    "octic_attention_wide1d_bwd_reference",
+    "octic_attention_wide1d_reference",
+    "octic_attention_wide_bwd",
+    "octic_attention_wide_bwd_reference",
+    "octic_attention_wide_reference",
     "reset_launch_counts",
     "standard_attention",
     "standard_attention_bwd",
     "standard_attention_bwd_reference",
     "standard_attention_reference",
+    "uninterleave_wide",
 ]

@@ -16,6 +16,16 @@ layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
 * :func:`octic_attention_fused_qkv_packed`: the same op on the packed
   ``[B, N, C]`` container (kernel row 10); the kernels read the container's
   slot views in place and the backward writes one packed gradient.
+* :func:`octic_attention_wide1d` (kernel row 12): the same attention with
+  each head's 1-d q, k and v as one 4*d1 slice of q1d, k1d, v1d ``[B, N,
+  C/2]`` (the wide-1d qkv of ``AttentionD8(use_wide_qkv)``); differentiable.
+* :func:`octic_attention_wide` (kernel row 13a): the same attention over one
+  interleaved qkv ``[B, N, 3C]`` (each head's q, k and v one dh slice, the
+  output of ``linear_d8_qkv_wide``); differentiable.
+
+K-attn and K-attn-bwd (csrc/attention.cu, csrc/attention_bwd.cu) serve every
+layout through a gather table (q, k, v) and a scatter table (the outputs,
+and the cotangent in the backward).
 
 As in the JAX custom VJPs, each backward saves only the op's inputs (the
 qkv arrays; for the fused op the normed input and the qkv weights) and
@@ -238,6 +248,12 @@ def _octic_rows_launch(qs: tuple, num_heads: int) -> tuple:
     return outs
 
 
+def _octic_out_row_strides(gs: tuple, b: int, n: int, c8: int) -> list:
+    """The row strides of the six octic outputs' cotangents (g1..g4 ``[B, N,
+    C/8]``, ge0, ge1 ``[B, N, C/4]``), which may be column slices."""
+    return [row_stride(t, f"g[{i}]", (b, n, c8 if i < 4 else 2 * c8)) for i, t in enumerate(gs)]
+
+
 def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     """One K-attn-bwd launch in the octic layout; the qkv arrays and the
     cotangents may be column slices of larger tensors. Counts nothing."""
@@ -245,7 +261,7 @@ def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     _check_attention_bwd_shape(n, 8 * d1)
     lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
           for i, t in enumerate(qs)]
-    lg = [row_stride(t, f"g[{i}]", (b, n, c8 if i < 4 else 2 * c8)) for i, t in enumerate(gs)]
+    lg = _octic_out_row_strides(gs, b, n, c8)
     kw = dict(device=qs[0].device, dtype=qs[0].dtype)
     grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
     stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
@@ -489,3 +505,196 @@ def octic_attention_fused_qkv_packed(x: torch.Tensor, w1, we, bias: Optional[tor
 
 octic_attention_fused_qkv_packed.launches = 0
 octic_attention_fused_qkv_packed_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the wide layouts: wide-1d (row 12, AttentionD8(use_wide_qkv)) and one
+# interleaved qkv (row 13a, after linear_d8_qkv_wide)
+# ---------------------------------------------------------------------------
+
+
+def _wide1d_dims(q1d: torch.Tensor, num_heads: int) -> tuple:
+    b, n, w = q1d.shape
+    c8 = w // 4
+    d1 = c8 // num_heads
+    if w != 4 * c8 or c8 != num_heads * d1:
+        raise ValueError(f"octic_attention_wide1d: width {w} with {num_heads} heads unsupported")
+    return b, n, c8, d1, 2 * d1
+
+
+def _wide1d_heads(qs: tuple, num_heads: int, s: int) -> torch.Tensor:
+    """Head-assembled q (s=0), k (1) or v (2) ``[B, N, H, dh]`` in f32 from
+    (q1d, k1d, v1d, e0, e1), as pallas_attention.py:_w1d_operand builds it:
+    the head's 4*d1 slice of the s-th 1-d array, then its two E pieces."""
+    b, n, _, d1, de = _wide1d_dims(qs[0], num_heads)
+    one = qs[s].float().reshape(b, n, num_heads, 4 * d1)
+    es = [t.float().reshape(b, n, 3, num_heads, de)[:, :, s] for t in qs[3:]]
+    return torch.cat([one] + es, dim=-1)
+
+
+def octic_attention_wide1d_reference(q1d, k1d, v1d, e0, e1, num_heads: int) -> tuple:
+    """Plain version: f32 math, results in the input dtype."""
+    qs = (q1d, k1d, v1d, e0, e1)
+    d1 = _wide1d_dims(q1d, num_heads)[3]
+    o = _softmax_attention(*(_wide1d_heads(qs, num_heads, s) for s in range(3)))
+    return tuple(t.to(q1d.dtype) for t in _octic_split(o, d1))
+
+
+def octic_attention_wide1d_bwd_reference(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """Plain backward: ``(dq1d, dk1d, dv1d, de0, de1)`` in the layouts of the
+    inputs from the five inputs `qs` and the six output cotangents `gs`, f32
+    math, results in the input dtype."""
+    b, n, _, d1, de = _wide1d_dims(qs[0], num_heads)
+    g = torch.cat([t.float().reshape(b, n, num_heads, -1) for t in gs], dim=-1)
+    grads = _softmax_attention_bwd(*(_wide1d_heads(qs, num_heads, s) for s in range(3)), g)
+    d1d = tuple(t[..., :4 * d1].reshape(b, n, -1) for t in grads)
+    des = tuple(torch.stack([t[..., 4 * d1 + r * de:4 * d1 + (r + 1) * de] for t in grads],
+                            dim=2).reshape(b, n, -1) for r in range(2))
+    return tuple(t.to(qs[0].dtype) for t in d1d + des)
+
+
+def _wide1d_row_strides(qs: tuple, b: int, n: int, c8: int) -> list:
+    return [row_stride(t, f"qkv[{i}]", (b, n, 4 * c8 if i < 3 else 6 * c8))
+            for i, t in enumerate(qs)]
+
+
+def octic_attention_wide1d_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
+    """``(dq1d, dk1d, dv1d, de0, de1)`` from the five inputs and the six
+    output cotangents. CPU tensors take
+    :func:`octic_attention_wide1d_bwd_reference`; CUDA tensors launch
+    K-attn-bwd (csrc/attention_bwd.cu) in its wide-1d layout, which writes
+    the 1-d gradients in the wide layout (one 4*d1 slice per head)."""
+    if not on_cuda(tuple(qs) + tuple(gs)):
+        return octic_attention_wide1d_bwd_reference(qs, gs, num_heads)
+    b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
+    _check_attention_bwd_shape(n, 8 * d1)
+    lq = _wide1d_row_strides(qs, b, n, c8)
+    lg = _octic_out_row_strides(gs, b, n, c8)
+    kw = dict(device=qs[0].device, dtype=qs[0].dtype)
+    grads = tuple(torch.empty(b, n, 4 * c8 if i < 3 else 6 * c8, **kw) for i in range(5))
+    stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
+    octic_attention_wide1d_bwd.launches += 1
+    kernels.launch("ovt_attention_wide1d_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
+                   b, n, num_heads, d1, de)
+    return grads
+
+
+class _OcticAttentionWide1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, *qs):
+        ctx.save_for_backward(*qs)  # pallas_attention.py:_w1d_fwd_rule
+        ctx.num_heads = num_heads
+        if not on_cuda(qs):
+            return octic_attention_wide1d_reference(*qs, num_heads)
+        b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
+        _check_attention_shape(n, 8 * d1)
+        lds = _wide1d_row_strides(qs, b, n, c8)
+        kw = dict(device=qs[0].device, dtype=qs[0].dtype)
+        outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
+        octic_attention_wide1d.launches += 1
+        kernels.launch("ovt_attention_wide1d", *qs, *lds, *outs, b, n, num_heads, d1, de)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + octic_attention_wide1d_bwd(ctx.saved_tensors, gs, ctx.num_heads)
+
+
+def octic_attention_wide1d(q1d, k1d, v1d, e0, e1, num_heads: int) -> tuple:
+    """Wide-1d octic attention (pallas_attention.py:octic_attention_wide1d,
+    kernel row 12): q1d, k1d, v1d ``[B, N, C/2]`` with columns (h,
+    [a1|a2|b1|b2], d1), e0, e1 ``[B, N, 3C/4]`` in (3, h, de) order, each
+    with its own row stride (column views of the wide-1d qkv product) ->
+    ``(o1..o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``. CPU tensors take
+    :func:`octic_attention_wide1d_reference`; CUDA tensors launch K-attn
+    (csrc/attention.cu) in its wide-1d layout: each head's 1-d part is one
+    4*d1 slice. The gradient goes through :func:`octic_attention_wide1d_bwd`;
+    only the five inputs are saved, as in the JAX custom VJP."""
+    return _OcticAttentionWide1d.apply(num_heads, q1d, k1d, v1d, e0, e1)
+
+
+octic_attention_wide1d.launches = 0
+octic_attention_wide1d_bwd.launches = 0
+
+
+def _wide_qkv_dims(qkv: torch.Tensor, num_heads: int) -> tuple:
+    b, n, w = qkv.shape
+    c8 = w // 24
+    d1 = c8 // num_heads
+    if w != 24 * c8 or c8 != num_heads * d1:
+        raise ValueError(f"octic_attention_wide: width {w} with {num_heads} heads unsupported")
+    return b, n, c8, d1, 2 * d1
+
+
+def octic_attention_wide_reference(qkv: torch.Tensor, num_heads: int) -> tuple:
+    """Plain version: f32 math, results in the input dtype."""
+    b, n, c8, d1, _ = _wide_qkv_dims(qkv, num_heads)
+    q, k, v = qkv.float().reshape(b, n, 3, num_heads, 8 * d1).unbind(2)
+    return tuple(t.to(qkv.dtype) for t in _octic_split(_softmax_attention(q, k, v), d1))
+
+
+def octic_attention_wide_bwd_reference(qkv: torch.Tensor, gs: tuple, num_heads: int):
+    """Plain backward: dqkv ``[B, N, 3C]`` in the wide layout from qkv and
+    the six output cotangents, f32 math, result in ``qkv.dtype``."""
+    b, n, c8, d1, _ = _wide_qkv_dims(qkv, num_heads)
+    q, k, v = qkv.float().reshape(b, n, 3, num_heads, 8 * d1).unbind(2)
+    g = torch.cat([t.float().reshape(b, n, num_heads, -1) for t in gs], dim=-1)
+    grads = _softmax_attention_bwd(q, k, v, g)
+    return torch.stack(grads, dim=2).reshape(b, n, 24 * c8).to(qkv.dtype)
+
+
+def octic_attention_wide_bwd(qkv: torch.Tensor, gs: tuple, num_heads: int) -> torch.Tensor:
+    """dqkv from qkv and the six output cotangents. CPU tensors take
+    :func:`octic_attention_wide_bwd_reference`; CUDA tensors launch
+    K-attn-bwd (csrc/attention_bwd.cu) in its wide layout, which writes one
+    dqkv."""
+    if not on_cuda((qkv,) + tuple(gs)):
+        return octic_attention_wide_bwd_reference(qkv, gs, num_heads)
+    b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
+    _check_attention_bwd_shape(n, 8 * d1)
+    check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
+    lg = _octic_out_row_strides(gs, b, n, c8)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
+    octic_attention_wide_bwd.launches += 1
+    kernels.launch("ovt_attention_wide_bwd", qkv, *gs, *lg, dqkv, stats[0], stats[1], b, n,
+                   num_heads, d1, de)
+    return dqkv
+
+
+class _OcticAttentionWide(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, qkv):
+        ctx.save_for_backward(qkv)  # pallas_attention.py:_octic_wide_fwd_rule
+        ctx.num_heads = num_heads
+        if not on_cuda((qkv,)):
+            return octic_attention_wide_reference(qkv, num_heads)
+        b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
+        _check_attention_shape(n, 8 * d1)
+        check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
+        kw = dict(device=qkv.device, dtype=qkv.dtype)
+        outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
+        octic_attention_wide.launches += 1
+        kernels.launch("ovt_attention_wide", qkv, *outs, b, n, num_heads, d1, de)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        (qkv,) = ctx.saved_tensors
+        return None, octic_attention_wide_bwd(qkv, gs, ctx.num_heads)
+
+
+def octic_attention_wide(qkv: torch.Tensor, num_heads: int) -> tuple:
+    """Octic attention from one interleaved qkv ``[B, N, 3C]`` whose dh
+    columns of each (s, head) are ``[a1|a2|b1|b2|e0|e1]``
+    (pallas_attention.py:octic_attention_wide, kernel row 13a; the output of
+    :func:`~octic_vits_tpu_torch.ops.linear.linear_d8_qkv_wide`) -> the six
+    irrep outputs of :func:`octic_attention`. CPU tensors take the
+    reference; CUDA tensors launch K-attn (csrc/attention.cu) with the
+    standard layout's gather and the octic scatter. The gradient goes
+    through :func:`octic_attention_wide_bwd`; only qkv is saved."""
+    return _OcticAttentionWide.apply(num_heads, qkv)
+
+
+octic_attention_wide.launches = 0
+octic_attention_wide_bwd.launches = 0

@@ -12,7 +12,11 @@
   packed ``[..., C]`` container (row 11);
 * :func:`lin_d8_bwd_launch`: K-lin-d8-bwd, the transpose and weight
   gradients of one LinearD8, which the backward of the fused octic qkv +
-  attention (ops/attention.py) ends with.
+  attention (ops/attention.py) ends with;
+* :func:`linear_d8_qkv_wide` (row 13b) and :func:`linear_d8_wide1d` (the
+  qkv of ``AttentionD8(use_wide_qkv)``): the qkv LinearD8 stored in the wide
+  layouts through K-lin-d8's grouped-column store, with
+  :func:`uninterleave_wide`.
 
 Layouts: ``xs = (a1, a2, b1, b2, ef)`` with ``a* [..., c]`` and
 ``ef [..., 4c] = [row0 | row1]``; weights ``w1 [4, c, f]`` (one per 1-d
@@ -120,10 +124,23 @@ def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     olead, ldy, ldye = _row_strides(out, f, "out")
     if olead != lead:
         raise ValueError("lin_d8: the output views must have the input's leading shape")
-    m = xs[0].numel() // c
-    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *out, ls1, lse, *rs, m, c, f, int(gelu),
-                   ldx, ldxe, ldy, ldye)
+    _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, out[:4], (out[4], out[4][..., 2 * f:]),
+                 (ldy, ldye), (f, 0, 2 * f, 0), gelu, ls1, lse, rs)
     return tuple(out)
+
+
+def _lin_d8_call(xs: tuple, ldxs: tuple, w1, we, bias, ys: tuple, yes: tuple, ldys: tuple,
+                 groups: tuple, gelu: bool = False, ls1=None, lse=None,
+                 rs: tuple = (None,) * 5) -> None:
+    """One ``ovt_lin_d8`` launch on checked arguments: the inputs `xs` with
+    the row strides ``ldxs`` of :func:`_row_strides`; the four 1-d outputs
+    start at ``ys``, the E rows' outputs at ``yes`` (two starts), with the
+    row strides ``ldys`` and the grouped-column maps ``groups = (g1, s1, ge,
+    se)`` of csrc/lin_d8.cu (output column j of a 1-d irrep at ``(j // g1) *
+    s1 + j % g1``, of an E row at ``(j // ge) * se + j % ge``)."""
+    _, c, f = w1.shape
+    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, *yes, ls1, lse, *rs,
+                   xs[0].numel() // c, c, f, int(gelu), *ldxs, *ldys, *groups)
 
 
 NUM_SMS = 132  # streaming multiprocessors of the H100 (SXM)
@@ -211,22 +228,46 @@ def linear_d8_fused_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     return tuple(t.to(xs[0].dtype) for t in y)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a ``[..., k]``, b ``[k, n]``) of the operands as they are,
+    accumulated and returned in f32: on the card one bf16 tensor-core product
+    with an f32 output, elsewhere the f32 product of the same operands."""
+    if a.is_cuda and a.dtype == b.dtype != torch.float32:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def linear_d8_f32(xs: tuple, w1: torch.Tensor, we: torch.Tensor) -> tuple:
+    """The LinearD8 map without bias, its products on the operands as they
+    are with f32 results (pallas_linear.py:_eager_linear's products)."""
+    c = xs[0].shape[-1]
+    ef = xs[4]
+    rows = _mm_f32(ef.reshape(*ef.shape[:-1], 2, 2 * c), we)
+    return tuple(_mm_f32(xs[g], w1[g]) for g in range(4)) + (
+        rows.reshape(*ef.shape[:-1], 2 * we.shape[-1]),)
+
+
 def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
                         bias: Optional[torch.Tensor], gs: tuple, fuse_gelu: bool,
-                        layerscale: Optional[tuple] = None) -> tuple:
+                        layerscale: Optional[tuple] = None, dx_f32: bool = False,
+                        z_f32: bool = True) -> tuple:
     """The plain backward of :func:`linear_d8_fused`, as the JAX one is
     eager XLA (pallas_linear.py:_bwd_rule): with the LayerScale epilogue
     ``y = r + ls z`` it recomputes z and takes ``dls = sum_m g z``, ``dz = g
     ls`` (the residual's gradient is g itself, which the caller returns);
     with the GELU epilogue it recomputes the pre-activation z and pushes the
     cotangent through the D8-GELU as ``R(gelu'(S z) (S g))`` in f32; then it
-    forms the input and weight products. Every product, the recomputes
-    included, runs in the operands' dtype: bf16 operands with f32
-    accumulation on the card (what XLA's default precision does with the
-    f32-cast products on the TPU, except that the recomputed z is rounded to
-    bf16), f32 on the CPU. The E-slot order is kept by working on the flat-E
-    tuple throughout (``gelu_d8_vjp`` unpacks E11|E12|E21|E22 to the
-    isotypic order and back).
+    forms the input and weight products. Every product runs on the operands
+    in their dtype, bf16 operands with f32 accumulation on the card (what
+    XLA's default precision does with the f32-cast products on the TPU), f32
+    on the CPU. The recomputed z keeps its f32 result, as in JAX
+    (``z_f32=False`` rounds it to the operand dtype, the port's rule before
+    row 4's repair, kept for the comparison in chip_smoke.py P15); dx comes
+    back in the operand dtype, or in f32 with `dx_f32` (fc2's dx in row 4's
+    backward, the hidden's cotangent that fc1's GELU VJP takes). The E-slot
+    order is kept by working on the flat-E tuple throughout
+    (``gelu_d8_vjp`` unpacks E11|E12|E21|E22 to the isotypic order and back).
 
     Returns ``(dxs (5-tuple), dw1, dwe, dbias or None, dls1 or None, dlse or
     None)``."""
@@ -236,7 +277,8 @@ def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     w1d, wed = w1.to(dt), we.to(dt)
     dls1 = dlse = None
     if fuse_gelu or layerscale is not None:
-        z = tuple(t.float() for t in linear_d8(xs, w1d, wed, None))
+        z = (linear_d8_f32(xs, w1d, wed) if z_f32 else
+             tuple(t.float() for t in linear_d8(xs, w1d, wed, None)))
         if bias is not None:
             z = (z[0] + bias.float(),) + z[1:]
     if layerscale is not None:
@@ -249,12 +291,13 @@ def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
         g = gelu_d8_vjp(z, g)
     dbias = None if bias is None else g[0].reshape(-1, f).sum(0).to(bias.dtype)
     gd = tuple(t.to(dt) for t in g)
-    dxs = [torch.matmul(gd[i], w1d[i].t()) for i in range(4)]
+    mm = _mm_f32 if dx_f32 else torch.matmul
+    dxs = [mm(gd[i], w1d[i].t()) for i in range(4)]
     dw1 = torch.stack([torch.matmul(xs[i].reshape(-1, c).t(), gd[i].reshape(-1, f))
                        for i in range(4)])
     grows = gd[4].reshape(-1, 2, 2 * f)
     xrows = xs[4].reshape(-1, 2, 2 * c)
-    dxs.append(torch.matmul(grows, wed.t()).reshape(xs[4].shape))
+    dxs.append(mm(grows, wed.t()).reshape(xs[4].shape))
     dwe = sum(torch.matmul(xrows[:, r].t(), grows[:, r]).float() for r in range(2))
     return tuple(dxs), dw1.to(w1.dtype), dwe.to(we.dtype), dbias, dls1, dlse
 
@@ -343,13 +386,18 @@ def linear_d8_tuple(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _mlp_bwd_from_hidden(xs: tuple, h: tuple, w1a, wea, b1, w1b, web, b2, gs: tuple) -> tuple:
+def _mlp_bwd_from_hidden(xs: tuple, h: tuple, w1a, wea, b1, w1b, web, b2, gs: tuple,
+                         dh_f32: bool = True, z_f32: bool = True) -> tuple:
     """fc2's backward at the rounded hidden `h`, then fc1's with the D8-GELU
-    VJP, each as :func:`linear_d8_fused_bwd` (plain products in the operands'
-    dtype, the GELU VJP in f32): the JAX rule pallas_linear.py:_mlp_bwd_rule,
-    the composition of the two linear kernels' backward rules."""
-    dh, dw1b, dweb, db2 = linear_d8_fused_bwd(h, w1b, web, b2, gs, False)[:4]
-    dxs, dw1a, dwea, db1 = linear_d8_fused_bwd(xs, w1a, wea, b1, dh, True)[:4]
+    VJP, each as :func:`linear_d8_fused_bwd` (products on the operands in
+    their dtype, the GELU VJP in f32): the JAX rule
+    pallas_linear.py:_mlp_bwd_rule, the composition of the two linear
+    kernels' backward rules. The hidden's cotangent dh reaches the GELU VJP
+    in f32, as ``dh1`` / ``dhef`` do there (:589-604); ``dh_f32=False`` and
+    ``z_f32=False`` give the earlier rule that rounded dh and the recomputed
+    pre-activation to the operand dtype (chip_smoke.py P15 times both)."""
+    dh, dw1b, dweb, db2 = linear_d8_fused_bwd(h, w1b, web, b2, gs, False, dx_f32=dh_f32)[:4]
+    dxs, dw1a, dwea, db1 = linear_d8_fused_bwd(xs, w1a, wea, b1, dh, True, z_f32=z_f32)[:4]
     return dxs + (dw1a, dwea, db1, dw1b, dweb, db2)
 
 
@@ -474,3 +522,181 @@ def mlp_d8_packed(x: torch.Tensor, w1a, wea, b1, w1b, web, b2) -> torch.Tensor:
     ``[..., C']`` (pallas_linear.py:mlp_d8_packed)."""
     y = mlp_d8_fused_packed(x.reshape(-1, x.shape[-1]), w1a, wea, b1, w1b, web, b2)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the wide qkv stores: row 13b (one interleaved [M, 3C] qkv) and the wide-1d
+# qkv of AttentionD8(use_wide_qkv)
+# ---------------------------------------------------------------------------
+
+
+def _wide_dims(f: int, num_heads: int) -> tuple:
+    """(d1, de) of a qkv product of width f = 3C/8 per 1-d irrep."""
+    if f % (3 * num_heads):
+        raise ValueError(f"wide qkv: width {f} is not 3 x {num_heads} heads")
+    d1 = f // (3 * num_heads)
+    return d1, 2 * d1
+
+
+def interleave_wide(y: tuple, num_heads: int) -> torch.Tensor:
+    """The flat-E qkv 5-tuple (y_g ``[..., f]`` in (s, h, d1) column order,
+    ``[..., 4f] = [e0 | e1]``) -> ``[..., 8f]`` with columns (s, h,
+    [a1|a2|b1|b2|e0|e1]): the layout of :func:`linear_d8_qkv_wide`."""
+    lead, f = y[0].shape[:-1], y[0].shape[-1]
+    d1, de = _wide_dims(f, num_heads)
+    sh = 3 * num_heads
+    e = y[4].reshape(*lead, 2, sh, de).movedim(-3, -2).flatten(-2)
+    return torch.cat([t.reshape(*lead, sh, d1) for t in y[:4]] + [e], dim=-1).flatten(-2)
+
+
+def uninterleave_wide(y: torch.Tensor, num_heads: int) -> tuple:
+    """Inverse of the wide store (pallas_linear.py:uninterleave_wide):
+    ``[..., 3C]`` -> ``(y1 [4, ..., 3C/8], yef [..., 3C/2] = [e0 | e1])``."""
+    lead, f = y.shape[:-1], y.shape[-1] // 8
+    d1, de = _wide_dims(f, num_heads)
+    blocks = y.reshape(*lead, 3 * num_heads, 8 * d1)
+    ones = [blocks[..., g * d1:(g + 1) * d1].reshape(*lead, f) for g in range(4)]
+    e0 = blocks[..., 4 * d1:4 * d1 + de].reshape(*lead, 2 * f)
+    e1 = blocks[..., 4 * d1 + de:].reshape(*lead, 2 * f)
+    return torch.stack(ones), torch.cat((e0, e1), dim=-1)
+
+
+def linear_d8_qkv_wide_reference(x1, xef, w1, we, bias: Optional[torch.Tensor],
+                                 num_heads: int) -> torch.Tensor:
+    """Plain version: the LinearD8 in f32, interleaved, in the input dtype."""
+    y = linear_d8_fused_reference(tuple(x1) + (xef,), w1, we, bias)
+    return interleave_wide(y, num_heads)
+
+
+class _LinearD8QKVWide(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, x1, xef, w1, we, bias):
+        ctx.save_for_backward(x1, xef, w1, we, bias)  # pallas_linear.py:_qkv_wide_fwd_rule
+        ctx.num_heads = num_heads
+        if not on_cuda((x1, xef, w1, we, bias)):
+            return linear_d8_qkv_wide_reference(x1, xef, w1, we, bias, num_heads)
+        _, c, f = w1.shape
+        d1, de = _wide_dims(f, num_heads)
+        check_kernel_arg(x1, "x1", (4,) + tuple(x1.shape[1:-1]) + (c,))
+        xs = tuple(x1) + (xef,)
+        _, ldx, ldxe = _row_strides(xs, c, "xs")
+        check_kernel_arg(w1, "w1", (4, c, f))
+        check_kernel_arg(we, "we", (2 * c, 2 * f))
+        check_kernel_arg(bias, "bias", (f,))
+        y = torch.empty(*xef.shape[:-1], 8 * f, device=xef.device, dtype=xef.dtype)
+        linear_d8_qkv_wide.launches += 1
+        _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, tuple(y[..., g * d1:] for g in range(4)),
+                     (y[..., 4 * d1:], y[..., 4 * d1 + de:]), (8 * f, 8 * f),
+                     (d1, 8 * d1, de, 8 * d1))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, xef, w1, we, bias = ctx.saved_tensors
+        g1, gef = uninterleave_wide(g, ctx.num_heads)
+        dxs, dw1, dwe, dbias = linear_d8_fused_bwd(tuple(x1) + (xef,), w1, we, bias,
+                                                   tuple(g1) + (gef,), False)[:4]
+        return None, torch.stack(dxs[:4]), dxs[4], dw1, dwe, dbias
+
+
+def linear_d8_qkv_wide(x1: torch.Tensor, xef: torch.Tensor, w1: torch.Tensor, we: torch.Tensor,
+                       bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """The block-diagonal qkv LinearD8 stored as ONE interleaved qkv
+    (pallas_linear.py:linear_d8_qkv_wide, kernel row 13b): x1 ``[4, M, c]``,
+    xef ``[M, 4c]``, w1 ``[4, c, f]``, we ``[2c, 2f]``, A1 bias ``[f]`` ->
+    ``[M, 8f]`` whose dh columns of each (s, head) are
+    ``[a1|a2|b1|b2|e0|e1]``. CPU tensors take the reference; CUDA tensors
+    launch K-lin-d8 with the grouped-column store (csrc/lin_d8.cu). The
+    backward is plain torch, as the JAX rule is eager XLA: uninterleave the
+    gradient, then :func:`linear_d8_fused_bwd`."""
+    return _LinearD8QKVWide.apply(num_heads, x1, xef, w1, we, bias)
+
+
+linear_d8_qkv_wide.launches = 0
+
+
+def interleave_wide1d(y: tuple, num_heads: int) -> torch.Tensor:
+    """The four 1-d qkv outputs (``[..., f]`` each, (s, h, d1) columns) ->
+    ``[..., 4f]`` with columns (s, h, [a1|a2|b1|b2], d1): q1d, k1d, v1d side
+    by side, the layout of :func:`linear_d8_wide1d`."""
+    lead, f = y[0].shape[:-1], y[0].shape[-1]
+    d1, _ = _wide_dims(f, num_heads)
+    return torch.stack([t.reshape(*lead, 3 * num_heads, d1) for t in y[:4]], dim=-2).flatten(-3)
+
+
+def uninterleave_wide1d(dq1d, dk1d, dv1d, num_heads: int) -> tuple:
+    """The gradients of q1d, k1d, v1d (``[..., C/2]`` each) -> the four 1-d
+    irreps' ``[..., 3C/8]`` gradients in (s, h, d1) order."""
+    y = torch.stack((dq1d, dk1d, dv1d), dim=-2)  # [..., 3, C/2]
+    lead, w = y.shape[:-2], y.shape[-1]
+    d1 = w // (4 * num_heads)
+    y = y.reshape(*lead, 3, num_heads, 4, d1)
+    return tuple(y[..., g, :].reshape(*lead, 3 * w // 4) for g in range(4))
+
+
+def linear_d8_wide1d_reference(xs: tuple, w1, we, bias: Optional[torch.Tensor],
+                               num_heads: int) -> tuple:
+    """Plain version: the LinearD8 in f32, in the input dtype, with the 1-d
+    part interleaved."""
+    y = linear_d8_fused_reference(xs, w1, we, bias)
+    c4 = y[4].shape[-1] // 2
+    y1d = interleave_wide1d(y[:4], num_heads)
+    w = y1d.shape[-1] // 3
+    return (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], y[4][..., :c4], y[4][..., c4:])
+
+
+class _LinearD8Wide1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, num_heads, w1, we, bias, *xs):
+        ctx.save_for_backward(w1, we, bias, *xs)
+        ctx.num_heads = num_heads
+        if not on_cuda(xs + (w1, we, bias)):
+            return linear_d8_wide1d_reference(xs, w1, we, bias, num_heads)
+        _, c, f = w1.shape
+        d1, _ = _wide_dims(f, num_heads)
+        lead, ldx, ldxe = _row_strides(xs, c, "xs")
+        check_kernel_arg(w1, "w1", (4, c, f))
+        check_kernel_arg(we, "we", (2 * c, 2 * f))
+        check_kernel_arg(bias, "bias", (f,))
+        kw = dict(device=xs[0].device, dtype=xs[0].dtype)
+        y1d, yef = torch.empty(*lead, 4 * f, **kw), torch.empty(*lead, 4 * f, **kw)
+        linear_d8_wide1d.launches += 1
+        _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, tuple(y1d[..., g * d1:] for g in range(4)),
+                     (yef, yef[..., 2 * f:]), (4 * f, 4 * f), (d1, 4 * d1, 2 * f, 0))
+        w = 4 * f // 3
+        return (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], yef[..., :2 * f],
+                yef[..., 2 * f:])
+
+    @staticmethod
+    def backward(ctx, dq1d, dk1d, dv1d, de0, de1):
+        w1, we, bias, *xs = ctx.saved_tensors
+        g1 = uninterleave_wide1d(dq1d, dk1d, dv1d, ctx.num_heads)
+        dxs, dw1, dwe, dbias = linear_d8_fused_bwd(tuple(xs), w1, we, bias,
+                                                   g1 + (torch.cat((de0, de1), dim=-1),),
+                                                   False)[:4]
+        return (None, dw1, dwe, dbias) + tuple(dxs)
+
+
+def linear_d8_wide1d(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                     bias: Optional[torch.Tensor], num_heads: int) -> tuple:
+    """The qkv LinearD8 of ``AttentionD8(use_wide_qkv)`` (d8_layers.py:
+    950-989): the flat-E tuple and the qkv weights -> ``(q1d, k1d, v1d, e0,
+    e1)``, the inputs of :func:`~octic_vits_tpu_torch.ops.attention.
+    octic_attention_wide1d`: q1d, k1d, v1d ``[..., C/2]`` with columns (h,
+    [a1|a2|b1|b2], d1), e0, e1 ``[..., 3C/4]`` the E rows' outputs.
+
+    The JAX layer computes the 1-d part as one dense product with a
+    column-permuted block-diagonal weight (three quarters zeros) and the E
+    rows as two products, in XLA. Here CUDA tensors launch K-lin-d8 once
+    with the wide-1d grouped-column store (csrc/lin_d8.cu): the four 1-d
+    outputs land in one ``[..., 3C/2]`` buffer in (s, h, g, d1) order, of
+    which q1d, k1d and v1d are column views, and the E output in its usual
+    ``[..., 3C/2]`` buffer, of which e0 and e1 are the halves. Half the
+    FLOPs of the dense form, and no permuted weight is built. CPU tensors
+    take :func:`linear_d8_wide1d_reference`. The backward is plain torch, as
+    row 6's: uninterleave the 1-d gradients, then
+    :func:`linear_d8_fused_bwd`; only the inputs and the weights are saved."""
+    return _LinearD8Wide1d.apply(num_heads, w1, we, bias, *xs)
+
+
+linear_d8_wide1d.launches = 0

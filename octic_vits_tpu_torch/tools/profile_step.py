@@ -13,6 +13,10 @@ train step (or one inference forward) of each model of a cell, after warm-up.
     python3 -m octic_vits_tpu_torch.tools.profile_step deit_packed  # DeiT III, B=32: P7's
                                                                     # hybrid, inv-early with
                                                                     # P7's flags, packed (P17)
+    python3 -m octic_vits_tpu_torch.tools.profile_step infer_wide   # one forward, B=64: P4's
+                                                                    # hybrid, use_wide_qkv (P19)
+    python3 -m octic_vits_tpu_torch.tools.profile_step deit_wide    # DeiT III, B=32: P7's
+                                                                    # hybrid, use_wide_qkv (P20)
 
 For each model it prints the profiled step's wall time, the device's busy
 time (the sum of the kernels' device time; one stream) and idle share, the
@@ -29,7 +33,8 @@ paths A (``fuse_mlp_branch``) and B (``fuse_block_epilogues``), both with
 the LN kernel, and the standard model; ``infer_inv`` and ``deit_packed``
 the hybrid against ``d8_inv_early_deit_huge_patch14`` with the flat-E carry
 and with ``packed_carry`` (in training with ``fuse_qkv`` and ``fuse_mlp``,
-the packed ops' requirements). Run from the repository root (it imports
+the packed ops' requirements); ``infer_wide`` and ``deit_wide`` the hybrid
+with and without ``use_wide_qkv``. Run from the repository root (it imports
 ``chip_smoke``); needs a CUDA device.
 """
 
@@ -135,6 +140,10 @@ CELLS = {
                                  ("d8_inv_early_deit_huge_patch14", {}, False),
                                  ("d8_inv_early_deit_huge_patch14",
                                   dict(packed_carry=True, fuse_qkv=True, fuse_mlp=True), False))),
+    "infer_wide": (_infer_cell, (("hybrid_deit_huge_patch14", {}, False),
+                                 ("hybrid_deit_huge_patch14", dict(use_wide_qkv=True), False))),
+    "deit_wide": (_deit_cell, (("hybrid_deit_huge_patch14", {}, False),
+                               ("hybrid_deit_huge_patch14", dict(use_wide_qkv=True), False))),
 }
 
 

@@ -805,3 +805,170 @@ def test_small_inv_early_packed_train_step_on_card(gen):
     a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
     b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
+
+
+# ---- the wide-qkv slice: rows 12 and 13 (K-attn and K-attn-bwd over the wide
+# layouts, K-lin-d8's grouped-column stores) and the small hybrid with use_wide_qkv
+
+
+def _wide1d_qkv(gen, b, n, c):
+    """q1d, k1d, v1d as column views of one wide-1d qkv [B,N,3C/2] and e0, e1
+    as the halves of one E qkv [B,N,3C/2], as the wide-1d product gives them."""
+    c8 = c // 8
+    y1d, ef = _randn(gen, b, n, 12 * c8), _randn(gen, b, n, 12 * c8)
+    w = 4 * c8
+    return (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8],
+            ef[..., 6 * c8:])
+
+
+def _octic_cotangents(gen, b, n, c):
+    c8 = c // 8
+    return tuple(_randn(gen, b, n, c8) for _ in range(4)) + tuple(
+        _randn(gen, b, n, 2 * c8) for _ in range(2))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_wide1d_kernel(gen, b, n, c, heads, bias):
+    qs = _wide1d_qkv(gen, b, n, c)
+    _assert_close(_counted(ops.octic_attention_wide1d, *qs, heads),
+                  ops.octic_attention_wide1d_reference(*qs, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_wide1d_bwd_kernel(gen, b, n, c, heads, bias):
+    qs, gs = _wide1d_qkv(gen, b, n, c), _octic_cotangents(gen, b, n, c)
+    _assert_close_scaled(_counted(ops.octic_attention_wide1d_bwd, qs, gs, heads),
+                         ops.octic_attention_wide1d_bwd_reference(qs, gs, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_wide_kernel(gen, b, n, c, heads, bias):
+    qkv = _randn(gen, b, n, 3 * c)
+    _assert_close(_counted(ops.octic_attention_wide, qkv, heads),
+                  ops.octic_attention_wide_reference(qkv, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_octic_attention_wide_bwd_kernel(gen, b, n, c, heads, bias):
+    qkv, gs = _randn(gen, b, n, 3 * c), _octic_cotangents(gen, b, n, c)
+    _assert_close_scaled(_counted(ops.octic_attention_wide_bwd, qkv, gs, heads),
+                         ops.octic_attention_wide_bwd_reference(qkv, gs, heads))
+
+
+def _qkv_weights(gen, c8, bias):
+    return (_randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5),
+            _randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5),
+            _randn(gen, 3 * c8, scale=0.1) if bias else None)
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_linear_d8_qkv_wide_kernel(gen, b, n, c, heads, bias):
+    c8 = c // 8
+    args = (_randn(gen, 4, b * n, c8), _randn(gen, b * n, 4 * c8)) + _qkv_weights(gen, c8, bias)
+    _assert_close(_counted(ops.linear_d8_qkv_wide, *args, heads),
+                  ops.linear_d8_qkv_wide_reference(*args, heads))
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+def test_linear_d8_wide1d_kernel(gen, b, n, c, heads, bias):
+    """The wide-1d product, on a flat-E tuple and on a packed container's
+    slot views; its outputs are views of two buffers."""
+    c8 = c // 8
+    ws = _qkv_weights(gen, c8, bias)
+    for xs in (tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),),
+               _packed(gen, b, n, c8)[1]):
+        out = _counted(ops.linear_d8_wide1d, xs, *ws, heads)
+        assert out[1].data_ptr() == out[0].data_ptr() + 8 * c8
+        _assert_close(out, ops.linear_d8_wide1d_reference(xs, *ws, heads))
+
+
+def test_octic_layouts_take_per_segment_loads(gen):
+    """K-attn and K-attn-bwd pick each segment's load width on its own: the
+    octic layout with 1-d arrays at odd column offsets (2-byte loads) beside
+    16-byte-aligned E rows, and the standard layout again (rows 1 and 5)."""
+    b, n, c8, heads = 2, 33, 16, 2
+    big = _randn(gen, b, n, 4 * 3 * c8 + 4)
+    ones = tuple(big[..., 1 + 3 * c8 * g:1 + 3 * c8 * (g + 1)] for g in range(4))
+    ef = _randn(gen, b, n, 12 * c8)
+    qs = ones + (ef[..., :6 * c8], ef[..., 6 * c8:])
+    gs = _octic_cotangents(gen, b, n, 8 * c8)
+    _assert_close(_counted(ops.octic_attention, *qs, heads),
+                  ops.octic_attention_reference(*qs, heads))
+    _assert_close_scaled(_counted(ops.octic_attention_bwd, qs, gs, heads),
+                         ops.octic_attention_bwd_reference(qs, gs, heads))
+    qkv = _randn(gen, b, n, 24 * c8)
+    _assert_close(_counted(ops.standard_attention, qkv, heads),
+                  ops.standard_attention_reference(qkv, heads))
+
+
+def test_wide_ops_autograd_launch_backward(gen):
+    """Autograd through the wide chains: the wide-1d product -> row 12 and
+    row 13b -> row 13a, each backward kernel counted once, the input
+    gradients finite and equal to the plain backward's."""
+    b, n, c, heads = 2, 17, 128, 2
+    c8 = c // 8
+    xs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+    ws = _qkv_weights(gen, c8, True)
+    gs = _octic_cotangents(gen, b, n, c)
+    leaves = tuple(t.detach().requires_grad_() for t in xs)
+    ops.reset_launch_counts()
+    outs = ops.octic_attention_wide1d(*ops.linear_d8_wide1d(leaves, *ws, heads), heads)
+    torch.autograd.backward(outs, gs)
+    assert ops.launch_counts() == _only(linear_d8_wide1d=1, octic_attention_wide1d=1,
+                                        octic_attention_wide1d_bwd=1)
+    ref = ops.octic_attention_fused_qkv_bwd_reference(xs, *ws, gs, heads)
+    _assert_close_scaled(tuple(t.grad for t in leaves), ref[:5])
+    x1 = torch.stack(xs[:4]).reshape(4, b * n, c8).detach().requires_grad_()
+    xef = xs[4].reshape(b * n, 4 * c8).detach().requires_grad_()
+    ops.reset_launch_counts()
+    qkv = ops.linear_d8_qkv_wide(x1, xef, *ws, heads).reshape(b, n, 3 * c)
+    torch.autograd.backward(ops.octic_attention_wide(qkv, heads), gs)
+    assert ops.launch_counts() == _only(linear_d8_qkv_wide=1, octic_attention_wide=1,
+                                        octic_attention_wide_bwd=1)
+    _assert_close_scaled((x1.grad.reshape(4, b, n, c8).unbind(0)) + (
+        xef.grad.reshape(b, n, 4 * c8),), ref[:5])
+
+
+def test_small_wide_hybrid_on_card(gen):
+    """hybrid_vit_small_test with use_wide_qkv: inference against the same
+    weights in f32 on the CPU, and one DeiT III step (remat, bf16 compute)
+    against the CPU f32 step (the bars of test_small_hybrid_train_step_on_card),
+    with the wide kernels launched."""
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+
+    cpu = create_model("hybrid_vit_small_test", init_scale=1.0, device="cpu")
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    inf = create_model("hybrid_vit_small_test", init_scale=1.0, use_wide_qkv=True,
+                       device="cuda", dtype=torch.bfloat16).eval()
+    inf.load_state_dict(cpu.state_dict())
+    img = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    img = img.to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = inf(img.cuda()).float().cpu()
+        ref = cpu.eval()(img.float())
+    assert ops.launch_counts() == _only(linear_d8_wide1d=2, octic_attention_wide1d=2,
+                                        standard_attention=2, dense_gelu=2, mlp_d8_fused=2)
+    assert ((out - ref).norm() / ref.norm()).item() < 5e-2
+    card = create_model("hybrid_vit_small_test", init_scale=1.0, use_wide_qkv=True,
+                        remat=True, compute_dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    cfg = engine.DeiTConfig(num_classes=10, mixup_alpha=0.0, cutmix_alpha=0.0, drop_path=0.0)
+    opt = engine.build_optimizer(cfg, card)
+    step = engine.make_deit_train_step(card, cfg, opt)
+    img = img[:2].float()
+    labels = torch.tensor([1, 4])
+    ops.reset_launch_counts()
+    _, metrics = step(common.create_train_state(card, opt), img.cuda(), labels.cuda(),
+                      torch.Generator().manual_seed(0))
+    assert ops.launch_counts() == _only(
+        linear_d8_wide1d=4, octic_attention_wide1d=2, octic_attention_wide1d_bwd=2,
+        linear_d8_fused=8, standard_attention=2, standard_attention_bwd=2, dense_gelu=4)
+    cpu.train()
+    loss = common.bce_target_loss(cpu(img), torch.nn.functional.one_hot(labels, 10).float())
+    loss.backward()
+    assert abs(metrics["loss"].item() - loss.item()) <= 5e-2 * abs(loss.item())
+    a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
+    b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
