@@ -96,6 +96,12 @@ Phases, one line each (any failure raises and exits non-zero):
              gradients, launches against WIDE_TRAIN_LAUNCHES; the deterministic
              2-image step against P6's CPU f32 loss and gradients; median step
              ms and the step's peak memory in turns with P7's hybrid
+  P21 probe kernels  the forward-attention probes of kernel row 14a
+             (ops/attention_probe.py: K-attn's stages, schedules and layouts,
+             and K-attn-bwd on the head-major qkv) against their plain
+             versions at ViT-H/14 B=64 (the backward at B=32) and at a ragged
+             shape (B=3, N=37), each with its time, bound and library call;
+             then each probe op launched once (launches against 1 each)
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -352,7 +358,39 @@ def work(name: str, b: int, n: int, c: int, heads: int, bias: bool) -> tuple:
     if name == "mlp_branch_d8":  # x in, y out; LN, fc1, fc2 and LayerScale parameters
         return (2 * m * c + 2 * lin4_w + 5 * c8 + 9 * c8 + 6 * c8) * e, 2 * lin4_ops, \
             (7 + 13 * 4 + 2) * m * c
+    if name in PROBE_WORK:  # the probes: columns read and written, products / (b n^2 c)
+        dh = c // heads
+        cols_in, cols_out, k = PROBE_WORK[name](c, dh, heads)
+        return m * (cols_in + cols_out) * e, k * b * n * n * c, 0
     raise KeyError(name)
+
+
+# The attention probes (kernel row 14a) at one shape of probe_cases: (columns
+# of [B, N, .] that the function reads, columns it writes, its products in
+# units of b n^2 c: 2 for q k^T, 2 more for P.V, 10 for a backward). The
+# aligned probes read the min(H, 3) distinct 80-column slices of a1, a2, b1;
+# the padded ones the real channels of the padded qkv (the pad is zero) and
+# write every column of probe k's and m's [B, N, 128 H]; probe k sums its
+# two stages, as its time does; "loads_only" (the gather and the store, out
+# = v) reads v alone.
+PROBE_WORK = {
+    "aligned_loads_attention": lambda c, dh, h: (3 * min(h, 3) * dh, c, 4),
+    "aligned_all_attention": lambda c, dh, h: (3 * min(h, 3) * dh, c, 4),
+    "aligned_nosm_attention": lambda c, dh, h: (3 * min(h, 3) * dh, c, 4),
+    "aligned_cheap_attention": lambda c, dh, h: (3 * min(h, 3) * dh, c, 4),
+    "loads_only": lambda c, dh, h: (c, c, 0),
+    "scores_only_attention": lambda c, dh, h: (3 * c, c, 2),
+    "scores_softmax_attention": lambda c, dh, h: (3 * c, c, 2),
+    "full_attention": lambda c, dh, h: (3 * c, c, 4),
+    "interleave2_attention": lambda c, dh, h: (3 * c, c, 4),
+    "phased_attention": lambda c, dh, h: (3 * c, c, 4),
+    "padded_attention": lambda c, dh, h: (2 * 3 * c, 2 * 128 * h, 6),
+    "padded_octic_attention": lambda c, dh, h: (3 * c, c, 4),
+    "bh_std_attention": lambda c, dh, h: (3 * c, 128 * h, 4),
+    "bh_octic_attention": lambda c, dh, h: (3 * c, c, 4),
+    "headmajor_attention": lambda c, dh, h: (3 * c, c, 4),
+    "headmajor_attention_bwd": lambda c, dh, h: (4 * c, 3 * c, 10),
+}
 
 
 def bound(name: str, shape: tuple) -> tuple:
@@ -393,6 +431,7 @@ def compare(out, ref, scaled=False):
     return err, ok
 
 
+PROBE_SRC = "octic_vits_tpu_torch/csrc/attention_probe.cu"
 # kernel -> (source, replaced JAX function at file:line, the path whose run
 # gives its launch count)
 META = {
@@ -450,6 +489,23 @@ META = {
                                  "octic_vits_tpu/ops/pallas_attention.py:1188", "wide_segments"),
     "linear_d8_qkv_wide": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
                            "octic_vits_tpu/ops/pallas_linear.py:380", "wide_segments"),
+    # kernel row 14a: the forward-attention probes of scripts/ (P21)
+    "aligned_loads_attention": (PROBE_SRC, "scripts/profile_attn_kernel.py:61", "probe"),
+    "aligned_all_attention": (PROBE_SRC, "scripts/profile_attn_kernel.py:82", "probe"),
+    "aligned_nosm_attention": (PROBE_SRC, "scripts/profile_attn_kernel.py:94", "probe"),
+    "aligned_cheap_attention": (PROBE_SRC, "scripts/profile_attn_kernel.py:101", "probe"),
+    "scores_only_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:54", "probe"),
+    "scores_softmax_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:63", "probe"),
+    "full_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:72", "probe"),
+    "interleave2_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:80", "probe"),
+    "phased_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:94", "probe"),
+    "padded_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:118", "probe"),
+    "padded_octic_attention": (PROBE_SRC, "scripts/r3_attn_ablate.py:142", "probe"),
+    "bh_std_attention": (PROBE_SRC, "scripts/r3_attn_bh.py:49", "probe"),
+    "bh_octic_attention": (PROBE_SRC, "scripts/r3_attn_bh.py:54", "probe"),
+    "headmajor_attention": (PROBE_SRC, "scripts/r3_attn_headmajor.py:44", "probe"),
+    "headmajor_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+                                "scripts/r3_attn_headmajor.py:69", "probe"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -895,8 +951,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_launches = wide_phases(gen, summary, card, cpu_model, images, ref, det)
 
+    torch.cuda.empty_cache()
+    probe_launches = probe_phases(gen, summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
-              **glue_launches, **packed_launches, **wide_launches}
+              **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -1721,6 +1780,157 @@ def wide_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
                  + f"; ratio use_wide_qkv / P7 hybrid img/s "
                  f"{med['P7 hybrid'] / med['use_wide_qkv']:.4f}")
     del runs, base, model_w
+    torch.cuda.empty_cache()
+    return counts
+
+
+def library_sdpa_padded(qkvp, heads, dh):
+    """One PyTorch call computing bh_std_attention: SDPA on the views of the
+    padded qkv's 128-wide slots with the scale dh^-0.5 (the pad columns
+    give p 0 = 0, as the probe writes them)."""
+    q, k, v = sdpa_views(qkvp, heads)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5)
+
+
+def library_sdpa_headmajor_bwd(qkv_hm, g_hm):
+    """One PyTorch call computing headmajor_attention_bwd: the autograd
+    backward of SDPA on the head-major q, k, v, after one recorded forward."""
+    leaf = qkv_hm.detach().requires_grad_()
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(*leaf.unbind(1))
+    return lambda: torch.autograd.grad(out, leaf, g_hm, retain_graph=True)
+
+
+def probe_cases(gen, b, n, c, heads):
+    """(row, kernel op, args, scaled bar, written columns or None, library
+    call or None) of the attention probes (kernel row 14a) at one shape; the
+    backward (row p) at min(b, TRAIN_BATCH). `row` is None for a case that
+    is checked and timed but kept out of its op's summary (probe f's "loads"
+    stage, the floor of the split). Rows b-d leave the pad columns of their
+    128-wide head slots unwritten, as the JAX kernels do: only the written
+    columns are compared. Row c (no softmax) takes the backward bar: its
+    output is an unnormalised sum of N products of bf16-rounded scores, and
+    a score that differs in its last f32 bit (another summation order)
+    rounds to a neighbouring bf16 value, so its error scales with the whole
+    sum, as a gradient's does."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.probes.r3_attn_bh import pad_qkv
+    from octic_vits_tpu_torch.probes.r3_attn_headmajor import to_headmajor
+
+    c8, dh, bb = c // 8, c // heads, min(b, TRAIN_BATCH)
+    arrs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 6 * c8) for _ in range(2))
+    qkv = randn(gen, b, n, 3 * c)
+    qkvp = pad_qkv(qkv, heads, 128)
+    hm = to_headmajor(qkv, heads)
+    hm_b, g_hm = hm[:bb], randn(gen, bb, heads, n, dh)
+    written = (torch.arange(128 * heads, device="cuda") % 128) < dh
+    q, k, v = hm.unbind(1)
+    sdpa_hm = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    return [
+        ("aligned_loads_attention", ops.aligned_loads_attention, arrs + (heads,), False, None,
+         None),
+        ("aligned_all_attention", ops.aligned_all_attention, arrs + (heads,), False, written, None),
+        ("aligned_nosm_attention", ops.aligned_nosm_attention, arrs + (heads,), True, written,
+         None),
+        ("aligned_cheap_attention", ops.aligned_cheap_attention, arrs + (heads,), False, written,
+         None),
+        ("scores_only_attention", ops.scores_only_attention, (qkv, heads), False, None, None),
+        (None, ops.scores_only_attention, (qkv, heads, "loads"), False, None, None),
+        ("scores_softmax_attention", ops.scores_softmax_attention, (qkv, heads), False, None,
+         None),
+        ("full_attention", ops.full_attention, (qkv, heads), False, None,
+         library_sdpa(qkv, heads)),
+        ("interleave2_attention", ops.interleave2_attention, (qkv, heads), False, None,
+         library_sdpa(qkv, heads)),
+        ("phased_attention", ops.phased_attention, (qkv, heads), False, None,
+         library_sdpa(qkv, heads)),
+        ("padded_attention", ops.padded_attention, (qkvp, heads, dh, "scores"), False, None, None),
+        ("padded_attention", ops.padded_attention, (qkvp, heads, dh), False, None, None),
+        ("padded_octic_attention", ops.padded_octic_attention, (qkvp, heads, dh), False, None,
+         None),
+        ("bh_std_attention", ops.bh_std_attention, (qkvp, heads, dh), False, None,
+         library_sdpa_padded(qkvp, heads, dh)),
+        ("bh_octic_attention", ops.bh_octic_attention, (qkvp, heads, dh), False, None, None),
+        ("headmajor_attention", ops.headmajor_attention, (hm, heads), False, None, sdpa_hm),
+        ("headmajor_attention_bwd", ops.headmajor_attention_bwd, (hm_b, g_hm, heads), True, None,
+         library_sdpa_headmajor_bwd(hm_b, g_hm)),
+    ]
+
+
+def probe_phases(gen, summary, card) -> dict:
+    """P21, the probes of K-attn's time (kernel row 14a): each probe against
+    its plain version at ViT-H/14 B=64 (the backward at B=32) and at a
+    ragged shape; times at the first shape (k = 20 back-to-back launches a
+    window, tools/timing.py, as the probes are read in differences of tens
+    of microseconds; the plain version with time_ms), bound and library
+    call; then each probe op driven once, its counter set to 0 just before.
+    Returns the launches of that run."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools.timing import time_per_launch
+
+    shapes = (("vith14_b64", (BATCH, 257, 1280, 16)), ("ragged", (3, 37, 1280, 16)))
+    failed = []
+    for label, shape in shapes:
+        with torch.no_grad():
+            cases = probe_cases(gen, *shape)
+            for row, op, args, scaled, cols, lib in cases:
+                name = op.__name__ + ("" if row else "[loads]")
+                out = op(*args)
+                torch.cuda.synchronize()
+                ref = op.reference(*args)
+                if cols is not None:
+                    out, ref = out[..., cols], ref[..., cols]
+                err, ok = compare(out, ref, scaled)
+                bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
+                line = f"{name} [{label}] max_abs_err {err:.3e} (tol {bar}) "
+                line += "ok" if ok else "FAIL"
+                del out, ref
+                if label == shapes[0][0]:
+                    before = op.launches
+                    ms = time_per_launch(lambda: op(*args))
+                    if op.launches <= before:
+                        raise AssertionError(f"{name}: launch counter did not move")
+                    plain_ms = time_ms(lambda: op.reference(*args), iters=5, warmup=1)
+                    lib_ms = time_per_launch(lib) if lib is not None else None
+                    b = min(shape[0], TRAIN_BATCH) if op is ops.headmajor_attention_bwd else \
+                        shape[0]
+                    full = (b,) + shape[1:] + (True,)
+                    bms, bby = bound(op.__name__ if row else "loads_only", full)
+                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                             f"({bby})" + (f", library call {lib_ms:.4f} ms" if lib else ""))
+                    if row:
+                        e = summary.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0,
+                                                     "plain_ms": 0.0, "library_ms": None})
+                        e["ms"] += ms  # probe k sums its two stages, as its bound does
+                        e["plain_ms"] += plain_ms
+                        e["library_ms"] = lib_ms
+                        e["shape"] = full
+                if row:
+                    summary[row]["max_abs_err"] = max(summary[row]["max_abs_err"], err)
+                phase("P21", line)
+                if not ok:
+                    failed.append(f"{name}[{label}]")
+            del cases
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"probe kernels outside tolerance: {failed}")
+    # the probe path: each probe op once at ViT-H/14 (its first case)
+    with torch.no_grad():
+        cases = probe_cases(gen, BATCH, 257, 1280, 16)
+        first = {}
+        for row, op, args, *_ in cases:
+            first.setdefault(op, args)
+        ops.reset_launch_counts()
+        for op, args in first.items():
+            op(*args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = {op.__name__: 1 for op in ops.PROBE_OPS}
+    if counts != expected_launches(want):
+        raise AssertionError(f"probe launches {counts}, expected {want}")
+    phase("P21", f"probe path: each of the {len(want)} probe ops launched once on {card}")
+    del cases, first
     torch.cuda.empty_cache()
     return counts
 

@@ -22,8 +22,10 @@
 //     are one slice at column (s*H + h)*dh of one qkv [B,N,3C], the standard
 //     layout's gather; the same six outputs.
 // One kernel serves every layout: a gather table says where each segment of
-// a head's channels lies (a base pointer per s, a row stride, a width and a
-// head stride) and a scatter table where the output's segments go.
+// a head's channels lies (a base pointer per s, a row stride, a batch
+// stride, a width and a head stride or a per-head column table) and a
+// scatter table where the output's segments go. The device code is in
+// csrc/attention_core.cuh, which csrc/attention_probe.cu shares.
 //
 // What bounds it on the H100: at ViT-H/14, B=64 (N = 257, H = 16, dh = 80)
 // one layer is 2 * 2 * 64*16 * 257^2 * 80 = 10.8 GFLOP over 126 MB of qkv:
@@ -47,320 +49,13 @@
 // (FlashAttention-2 style) with scores, probabilities and output kept in
 // m16n8k16 MMA fragments in registers. Scores and the softmax are f32; the
 // probabilities are rounded to bf16 only as the P.V operand.
-#include <math_constants.h>
+#include "attention_core.cuh"
 
-#include "common.cuh"
-
-namespace ovt {
-namespace attn {
-
-constexpr int WARPS = 8, THREADS = WARPS * 32, KB = 64, UNROLL = 4;
-constexpr int MAX_SEG = 6;
-
-// Where head h's dh channels of q (s = 0), k (1) and v (2) lie: segment i
-// holds `width[i]` consecutive channels of the head at column h * hs[i] of
-// the array p[i][s], whose token rows are ld[i][s] elements apart. The
-// segments follow each other in the head's channel order.
-struct Gather {
-  int nseg;
-  const bf16* p[MAX_SEG][3];
-  int ld[MAX_SEG][3];
-  int width[MAX_SEG], hs[MAX_SEG];
-  int vec[MAX_SEG];  // elements per load of the segment: 8, 4, 2 or 1 (chosen by the host)
-};
-
-// Where head h's dh output channels go: segment i receives `width[i]`
-// channels at column h * hs[i] of p[i], rows ld[i] apart.
-struct Scatter {
-  int nseg;
-  bf16* p[MAX_SEG];
-  int ld[MAX_SEG], width[MAX_SEG], hs[MAX_SEG];
-};
-
-struct Layout {
-  Gather in;
-  Scatter out;
-  int N, H, dh;
-  float scale;
-};
-
-// Gather one segment of q, k and v (`width` channels of each from src[s],
-// the head's column in row 0 of batch 0, rows ld[s] apart) into channels
-// [d_off, d_off + width) of q and k ([kpad][DS] rows) and, transposed, of v^T
-// ([DHP][VS]); rows >= N are zero. One loop covers the three operands, so
-// a narrow segment still keeps UNROLL loads of V elements in flight per
-// thread. Consecutive threads take consecutive tokens, which keeps the
-// transposed 2-byte stores into v^T free of bank conflicts.
-template <int DHP, int V>
-__device__ __forceinline__ void gather_seg(const bf16* const* src, const int* ld, int width,
-                                           int d_off, int b, int N, int kpad, bf16* qs,
-                                           bf16* ks, bf16* vt, int VS) {
-  typedef typename VecOf<V>::T Vec;
-  constexpr int DS = DHP + 8;
-  const int per_s = kpad * (width / V), total = 3 * per_s;
-  for (int base = threadIdx.x; base < total; base += THREADS * UNROLL) {
-    Vec v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int idx = base + u * THREADS;
-      const int s = idx / per_s, r = idx - s * per_s;
-      const int c = r / kpad, n = r - c * kpad;
-      v[u] = Vec{};
-      if (idx < total && n < N)
-        v[u] = *reinterpret_cast<const Vec*>(src[s] + ((size_t)b * N + n) * ld[s] + c * V);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int idx = base + u * THREADS;
-      if (idx >= total) continue;
-      const int s = idx / per_s, r = idx - s * per_s;
-      const int c = r / kpad, n = r - c * kpad, d0 = d_off + c * V;
-      if (s == 2) {
-        const bf16* e = reinterpret_cast<const bf16*>(&v[u]);
-#pragma unroll
-        for (int i = 0; i < V; ++i) vt[(d0 + i) * VS + n] = e[i];
-      } else {
-        *reinterpret_cast<Vec*>((s == 0 ? qs : ks) + n * DS + d0) = v[u];
-      }
-    }
-  }
+// K-attn: stage FULL, one head a CTA
+static int k_attn(ovt::attn::Layout& L, int B, void* stream) {
+  return ovt::attn::dispatch<ovt::attn::FULL, ovt::attn::ONE_HEAD>(
+      L, B, static_cast<cudaStream_t>(stream));
 }
-
-// Gather q, k and v of head h (batch b) into shared memory: q and k as
-// [kpad][DS] rows, v transposed as [DHP][VS]; rows >= N and channels >= dh
-// are zero. Each segment takes its own load width.
-template <int DHP>
-__device__ __forceinline__ void gather_head(const Layout& L, int b, int h, int kpad, bf16* qs,
-                                            bf16* ks, bf16* vt, int VS) {
-  constexpr int DS = DHP + 8;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < kpad * (DHP - L.dh); i += THREADS) {
-    const int d = L.dh + i / kpad, n = i % kpad;
-    qs[n * DS + d] = zero;
-    ks[n * DS + d] = zero;
-    vt[d * VS + n] = zero;
-  }
-  const Gather& G = L.in;
-  int d_off = 0;
-  for (int i = 0; i < G.nseg; ++i) {
-    const bf16* src[3];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) src[s] = G.p[i][s] + (size_t)h * G.hs[i];
-    const int w = G.width[i];
-    switch (G.vec[i]) {
-      case 8: gather_seg<DHP, 8>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
-      case 4: gather_seg<DHP, 4>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
-      case 2: gather_seg<DHP, 2>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
-      default: gather_seg<DHP, 1>(src, G.ld[i], w, d_off, b, L.N, kpad, qs, ks, vt, VS); break;
-    }
-    d_off += w;
-  }
-}
-
-template <int DHP>
-__global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
-  constexpr int DS = DHP + 8;  // q and k smem row stride (bank-conflict-free 32-bit loads)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int N = L.N, dh = L.dh;
-  const int kpad = (N + 15) / 16 * 16;
-  const int VS = kpad + 8;  // v^T smem row stride
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* qs = ks + kpad * DS;
-  bf16* vt = qs + kpad * DS;
-  unsigned char* seg_of = reinterpret_cast<unsigned char*>(vt + DHP * VS);
-  unsigned char* w_of = seg_of + DHP;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y;
-
-  // output channel -> (scatter segment, channel within it)
-  for (int d = tid; d < DHP; d += THREADS) {
-    int i = 0, base = 0;
-    while (i < L.out.nseg - 1 && d >= base + L.out.width[i]) base += L.out.width[i++];
-    seg_of[d] = static_cast<unsigned char>(i);
-    w_of[d] = static_cast<unsigned char>(d - base);
-  }
-  gather_head<DHP>(L, b, h, kpad, qs, ks, vt, VS);
-  __syncthreads();
-
-  const int g = lane >> 2, t = lane & 3;
-  constexpr int KC = DHP / 16, NT = DHP / 8;
-  const float sl2 = L.scale * 1.4426950408889634f;  // softmax in base 2
-
-  // each warp owns 16 query rows at a time
-  for (int r0 = warp * 16; r0 < kpad; r0 += WARPS * 16) {
-    uint32_t qf[KC][4];
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const bf16* p = qs + (r0 + g) * DS + kc * 16 + 2 * t;
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(p);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(p + 8 * DS);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      qf[kc][3] = *reinterpret_cast<const uint32_t*>(p + 8 * DS + 8);
-    }
-
-    float o[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-    float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    float lrow[2] = {0.f, 0.f};
-
-    for (int kb = 0; kb < kpad; kb += KB) {
-      // every block holds at least one real key (kpad - 16 < N), so the
-      // running max stays finite
-      float s[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        if (kb + nt * 8 < kpad) {
-#pragma unroll
-          for (int kc = 0; kc < KC; ++kc) {
-            const bf16* p = ks + (kb + nt * 8 + g) * DS + kc * 16 + 2 * t;
-            mma_bf16(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(p),
-                     *reinterpret_cast<const uint32_t*>(p + 8));
-          }
-        }
-      }
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kb + nt * 8 + 2 * t + (e & 1);
-          s[nt][e] = key < N ? s[nt][e] * sl2 : -CUDART_INF_F;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float mnew = fmaxf(mrow[r], mx[r]);
-        alpha[r] = exp2f(mrow[r] - mnew);
-        mrow[r] = mnew;
-        lrow[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = exp2f(s[nt][e] - mrow[e >> 1]);
-          lrow[e >> 1] += s[nt][e];
-        }
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        o[i][0] *= alpha[0];
-        o[i][1] *= alpha[0];
-        o[i][2] *= alpha[1];
-        o[i][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kc = 0; kc < KB / 16; ++kc) {
-        if (kb + kc * 16 >= kpad) break;
-        uint32_t pf[4];
-        pf[0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
-        pf[1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
-        pf[2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pf[3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          const bf16* p = vt + (i * 8 + g) * VS + kb + kc * 16 + 2 * t;
-          mma_bf16(o[i], pf, *reinterpret_cast<const uint32_t*>(p),
-                   *reinterpret_cast<const uint32_t*>(p + 8));
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
-      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
-      lrow[r] = 1.f / lrow[r];
-    }
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = r0 + g + (e >> 1) * 8;
-        const int d = i * 8 + 2 * t + (e & 1);
-        if (n < N && d < dh) {
-          const int sg = seg_of[d];
-          L.out.p[sg][((size_t)b * N + n) * L.out.ld[sg] + (size_t)h * L.out.hs[sg] + w_of[d]] =
-              __float2bfloat16(o[i][e] * lrow[e >> 1]);
-        }
-      }
-  }
-}
-
-template <int DHP>
-int launch(const Layout& L, int B, cudaStream_t stream) {
-  const int kpad = (L.N + 15) / 16 * 16;
-  const int smem = (2 * kpad * (DHP + 8) + DHP * (kpad + 8)) * 2 + 2 * DHP;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<DHP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  attention_kernel<DHP><<<dim3(L.H, B), THREADS, smem, stream>>>(L);
-  return cudaGetLastError();
-}
-
-// per gather segment, the widest load (elements) that its width, head
-// stride, channel offset in the head, row strides and base addresses allow
-void choose_vec(Gather& G) {
-  int d_off = 0;
-  for (int i = 0; i < G.nseg; ++i) {
-    int v = 8;
-    for (; v > 1; v /= 2) {
-      bool ok = G.width[i] % v == 0 && G.hs[i] % v == 0 && d_off % v == 0;
-      for (int s = 0; s < 3; ++s)
-        ok = ok && G.ld[i][s] % v == 0 && reinterpret_cast<uintptr_t>(G.p[i][s]) % (2 * v) == 0;
-      if (ok) break;
-    }
-    G.vec[i] = v;
-    d_off += G.width[i];
-  }
-}
-
-int dispatch(Layout& L, int B, cudaStream_t stream) {
-  choose_vec(L.in);
-  L.scale = 1.0f / sqrtf(static_cast<float>(L.dh));
-  const int dhp = (L.dh + 15) / 16 * 16;
-  switch (dhp) {
-    case 16: return launch<16>(L, B, stream);
-    case 32: return launch<32>(L, B, stream);
-    case 48: return launch<48>(L, B, stream);
-    case 64: return launch<64>(L, B, stream);
-    case 80: return launch<80>(L, B, stream);
-    case 96: return launch<96>(L, B, stream);
-    case 128: return launch<128>(L, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// gather segment i: one array [B,N,3*H*width] in (3, H, width) column order
-// (the standard and the octic layouts): the s-th block at column s*H*width
-void set_gather_3h(Gather& G, int i, const void* p, int ld, int width, int H) {
-  for (int s = 0; s < 3; ++s) {
-    G.p[i][s] = static_cast<const bf16*>(p) + (size_t)s * H * width;
-    G.ld[i][s] = ld;
-  }
-  G.width[i] = width;
-  G.hs[i] = width;
-}
-
-// the octic scatter: o1..o4 [B,N,H*d1], oe0, oe1 [B,N,H*de], contiguous
-void set_octic_scatter(Scatter& S, void* const* outs, int H, int d1, int de) {
-  S.nseg = 6;
-  for (int i = 0; i < 6; ++i) {
-    const int w = i < 4 ? d1 : de;
-    S.p[i] = static_cast<bf16*>(outs[i]);
-    S.ld[i] = H * w;
-    S.width[i] = w;
-    S.hs[i] = w;
-  }
-}
-
-}  // namespace attn
-}  // namespace ovt
 
 // qkv [B,N,3*H*dh] in (3, H, dh) column order -> out [B,N,H*dh]; bf16,
 // contiguous. Returns the cudaError_t of the launch.
@@ -377,7 +72,7 @@ OVT_EXPORT int ovt_attention_std(const void* qkv, void* out, int B, int N, int H
   L.N = N;
   L.H = H;
   L.dh = dh;
-  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+  return k_attn(L, B, stream);
 }
 
 // Octic head layout, each input with its own token row stride (elements):
@@ -401,7 +96,7 @@ OVT_EXPORT int ovt_attention_octic_rows(const void* q1, const void* q2, const vo
   L.N = N;
   L.H = H;
   L.dh = 4 * d1 + 2 * de;
-  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+  return k_attn(L, B, stream);
 }
 
 // Wide-1d octic layout: q1d, k1d, v1d [B,N,4*H*d1] with columns (H, [a1|a2|
@@ -430,7 +125,7 @@ OVT_EXPORT int ovt_attention_wide1d(const void* q1d, const void* k1d, const void
   L.N = N;
   L.H = H;
   L.dh = 4 * d1 + 2 * de;
-  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+  return k_attn(L, B, stream);
 }
 
 // Wide octic layout: qkv [B,N,3*H*dh] contiguous with columns (3, H, [a1|a2|
@@ -448,5 +143,5 @@ OVT_EXPORT int ovt_attention_wide(const void* qkv, void* o1, void* o2, void* o3,
   L.N = N;
   L.H = H;
   L.dh = dh;
-  return ovt::attn::dispatch(L, B, static_cast<cudaStream_t>(stream));
+  return k_attn(L, B, stream);
 }

@@ -18,10 +18,13 @@
 //     dq1d, dk1d, dv1d in the wide layout and de0, de1;
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide backward
 //     (`_octic_wide_bwd_rule`, `_octic_wide_bwd_kernel`): qkv [B,N,3C] with
-//     columns (3, H, [a1|a2|b1|b2|e0|e1]) and the six cotangents -> dqkv.
+//     columns (3, H, [a1|a2|b1|b2|e0|e1]) and the six cotangents -> dqkv;
+//   scripts/r3_attn_headmajor.py:headmajor_attention_bwd (`_hm_bwd_kernel`,
+//     a probe of kernel row 14a): qkv [B,3,H,N,dh] head-major and g
+//     [B,H,N,dh] -> dqkv [B,3,H,N,dh], through the tables' batch strides.
 // Three tables describe a layout, as in the forward (csrc/attention.cu): the
-// gather of q, k and v (a base pointer per s, row strides, widths, head
-// strides), the cotangent g in the six-irrep output layout, and dq, dk, dv
+// gather of q, k and v (a base pointer per s, row and batch strides, widths,
+// head strides), the cotangent g in the six-irrep output layout, and dq, dk, dv
 // in the gather's layout. Each (s, head) column slice of every gradient is
 // written exactly once: no zeroing, no accumulation across heads.
 //
@@ -61,11 +64,13 @@ constexpr int MAX_SEG = 6;
 
 // Head h's channels of one operand: segment i holds `width[i]` consecutive
 // channels of the head at column h * hs[i] of the array p[i][s] (s = 0, 1, 2
-// for q, k, v; the cotangent uses s = 0 only), rows ld[i][s] elements apart.
+// for q, k, v; the cotangent uses s = 0 only), token rows ld[i][s] elements
+// apart, batch rows bs[i][s] (N * ld[i][s] unless set).
 struct Heads {
   int nseg;
   const bf16* p[MAX_SEG][3];
   int ld[MAX_SEG][3];
+  size_t bs[MAX_SEG][3];
   int width[MAX_SEG], hs[MAX_SEG];
   int vec[MAX_SEG];  // elements per gather load, chosen by the host
 };
@@ -75,6 +80,7 @@ struct Args {
   Heads g;                  // the output cotangent, in the six-irrep output layout
   bf16* d[MAX_SEG][3];      // dq, dk, dv: the layout of qkv (its widths and head strides)
   int d_ld[MAX_SEG][3];
+  size_t d_bs[MAX_SEG][3];  // their batch strides (N * d_ld unless set)
   float* lse;   // [B,H,N] scratch: log2-sum-exp2 of the scaled scores
   float* dsum;  // [B,H,N] scratch: rowsum(dP o P)
   int N, H, dh;
@@ -83,19 +89,20 @@ struct Args {
 };
 
 // rows [kpad][DS] of one segment of one operand (`width` channels from
-// `src`, the head's column in row 0 of batch 0, rows `ld` apart) at channels
+// `src`, the head's column in row 0 of batch 0, token rows `ld` and batch
+// rows `bs` apart) at channels
 // [d_off, d_off + width); rows >= N are zero. Each thread keeps one V-element
 // chunk of the row and steps over the rows, UNROLL loads in flight, so the
 // loop has no division; consecutive threads take consecutive chunks of a row.
 template <int DHP, int V>
-__device__ __forceinline__ void gather_seg(const bf16* src, int ld, int width, int d_off, int b,
-                                           int N, int kpad, bf16* dst) {
+__device__ __forceinline__ void gather_seg(const bf16* src, int ld, size_t bs, int width,
+                                           int d_off, int b, int N, int kpad, bf16* dst) {
   typedef typename VecOf<V>::T Vec;
   constexpr int DS = DHP + 8;
   const int cpr = width / V, rows = THREADS / cpr;
   if (threadIdx.x >= rows * cpr) return;
   const int c = threadIdx.x % cpr;
-  const bf16* from = src + (size_t)b * N * ld + c * V;
+  const bf16* from = src + b * bs + c * V;
   bf16* to = dst + d_off + c * V;
   for (int n = threadIdx.x / cpr; n < kpad; n += rows * UNROLL) {
     Vec v[UNROLL];
@@ -127,11 +134,12 @@ __device__ __forceinline__ void gather_rows(const Heads& T, int s, const Args& A
   for (int i = 0; i < T.nseg; ++i) {
     const bf16* src = T.p[i][s] + (size_t)h * T.hs[i];
     const int ld = T.ld[i][s], w = T.width[i];
+    const size_t bs = T.bs[i][s];
     switch (T.vec[i]) {
-      case 8: gather_seg<DHP, 8>(src, ld, w, d_off, b, A.N, kpad, dst); break;
-      case 4: gather_seg<DHP, 4>(src, ld, w, d_off, b, A.N, kpad, dst); break;
-      case 2: gather_seg<DHP, 2>(src, ld, w, d_off, b, A.N, kpad, dst); break;
-      default: gather_seg<DHP, 1>(src, ld, w, d_off, b, A.N, kpad, dst); break;
+      case 8: gather_seg<DHP, 8>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
+      case 4: gather_seg<DHP, 4>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
+      case 2: gather_seg<DHP, 2>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
+      default: gather_seg<DHP, 1>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
     }
     d_off += w;
   }
@@ -246,7 +254,7 @@ __device__ __forceinline__ void store_rows(const Args& A, const Smem& S, const f
       const int d = i * 8 + 2 * t;  // even; dh is a multiple of 8
       if (n >= A.N || d >= A.dh) continue;
       const int sg = S.seg_of[d];
-      bf16* dst = A.d[sg][s] + ((size_t)b * A.N + n) * A.d_ld[sg][s] +
+      bf16* dst = A.d[sg][s] + b * A.d_bs[sg][s] + (size_t)n * A.d_ld[sg][s] +
                   (size_t)h * A.qkv.hs[sg] + S.w_of[d];
       const float v0 = acc[i][2 * hf], v1 = acc[i][2 * hf + 1];
       if (A.pair_out) {
@@ -254,8 +262,8 @@ __device__ __forceinline__ void store_rows(const Args& A, const Smem& S, const f
       } else {
         dst[0] = __float2bfloat16(v0);
         const int sg1 = S.seg_of[d + 1];
-        A.d[sg1][s][((size_t)b * A.N + n) * A.d_ld[sg1][s] + (size_t)h * A.qkv.hs[sg1] +
-                    S.w_of[d + 1]] = __float2bfloat16(v1);
+        A.d[sg1][s][b * A.d_bs[sg1][s] + (size_t)n * A.d_ld[sg1][s] +
+                    (size_t)h * A.qkv.hs[sg1] + S.w_of[d + 1]] = __float2bfloat16(v1);
       }
     }
 }
@@ -467,7 +475,8 @@ void choose_vec(Heads& T, int ns) {
     for (; v > 1; v /= 2) {
       bool ok = T.width[i] % v == 0 && T.hs[i] % v == 0 && d_off % v == 0;
       for (int s = 0; s < ns; ++s)
-        ok = ok && T.ld[i][s] % v == 0 && reinterpret_cast<uintptr_t>(T.p[i][s]) % (2 * v) == 0;
+        ok = ok && T.ld[i][s] % v == 0 && T.bs[i][s] % v == 0 &&
+             reinterpret_cast<uintptr_t>(T.p[i][s]) % (2 * v) == 0;
       if (ok) break;
     }
     T.vec[i] = v;
@@ -475,7 +484,18 @@ void choose_vec(Heads& T, int ns) {
   }
 }
 
+// unset batch strides -> N * ld (the token-major layouts)
+void default_batch_strides(Args& A) {
+  for (int i = 0; i < MAX_SEG; ++i)
+    for (int s = 0; s < 3; ++s) {
+      if (A.qkv.bs[i][s] == 0) A.qkv.bs[i][s] = (size_t)A.N * A.qkv.ld[i][s];
+      if (A.g.bs[i][s] == 0) A.g.bs[i][s] = (size_t)A.N * A.g.ld[i][s];
+      if (A.d_bs[i][s] == 0) A.d_bs[i][s] = (size_t)A.N * A.d_ld[i][s];
+    }
+}
+
 int dispatch(Args& A, int B, cudaStream_t stream) {
+  default_batch_strides(A);
   choose_vec(A.qkv, 3);
   choose_vec(A.g, 1);
   A.pair_out = 1;
@@ -621,6 +641,36 @@ OVT_EXPORT int ovt_attention_wide_bwd(const void* qkv, const void* g1, const voi
   const void* const gs[6] = {g1, g2, g3, g4, ge0, ge1};
   const int lg[6] = {lg1, lg2, lg3, lg4, lge0, lge1};
   ovt::attn_bwd::set_octic_g(A, gs, lg, d1, de);
+  ovt::attn_bwd::set_common(A, lse, dsum, N, H, dh);
+  return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
+}
+
+// Head-major layout (scripts/r3_attn_headmajor.py:headmajor_attention_bwd):
+// qkv and dqkv [B,3,H,N,dh], g [B,H,N,dh], all contiguous: each (s, head) is
+// an [N, dh] block, so the head stride is N*dh and the batch strides
+// 3*H*N*dh and H*N*dh. lse and dsum f32 scratch [B,H,N].
+OVT_EXPORT int ovt_attention_headmajor_bwd(const void* qkv, const void* g, void* dqkv, void* lse,
+                                           void* dsum, int B, int N, int H, int dh,
+                                           void* stream) {
+  ovt::attn_bwd::Args A = {};
+  const size_t blk = (size_t)N * dh;
+  A.qkv.nseg = 1;
+  for (int s = 0; s < 3; ++s) {
+    A.qkv.p[0][s] = static_cast<const ovt::bf16*>(qkv) + s * H * blk;
+    A.qkv.ld[0][s] = dh;
+    A.qkv.bs[0][s] = 3 * H * blk;
+    A.d[0][s] = static_cast<ovt::bf16*>(dqkv) + s * H * blk;
+    A.d_ld[0][s] = dh;
+    A.d_bs[0][s] = 3 * H * blk;
+  }
+  A.qkv.width[0] = dh;
+  A.qkv.hs[0] = static_cast<int>(blk);
+  A.g.nseg = 1;
+  A.g.p[0][0] = static_cast<const ovt::bf16*>(g);
+  A.g.ld[0][0] = dh;
+  A.g.bs[0][0] = H * blk;
+  A.g.width[0] = dh;
+  A.g.hs[0] = static_cast<int>(blk);
   ovt::attn_bwd::set_common(A, lse, dsum, N, H, dh);
   return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
 }

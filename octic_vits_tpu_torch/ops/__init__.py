@@ -28,6 +28,24 @@ from octic_vits_tpu_torch.ops.attention import (
     standard_attention_bwd_reference,
     standard_attention_reference,
 )
+from octic_vits_tpu_torch.ops.attention_probe import (
+    PROBE_OPS,
+    aligned_all_attention,
+    aligned_cheap_attention,
+    aligned_loads_attention,
+    aligned_nosm_attention,
+    bh_octic_attention,
+    bh_std_attention,
+    full_attention,
+    headmajor_attention,
+    headmajor_attention_bwd,
+    interleave2_attention,
+    padded_attention,
+    padded_octic_attention,
+    phased_attention,
+    scores_only_attention,
+    scores_softmax_attention,
+)
 from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
 from octic_vits_tpu_torch.ops.gelu_d8 import (
     gelu_d8,
@@ -100,10 +118,12 @@ WIDE_OPS = (octic_attention_wide1d, octic_attention_wide1d_bwd, linear_d8_wide1d
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
-#: fused qkv + attention; fuse_mlp training adds the fused MLP's backward)
+#: fused qkv + attention; fuse_mlp training adds the fused MLP's backward;
+#: the probes of kernel row 14a run on no model path). Each probe op's
+#: plain version is also ``<op>.reference``.
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
                               linear_d8_fused, octic_attention_fused_qkv_bwd,
-                              mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS + WIDE_OPS
+                              mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS + WIDE_OPS + PROBE_OPS
 
 
 def reset_launch_counts() -> None:
@@ -120,7 +140,23 @@ __all__ = [
     "INFERENCE_OPS",
     "KERNEL_OPS",
     "PACKED_OPS",
+    "PROBE_OPS",
     "WIDE_OPS",
+    "aligned_all_attention",
+    "aligned_cheap_attention",
+    "aligned_loads_attention",
+    "aligned_nosm_attention",
+    "bh_octic_attention",
+    "bh_std_attention",
+    "full_attention",
+    "headmajor_attention",
+    "headmajor_attention_bwd",
+    "interleave2_attention",
+    "padded_attention",
+    "padded_octic_attention",
+    "phased_attention",
+    "scores_only_attention",
+    "scores_softmax_attention",
     "dense_gelu",
     "dense_gelu_bwd",
     "dense_gelu_reference",

@@ -53,9 +53,10 @@ SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 
 
 def _check_attention_shape(n: int, dh: int) -> None:
-    """The forward kernel keeps a whole head's q, k and v^T in shared memory."""
+    """The forward kernel keeps a whole head's q, k and v^T in shared memory
+    (csrc/attention_core.cuh:smem_bytes)."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
-    smem = (2 * kpad * (dhp + 8) + dhp * (kpad + 8)) * 2 + 2 * dhp
+    smem = (2 * kpad * (dhp + 8) + dhp * (kpad + 8)) * 2 + 2 * dhp + 6 * 8
     if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
         raise ValueError(f"attention kernel: N={n}, head dim {dh} unsupported "
                          f"(head dim a multiple of 8 up to {MAX_HEAD_DIM}; "

@@ -1,31 +1,55 @@
-"""CUDA-event times of the attention kernels at the ViT-H/14 shapes of
-``chip_smoke.py``, for comparing two trees on one card:
+"""CUDA-event times of the attention and linear kernels at the ViT-H/14 shapes
+of ``chip_smoke.py``, for comparing two trees on one card:
 
-    python3 -m octic_vits_tpu_torch.tools.time_kernels
+    python3 octic_vits_tpu_torch/tools/time_kernels.py [--root DIR]
 
-It times, in this tree, the forward kernels of P2 and the train-path kernels
-of P5 (B=64 and B=32, with bias), and P18's wide-qkv kernels where this
-tree's ``chip_smoke.py`` has them, each the median of 50 launches after
-warm-up, and prints the card's name and power limit and one JSON line
-``{"card": ..., "ms": {kernel: ms}}`` (a kernel with several cases sums
-their times). To compare two commits, run it from the root of each checkout
-in turns (parent, change, change, parent) in one call: each run builds its
-own tree's kernels. Run from the repository root (it imports
-``chip_smoke``); needs a CUDA device.
+It times the tree at DIR (default: the current directory; it imports DIR's
+``chip_smoke`` and ``octic_vits_tpu_torch``, so DIR's own kernels are built
+and run): the forward kernels of P2 and the train-path kernels of P5 (B=64
+and B=32, with bias), and P18's wide-qkv kernels where that tree's
+``chip_smoke.py`` has them. Each time is the median over 7 windows of 20
+back-to-back launches between one pair of CUDA events (this file's
+``timing.py``), so that the wrappers' host time, which ``chip_smoke.time_ms``
+keeps in its windows, is spread over the launches and both trees are timed
+by the same code. It prints the card's name and power limit and one JSON
+line ``{"card": ..., "root": ..., "ms": {kernel: ms}}`` (a kernel with several
+cases sums their times). To compare two commits, unpack the other one into a
+git-ignored directory and run this file with ``--root`` on each in turns
+(parent, change, change, parent) in one call. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
+import os
 import sys
+from pathlib import Path
 
 import torch
 
 
+def _timing():
+    """This file's timing.py, whichever tree is timed."""
+    spec = importlib.util.spec_from_file_location("_ovt_timing",
+                                                  Path(__file__).with_name("timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".", help="root of the tree to time")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
+    root = os.path.abspath(args.root)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    timing = _timing()
     import chip_smoke as cs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -39,10 +63,10 @@ def main() -> int:
     times = {}
     with torch.no_grad():
         for cases, shape in sets:
-            for name, kern, _, args, _, _ in cases(gen, *shape):
-                times[name] = times.get(name, 0.0) + cs.time_ms(lambda: kern(*args), iters=50,
-                                                                warmup=5)
-    print(json.dumps({"card": card, "ms": times}), flush=True)
+            for name, kern, _, args_, _, _ in cases(gen, *shape):
+                times[name] = times.get(name, 0.0) + timing.time_per_launch(
+                    lambda: kern(*args_))
+    print(json.dumps({"card": card, "root": root, "ms": times}), flush=True)
     return 0
 
 

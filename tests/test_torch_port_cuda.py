@@ -972,3 +972,37 @@ def test_small_wide_hybrid_on_card(gen):
     a = torch.cat([p.grad.float().reshape(-1).cpu() for p in card.parameters()])
     b = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0).item() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# the attention probes (kernel row 14a): each against its plain version, on
+# chip_smoke's cases (P21) at the ragged shape, at full N and at ViT-L's
+# head dim 64
+# ---------------------------------------------------------------------------
+
+PROBE_SHAPES = [(3, 37, 1280, 16), (2, 257, 1280, 16), (2, 65, 1024, 16)]
+PROBE_CASE_IDS = ["a", "b", "c", "d", "f", "f_loads", "g", "h", "i", "j", "k_scores", "k_full",
+                  "l", "m", "n", "o", "p"]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("case", range(len(PROBE_CASE_IDS)), ids=PROBE_CASE_IDS)
+def test_attention_probe_kernel(gen, shape, case):
+    import chip_smoke
+
+    with torch.no_grad():
+        cases = chip_smoke.probe_cases(gen, *shape)
+        assert len(cases) == len(PROBE_CASE_IDS)
+        _, op, args, scaled, cols, _ = cases[case]
+        out = _counted(op, *args)
+        ref = op.reference(*args)
+    if cols is not None:
+        out, ref = out[..., cols], ref[..., cols]
+    err, ok = chip_smoke.compare(out, ref, scaled)
+    assert ok, f"{op.__name__}: max abs err {err:.3e}"
+
+
+def test_interleave2_probe_needs_even_heads(gen):
+    qkv = _randn(gen, 1, 17, 3 * 240)
+    with pytest.raises(ValueError, match="even number of heads"):
+        ops.interleave2_attention(qkv, 3)
