@@ -102,6 +102,16 @@ Phases, one line each (any failure raises and exits non-zero):
              versions at ViT-H/14 B=64 (the backward at B=32) and at a ragged
              shape (B=3, N=37), each with its time, bound and library call;
              then each probe op launched once (launches against 1 each)
+  P22 probes 14b  the probes of kernel row 14b against their plain versions
+             with P21's bars: the cls-split, two-images and hoisted-assembly
+             attention of scripts/r3_attn_experiments.py at ViT-H/14 B=64 and
+             at B=4, N=37; K-lin-d8's tile sweep (scripts/profile_lin_tiles.py,
+             both stores, M = 16448 and 148), each tile also bitwise equal to
+             the shipped K-lin-d8; the product-cost law's twelve shapes
+             (scripts/r3_matmul_law.py, B=64) with the law's own bar
+             (LAW_ATOL, LAW_RTOL), shown to fail a kernel that drops an
+             edge or a head; each with its time, bound and library call;
+             then each row-14b op launched once
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -135,6 +145,9 @@ PEAK_FLOPS, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. Covers one or two
 # bf16 ulps of the output and the summation order of f32 accumulators.
 ATOL, RTOL = 1e-2, 2e-2
+# The product law (P22): both sides sum exact bf16 products in f32 (TF32 off),
+# so they differ only in the order of the sums, ~1e-6 relative
+LAW_ATOL, LAW_RTOL = 1e-6, 1e-4
 # P3: relative L2 error of bf16-on-card logits against f32-on-CPU logits
 # over 32 blocks of bf16 activations
 SLICE_REL_TOL = 5e-2
@@ -393,11 +406,16 @@ PROBE_WORK = {
 }
 
 
-def bound(name: str, shape: tuple) -> tuple:
-    """(bound_ms, bound_by): the least time the card could take for the work."""
-    nbytes, tc_ops, f32_ops = work(name, *shape)
+def bound_of(nbytes: float, tc_ops: float, f32_ops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for work of
+    `nbytes` bytes, `tc_ops` tensor-core and `f32_ops` float32 operations."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, max(tc_ops / PEAK_FLOPS, f32_ops / PEAK_F32)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound(name: str, shape: tuple) -> tuple:
+    """(bound_ms, bound_by) of kernel `name` at one shape (`work`)."""
+    return bound_of(*work(name, *shape))
 
 
 def flat(out) -> tuple:
@@ -407,12 +425,12 @@ def flat(out) -> tuple:
     return (out,)
 
 
-def compare(out, ref, scaled=False):
+def compare(out, ref, scaled=False, tol=(ATOL, RTOL)):
     """Max abs error and whether every output is finite and inside its bar:
-    ATOL + RTOL |ref| elementwise, or BWD_TOL (max|ref| + |ref|) if `scaled`
-    (a bool for all outputs, or one per output of the flattened tuple). An
-    output that is None (no bias, no bias gradient) must be None on both
-    sides."""
+    atol + rtol |ref| elementwise (`tol`, the forward bar unless given), or
+    BWD_TOL (max|ref| + |ref|) if `scaled` (a bool for all outputs, or one
+    per output of the flattened tuple). An output that is None (no bias, no
+    bias gradient) must be None on both sides."""
     outs, refs = flat(out), flat(ref)
     if isinstance(scaled, bool):
         scaled = (scaled,) * len(outs)
@@ -426,7 +444,7 @@ def compare(out, ref, scaled=False):
         r = r.float()
         d = (o.float() - r).abs()
         err = max(err, d.max().item())
-        bar = BWD_TOL * (r.abs().max() + r.abs()) if scaled else ATOL + RTOL * r.abs()
+        bar = BWD_TOL * (r.abs().max() + r.abs()) if scaled else tol[0] + tol[1] * r.abs()
         ok &= bool((d <= bar).all()) and bool(o.isfinite().all())
     return err, ok
 
@@ -506,6 +524,22 @@ META = {
     "headmajor_attention": (PROBE_SRC, "scripts/r3_attn_headmajor.py:44", "probe"),
     "headmajor_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
                                 "scripts/r3_attn_headmajor.py:69", "probe"),
+    # kernel row 14b (P22): scripts/r3_attn_experiments.py, profile_lin_tiles.py and
+    # r3_matmul_law.py
+    "cls_split_attention": (PROBE_SRC, "scripts/r3_attn_experiments.py:279", "probe_14b"),
+    "cls_split_octic_attention": (PROBE_SRC, "scripts/r3_attn_experiments.py:234",
+                                  "probe_14b"),
+    "multi_image_attention": (PROBE_SRC, "scripts/r3_attn_experiments.py:303", "probe_14b"),
+    "multi_image_octic_attention": (PROBE_SRC, "scripts/r3_attn_experiments.py:208",
+                                    "probe_14b"),
+    "hoist_assembly": (PROBE_SRC, "scripts/r3_attn_experiments.py:234", "probe_14b"),
+    "hoist_octic_attention": (PROBE_SRC, "scripts/r3_attn_experiments.py:234", "probe_14b"),
+    "lin_d8_tiled": ("octic_vits_tpu_torch/csrc/lin_d8_probe.cu",
+                     "scripts/profile_lin_tiles.py:41", "probe_14b"),
+    "matmul_law": ("octic_vits_tpu_torch/csrc/mma_law.cu", "scripts/r3_matmul_law.py:65",
+                   "probe_14b"),
+    "matmul_law_batched": ("octic_vits_tpu_torch/csrc/mma_law.cu",
+                           "scripts/r3_matmul_law.py:134", "probe_14b"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -954,15 +988,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_launches = probe_phases(gen, summary, card)
 
+    torch.cuda.empty_cache()
+    probe_14b_launches = probe_14b_phases(gen, summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
-              **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches}
+              **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
+              "probe_14b": probe_14b_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
         n = counts[path][name]
         if n == 0:
             raise AssertionError(f"{name} was not launched on the {path} path")
-        bound_ms, bound_by = bound(name, e["shape"])
+        bound_ms, bound_by = e["bound"] if "bound" in e else bound(name, e["shape"])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": n, "path": path, "max_abs_err": e["max_abs_err"],
                         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
@@ -971,6 +1009,8 @@ def main() -> int:
                         "launches_by_path": {p: c[name] for p, c in counts.items() if c.get(name)}})
         if name in ALSO:
             kernels[-1]["also"] = ALSO[name]
+        if "cases" in e:  # the row-14b ops' other cases (tiles, shapes, split)
+            kernels[-1]["cases"] = e["cases"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1926,7 +1966,7 @@ def probe_phases(gen, summary, card) -> dict:
             op(*args)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-    want = {op.__name__: 1 for op in ops.PROBE_OPS}
+    want = {op.__name__: 1 for op in ops.PROBE_OPS_14A}
     if counts != expected_launches(want):
         raise AssertionError(f"probe launches {counts}, expected {want}")
     phase("P21", f"probe path: each of the {len(want)} probe ops launched once on {card}")
@@ -1935,14 +1975,255 @@ def probe_phases(gen, summary, card) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# P22: the probes of kernel row 14b
+# ---------------------------------------------------------------------------
+
+
+def experiment_work(name: str, split: bool, b: int, n: int, c: int, heads: int) -> tuple:
+    """(bytes, tensor-core operations, float32 operations) of one row-14b
+    attention probe at [B, N, C]: the qkv (3C columns) read once and the
+    output (C) written once; the hoist assembly reads the qkv and writes the
+    padded qkv (3 H 128 columns), no products. With the cls-split the
+    products cover N - 1 keys and key N - 1 takes 2 f32 operations a
+    multiply-add (q . k[N-1] and p v[N-1])."""
+    m = b * n
+    if name == "hoist_assembly":
+        return m * (3 * c + 3 * heads * 128) * 2, 0, 0
+    keys = n - 1 if split else n
+    return m * 4 * c * 2, 4 * m * keys * c, 4 * m * c if split else 0
+
+
+def law_work(b: int, a_shape: tuple, b_shape: tuple, mode: str, reps) -> tuple:
+    """The product law at one shape: each batch row's operands read once and
+    its [8, 128] f32 output written; reps products (or the 16 heads') of 2
+    M K L operations, and the max over each product's M L values."""
+    m, k = a_shape[-2:]
+    l = b_shape[-2] if mode == "nt" else b_shape[-1]
+    count = 16 if reps is None else reps
+    nbytes = b * (math.prod(a_shape) + math.prod(b_shape)) * 2 + b * 8 * 128 * 4
+    return nbytes, b * count * 2 * m * k * l, b * count * m * l
+
+
+def experiment_cases(gen, b, n, c, heads):
+    """(label, kernel op, args, keyword args, library call or None, work) of
+    the row-14b attention probes (scripts/r3_attn_experiments.py) at one
+    shape. The label of an op's first case is its name."""
+    from octic_vits_tpu_torch import ops
+
+    c8 = c // 8
+    arrs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 6 * c8) for _ in range(2))
+    qkv = randn(gen, b, n, 3 * c)
+    octic = arrs + (heads,)
+    work = lambda name, split=False: experiment_work(name, split, b, n, c, heads)  # noqa: E731
+    return [
+        ("cls_split_attention", ops.cls_split_attention, (qkv, heads), {},
+         library_sdpa(qkv, heads), work("cls_split_attention", True)),
+        ("cls_split_octic_attention", ops.cls_split_octic_attention, octic, {}, None,
+         work("cls_split_octic_attention", True)),
+        ("multi_image_attention", ops.multi_image_attention, (qkv, heads), {},
+         library_sdpa(qkv, heads), work("multi_image_attention")),
+        ("multi_image_octic_attention", ops.multi_image_octic_attention, octic, {}, None,
+         work("multi_image_octic_attention")),
+        ("hoist_assembly", ops.hoist_assembly, octic, {}, None, work("hoist_assembly")),
+        ("hoist_octic_attention", ops.hoist_octic_attention, octic, {}, None,
+         work("hoist_octic_attention")),
+        ("hoist_octic_attention[split]", ops.hoist_octic_attention, octic, {"split": True}, None,
+         work("hoist_octic_attention", True)),
+    ]
+
+
+def lin_tile_cases(gen, m, c8, heads):
+    """(label, kernel op, args, keyword args, library call, work, extra
+    check) of K-lin-d8's tile sweep (scripts/profile_lin_tiles.py) at M
+    tokens: both stores at every tile. The extra check holds the output
+    bitwise equal to the shipped K-lin-d8 of the same store."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.ops.linear_probe import STORES, TILES
+    from octic_vits_tpu_torch.probes.profile_lin_tiles import lin_inputs, shipped
+
+    xs = lin_inputs(sys.modules[__name__], gen, m, c8)
+    wk = work("linear_d8_qkv_wide", 1, m, 8 * c8, heads, False)
+
+    def same_as_shipped(store):
+        def check(out):
+            want = flat(shipped(store, *xs, heads))
+            same = all(torch.equal(o, r) for o, r in zip(flat(out), want))
+            return same, f"bitwise equal to the shipped K-lin-d8: {same}"
+        return check
+
+    return [(f"lin_d8_tiled[{store} {bm}x{bn}]", ops.lin_d8_tiled, xs,
+             dict(bm=bm, bn=bn, store=store, num_heads=heads), None, wk, same_as_shipped(store))
+            for store in STORES for bm, bn in TILES]
+
+
+def tol_of(op) -> tuple:
+    """(atol, rtol) of a kernel op against its plain version: the product
+    law's bar for the law's ops, the forward bar for every other."""
+    law = op.__name__ in ("matmul_law", "matmul_law_batched")
+    return (LAW_ATOL, LAW_RTOL) if law else (ATOL, RTOL)
+
+
+def law_inputs(gen, b, a_shape, b_shape, mode, c=0.0625):
+    """Operands of the product law at B batch rows (scale 0.02, as the
+    script's), with every odd batch row's largest product planted at the
+    ragged edges: the last row of A times the last output column, both c
+    (exact in bf16), in head H - 1 - (row // 2) % H where batched. That
+    value, c^2 K, needs every contraction element, so a kernel that drops
+    the last row, output column or contraction element, or a head, misses
+    it by far more than the law's bar; the even rows stay random, so
+    faults inside the tiles show as well."""
+    a, bm = randn(gen, b, *a_shape, scale=0.02), randn(gen, b, *b_shape, scale=0.02)
+    for r in range(1, b, 2):
+        ar, br = a[r], bm[r]
+        if a.ndim == 4:
+            h = a.shape[1] - 1 - (r // 2) % a.shape[1]
+            ar, br = ar[h], br[h]
+        ar[-1, :] = c
+        if mode == "nt":
+            br[-1, :] = c
+        else:
+            br[:, -1] = c
+    return a, bm
+
+
+def law_mutants(op, a, b, mode, *reps) -> dict:
+    """What a kernel returns that drops the last row of A, the last output
+    column, the last contraction element, or (batched) computes the first
+    head alone or drops the last: the plain version on the cut operands."""
+    ref = op.reference
+    cut_l = (lambda t: t[..., :-1, :]) if mode == "nt" else (lambda t: t[..., :-1])
+    cut_k = (lambda t: t[..., :-1]) if mode == "nt" else (lambda t: t[..., :-1, :])
+    muts = {"last row of A dropped": ref(a[..., :-1, :], b, mode, *reps),
+            "last output column dropped": ref(a, cut_l(b), mode, *reps),
+            "last contraction element dropped": ref(a[..., :-1], cut_k(b), mode, *reps)}
+    if a.ndim == 4:
+        muts["first head alone"] = ref(a[:, :1], b[:, :1], mode)
+        muts["last head dropped"] = ref(a[:, :-1], b[:, :-1], mode)
+    return muts
+
+
+def law_bar_fails_mutants(op, args):
+    """The law's extra check: every mutant of law_mutants falls outside the
+    law's bar around the plain version; reports the smallest excess (the
+    mutant's largest |mutant - plain| over the bar)."""
+    def check(out):
+        ref = op.reference(*args).float()
+        bar = LAW_ATOL + LAW_RTOL * ref.abs()
+        excess = {k: ((m.float() - ref).abs() / bar).max().item()
+                  for k, m in law_mutants(op, *args).items()}
+        worst = min(excess, key=excess.get)
+        ok = all(x > 1 for x in excess.values())
+        return ok, (f"mutants outside the bar: {ok} (closest: {worst}, "
+                    f"{excess[worst]:.3g}x the bar)")
+    return check
+
+
+def law_cases(gen, b):
+    """(label, kernel op, args, keyword args, library call, work, extra
+    check) of the product law's twelve shapes (scripts/r3_matmul_law.py:main)
+    at B CTAs; the extra check shows that the law's bar fails a kernel that
+    drops an edge or a head (law_inputs)."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.probes.r3_matmul_law import LAW_SHAPES
+
+    cases = []
+    for label, a_shape, b_shape, mode, reps in LAW_SHAPES:
+        a, bm = law_inputs(gen, b, a_shape, b_shape, mode)
+        if reps is None:
+            op, args = ops.matmul_law_batched, (a, bm, mode)
+        else:
+            op, args = ops.matmul_law, (a, bm, mode, reps)
+        cases.append((f"{op.__name__}[{label}]", op, args, {}, None,
+                      law_work(b, a_shape, b_shape, mode, reps), law_bar_fails_mutants(op, args)))
+    return cases
+
+
+def probe_14b_phases(gen, summary, card) -> dict:
+    """P22, the probes of kernel row 14b: each against its plain version with
+    P21's bars (the law's ops with theirs, `tol_of`) at the scripts'
+    full-width shapes and a ragged one, with each case's extra check (each
+    K-lin-d8 tile bitwise equal to the shipped K-lin-d8; the law's bar
+    failing every mutant of `law_mutants`); times at the
+    full-width shape (tools/timing.py, as P21), bound and library call. An
+    op's summary row is its first case, its other cases listed under
+    "cases". Then each row-14b op driven once, every counter set to 0 just
+    before. Returns the launches of that run."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools.timing import time_per_launch
+
+    h14 = (BATCH, 257, 1280, 16)
+    m14 = (BATCH * 257, 160, 480)  # the qkv product's M, C/8, F
+    # (label, shape of the summary, cases); the first label's cases are timed
+    groups = [("vith14_b64", h14, lambda: experiment_cases(gen, *h14)),
+              ("ragged", None, lambda: experiment_cases(gen, 4, 37, 1280, 16)),
+              ("vith14_b64", m14, lambda: lin_tile_cases(gen, m14[0], m14[1], 16)),
+              ("ragged", None, lambda: lin_tile_cases(gen, 4 * 37, 160, 16)),
+              ("vith14_b64", (BATCH,), lambda: law_cases(gen, BATCH))]
+    failed = []
+    first = {}
+    for label, shape, make in groups:
+        with torch.no_grad():
+            for name, op, args, kw, lib, wk, *extra in make():
+                out = op(*args, **kw)
+                torch.cuda.synchronize()
+                atol, rtol = tol_of(op)
+                err, ok = compare(out, op.reference(*args, **kw), tol=(atol, rtol))
+                line = f"{name} [{label}] max_abs_err {err:.3e} (tol {atol}+{rtol}*|ref|) "
+                line += "ok" if ok else "FAIL"
+                if extra:
+                    good, text = extra[0](out)
+                    ok &= good
+                    line += f"; {text}"
+                del out
+                if label == "vith14_b64":
+                    before = op.launches
+                    ms = time_per_launch(lambda: op(*args, **kw))
+                    if op.launches <= before:
+                        raise AssertionError(f"{name}: launch counter did not move")
+                    plain_ms = time_ms(lambda: op.reference(*args, **kw), iters=5, warmup=1)
+                    lib_ms = time_per_launch(lib) if lib is not None else None
+                    bms, bby = bound_of(*wk)
+                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                             f"({bby})" + (f", library call {lib_ms:.4f} ms" if lib else ""))
+                    row = op.__name__
+                    case = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bms, "bound_by": bby, "max_abs_err": err}
+                    if row not in summary:
+                        summary[row] = dict(case, bound=(bms, bby), shape=shape, cases={})
+                        first[op] = (args, kw)
+                    summary[row]["cases"][name] = case
+                if op.__name__ in summary:
+                    e = summary[op.__name__]
+                    e["max_abs_err"] = max(e["max_abs_err"], err)
+                phase("P22", line)
+                if not ok:
+                    failed.append(f"{name}[{label}]")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"row-14b probes outside tolerance: {failed}")
+    # the row-14b path: each op once, at its first case
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        for op, (args, kw) in first.items():
+            op(*args, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = {op.__name__: 1 for op in ops.PROBE_OPS_14B}
+    if counts != expected_launches(want):
+        raise AssertionError(f"row-14b probe launches {counts}, expected {want}")
+    phase("P22", f"probe path: each of the {len(want)} row-14b probe ops launched once on {card}")
+    del first
+    torch.cuda.empty_cache()
+    return counts
+
+
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:
     """(bound_ms, bound_by) of K-lin-d8-bwd alone: x and dqkv in, dx out, the
     weights in and their gradients out; dx and dW products."""
     m, c8 = b * n, c // 8
-    nbytes = (m * (c + 3 * c + c) + 2 * 24 * c8 * c8) * 2
-    ops_ = 144 * m * c8 * c8
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops_ / PEAK_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_of((m * (c + 3 * c + c) + 2 * 24 * c8 * c8) * 2, 144 * m * c8 * c8)
 
 
 if __name__ == "__main__":

@@ -34,8 +34,26 @@ enum Stage { FULL = 0, SCORES = 1, PROBS = 2, NOSM = 3, CHEAP = 4, LOADS = 5 };
 // interleave in each warp, with K and v^T of both in shared memory and the
 // query rows loaded straight into fragments; one head with a two-pass
 // softmax (each warp's score rows to shared memory, then exp and sum, then
-// P.V, no online rescale).
-enum Sched { ONE_HEAD = 0, TWO_HEADS = 1, TWO_PASS = 2 };
+// P.V, no online rescale); two images (the same head of batch rows 2y and
+// 2y + 1), interleaved and staged as TWO_HEADS (scripts/r3_attn_experiments.py
+// `_std_multib_kernel`, `_octic_multib_kernel` with nb = 2).
+enum Sched { ONE_HEAD = 0, TWO_HEADS = 1, TWO_PASS = 2, TWO_IMAGES = 3 };
+// SPLIT (the cls-split of scripts/r3_attn_experiments.py:_attn_head_split,
+// stage FULL): the 64-key blocks cover keys [0, N - 1) only, and key N - 1 is
+// a rank-1 update: its score an f32 dot product on the CUDA cores, its
+// probability kept in f32 (never rounded to bf16) and folded into the online
+// max, sum and output before the first block. At N = 257 the blocks end at
+// key 256, so the fifth block, which held one real key, goes away.
+
+// the batch row and the head of chain j of this CTA
+template <int SCHED>
+__device__ __forceinline__ int chain_batch(int j) {
+  return SCHED == TWO_IMAGES ? 2 * (int)blockIdx.y + j : (int)blockIdx.y;
+}
+template <int SCHED>
+__device__ __forceinline__ int chain_head(int j) {
+  return SCHED == TWO_HEADS ? 2 * (int)blockIdx.x + j : (int)blockIdx.x;
+}
 
 // Where head h's dh channels of q (s = 0), k (1) and v (2) lie: segment i
 // holds `width[i]` consecutive channels of the head at column h * hs[i] (or
@@ -187,14 +205,48 @@ __device__ __forceinline__ void q_frags_global(uint32_t (&qf)[DHP / 16][4], cons
     }
 }
 
+// The same fragments of any gather table (TWO_IMAGES, whose octic layout has
+// six segments): each channel pair's segment is looked up. Every segment's
+// width, head column, row and batch strides are even and its base 4-byte
+// aligned (checked by the host). TWO_HEADS keeps the one-segment loader
+// above: with this one, probe i ran ~6% slower (ViT-H/14 B=64, H100).
+template <int DHP>
+__device__ __forceinline__ void q_frags_segs(uint32_t (&qf)[DHP / 16][4], const Layout& L, int b,
+                                             int h, int r0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const Gather& G = L.in;
+#pragma unroll
+  for (int kc = 0; kc < DHP / 16; ++kc)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int d = kc * 16 + 2 * t + hf * 8;
+      const bf16* base = nullptr;
+      int ld = 0;
+      if (d < L.dh) {
+        int i = 0, off = 0;
+        while (i < G.nseg - 1 && d >= off + G.width[i]) off += G.width[i++];
+        base = G.p[i][0] + b * G.bs[i][0] + head_col(G, i, h) + (d - off);
+        ld = G.ld[i][0];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = r0 + g + r * 8;
+        qf[kc][hf * 2 + r] = base != nullptr && n < L.N
+                                 ? *reinterpret_cast<const uint32_t*>(base + (size_t)n * ld)
+                                 : 0u;
+      }
+    }
+}
+
 // The chains of one warp's 16 query rows of NH heads (NH = 2: the two
 // heads' chains advance together, one 64-key block of each in turn, so one
 // head's softmax can overlap the other's products): scores into m16n8
 // fragments, then the stage's softmax and P.V. On return o[j] holds head j's
 // unnormalised output (FULL, CHEAP, NOSM), mrow[j] its row max (in log2
 // units for FULL and PROBS, natural for SCORES and CHEAP) and lrow[j] its
-// row sum of p, both reduced over the lane quad (rows g and g + 8).
-template <int DHP, int STAGE, int NH>
+// row sum of p, both reduced over the lane quad (rows g and g + 8). With
+// SPLIT (FULL) key N - 1 enters first, as the rank-1 update described above.
+template <int DHP, int STAGE, int NH, int SPLIT = 0>
 __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4],
                                            bf16* const (&ks)[NH], bf16* const (&vt)[NH], int VS,
                                            int N, int kpad, float scale, int lane,
@@ -212,8 +264,46 @@ __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4]
     lrow[j][0] = lrow[j][1] = 0.f;
   }
   if constexpr (STAGE == LOADS) return;
+  // the keys the 64-key blocks cover, and their end rounded up to 16
+  const int nk = SPLIT ? N - 1 : N;
+  const int kend = SPLIT ? (nk + 15) / 16 * 16 : kpad;
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      // s_last = q . k[N-1] in f32 (the products of bf16 values are exact),
+      // summed over the lane quad; p_last = exp2(s_last - m) = 1 at m = s_last
+      const bf16* kl = ks[j] + (N - 1) * DS;
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 k2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kl + kc * 16 + 2 * t + hf * 8));
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 q2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&qf[j][kc][hf * 2 + r]));
+            part[r] += q2.x * k2.x + q2.y * k2.y;
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+        mrow[j][r] = part[r] * sl;
+        lrow[j][r] = t == 0 ? 1.f : 0.f;  // p_last = 1, in one of the quad's partial sums
+      }
+      // o = p_last v[N-1], in f32
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[j][i][e] = __bfloat162float(vt[j][(i * 8 + 2 * t + (e & 1)) * VS + N - 1]);
+    }
+  }
 
-  for (int kb = 0; kb < kpad; kb += KB) {
+  for (int kb = 0; kb < kend; kb += KB) {
 #pragma unroll
     for (int j = 0; j < NH; ++j) {
       // every block holds at least one real key (kpad - 16 < N), so the
@@ -222,7 +312,7 @@ __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4]
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        if (kb + nt * 8 < kpad) {
+        if (kb + nt * 8 < kend) {
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
             const bf16* p = ks[j] + (kb + nt * 8 + g) * DS + kc * 16 + 2 * t;
@@ -238,7 +328,7 @@ __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4]
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = kb + nt * 8 + 2 * t + (e & 1);
-            s[nt][e] = key < N ? s[nt][e] * sl : 0.f;
+            s[nt][e] = key < nk ? s[nt][e] * sl : 0.f;
           }
       } else {
         float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -247,7 +337,7 @@ __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4]
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = kb + nt * 8 + 2 * t + (e & 1);
-            s[nt][e] = key < N ? s[nt][e] * sl : -CUDART_INF_F;
+            s[nt][e] = key < nk ? s[nt][e] * sl : -CUDART_INF_F;
             mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
           }
         float alpha[2];
@@ -294,7 +384,7 @@ __device__ __forceinline__ void head_chain(const uint32_t (&qf)[NH][DHP / 16][4]
       }
 #pragma unroll
       for (int kc = 0; kc < KB / 16; ++kc) {
-        if (kb + kc * 16 >= kpad) break;
+        if (kb + kc * 16 >= kend) break;
         uint32_t pf[4];
         if constexpr (STAGE == CHEAP) {
           pf[0] = pb[2 * kc][0];
@@ -462,23 +552,23 @@ __device__ __forceinline__ void scatter_tables(const Scatter& S, unsigned char* 
 }
 
 // One CTA of 8 warps per (head, batch) (per (head pair, batch) for
-// TWO_HEADS). K-attn is <DHP, FULL, ONE_HEAD>.
-template <int DHP, int STAGE, int SCHED>
+// TWO_HEADS, per (head, batch pair) for TWO_IMAGES). K-attn is
+// <DHP, FULL, ONE_HEAD, 0>.
+template <int DHP, int STAGE, int SCHED, int SPLIT = 0>
 __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
   constexpr int DS = DHP + 8;  // q and k smem row stride (bank-conflict-free 32-bit loads)
-  constexpr int NH = SCHED == TWO_HEADS ? 2 : 1;
+  constexpr int NH = (SCHED == TWO_HEADS || SCHED == TWO_IMAGES) ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = L.N;
   const int kpad = (N + 15) / 16 * 16;
   const int VS = kpad + 8;  // v^T smem row stride
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y;
 
   bf16* ks[NH];
   bf16* vt[NH];
   bf16* qs = nullptr;
   bf16* next = reinterpret_cast<bf16*>(smem_raw);
-  if constexpr (SCHED == TWO_HEADS) {
+  if constexpr (NH == 2) {
 #pragma unroll
     for (int j = 0; j < NH; ++j) {
       ks[j] = next;
@@ -500,15 +590,16 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
   scatter_tables<DHP>(L.out, seg_of, w_of);
   for (int i = tid; i < NH * L.out.nseg; i += THREADS) {
     const int j = i / L.out.nseg, sg = i - j * L.out.nseg;
-    obase[j * MAX_SEG + sg] =
-        L.out.p[sg] + b * L.out.bs[sg] + (size_t)(NH * blockIdx.x + j) * L.out.hs[sg];
+    obase[j * MAX_SEG + sg] = L.out.p[sg] + chain_batch<SCHED>(j) * L.out.bs[sg] +
+                              (size_t)chain_head<SCHED>(j) * L.out.hs[sg];
   }
-  if constexpr (SCHED == TWO_HEADS) {
+  if constexpr (NH == 2) {
 #pragma unroll
     for (int j = 0; j < NH; ++j)
-      gather_head<DHP, 1>(L, b, NH * blockIdx.x + j, kpad, nullptr, ks[j], vt[j], VS);
+      gather_head<DHP, 1>(L, chain_batch<SCHED>(j), chain_head<SCHED>(j), kpad, nullptr, ks[j],
+                          vt[j], VS);
   } else {
-    gather_head<DHP>(L, b, blockIdx.x, kpad, qs, ks[0], vt[0], VS);
+    gather_head<DHP>(L, blockIdx.y, blockIdx.x, kpad, qs, ks[0], vt[0], VS);
   }
   __syncthreads();
 
@@ -519,7 +610,12 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
     float o[NH][NT][4], mrow[NH][2], lrow[NH][2];
     if constexpr (SCHED == TWO_HEADS) {
 #pragma unroll
-      for (int j = 0; j < NH; ++j) q_frags_global<DHP>(qf[j], L, b, NH * blockIdx.x + j, r0, lane);
+      for (int j = 0; j < NH; ++j)
+        q_frags_global<DHP>(qf[j], L, blockIdx.y, chain_head<SCHED>(j), r0, lane);
+    } else if constexpr (SCHED == TWO_IMAGES) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        q_frags_segs<DHP>(qf[j], L, chain_batch<SCHED>(j), blockIdx.x, r0, lane);
     } else {
       q_frags_smem<DHP>(qf[0], qs, r0, lane);
     }
@@ -527,7 +623,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
       head_chain_two_pass<DHP>(qf[0], ks[0], vt[0], VS, scratch + (size_t)warp * 16 * SS, SS, N,
                                kpad, L.scale, lane, o[0], mrow[0], lrow[0]);
     else
-      head_chain<DHP, STAGE, NH>(qf, ks, vt, VS, N, kpad, L.scale, lane, o, mrow, lrow);
+      head_chain<DHP, STAGE, NH, SPLIT>(qf, ks, vt, VS, N, kpad, L.scale, lane, o, mrow, lrow);
 #pragma unroll
     for (int j = 0; j < NH; ++j)
       store_rows<DHP, STAGE>(L, seg_of, w_of, obase + j * MAX_SEG, vt[j], VS, o[j], mrow[j],
@@ -539,7 +635,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(const Layout L) {
 // channel tables, the output base pointers, the two-pass score scratch
 template <int DHP, int SCHED>
 __host__ __device__ constexpr int smem_bytes(int n) {
-  return SCHED == TWO_HEADS
+  return (SCHED == TWO_HEADS || SCHED == TWO_IMAGES)
              ? 2 * ((n + 15) / 16 * 16 * (DHP + 8) + DHP * ((n + 15) / 16 * 16 + 8)) * 2 +
                    2 * DHP + 2 * MAX_SEG * 8
              : (2 * ((n + 15) / 16 * 16) * (DHP + 8) + DHP * ((n + 15) / 16 * 16 + 8)) * 2 +
@@ -547,14 +643,14 @@ __host__ __device__ constexpr int smem_bytes(int n) {
                    (SCHED == TWO_PASS ? WARPS * 16 * ((n + 15) / 16 * 16 + 8) * 2 : 0);
 }
 
-template <int DHP, int STAGE, int SCHED>
+template <int DHP, int STAGE, int SCHED, int SPLIT = 0>
 int launch(const Layout& L, int B, cudaStream_t stream) {
   const int smem = smem_bytes<DHP, SCHED>(L.N);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<DHP, STAGE, SCHED>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<DHP, STAGE, SCHED, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int ctas = SCHED == TWO_HEADS ? L.H / 2 : L.H;
-  attention_kernel<DHP, STAGE, SCHED><<<dim3(ctas, B), THREADS, smem, stream>>>(L);
+  const dim3 grid(SCHED == TWO_HEADS ? L.H / 2 : L.H, SCHED == TWO_IMAGES ? B / 2 : B);
+  attention_kernel<DHP, STAGE, SCHED, SPLIT><<<grid, THREADS, smem, stream>>>(L);
   return cudaGetLastError();
 }
 

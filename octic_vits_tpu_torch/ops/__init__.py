@@ -29,23 +29,30 @@ from octic_vits_tpu_torch.ops.attention import (
     standard_attention_reference,
 )
 from octic_vits_tpu_torch.ops.attention_probe import (
-    PROBE_OPS,
+    PROBE_OPS_14A,
     aligned_all_attention,
     aligned_cheap_attention,
     aligned_loads_attention,
     aligned_nosm_attention,
     bh_octic_attention,
     bh_std_attention,
+    cls_split_attention,
+    cls_split_octic_attention,
     full_attention,
     headmajor_attention,
     headmajor_attention_bwd,
+    hoist_assembly,
+    hoist_octic_attention,
     interleave2_attention,
+    multi_image_attention,
+    multi_image_octic_attention,
     padded_attention,
     padded_octic_attention,
     phased_attention,
     scores_only_attention,
     scores_softmax_attention,
 )
+from octic_vits_tpu_torch.ops.attention_probe import EXPERIMENT_OPS
 from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
 from octic_vits_tpu_torch.ops.gelu_d8 import (
     gelu_d8,
@@ -80,6 +87,7 @@ from octic_vits_tpu_torch.ops.linear import (
     mlp_d8_packed,
     uninterleave_wide,
 )
+from octic_vits_tpu_torch.ops.linear_probe import lin_d8_tiled
 from octic_vits_tpu_torch.ops.ln_d8 import (
     ln_affine_d8_bwd,
     ln_affine_d8_bwd_reference,
@@ -95,6 +103,7 @@ from octic_vits_tpu_torch.ops.mlp_branch import (
     mlp_branch_d8_reference,
     mlp_branch_eager,
 )
+from octic_vits_tpu_torch.ops.mma_probe import matmul_law, matmul_law_batched
 
 #: the four kernel ops of the inference path
 INFERENCE_OPS = (standard_attention, octic_attention_fused_qkv, dense_gelu, mlp_d8_fused)
@@ -115,12 +124,19 @@ PACKED_OPS = (octic_attention_fused_qkv_packed, octic_attention_fused_qkv_packed
 #: with the qkv product that stores that layout (row 13b)
 WIDE_OPS = (octic_attention_wide1d, octic_attention_wide1d_bwd, linear_d8_wide1d,
             octic_attention_wide, octic_attention_wide_bwd, linear_d8_qkv_wide)
+#: the probes of kernel row 14b: the attention probes of
+#: scripts/r3_attn_experiments.py, K-lin-d8's tile sweep
+#: (scripts/profile_lin_tiles.py) and the product-cost law
+#: (scripts/r3_matmul_law.py)
+PROBE_OPS_14B = EXPERIMENT_OPS + (lin_d8_tiled, matmul_law, matmul_law_batched)
+#: every probe op (kernel rows 14a and 14b); each one's plain version is also
+#: ``<op>.reference``
+PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
 #: fused qkv + attention; fuse_mlp training adds the fused MLP's backward;
-#: the probes of kernel row 14a run on no model path). Each probe op's
-#: plain version is also ``<op>.reference``.
+#: the probes of kernel rows 14a and 14b run on no model path).
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
                               linear_d8_fused, octic_attention_fused_qkv_bwd,
                               mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS + WIDE_OPS + PROBE_OPS
@@ -141,6 +157,8 @@ __all__ = [
     "KERNEL_OPS",
     "PACKED_OPS",
     "PROBE_OPS",
+    "PROBE_OPS_14A",
+    "PROBE_OPS_14B",
     "WIDE_OPS",
     "aligned_all_attention",
     "aligned_cheap_attention",
@@ -148,10 +166,19 @@ __all__ = [
     "aligned_nosm_attention",
     "bh_octic_attention",
     "bh_std_attention",
+    "cls_split_attention",
+    "cls_split_octic_attention",
     "full_attention",
     "headmajor_attention",
     "headmajor_attention_bwd",
+    "hoist_assembly",
+    "hoist_octic_attention",
     "interleave2_attention",
+    "lin_d8_tiled",
+    "matmul_law",
+    "matmul_law_batched",
+    "multi_image_attention",
+    "multi_image_octic_attention",
     "padded_attention",
     "padded_octic_attention",
     "phased_attention",

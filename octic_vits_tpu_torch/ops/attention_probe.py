@@ -1,6 +1,6 @@
-"""Probes of K-attn's time (kernel row 14a): the forward-attention probes of
-the TPU scripts, each a variant of K-attn that differs from it in one named
-part, so that differences of their times split K-attn's time.
+"""Probes of K-attn's time (kernel rows 14a and 14b): the forward-attention
+probes of the TPU scripts, each a variant of K-attn that differs from it in
+one named part, so that differences of their times split K-attn's time.
 
 Each op mirrors one Pallas kernel of ``scripts/`` (at the script's layout,
 scale dh^-0.5 and numerics) and runs K-attn's device code
@@ -25,13 +25,25 @@ o   :func:`headmajor_attention`      r3_attn_headmajor.py:headmajor_attention
 p   :func:`headmajor_attention_bwd`  r3_attn_headmajor.py:headmajor_attention_bwd
 ==  ==============================  =========================================
 
+and those of ``scripts/r3_attn_experiments.py`` (row 14b):
+
+=================================  ===========================================
+:func:`cls_split_attention`        ``_std_split_kernel`` (main's run_std_split)
+:func:`cls_split_octic_attention`  ``_octic_split_kernel`` (via _call_octic)
+:func:`multi_image_attention`      ``_std_multib_kernel``, nb = 2
+:func:`multi_image_octic_attention` ``_octic_multib_kernel``, nb = 2
+:func:`hoist_assembly`             phase 1 of ``_octic_hoist_kernel``
+:func:`hoist_octic_attention`      ``_octic_hoist_kernel`` (split False, True)
+=================================  ===========================================
+
 (Row e, the octic attention over one interleaved qkv, is
 :func:`~octic_vits_tpu_torch.ops.attention.octic_attention_wide`.)
 
 Each ``<op>_reference`` is the plain version with the JAX kernel's numerics:
 in bf16 the unnormalised bf16 probabilities of
 ``pallas_attention.py:_probs_unnormalized`` (exp of the bf16 difference, f32
-row sum, the normaliser folded into the output), in f32 the exact softmax.
+row sum, the normaliser folded into the output; the cls-split's last key
+in f32), in f32 the exact softmax.
 The kernels keep K-attn's f32 softmax (CHEAP takes its exp in bf16), so on
 the card each is held against its reference with the bf16 bars of
 ``chip_smoke.py``. CPU tensors take the reference; CUDA tensors launch the
@@ -50,14 +62,14 @@ from octic_vits_tpu_torch.ops.attention import SMEM_LIMIT, _check_attention_bwd_
 PROBE_HEAD_DIMS = (64, 80)  # the head dims csrc/attention_probe.cu instantiates
 ALIGN = 128  # the TPU lane width: the aligned and padded probes' head slots
 STAGES = {"full": 0, "scores": 1, "probs": 2, "nosm": 3, "cheap": 4, "loads": 5}
-ONE_HEAD, TWO_HEADS, TWO_PASS = 0, 1, 2
+ONE_HEAD, TWO_HEADS, TWO_PASS, TWO_IMAGES = 0, 1, 2, 3
 
 
 def probe_smem_bytes(n: int, dh: int, sched: int = ONE_HEAD) -> int:
     """Shared memory of one probe CTA (csrc/attention_core.cuh:smem_bytes)."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     k_vt = kpad * (dhp + 8) + dhp * (kpad + 8)
-    if sched == TWO_HEADS:
+    if sched in (TWO_HEADS, TWO_IMAGES):
         return 2 * k_vt * 2 + 2 * dhp + 2 * 6 * 8
     extra = 8 * 16 * (kpad + 8) * 2 if sched == TWO_PASS else 0
     return (k_vt + kpad * (dhp + 8)) * 2 + 2 * dhp + 6 * 8 + extra
@@ -95,6 +107,24 @@ def _attn_head(q, k, v, scale):
         p, inv = _probs_unnormalized(s, q.dtype)
         return (p.float() @ v.float()) * inv
     return torch.softmax(s, dim=-1).to(q.dtype).float() @ v.float()
+
+
+def _attn_head_split(q, k, v, scale):
+    """r3_attn_experiments.py:_attn_head_split with the keys split [N-1 | 1]:
+    the last key's score an f32 dot product, its probability kept in f32
+    (bf16 takes the main keys' bf16 probabilities, f32 the exact softmax)."""
+    s_main = _scores(q, k[..., :-1, :], scale)
+    s_last = (q.float() * k[..., -1:, :].float()).sum(-1, keepdim=True) * scale
+    m = torch.maximum(s_main.amax(-1, keepdim=True), s_last)
+    vm, vl = v[..., :-1, :].float(), v[..., -1:, :].float()
+    p_last = torch.exp(s_last - m)
+    if q.dtype == torch.bfloat16:
+        p_main = torch.exp((s_main - m).to(q.dtype))
+        inv = 1.0 / (p_main.float().sum(-1, keepdim=True) + p_last)
+        return (p_main.float() @ vm + p_last * vl) * inv
+    p_main = torch.exp(s_main - m)
+    inv = 1.0 / (p_main.sum(-1, keepdim=True) + p_last)
+    return (p_main * inv).to(q.dtype).float() @ vm + (p_last * inv) * vl
 
 
 def _attn_unnormalized(q, k, v, scale):
@@ -151,12 +181,23 @@ def _slot_store(o, width, dtype):
 
 
 def _probe_launch(q, k, v, ld_in, bs_in, hs_in, hcol, outs, ld_out, bs_out, hs_out, pad_to,
-                  b, n, h, dh, stage="full", sched=ONE_HEAD) -> None:
+                  b, n, h, dh, stage="full", sched=ONE_HEAD, split=False) -> None:
     octic = len(outs) == 6
     table = None if hcol is None else torch.tensor(hcol, dtype=torch.int32)
     outs = tuple(outs) + (None,) * (6 - len(outs))
     kernels.launch("ovt_attention_probe", q, k, v, ld_in, bs_in, hs_in, table, *outs, ld_out,
-                   bs_out, hs_out, pad_to, int(octic), b, n, h, dh, STAGES[stage], sched)
+                   bs_out, hs_out, pad_to, int(octic), b, n, h, dh, STAGES[stage], sched,
+                   int(split))
+
+
+def _check_split(n: int) -> None:
+    if n < 2:
+        raise ValueError(f"cls-split attention: needs N >= 2 tokens, got {n}")
+
+
+def _check_pairs(b: int, name: str) -> None:
+    if b % 2:
+        raise ValueError(f"{name}: two images a CTA need an even batch, got B={b}")
 
 
 def _empty(t, *shape):
@@ -276,10 +317,14 @@ def _std_heads(qkv, num_heads):
     return qkv.reshape(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def _std_probe(op, qkv, num_heads, stage, sched=ONE_HEAD):
+def _std_probe(op, qkv, num_heads, stage, sched=ONE_HEAD, split=False):
+    b, n, c, dh = _std_dims(qkv, num_heads)
+    if split:
+        _check_split(n)
+    if sched == TWO_IMAGES:
+        _check_pairs(b, op.__name__)
     if not on_cuda((qkv,)):
         return op.reference(qkv, num_heads, *((stage,) if op is scores_only_attention else ()))
-    b, n, c, dh = _std_dims(qkv, num_heads)
     _check_probe(n, dh, sched)
     if sched == TWO_HEADS and num_heads % 2:
         raise ValueError(f"{op.__name__}: needs an even number of heads, got {num_heads}")
@@ -287,7 +332,7 @@ def _std_probe(op, qkv, num_heads, stage, sched=ONE_HEAD):
     out = _empty(qkv, b, n, c)
     op.launches += 1
     _probe_launch(qkv, qkv[..., c:], qkv[..., 2 * c:], 3 * c, 0, dh, None, (out,), c, 0, dh, dh,
-                  b, n, num_heads, dh, stage, sched)
+                  b, n, num_heads, dh, stage, sched, split)
     return out
 
 
@@ -376,10 +421,12 @@ def _padded_heads(qkvp, num_heads, head_dim):
     return qkvp.reshape(b, n, 3, num_heads, slot).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def _padded_probe(op, qkvp, num_heads, head_dim, stage, octic):
+def _padded_probe(op, qkvp, num_heads, head_dim, stage, octic, split=False):
+    if split:
+        _check_split(qkvp.shape[1])
     if not on_cuda((qkvp,)):
-        stages = (stage,) if op is padded_attention else ()
-        return op.reference(qkvp, num_heads, head_dim, *stages)
+        extra = (stage,) if op is padded_attention else (split,) if split else ()
+        return op.reference(qkvp, num_heads, head_dim, *extra)
     b, n, slot = _padded_dims(qkvp, num_heads, head_dim)
     _check_probe(n, head_dim)
     check_kernel_arg(qkvp, "qkvp", (b, n, 3 * num_heads * slot))
@@ -391,7 +438,7 @@ def _padded_probe(op, qkvp, num_heads, head_dim, stage, octic):
     hw = num_heads * slot
     op.launches += 1
     _probe_launch(qkvp, qkvp[..., hw:], qkvp[..., 2 * hw:], 3 * hw, 0, slot, None, outs, hw, 0,
-                  slot, slot, b, n, num_heads, head_dim, stage)
+                  slot, slot, b, n, num_heads, head_dim, stage, split=split)
     return outs if octic else outs[0]
 
 
@@ -400,9 +447,11 @@ def padded_attention_reference(qkvp, num_heads: int, head_dim: int, stage: str =
     return _merge(_stage(stage, q, k, v, head_dim ** -0.5), qkvp.dtype)
 
 
-def padded_octic_attention_reference(qkvp, num_heads: int, head_dim: int) -> tuple:
+def padded_octic_attention_reference(qkvp, num_heads: int, head_dim: int,
+                                     split: bool = False) -> tuple:
     q, k, v = _padded_heads(qkvp, num_heads, head_dim)
-    o = _attn_head(q, k, v, head_dim ** -0.5)[..., :head_dim]
+    head = _attn_head_split if split else _attn_head
+    o = head(q, k, v, head_dim ** -0.5)[..., :head_dim]
     return _octic_scatter(o, head_dim // 8, qkvp.dtype)
 
 
@@ -426,10 +475,12 @@ def padded_attention(qkvp: torch.Tensor, num_heads: int, head_dim: int,
     return _padded_probe(padded_attention, qkvp, num_heads, head_dim, stage, False)
 
 
-def padded_octic_attention(qkvp: torch.Tensor, num_heads: int, head_dim: int) -> tuple:
+def padded_octic_attention(qkvp: torch.Tensor, num_heads: int, head_dim: int,
+                           split: bool = False) -> tuple:
     """Probe l: attention on the padded qkv with the octic scatter (d1 =
-    head_dim / 8) -> 4 x ``[B, N, C/8]``, 2 x ``[B, N, C/4]``."""
-    return _padded_probe(padded_octic_attention, qkvp, num_heads, head_dim, "full", True)
+    head_dim / 8) -> 4 x ``[B, N, C/8]``, 2 x ``[B, N, C/4]``. With `split`,
+    the cls-split keys (phase 2 of :func:`hoist_octic_attention` with split)."""
+    return _padded_probe(padded_octic_attention, qkvp, num_heads, head_dim, "full", True, split)
 
 
 def bh_std_attention(qkvp: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
@@ -524,13 +575,184 @@ def headmajor_attention_bwd(qkv_hm: torch.Tensor, g_hm: torch.Tensor,
     return dqkv
 
 
-#: the probe ops, rows a-d and f-p of kernel row 14a, in order
-PROBE_OPS = (aligned_loads_attention, aligned_all_attention, aligned_nosm_attention,
-             aligned_cheap_attention, scores_only_attention, scores_softmax_attention,
-             full_attention, interleave2_attention, phased_attention, padded_attention,
-             padded_octic_attention, bh_std_attention, bh_octic_attention, headmajor_attention,
-             headmajor_attention_bwd)
-for _op in PROBE_OPS:
+# ---------------------------------------------------------------------------
+# row 14b: scripts/r3_attn_experiments.py at the scripts' two layouts: the
+# standard qkv [B, N, 3C] and the six octic arrays a1..b2 [B, N, 3C/8],
+# e0, e1 [B, N, 3C/4] (head h of s at column (s H + h) d1, or de = 2 d1)
+# ---------------------------------------------------------------------------
+
+
+def _octic_dims(arrs, num_heads):
+    """(b, n, c8, d1, de, dh) of the six octic qkv arrays."""
+    if len(arrs) != 6:
+        raise ValueError(f"octic probe: expected six qkv arrays, got {len(arrs)}")
+    b, n, w = arrs[0].shape
+    c8 = w // 3
+    d1 = c8 // num_heads
+    shapes = [tuple(a.shape) for a in arrs]
+    if w != 3 * c8 or c8 != num_heads * d1 or d1 == 0 or shapes != [(b, n, 3 * c8)] * 4 + [
+            (b, n, 6 * c8)] * 2:
+        raise ValueError(f"octic probe: shapes {shapes} with {num_heads} heads unsupported")
+    return b, n, c8, d1, 2 * d1, 8 * d1
+
+
+def _octic_heads(arrs, num_heads):
+    """q, k, v [B, H, N, dh]: each head's a1|a2|b1|b2|e0|e1 slices
+    (pallas_attention.py:_octic_slices)."""
+    b, n, c8, d1, de, _ = _octic_dims(arrs, num_heads)
+    qkv = []
+    for s in range(3):
+        pieces = [a[..., s * c8:(s + 1) * c8].reshape(b, n, num_heads, d1) for a in arrs[:4]]
+        pieces += [e[..., 2 * s * c8:2 * (s + 1) * c8].reshape(b, n, num_heads, de)
+                   for e in arrs[4:]]
+        qkv.append(torch.cat(pieces, dim=-1).transpose(1, 2))
+    return qkv
+
+
+def _octic_reference(arrs, num_heads, split):
+    q, k, v = _octic_heads(arrs, num_heads)
+    head = _attn_head_split if split else _attn_head
+    return _octic_scatter(head(q, k, v, q.shape[-1] ** -0.5), q.shape[-1] // 8, arrs[0].dtype)
+
+
+def _octic_outs(arrs, b, n, c8):
+    return tuple(_empty(arrs[0], b, n, c8 if i < 4 else 2 * c8) for i in range(6))
+
+
+def _octic_probe(op, arrs, num_heads, sched=ONE_HEAD, split=False):
+    b, n, c8, d1, de, dh = _octic_dims(arrs, num_heads)
+    if split:
+        _check_split(n)
+    if sched == TWO_IMAGES:
+        _check_pairs(b, op.__name__)
+    if not on_cuda(arrs):
+        return op.reference(*arrs, num_heads)
+    _check_probe(n, dh, sched)
+    for i, t in enumerate(arrs):
+        check_kernel_arg(t, f"qkv[{i}]", (b, n, 3 * c8 if i < 4 else 6 * c8))
+    outs = _octic_outs(arrs, b, n, c8)
+    op.launches += 1
+    kernels.launch("ovt_attention_probe_octic", *arrs, *[3 * c8] * 4, *[6 * c8] * 2, *outs, b, n,
+                   num_heads, d1, de, sched, int(split))
+    return outs
+
+
+def cls_split_attention_reference(qkv, num_heads: int):
+    q, k, v = _std_heads(qkv, num_heads)
+    return _merge(_attn_head_split(q, k, v, q.shape[-1] ** -0.5), qkv.dtype)
+
+
+def multi_image_attention_reference(qkv, num_heads: int):
+    return full_attention_reference(qkv, num_heads)
+
+
+def cls_split_octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    return _octic_reference((a1, a2, b1, b2, e0, e1), num_heads, True)
+
+
+def multi_image_octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    return _octic_reference((a1, a2, b1, b2, e0, e1), num_heads, False)
+
+
+def cls_split_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Standard attention with the keys split [N-1 | 1]
+    (r3_attn_experiments.py:_std_split_kernel): the 64-key blocks cover keys
+    0..N-2 and key N-1 is a rank-1 update in f32, folded into the online
+    softmax (template SPLIT of csrc/attention_core.cuh). N >= 2."""
+    return _std_probe(cls_split_attention, qkv, num_heads, "full", split=True)
+
+
+def cls_split_octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    """The octic attention (K-attn's octic gather and scatter, row 5's
+    layout) with the cls-split keys (r3_attn_experiments.py:
+    _octic_split_kernel) -> 4 x ``[B, N, C/8]``, 2 x ``[B, N, C/4]``."""
+    return _octic_probe(cls_split_octic_attention, (a1, a2, b1, b2, e0, e1), num_heads,
+                        split=True)
+
+
+def multi_image_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Standard attention with two images a CTA
+    (r3_attn_experiments.py:_std_multib_kernel, nb = 2): the same head of
+    batch rows 2y and 2y + 1, their chains interleaved in each warp
+    (schedule TWO_IMAGES). B even."""
+    return _std_probe(multi_image_attention, qkv, num_heads, "full", TWO_IMAGES)
+
+
+def multi_image_octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    """The octic attention with two images a CTA
+    (r3_attn_experiments.py:_octic_multib_kernel, nb = 2). B even."""
+    return _octic_probe(multi_image_octic_attention, (a1, a2, b1, b2, e0, e1), num_heads,
+                        TWO_IMAGES)
+
+
+def hoist_assembly_reference(a1, a2, b1, b2, e0, e1, num_heads: int, slot: int = ALIGN):
+    arrs = (a1, a2, b1, b2, e0, e1)
+    b, n, _, _, _, dh = _octic_dims(arrs, num_heads)
+    out = torch.zeros(b, n, 3, num_heads, slot, dtype=a1.dtype, device=a1.device)
+    out[..., :dh] = torch.stack(_octic_heads(arrs, num_heads), dim=2).transpose(1, 3)
+    return out.reshape(b, n, 3 * num_heads * slot)
+
+
+def hoist_assembly(a1, a2, b1, b2, e0, e1, num_heads: int, slot: int = ALIGN) -> torch.Tensor:
+    """Phase 1 of r3_attn_experiments.py:_octic_hoist_kernel: every (s, head)
+    slice of the six octic arrays gathered into the padded qkv ``[B, N, 3 H
+    slot]`` (head h of s at column (s H + h) slot, the pad zero), the layout
+    of probes k-n. The TPU kernel keeps it in VMEM; here it is written to
+    HBM (csrc/attention_probe.cu:hoist_kernel)."""
+    arrs = (a1, a2, b1, b2, e0, e1)
+    if not on_cuda(arrs):
+        return hoist_assembly_reference(*arrs, num_heads, slot)
+    qkvp = _hoist(arrs, num_heads, slot)
+    hoist_assembly.launches += 1
+    return qkvp
+
+
+def _hoist(arrs, num_heads, slot):
+    b, n, c8, d1, de, dh = _octic_dims(arrs, num_heads)
+    if d1 % 2 or slot % 8 or slot < dh:
+        raise ValueError(f"hoist assembly: d1={d1} must be even and slot={slot} a multiple of 8 "
+                         f">= {dh}")
+    for i, t in enumerate(arrs):
+        check_kernel_arg(t, f"qkv[{i}]", (b, n, 3 * c8 if i < 4 else 6 * c8))
+    qkvp = _empty(arrs[0], b, n, 3 * num_heads * slot)
+    kernels.launch("ovt_hoist_octic", *arrs, *[3 * c8] * 4, *[6 * c8] * 2, qkvp, b, n, num_heads,
+                   d1, de, slot)
+    return qkvp
+
+
+def hoist_octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads: int,
+                                    split: bool = False) -> tuple:
+    return _octic_reference((a1, a2, b1, b2, e0, e1), num_heads, split)
+
+
+def hoist_octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int, split: bool = False) -> tuple:
+    """r3_attn_experiments.py:_octic_hoist_kernel: the octic attention with
+    its assembly hoisted out of the heads' loop. Phase 1 writes the padded
+    qkv (:func:`hoist_assembly`'s kernel), phase 2 is probe l
+    (:func:`padded_octic_attention`) on it, with the cls-split keys if
+    `split` -> 4 x ``[B, N, C/8]``, 2 x ``[B, N, C/4]``. Counts one launch
+    of the pair."""
+    arrs = (a1, a2, b1, b2, e0, e1)
+    n, dh = a1.shape[1], _octic_dims(arrs, num_heads)[5]
+    if split:
+        _check_split(n)
+    if not on_cuda(arrs):
+        return hoist_octic_attention_reference(*arrs, num_heads, split)
+    _check_probe(n, dh)
+    qkvp = _hoist(arrs, num_heads, ALIGN)
+    return _padded_probe(hoist_octic_attention, qkvp, num_heads, dh, "full", True, split)
+
+
+#: the probe ops of kernel row 14a (rows a-d and f-p), in order
+PROBE_OPS_14A = (aligned_loads_attention, aligned_all_attention, aligned_nosm_attention,
+                 aligned_cheap_attention, scores_only_attention, scores_softmax_attention,
+                 full_attention, interleave2_attention, phased_attention, padded_attention,
+                 padded_octic_attention, bh_std_attention, bh_octic_attention,
+                 headmajor_attention, headmajor_attention_bwd)
+#: the attention probes of kernel row 14b (scripts/r3_attn_experiments.py)
+EXPERIMENT_OPS = (cls_split_attention, cls_split_octic_attention, multi_image_attention,
+                  multi_image_octic_attention, hoist_assembly, hoist_octic_attention)
+for _op in PROBE_OPS_14A + EXPERIMENT_OPS:
     _op.launches = 0
     _op.reference = globals()[f"{_op.__name__}_reference"]
 del _op

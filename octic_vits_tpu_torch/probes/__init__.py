@@ -34,13 +34,14 @@ def card_or_exit(name: str):
     return chip_smoke, card
 
 
-def check(cs, label: str, out, ref, scaled: bool = False, cols=None) -> None:
+def check(cs, label: str, out, ref, scaled: bool = False, cols=None, tol=None) -> None:
     """Hold a kernel's output against its plain version with chip_smoke's
-    bars (on the columns `cols` of the last dim only, where given); raise
-    outside them."""
+    bars (`tol` = (atol, rtol) in place of the forward bar, where given; on
+    the columns `cols` of the last dim only, where given); raise outside
+    them."""
     if cols is not None:
         out, ref = out[..., cols], ref[..., cols]
-    err, ok = cs.compare(out, ref, scaled)
+    err, ok = cs.compare(out, ref, scaled, tol or (cs.ATOL, cs.RTOL))
     print(f"check {label}: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{label}: kernel outside its bar")

@@ -1006,3 +1006,83 @@ def test_interleave2_probe_needs_even_heads(gen):
     qkv = _randn(gen, 1, 17, 3 * 240)
     with pytest.raises(ValueError, match="even number of heads"):
         ops.interleave2_attention(qkv, 3)
+
+
+# ---------------------------------------------------------------------------
+# the probes of kernel row 14b (P22): the attention probes of
+# scripts/r3_attn_experiments.py on chip_smoke's cases at the ragged shape, at
+# full N and at ViT-L's head dim 64; K-lin-d8's tile sweep, each tile bitwise
+# equal to the shipped K-lin-d8; the product law's twelve shapes at B=2
+# ---------------------------------------------------------------------------
+
+EXPERIMENT_SHAPES = [(4, 37, 1280, 16), (2, 257, 1280, 16), (2, 65, 1024, 16)]
+EXPERIMENT_IDS = ["cls_split", "cls_split_octic", "multi_image", "multi_image_octic",
+                  "hoist_assembly", "hoist", "hoist_split"]
+LIN_TILE_IDS = [f"{store}_{bm}x{bn}" for store in ("tuple", "wide")
+                for bm, bn in ((32, 32), (64, 32), (128, 32), (64, 64))]
+LAW_IDS = ["scores_nt_80", "av_nn_80", "av_nn_256", "av_nn_384", "av_nn_512", "nn_k257_128",
+           "nn_k128_128", "nn_k512_128", "nt_128", "nn_square_512", "batched_scores_nt",
+           "batched_av_nn"]
+
+
+def _probe_case_ok(op, args, kw):
+    import chip_smoke
+
+    before = op.launches
+    out = op(*args, **kw)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    err, ok = chip_smoke.compare(out, op.reference(*args, **kw), tol=chip_smoke.tol_of(op))
+    assert ok, f"{op.__name__}: max abs err {err:.3e}"
+    return out
+
+
+@pytest.mark.parametrize("shape", EXPERIMENT_SHAPES)
+@pytest.mark.parametrize("case", range(len(EXPERIMENT_IDS)), ids=EXPERIMENT_IDS)
+def test_experiment_probe_kernel(gen, shape, case):
+    import chip_smoke
+
+    with torch.no_grad():
+        cases = chip_smoke.experiment_cases(gen, *shape)
+        assert len(cases) == len(EXPERIMENT_IDS)
+        _, op, args, kw, _, _ = cases[case]
+        _probe_case_ok(op, args, kw)
+
+
+@pytest.mark.parametrize("m", [148, 2 * 257])
+@pytest.mark.parametrize("case", range(len(LIN_TILE_IDS)), ids=LIN_TILE_IDS)
+def test_lin_d8_tile_kernel_is_k_lin_d8(gen, m, case):
+    import chip_smoke
+
+    with torch.no_grad():
+        cases = chip_smoke.lin_tile_cases(gen, m, 160, 16)
+        assert len(cases) == len(LIN_TILE_IDS)
+        _, op, args, kw, _, _, same_as_shipped = cases[case]
+        same, text = same_as_shipped(_probe_case_ok(op, args, kw))
+        assert same, text
+
+
+@pytest.mark.parametrize("case", range(len(LAW_IDS)), ids=LAW_IDS)
+def test_matmul_law_kernel(gen, case):
+    import chip_smoke
+
+    with torch.no_grad():
+        cases = chip_smoke.law_cases(gen, 2)
+        assert len(cases) == len(LAW_IDS)
+        _, op, args, kw, _, _, bar_fails_mutants = cases[case]
+        ok, text = bar_fails_mutants(_probe_case_ok(op, args, kw))
+        assert ok, text
+
+
+def test_row_14b_probes_reject_unsupported_shapes(gen):
+    qkv = _randn(gen, 3, 17, 3 * 1280)
+    with pytest.raises(ValueError, match="even batch"):
+        ops.multi_image_attention(qkv, 16)
+    with pytest.raises(ValueError, match="N >= 2"):
+        ops.cls_split_attention(qkv[:, :1], 16)
+    x1, xef = _randn(gen, 4, 64, 160), _randn(gen, 64, 640)
+    w1, we = _randn(gen, 4, 160, 480), _randn(gen, 320, 960)
+    with pytest.raises(ValueError, match="not built"):
+        ops.lin_d8_tiled(x1, xef, w1, we, bm=128, bn=64, store="tuple")
+    with pytest.raises(ValueError, match="at most"):
+        ops.matmul_law(_randn(gen, 1, 400, 16), _randn(gen, 1, 16, 16), "nt", 1)
