@@ -112,6 +112,16 @@ Phases, one line each (any failure raises and exits non-zero):
              (LAW_ATOL, LAW_RTOL), shown to fail a kernel that drops an
              edge or a head; each with its time, bound and library call;
              then each row-14b op launched once
+  P23 probes 14c  the probes of kernel row 14c (scripts/r3_attn_bwd_ablate.py)
+             against their plain versions: the octic backward with the wide
+             store and with the wide cotangent, the head-group attention
+             (K-attn-group: the standard pack at G = 1, 2, 4 with the shared
+             max, the standard masked pair, the octic masked groups at G = 1,
+             2, 4; forward and backward) and the fused qkv + attention with and
+             without the proj, forwards at ViT-H/14 B=64, backwards at B=32,
+             all at B=2, N=45; each with its time, bound (and a masked probe's
+             extra products) and library call; then each row-14c op launched
+             once
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -450,6 +460,7 @@ def compare(out, ref, scaled=False, tol=(ATOL, RTOL)):
 
 
 PROBE_SRC = "octic_vits_tpu_torch/csrc/attention_probe.cu"
+GROUP_SRC = "octic_vits_tpu_torch/csrc/attention_group.cu"
 # kernel -> (source, replaced JAX function at file:line, the path whose run
 # gives its launch count)
 META = {
@@ -540,6 +551,21 @@ META = {
                    "probe_14b"),
     "matmul_law_batched": ("octic_vits_tpu_torch/csrc/mma_law.cu",
                            "scripts/r3_matmul_law.py:134", "probe_14b"),
+    # kernel row 14c (P23): scripts/r3_attn_bwd_ablate.py
+    "octic_attention_bwd_widestore": ("octic_vits_tpu_torch/csrc/attention_bwd_probe.cu",
+                                      "scripts/r3_attn_bwd_ablate.py:795", "probe_14c"),
+    "octic_attention_bwd_wideg": ("octic_vits_tpu_torch/csrc/attention_bwd_probe.cu",
+                                  "scripts/r3_attn_bwd_ablate.py:812", "probe_14c"),
+    "std_pack_attention": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:839", "probe_14c"),
+    "std_pack_attention_bwd": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:865", "probe_14c"),
+    "std_maskpair_attention": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:883", "probe_14c"),
+    "std_maskpair_attention_bwd": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:895", "probe_14c"),
+    "octic_group_attention": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:926", "probe_14c"),
+    "octic_group_attention_bwd": (GROUP_SRC, "scripts/r3_attn_bwd_ablate.py:779", "probe_14c"),
+    "octic_qkv_attention": ("octic_vits_tpu_torch/csrc/qkv_attention.cu",
+                            "scripts/r3_attn_bwd_ablate.py:735", "probe_14c"),
+    "octic_qkv_attention_proj": ("octic_vits_tpu_torch/csrc/qkv_attention.cu",
+                                 "scripts/r3_attn_bwd_ablate.py:693", "probe_14c"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -991,9 +1017,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_14b_launches = probe_14b_phases(gen, summary, card)
 
+    torch.cuda.empty_cache()
+    probe_14c_launches = probe_14c_phases(gen, summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
-              "probe_14b": probe_14b_launches}
+              "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -1009,7 +1038,7 @@ def main() -> int:
                         "launches_by_path": {p: c[name] for p, c in counts.items() if c.get(name)}})
         if name in ALSO:
             kernels[-1]["also"] = ALSO[name]
-        if "cases" in e:  # the row-14b ops' other cases (tiles, shapes, split)
+        if "cases" in e:  # the row-14b and 14c ops' other cases (tiles, shapes, groups)
             kernels[-1]["cases"] = e["cases"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2214,6 +2243,160 @@ def probe_14b_phases(gen, summary, card) -> dict:
     if counts != expected_launches(want):
         raise AssertionError(f"row-14b probe launches {counts}, expected {want}")
     phase("P22", f"probe path: each of the {len(want)} row-14b probe ops launched once on {card}")
+    del first
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# P23: the probes of kernel row 14c (scripts/r3_attn_bwd_ablate.py)
+# ---------------------------------------------------------------------------
+
+
+def probe_14c_work(name: str, b: int, n: int, c: int, group: int = 1,
+                   masked: bool = False) -> tuple:
+    """(bytes, tensor-core operations, float32 operations, extra operations)
+    of one row-14c probe at [B, N, C]: the function's bytes and products
+    (each input read once, each output written once), as work() counts rows
+    1, 1b and 2; the fused proj adds its 24 B N (C/8)^2 products, its weights
+    and bias. A masked probe computes its zero terms too: `extra` is the
+    (G - 1) times the function's products that it adds, kept out of the
+    bound."""
+    if name == "octic_qkv_attention":
+        nbytes, ops_, _ = work("octic_attention_fused_qkv", b, n, c, 16, True)
+    elif name == "octic_qkv_attention_proj":
+        nbytes, ops_, _ = work("octic_attention_fused_qkv", b, n, c, 16, True)
+        c8 = c // 8
+        nbytes, ops_ = nbytes + (8 * c8 * c8 + c8) * 2, ops_ + 24 * b * n * c8 * c8
+    elif name.endswith(("_bwd", "_widestore", "_wideg")):
+        nbytes, ops_, _ = work("standard_attention_bwd", b, n, c, 16, True)
+    else:
+        nbytes, ops_, _ = work("standard_attention", b, n, c, 16, True)
+    return nbytes, ops_, 0, (group - 1) * ops_ if masked else 0
+
+
+def probe_14c_cases(gen, b, n, c, heads):
+    """(label, kernel op, args, keyword args, scaled bar, library call or
+    None, work) of the row-14c probes at one shape, the forwards at B, the
+    backwards at min(B, TRAIN_BATCH); the label of an op's first case is its
+    name. The group ops run at G = 1 and 4 too (G = 1: the family's own
+    baseline)."""
+    from octic_vits_tpu_torch import ops
+
+    c8, bb = c // 8, min(b, TRAIN_BATCH)
+    qkv, g = randn(gen, b, n, 3 * c), randn(gen, bb, n, c)
+    qs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 6 * c8) for _ in range(2))
+    gs = tuple(randn(gen, bb, n, c8) for _ in range(4)) + tuple(
+        randn(gen, bb, n, 2 * c8) for _ in range(2))
+    qs_b, qkv_b, gw = tuple(t[:bb] for t in qs), qkv[:bb], randn(gen, bb, n, c)
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    w1, we = randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5), randn(gen, 2 * c8, 6 * c8,
+                                                                scale=(2 * c8) ** -0.5)
+    w1p, wep = randn(gen, 4, c8, c8, scale=c8 ** -0.5), randn(gen, 2 * c8, 2 * c8,
+                                                              scale=(2 * c8) ** -0.5)
+    bq, bp = randn(gen, 3 * c8, scale=0.1), randn(gen, c8, scale=0.1)
+    fwd = lambda name, grp=1, m=False: probe_14c_work(name, b, n, c, grp, m)  # noqa: E731
+    bwd = lambda name, grp=1, m=False: probe_14c_work(name, bb, n, c, grp, m)  # noqa: E731
+    sdpa, sdpa_bwd = library_sdpa(qkv, heads), library_sdpa_bwd(qkv_b, g, heads)
+    cases = [
+        ("octic_attention_bwd_widestore", ops.octic_attention_bwd_widestore, (qs_b, gs, heads),
+         {}, True, None, bwd("octic_attention_bwd_widestore")),
+        ("octic_attention_bwd_wideg", ops.octic_attention_bwd_wideg, (qs_b, gw, heads), {}, True,
+         None, bwd("octic_attention_bwd_wideg")),
+    ]
+    for grp in (2, 1, 4):
+        tag = "" if grp == 2 else f"[G={grp}]"
+        cases += [
+            ("std_pack_attention" + tag, ops.std_pack_attention, (qkv, heads, grp), {}, False,
+             sdpa, fwd("std_pack_attention")),
+            ("std_pack_attention_bwd" + tag, ops.std_pack_attention_bwd, (qkv_b, g, heads, grp),
+             {}, True, sdpa_bwd, bwd("std_pack_attention_bwd")),
+            ("octic_group_attention" + tag, ops.octic_group_attention, qs + (heads, grp), {},
+             False, None, fwd("octic_group_attention", grp, True)),
+            ("octic_group_attention_bwd" + tag, ops.octic_group_attention_bwd,
+             (qs_b, gs, heads, grp), {}, True, None, bwd("octic_group_attention_bwd", grp, True)),
+        ]
+    cases += [
+        ("std_maskpair_attention", ops.std_maskpair_attention, (qkv, heads), {}, False, sdpa,
+         fwd("std_maskpair_attention", 2, True)),
+        ("std_maskpair_attention_bwd", ops.std_maskpair_attention_bwd, (qkv_b, g, heads), {},
+         True, sdpa_bwd, bwd("std_maskpair_attention_bwd", 2, True)),
+        ("octic_qkv_attention", ops.octic_qkv_attention, xs + (w1, we, bq, heads), {}, False,
+         None, fwd("octic_qkv_attention")),
+        ("octic_qkv_attention_proj", ops.octic_qkv_attention_proj,
+         xs + (w1, we, bq, w1p, wep, bp, heads), {}, False, None,
+         fwd("octic_qkv_attention_proj")),
+    ]
+    return cases
+
+
+def probe_14c_phases(gen, summary, card) -> dict:
+    """P23, the probes of kernel row 14c: each against its plain version
+    (forwards with the forward bar, backwards with the backward bar) at
+    ViT-H/14 (forwards B=64, backwards B=32) and at B=2, N=45; times at the
+    full-width shape (tools/timing.py, as P21), bound (a masked probe's extra
+    products printed beside it) and library call. An op's summary row is its
+    first case (the pair for the group ops), its other cases under "cases".
+    Then each row-14c op driven once, every counter set to 0 just before.
+    Returns the launches of that run."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools.timing import time_per_launch
+
+    shapes = (("vith14_b64", (BATCH, 257, 1280, 16)), ("ragged", (2, 45, 1280, 16)))
+    failed, first = [], {}
+    for label, shape in shapes:
+        with torch.no_grad():
+            for name, op, args, kw, scaled, lib, wk in probe_14c_cases(gen, *shape):
+                out = op(*args, **kw)
+                torch.cuda.synchronize()
+                err, ok = compare(out, op.reference(*args, **kw), scaled)
+                bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
+                line = f"{name} [{label}] max_abs_err {err:.3e} (tol {bar}) "
+                line += "ok" if ok else "FAIL"
+                del out
+                if label == shapes[0][0]:
+                    before = op.launches
+                    ms = time_per_launch(lambda: op(*args, **kw))
+                    if op.launches <= before:
+                        raise AssertionError(f"{name}: launch counter did not move")
+                    plain_ms = time_ms(lambda: op.reference(*args, **kw), iters=5, warmup=1)
+                    lib_ms = time_per_launch(lib) if lib is not None else None
+                    bms, bby = bound_of(*wk[:3])
+                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                             f"({bby})" + (f", extra products {wk[3] / 1e9:.2f} GFLOP"
+                                           if wk[3] else "")
+                             + (f", library call {lib_ms:.4f} ms" if lib else ""))
+                    row = op.__name__
+                    case = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
+                            "extra_gflop": wk[3] / 1e9}
+                    if row not in summary:
+                        lead = args[0][0] if isinstance(args[0], tuple) else args[0]
+                        summary[row] = dict(case, bound=(bms, bby), shape=tuple(lead.shape),
+                                            cases={})
+                        first[op] = (args, kw)
+                    summary[row]["cases"][name] = case
+                if op.__name__ in summary:
+                    e = summary[op.__name__]
+                    e["max_abs_err"] = max(e["max_abs_err"], err)
+                phase("P23", line)
+                if not ok:
+                    failed.append(f"{name}[{label}]")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"row-14c probes outside tolerance: {failed}")
+    # the row-14c path: each op once, at its first case
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        for op, (args, kw) in first.items():
+            op(*args, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = {op.__name__: 1 for op in ops.PROBE_OPS_14C}
+    if counts != expected_launches(want):
+        raise AssertionError(f"row-14c probe launches {counts}, expected {want}")
+    phase("P23", f"probe path: each of the {len(want)} row-14c probe ops launched once on {card}")
     del first
     torch.cuda.empty_cache()
     return counts

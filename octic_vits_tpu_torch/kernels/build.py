@@ -58,6 +58,15 @@ SIGNATURES = {
     "ovt_hoist_octic": [_P] * 6 + [_I] * 6 + [_P] + [_I] * 6 + [_P],
     "ovt_lin_d8_tiled": [_P] * 14 + [_I] * 13 + [_P],
     "ovt_mma_law": [_P] * 3 + [_I] * 7 + [_P],
+    "ovt_attention_octic_bwd_widestore": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 3 + [_I] * 5 + [_P],
+    "ovt_attention_octic_bwd_wideg": [_P] * 6 + [_I] * 6 + [_P, _I] + [_P] * 8 + [_I] * 5
+                                     + [_P],
+    "ovt_attention_group_std": [_P] * 2 + [_I] * 6 + [_P],
+    "ovt_attention_group_std_bwd": [_P] * 5 + [_I] * 6 + [_P],
+    "ovt_attention_group_octic": [_P] * 12 + [_I] * 8 + [_P],
+    "ovt_attention_group_octic_bwd": [_P] * 20 + [_I] * 8 + [_P],
+    "ovt_qkv_attention": [_P] * 14 + [_I] * 4 + [_P],
+    "ovt_qkv_attention_proj": [_P] * 16 + [_I] * 4 + [_P],
 }
 
 

@@ -53,6 +53,19 @@ from octic_vits_tpu_torch.ops.attention_probe import (
     scores_softmax_attention,
 )
 from octic_vits_tpu_torch.ops.attention_probe import EXPERIMENT_OPS
+from octic_vits_tpu_torch.ops.attention_bwd_probe import (
+    PROBE_OPS_14C,
+    octic_attention_bwd_wideg,
+    octic_attention_bwd_widestore,
+    octic_group_attention,
+    octic_group_attention_bwd,
+    octic_qkv_attention,
+    octic_qkv_attention_proj,
+    std_maskpair_attention,
+    std_maskpair_attention_bwd,
+    std_pack_attention,
+    std_pack_attention_bwd,
+)
 from octic_vits_tpu_torch.ops.dense import dense_gelu, dense_gelu_bwd, dense_gelu_reference
 from octic_vits_tpu_torch.ops.gelu_d8 import (
     gelu_d8,
@@ -129,14 +142,15 @@ WIDE_OPS = (octic_attention_wide1d, octic_attention_wide1d_bwd, linear_d8_wide1d
 #: (scripts/profile_lin_tiles.py) and the product-cost law
 #: (scripts/r3_matmul_law.py)
 PROBE_OPS_14B = EXPERIMENT_OPS + (lin_d8_tiled, matmul_law, matmul_law_batched)
-#: every probe op (kernel rows 14a and 14b); each one's plain version is also
+#: every probe op (kernel rows 14a, 14b and 14c, the last the probes of
+#: scripts/r3_attn_bwd_ablate.py); each one's plain version is also
 #: ``<op>.reference``
-PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B
+PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B + PROBE_OPS_14C
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
 #: fused qkv + attention; fuse_mlp training adds the fused MLP's backward;
-#: the probes of kernel rows 14a and 14b run on no model path).
+#: the probes of kernel rows 14a-14c run on no model path).
 KERNEL_OPS = INFERENCE_OPS + (standard_attention_bwd, octic_attention, octic_attention_bwd,
                               linear_d8_fused, octic_attention_fused_qkv_bwd,
                               mlp_d8_fused_bwd) + GLUE_OPS + PACKED_OPS + WIDE_OPS + PROBE_OPS
@@ -159,6 +173,7 @@ __all__ = [
     "PROBE_OPS",
     "PROBE_OPS_14A",
     "PROBE_OPS_14B",
+    "PROBE_OPS_14C",
     "WIDE_OPS",
     "aligned_all_attention",
     "aligned_cheap_attention",
@@ -247,6 +262,16 @@ __all__ = [
     "octic_attention_wide_bwd",
     "octic_attention_wide_bwd_reference",
     "octic_attention_wide_reference",
+    "octic_attention_bwd_wideg",
+    "octic_attention_bwd_widestore",
+    "octic_group_attention",
+    "octic_group_attention_bwd",
+    "octic_qkv_attention",
+    "octic_qkv_attention_proj",
+    "std_maskpair_attention",
+    "std_maskpair_attention_bwd",
+    "std_pack_attention",
+    "std_pack_attention_bwd",
     "reset_launch_counts",
     "standard_attention",
     "standard_attention_bwd",

@@ -92,10 +92,17 @@ def _scores(q, k, scale):
     return (q.float() @ k.float().transpose(-1, -2)) * scale
 
 
-def _probs_unnormalized(s, dtype):
+def _probs_unnormalized(s, dtype, group=1):
     """pallas_attention.py:_probs_unnormalized: p = exp(s - m) in `dtype`,
-    and the f32 row normaliser."""
-    p = torch.exp((s - s.amax(-1, keepdim=True)).to(dtype))
+    and the f32 row normaliser, of scores s [B, H, N, N]; m is each row's
+    max or, with group > 1, one max over the rows of `group` consecutive
+    heads (the pack kernels of scripts/r3_attn_bwd_ablate.py)."""
+    m = s.amax(-1, keepdim=True)
+    if group > 1:
+        b, h, n, _ = m.shape
+        m = m.reshape(b, h // group, group, n, 1).amax(2, keepdim=True)
+        m = m.expand(-1, -1, group, -1, -1).reshape(b, h, n, 1)
+    p = torch.exp((s - m).to(dtype))
     return p, 1.0 / p.float().sum(-1, keepdim=True)
 
 
@@ -127,11 +134,29 @@ def _attn_head_split(q, k, v, scale):
     return (p_main * inv).to(q.dtype).float() @ vm + (p_last * inv) * vl
 
 
-def _attn_unnormalized(q, k, v, scale):
-    """k_interleave2, k_phased and _attn_head_cheapsm in every dtype:
-    (exp(s - m) in the input dtype) v / the f32 row sum."""
-    p, inv = _probs_unnormalized(_scores(q, k, scale), q.dtype)
+def _attn_unnormalized(q, k, v, scale, group=1):
+    """k_interleave2, k_phased, _attn_head_cheapsm and the head-group kernels
+    of scripts/r3_attn_bwd_ablate.py in every dtype: (exp(s - m) in the input
+    dtype) v / the f32 row sum."""
+    p, inv = _probs_unnormalized(_scores(q, k, scale), q.dtype, group)
     return (p.float() @ v.float()) * inv
+
+
+def _attn_head_bwd(q, k, v, g, group=1):
+    """pallas_attention.py:_attn_head_bwd per head, in every dtype as its
+    bf16 path (the unnormalised probabilities in the input dtype, the
+    normaliser folded into g and into dS, dS rounded to the input dtype; in
+    f32 the exact gradient): (dq, dk, dv) f32 [B, H, N, dh] of q, k, v [B, H,
+    N, dh] for the output cotangent g. `group` as _probs_unnormalized."""
+    dt, scale = q.dtype, q.shape[-1] ** -0.5
+    ph, inv = _probs_unnormalized(_scores(q, k, scale), dt, group)
+    ginv = (g.float() * inv).to(dt).float()
+    dv = ph.float().transpose(-1, -2) @ ginv
+    dp = g.float() @ v.float().transpose(-1, -2)
+    p32 = ph.float() * inv
+    row = (dp * p32).sum(-1, keepdim=True)
+    ds = (p32 * (dp - row) * scale).to(dt).float()
+    return ds @ k.float(), ds.transpose(-1, -2) @ q.float(), dv
 
 
 def _stage(stage, q, k, v, scale):
@@ -516,27 +541,8 @@ def headmajor_attention_reference(qkv_hm, num_heads: int):
 
 
 def headmajor_attention_bwd_reference(qkv_hm, g_hm, num_heads: int):
-    """pallas_attention.py:_attn_head_bwd per head: bf16 with the
-    unnormalised bf16 probabilities (the normaliser folded into g and into
-    dS), f32 exact."""
     _hm_dims(qkv_hm, num_heads)
-    dt = qkv_hm.dtype
-    q, k, v = (t.float() for t in qkv_hm.unbind(1))
-    scale = q.shape[-1] ** -0.5
-    s = (q @ k.transpose(-1, -2)) * scale
-    if dt == torch.bfloat16:
-        ph, inv = _probs_unnormalized(s, dt)
-        ginv = (g_hm.float() * inv).to(dt).float()
-        dv = ph.float().transpose(-1, -2) @ ginv
-        dp = g_hm.float() @ v.transpose(-1, -2)
-        p32 = ph.float() * inv
-    else:
-        p32 = torch.softmax(s, dim=-1)
-        dv = p32.transpose(-1, -2) @ g_hm.float()
-        dp = g_hm.float() @ v.transpose(-1, -2)
-    row = (dp * p32).sum(-1, keepdim=True)
-    ds = (p32 * (dp - row) * scale).to(dt).float()
-    return torch.stack([ds @ k, ds.transpose(-1, -2) @ q, dv], dim=1).to(dt)
+    return torch.stack(_attn_head_bwd(*qkv_hm.unbind(1), g_hm), dim=1).to(qkv_hm.dtype)
 
 
 def headmajor_attention(qkv_hm: torch.Tensor, num_heads: int) -> torch.Tensor:

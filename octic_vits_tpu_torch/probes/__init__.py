@@ -1,16 +1,18 @@
-"""H100 probes of K-attn's time, after the TPU scripts of the same names
+"""H100 probes of the kernels' time, after the TPU scripts of the same names
 (``scripts/profile_attn_kernel.py``, ``r3_attn_ablate.py``, ``r3_attn_bh.py``,
-``r3_attn_headmajor.py``). Each module's ``main()`` runs on the card from the
-repository root (it imports ``chip_smoke`` for the card's name, the inputs
-and the bounds), e.g.
+``r3_attn_headmajor.py``, ``r3_attn_experiments.py``, ``profile_lin_tiles.py``,
+``r3_matmul_law.py``, ``r3_attn_bwd_ablate.py``). Each module's ``main()``
+runs on the card from the repository root (it imports ``chip_smoke`` for the
+card's name, the inputs and the bounds), e.g.
 
     python3 -m octic_vits_tpu_torch.probes.r3_attn_ablate
 
 checks each variant against its plain version, then times the variants in
 turns (``tools/timing.py``) and prints the card's name and power limit, each
-time, its ratio to the first case and its bound, and the split of K-attn's
-time that the differences give. The kernels are the ops of
-``ops/attention_probe.py``."""
+time, its ratio to the first case and its bound, and the split of the
+kernel's time that the differences give. The kernels are the ops of
+``ops/attention_probe.py``, ``ops/linear_probe.py``, ``ops/mma_probe.py`` and
+``ops/attention_bwd_probe.py``."""
 
 from __future__ import annotations
 

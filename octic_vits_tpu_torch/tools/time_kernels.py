@@ -7,8 +7,10 @@ It times the tree at DIR (default: the current directory; it imports DIR's
 ``chip_smoke`` and ``octic_vits_tpu_torch``, so DIR's own kernels are built
 and run): the forward kernels of P2 and the train-path kernels of P5 (B=64
 and B=32, with bias), and P11's, P15's and P18's B=64 kernels (the fused
-glue, the packed container, the wide qkv; P18's B=32 ones too) where that
-tree's ``chip_smoke.py`` has them. Each time is the median over 7 windows of 20
+glue, the packed container, the wide qkv; P15's and P18's B=32 ones too, and
+P8's fused qkv + attention backward at ViT-H/14 B=32) where that tree's
+``chip_smoke.py`` has them: every kernel that runs K-attn-bwd is there (rows
+1b, 2b, 5, 10, 12 and 13a). Each time is the median over 7 windows of 20
 back-to-back launches between one pair of CUDA events (this file's
 ``timing.py``), so that the wrappers' host time, which ``chip_smoke.time_ms``
 keeps in its windows, is spread over the launches and both trees are timed
@@ -59,9 +61,9 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     h14 = (cs.BATCH, 257, 1280, 16, True)
     sets = [(cs.p2_cases, h14), (cs.train_kernel_cases, (cs.TRAIN_BATCH,) + h14[1:])]
-    for b64, b32 in (("glue_b64_cases", None), ("packed_b64_cases", None),
-                     ("wide_b64_cases", "wide_b32_cases")):
-        if hasattr(cs, b64):
+    for b64, b32 in (("glue_b64_cases", None), ("packed_b64_cases", "packed_b32_cases"),
+                     ("wide_b64_cases", "wide_b32_cases"), (None, "ssl_kernel_cases")):
+        if b64 and hasattr(cs, b64):
             sets.append((getattr(cs, b64), h14))
         if b32 and hasattr(cs, b32):
             sets.append((getattr(cs, b32), (cs.TRAIN_BATCH,) + h14[1:]))

@@ -1086,3 +1086,48 @@ def test_row_14b_probes_reject_unsupported_shapes(gen):
         ops.lin_d8_tiled(x1, xef, w1, we, bm=128, bn=64, store="tuple")
     with pytest.raises(ValueError, match="at most"):
         ops.matmul_law(_randn(gen, 1, 400, 16), _randn(gen, 1, 16, 16), "nt", 1)
+
+
+# ---------------------------------------------------------------------------
+# the probes of kernel row 14c (P23): scripts/r3_attn_bwd_ablate.py on
+# chip_smoke's cases at the ragged shape and at full N (the backwards at the
+# same B), each launched once and held to its bar; the shapes and head counts
+# the kernels do not take raise
+# ---------------------------------------------------------------------------
+
+PROBE_14C_SHAPES = [(2, 45, 1280, 16), (2, 257, 1280, 16), (3, 17, 1280, 16)]
+PROBE_14C_IDS = ["widestore", "wideg"] + [
+    f"{name}_g{grp}" for grp in (2, 1, 4)
+    for name in ("std_pack", "std_pack_bwd", "octic_group", "octic_group_bwd")] + [
+    "std_maskpair", "std_maskpair_bwd", "qkv_attention", "qkv_attention_proj"]
+
+
+@pytest.mark.parametrize("shape", PROBE_14C_SHAPES)
+@pytest.mark.parametrize("case", range(len(PROBE_14C_IDS)), ids=PROBE_14C_IDS)
+def test_row_14c_probe_kernel(gen, shape, case):
+    import chip_smoke
+
+    with torch.no_grad():
+        cases = chip_smoke.probe_14c_cases(gen, *shape)
+        assert len(cases) == len(PROBE_14C_IDS)
+        _, op, args, kw, scaled, _, _ = cases[case]
+        before = op.launches
+        out = op(*args, **kw)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1
+        err, ok = chip_smoke.compare(out, op.reference(*args, **kw), scaled)
+    assert ok, f"{PROBE_14C_IDS[case]}: max abs err {err:.3e}"
+
+
+def test_row_14c_probes_reject_unsupported_shapes(gen):
+    qkv = _randn(gen, 2, 17, 3 * 1280)
+    with pytest.raises(ValueError, match="groups of 4"):
+        ops.std_pack_attention(_randn(gen, 2, 17, 3 * 480), 6, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.std_pack_attention(_randn(gen, 2, 17, 3 * 512), 8, 2)
+    with pytest.raises(ValueError, match="groups of 2"):
+        ops.std_maskpair_attention(qkv[..., :3 * 1200], 15)
+    xs = tuple(_randn(gen, 2, 17, 120) for _ in range(4)) + (_randn(gen, 2, 17, 480),)
+    w1, we = _randn(gen, 4, 120, 360), _randn(gen, 240, 720)
+    with pytest.raises(ValueError, match="unsupported by the kernel"):
+        ops.octic_qkv_attention(*xs, w1, we, None, 12)
