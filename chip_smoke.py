@@ -122,6 +122,16 @@ Phases, one line each (any failure raises and exits non-zero):
              all at B=2, N=45; each with its time, bound (and a masked probe's
              extra products) and library call; then each row-14c op launched
              once
+  P24 redesign  K-attn's standard forward (csrc/attention_std.cu) and K-dense
+             (csrc/dense.cu), both TMA + wgmma, against their plain versions at
+             every main-path shape (ViT-H/14 B=64 and B=32, the L/16 SSL global
+             and local crops) and at their plans' edges (dh 16, 24, 32, 40,
+             120, 128; N = 1, 65, 100, 197, 257; ragged M, K and F); then in
+             turns the new standard forward, K-attn's whole-head core (probe
+             h) and SDPA under each backend that runs (and the kernels the
+             default SDPA launched), K-dense against cuBLASLt's GELU
+             epilogue, each with TFLOP/s and share of the bound; and the host
+             time per call of each (tensor maps are encoded per launch)
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -464,7 +474,7 @@ GROUP_SRC = "octic_vits_tpu_torch/csrc/attention_group.cu"
 # kernel -> (source, replaced JAX function at file:line, the path whose run
 # gives its launch count)
 META = {
-    "standard_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "standard_attention": ("octic_vits_tpu_torch/csrc/attention_std.cu",
                            "octic_vits_tpu/ops/pallas_attention.py:1234", "inference"),
     "octic_attention_fused_qkv": ("octic_vits_tpu_torch/csrc/attention.cu",
                                   "octic_vits_tpu/ops/pallas_attention.py:538", "inference"),
@@ -1019,6 +1029,9 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     probe_14c_launches = probe_14c_phases(gen, summary, card)
+
+    torch.cuda.empty_cache()
+    redesign_phases(gen, summary, card)
 
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
@@ -2400,6 +2413,180 @@ def probe_14c_phases(gen, summary, card) -> dict:
     del first
     torch.cuda.empty_cache()
     return counts
+
+
+# P24: the redesigned kernels (TMA + wgmma): K-attn's standard forward (row
+# 1) and K-dense (row 3), at every shape of the main path and at the edges
+# of their launch plans. Attention shapes (b, n, heads, dh); dense (m, k, f).
+STD_SHAPES = (("vith14_b64", (BATCH, 257, 16, 80)), ("vith14_b32", (TRAIN_BATCH, 257, 16, 80)),
+              ("l16_global", (2 * SSL_BATCH, 197, 16, 64)),
+              ("l16_local", (8 * SSL_BATCH, 37, 16, 64)))
+STD_EDGES = (("dh16", (4, 257, 4, 16)), ("dh24", (4, 65, 4, 24)), ("dh32", (4, 197, 4, 32)),
+             ("dh128", (4, 257, 4, 128)), ("dh40_n100", (3, 100, 2, 40)),
+             ("dh120_n1", (2, 1, 2, 120)), ("ragged", (3, 65, 2, 32)))
+DENSE_SHAPES = (("vith14_b64", (BATCH * 257, 1280, 5120)),
+                ("vith14_b32", (TRAIN_BATCH * 257, 1280, 5120)),
+                ("l16_global", (2 * SSL_BATCH * 197, 1024, 4096)),
+                ("l16_local", (8 * SSL_BATCH * 37, 1024, 4096)))
+DENSE_EDGES = (("ragged_k64", (195, 64, 264)), ("ragged_k192", (300, 192, 8)),
+               ("m129", (129, 1280, 5120)), ("m7", (7, 64, 128)))
+
+
+def std_work(b, n, heads, dh) -> tuple:
+    """(bytes, tensor-core operations) of the standard attention forward."""
+    c = heads * dh
+    return 4 * b * n * c * 2, 4 * b * n * n * c
+
+
+def dense_work(m, k, f) -> tuple:
+    """(bytes, tensor-core operations) of dense + GELU with bias."""
+    return (m * k + f * k + f + m * f) * 2, 2 * m * k * f
+
+
+def sdpa_backend(qkv, heads, backend):
+    """SDPA on the qkv views under one backend (torch.nn.attention.SDPBackend)."""
+    from torch.nn.attention import sdpa_kernel
+
+    q, k, v = sdpa_views(qkv, heads)
+
+    def call():
+        with sdpa_kernel(backend):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return call
+
+
+def device_kernel_names(fn) -> list:
+    """The CUDA kernels one call of `fn` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds to enqueue one call of `fn` (no synchronisation
+    inside the window; at a small shape the card keeps up)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def redesign_phases(gen, summary, card) -> None:
+    """P24: K-attn's standard forward and K-dense on TMA + wgmma against their
+    plain versions (P2's bar) at every main-path shape and at the plans'
+    edges; then, in turns in one process (tools/timing.py), the new standard
+    forward against K-attn's whole-head core (probe h, ops.full_attention)
+    and SDPA under each backend that runs, and K-dense against cuBLASLt's
+    GELU epilogue, with TFLOP/s and share of the bound; the SDPA kernels the
+    default dispatch launched; and each op's host time per call (the tensor
+    maps are encoded at every launch). The times go under each kernel's
+    "cases" in the summary."""
+    from torch.nn.attention import SDPBackend
+
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools.timing import in_turns
+
+    failed = []
+    with torch.no_grad():
+        for label, (b, n, heads, dh) in STD_SHAPES + STD_EDGES:
+            qkv = randn(gen, b, n, 3 * heads * dh)
+            out = ops.standard_attention(qkv, heads)
+            torch.cuda.synchronize()
+            err, ok = compare(out, ops.standard_attention_reference(qkv, heads))
+            phase("P24", f"standard_attention [{label} B={b} N={n} H={heads} dh={dh}] max_abs_err "
+                         f"{err:.3e} (tol {ATOL}+{RTOL}*|ref|) " + ("ok" if ok else "FAIL"))
+            summary["standard_attention"]["max_abs_err"] = max(
+                summary["standard_attention"]["max_abs_err"], err)
+            failed += [] if ok else [f"standard_attention[{label}]"]
+        for label, (m, k, f) in DENSE_SHAPES + DENSE_EDGES:
+            x, w = randn(gen, m, k), randn(gen, f, k, scale=k ** -0.5)
+            for bias in (randn(gen, f, scale=0.1), None) if label == "ragged_k64" else (
+                    randn(gen, f, scale=0.1),):
+                out = ops.dense_gelu(x, w, bias)
+                torch.cuda.synchronize()
+                err, ok = compare(out, ops.dense_gelu_reference(x, w, bias))
+                phase("P24", f"dense_gelu [{label} M={m} K={k} F={f} bias={bias is not None}] "
+                             f"max_abs_err {err:.3e} (tol {ATOL}+{RTOL}*|ref|) "
+                             + ("ok" if ok else "FAIL"))
+                summary["dense_gelu"]["max_abs_err"] = max(summary["dense_gelu"]["max_abs_err"],
+                                                           err)
+                failed += [] if ok else [f"dense_gelu[{label}]"]
+        torch.cuda.empty_cache()
+        if failed:
+            raise AssertionError(f"redesigned kernels outside tolerance: {failed}")
+
+        backends = {"SDPA flash": SDPBackend.FLASH_ATTENTION,
+                    "SDPA efficient": SDPBackend.EFFICIENT_ATTENTION,
+                    "SDPA cuDNN": SDPBackend.CUDNN_ATTENTION}
+        for label, (b, n, heads, dh) in STD_SHAPES:
+            qkv = randn(gen, b, n, 3 * heads * dh)
+            cases = {"std TMA + wgmma": lambda: ops.standard_attention(qkv, heads),
+                     "whole-head core (probe h)": lambda: ops.full_attention(qkv, heads),
+                     "SDPA (yardstick)": library_sdpa(qkv, heads)}
+            for name, be in backends.items():
+                fn = sdpa_backend(qkv, heads, be)
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                    cases[name] = fn
+                except RuntimeError as exc:  # the backend has no kernel for these inputs
+                    phase("P24", f"{name} does not run at {label}: {str(exc).splitlines()[0]}")
+            res = in_turns(cases)
+            bms, bby = bound_of(*std_work(b, n, heads, dh))
+            flops = std_work(b, n, heads, dh)[1]
+            yard = device_kernel_names(cases["SDPA (yardstick)"])
+            line = f"standard_attention [{label}] in turns on {card}:"
+            for name, ms in res["median"].items():
+                line += (f" {name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                         f"{bms / ms:.1%} of bound);")
+            phase("P24", line + f" bound {bms:.4f} ms ({bby}); the yardstick SDPA launched {yard}")
+            summary["standard_attention"].setdefault("cases", {})[label] = {
+                "ms": res["median"]["std TMA + wgmma"],
+                "whole_head_core_ms": res["median"]["whole-head core (probe h)"],
+                "library_ms": res["median"]["SDPA (yardstick)"], "sdpa_kernels": yard,
+                "sdpa_backend_ms": {k: v for k, v in res["median"].items() if k in backends},
+                "bound_ms": bms, "bound_by": bby}
+            del qkv, cases
+        for label, (m, k, f) in DENSE_SHAPES:
+            x, w, bias = randn(gen, m, k), randn(gen, f, k, scale=k ** -0.5), randn(gen, f,
+                                                                                      scale=0.1)
+            res = in_turns({"K-dense TMA + wgmma": lambda: ops.dense_gelu(x, w, bias),
+                            "_addmm_activation GELU": library_dense_gelu(x, w, bias)})
+            bms, bby = bound_of(*dense_work(m, k, f))
+            flops = dense_work(m, k, f)[1]
+            line = f"dense_gelu [{label}] in turns on {card}:"
+            for name, ms in res["median"].items():
+                line += (f" {name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                         f"{bms / ms:.1%} of bound);")
+            phase("P24", line + f" bound {bms:.4f} ms ({bby})")
+            summary["dense_gelu"].setdefault("cases", {})[label] = {
+                "ms": res["median"]["K-dense TMA + wgmma"],
+                "library_ms": res["median"]["_addmm_activation GELU"],
+                "bound_ms": bms, "bound_by": bby}
+            del x, w, bias
+        torch.cuda.empty_cache()
+
+        # the host's side of a launch: the plan and (new kernels) the tensor maps
+        qkv = randn(gen, 1, 37, 3 * 2 * 64)
+        x, w, bias = randn(gen, 64, 64), randn(gen, 64, 64), randn(gen, 64)
+        host = {"std TMA + wgmma": host_us_per_call(lambda: ops.standard_attention(qkv, 2)),
+                "whole-head core (probe h)": host_us_per_call(lambda: ops.full_attention(qkv, 2)),
+                "K-dense TMA + wgmma": host_us_per_call(lambda: ops.dense_gelu(x, w, bias)),
+                "_addmm_activation GELU": host_us_per_call(library_dense_gelu(x, w, bias))}
+        phase("P24", "host us per call (enqueue, small shapes): "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+        summary["standard_attention"]["host_us"] = host["std TMA + wgmma"]
+        summary["dense_gelu"]["host_us"] = host["K-dense TMA + wgmma"]
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

@@ -1,10 +1,10 @@
 // K-attn: softmax(Q K^T * scale) V for each (batch, head), with the head's
 // channels gathered from the producer's natural layout and the output
-// scattered back into the consumer's layout.
+// scattered back into the consumer's layout. The standard layout's forward
+// is csrc/attention_std.cu (TMA + wgmma); this whole-head core serves the
+// octic layouts and, through csrc/attention_probe.cu, the probes.
 //
 // Replaces
-//   octic_vits_tpu/ops/pallas_attention.py:standard_attention
-//     (`_std_fwd_kernel`): qkv [B,N,3C] in (3, H, dh) order -> [B,N,C];
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention (`_octic_fwd_kernel`)
 //     and the attention half of octic_attention_fused_qkv (`_qkv_attn_store`,
 //     `_group_attn_fwd`): head h's dh = 4*d1 + 2*de channels are a1|a2|b1|b2
@@ -55,24 +55,6 @@
 static int k_attn(ovt::attn::Layout& L, int B, void* stream) {
   return ovt::attn::dispatch<ovt::attn::FULL, ovt::attn::ONE_HEAD>(
       L, B, static_cast<cudaStream_t>(stream));
-}
-
-// qkv [B,N,3*H*dh] in (3, H, dh) column order -> out [B,N,H*dh]; bf16,
-// contiguous. Returns the cudaError_t of the launch.
-OVT_EXPORT int ovt_attention_std(const void* qkv, void* out, int B, int N, int H, int dh,
-                                 void* stream) {
-  ovt::attn::Layout L = {};
-  L.in.nseg = 1;
-  ovt::attn::set_gather_3h(L.in, 0, qkv, 3 * H * dh, dh, H);
-  L.out.nseg = 1;
-  L.out.p[0] = static_cast<ovt::bf16*>(out);
-  L.out.ld[0] = H * dh;
-  L.out.width[0] = dh;
-  L.out.hs[0] = dh;
-  L.N = N;
-  L.H = H;
-  L.dh = dh;
-  return k_attn(L, B, stream);
 }
 
 // Octic head layout, each input with its own token row stride (elements):

@@ -37,9 +37,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "ovt_dense_gelu": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ovt_dense_gelu": [_P] * 4 + [_I] * 6 + [_P],
     "ovt_lin_d8": [_P] * 21 + [_I] * 12 + [_P],
-    "ovt_attention_std": [_P, _P, _I, _I, _I, _I, _P],
+    "ovt_attention_std": [_P] * 2 + [_I] * 11 + [_P],
     "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
     "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 5 + [_P],

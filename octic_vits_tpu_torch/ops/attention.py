@@ -23,9 +23,11 @@ layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
   interleaved qkv ``[B, N, 3C]`` (each head's q, k and v one dh slice, the
   output of ``linear_d8_qkv_wide``); differentiable.
 
-K-attn and K-attn-bwd (csrc/attention.cu, csrc/attention_bwd.cu) serve every
-layout through a gather table (q, k, v) and a scatter table (the outputs,
-and the cotangent in the backward).
+K-attn's whole-head core (csrc/attention.cu) and K-attn-bwd
+(csrc/attention_bwd.cu) serve every layout through a gather table (q, k, v)
+and a scatter table (the outputs, and the cotangent in the backward); the
+standard layout's forward has its own TMA + wgmma kernel
+(csrc/attention_std.cu).
 
 As in the JAX custom VJPs, each backward saves only the op's inputs (the
 qkv arrays; for the fused op the normed input and the qkv weights) and
@@ -53,7 +55,8 @@ SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 
 
 def _check_attention_shape(n: int, dh: int) -> None:
-    """The forward kernel keeps a whole head's q, k and v^T in shared memory
+    """The octic layouts' forward kernel (K-attn's whole-head core) keeps a
+    whole head's q, k and v^T in shared memory
     (csrc/attention_core.cuh:smem_bytes)."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     smem = (2 * kpad * (dhp + 8) + dhp * (kpad + 8)) * 2 + 2 * dhp + 6 * 8
@@ -61,6 +64,66 @@ def _check_attention_shape(n: int, dh: int) -> None:
         raise ValueError(f"attention kernel: N={n}, head dim {dh} unsupported "
                          f"(head dim a multiple of 8 up to {MAX_HEAD_DIM}; "
                          f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available)")
+
+
+# K-attn's standard forward (csrc/attention_std.cu): 64 query rows a CTA,
+# 64-key tiles through a ring of STD_STAGES stages, a head's columns as
+# boxes of 64, 32, 16 and 8 (swizzles of 128, 64 and 32 bytes; none for 8)
+STD_ROWS, STD_STAGES = 64, 3
+STD_BOX_WIDTHS = (64, 32, 16, 8)
+
+
+def std_attention_boxes(dh: int) -> list:
+    """A head's dh columns as TMA boxes, widest first: (offset, width,
+    swizzle bytes) each, as csrc/attention_std.cu:box_w. Each k16 step of
+    q k^T lies in one box; the 8-column tail is unswizzled."""
+    boxes, off = [], 0
+    while off < dh:
+        w = next(b for b in STD_BOX_WIDTHS if b <= dh - off)
+        boxes.append((off, w, 2 * w if w >= 16 else 0))
+        off += w
+    return boxes
+
+
+def std_attention_plan(b: int, n: int, heads: int, dh: int) -> dict:
+    """The launch plan of K-attn's standard forward: one CTA for each
+    (batch, head, 64-query tile); the head's column boxes; the key tiles
+    (key n - 1 folded in on the CUDA cores when n - 1 is a multiple of 64);
+    and the shared-memory bytes, which the C entry point checks against the
+    kernel's: align slack, the q tile and a k and a v tile a stage (64 rows
+    x dh bf16 each), a 1 KB zero block beside an 8-column tail, 512 bytes for
+    key and value n - 1, barriers."""
+    split = n > 1 and (n - 1) % STD_ROWS == 0
+    q_tiles, k_tiles = -(-n // STD_ROWS), -(-(n - split) // STD_ROWS)
+    tile = STD_ROWS * dh * 2
+    zero = STD_ROWS * 16 if dh % 16 else 0
+    return {"grid": b * heads * q_tiles, "n": n, "q_tiles": q_tiles, "k_tiles": k_tiles,
+            "split": split, "boxes": std_attention_boxes(dh),
+            "smem": 1024 + tile * (1 + 2 * STD_STAGES) + zero + 512 + (2 + 3 * STD_STAGES) * 8}
+
+
+def std_attention_rows(x: int, plan: dict, heads: int) -> list:
+    """The (batch row, head, query row)s that CTA ``x`` of the plan writes, as
+    csrc/attention_std.cu maps blockIdx.x: a head's query tiles adjacent, so
+    they find its keys and values in L2."""
+    n = plan["n"]
+    bh, qt = divmod(x, plan["q_tiles"])
+    b, h = divmod(bh, heads)
+    return [(b, h, r) for r in range(qt * STD_ROWS, min(qt * STD_ROWS + STD_ROWS, n))]
+
+
+def _check_std_attention_shape(n: int, dh: int) -> dict:
+    """K-attn's standard forward streams the keys, so N is free; the head
+    width is a multiple of 8 up to 128 (one instantiation each). Returns the
+    plan's per-head part (boxes, shared memory)."""
+    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM or n < 1:
+        raise ValueError(f"standard attention kernel: N={n}, head dim {dh} unsupported "
+                         f"(head dim a multiple of 8 up to {MAX_HEAD_DIM})")
+    plan = std_attention_plan(1, n, 1, dh)
+    if plan["smem"] > SMEM_LIMIT:
+        raise ValueError(f"standard attention kernel: {plan['smem']} bytes of shared memory "
+                         f"needed, {SMEM_LIMIT} available")
+    return plan
 
 
 def _check_attention_bwd_shape(n: int, dh: int) -> None:
@@ -129,11 +192,14 @@ def _standard_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if not on_cuda((qkv,)):
         return standard_attention_reference(qkv, num_heads)
     b, n, c, dh = _std_dims(qkv, num_heads)
-    _check_attention_shape(n, dh)
+    _check_std_attention_shape(n, dh)
     check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
+    plan = std_attention_plan(b, n, num_heads, dh)
+    widths = [w for _, w, _ in plan["boxes"]]
     out = torch.empty(b, n, c, device=qkv.device, dtype=qkv.dtype)
     standard_attention.launches += 1
-    kernels.launch("ovt_attention_std", qkv, out, b, n, num_heads, dh)
+    kernels.launch("ovt_attention_std", qkv, out, b, n, num_heads, dh, plan["grid"],
+                   plan["smem"], len(widths), *(widths + [0] * (4 - len(widths))))
     return out
 
 
@@ -170,8 +236,9 @@ class _StandardAttention(torch.autograd.Function):
 
 def standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """softmax(Q K^T / sqrt(dh)) V per (batch, head). CPU tensors take
-    :func:`standard_attention_reference`; CUDA tensors launch K-attn
-    (csrc/attention.cu) in its standard head layout. The gradient goes
+    :func:`standard_attention_reference`; CUDA tensors launch K-attn's
+    standard forward (csrc/attention_std.cu, TMA + wgmma,
+    :func:`std_attention_plan`). The gradient goes
     through :func:`standard_attention_bwd`; only qkv is saved."""
     return _StandardAttention.apply(qkv, num_heads)
 

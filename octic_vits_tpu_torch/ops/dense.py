@@ -13,6 +13,45 @@ from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_exact, gelu_grad
 
+# The kernel's tiling (csrc/dense.cu): 128 x 128 output tiles, K blocks of
+# 64, a ring of 6 stages of one x and one W box each, two consumer
+# warpgroups, raster groups of DENSE_GROUP_M M-tiles.
+DENSE_BM, DENSE_BN, DENSE_BK, DENSE_STAGES, DENSE_CONSUMERS = 128, 128, 64, 6, 2
+DENSE_GROUP_M = 8
+H100_SMS = 132
+
+
+def dense_plan(m: int, f: int, k: int, sms: int = H100_SMS) -> dict:
+    """The launch plan of K-dense for ``x [m, k] @ W[f, k]^T``: one
+    persistent CTA an SM (never more CTAs than tiles), the raster's group
+    size and the shared-memory bytes, which the C entry point checks against
+    the kernel's own (align slack, the ring, 2 barriers a stage and 2 ordering
+    barriers)."""
+    m_tiles, f_tiles = -(-m // DENSE_BM), -(-f // DENSE_BN)
+    stage = (DENSE_BM + DENSE_BN) * DENSE_BK * 2
+    return {"grid": min(m_tiles * f_tiles, sms), "group_m": DENSE_GROUP_M,
+            "smem": 1024 + DENSE_STAGES * stage + (2 * DENSE_STAGES + 2) * 8,
+            "m_tiles": m_tiles, "f_tiles": f_tiles, "k_blocks": -(-k // DENSE_BK)}
+
+
+def dense_tile(t: int, plan: dict) -> tuple:
+    """Tile ``t`` of the raster -> (M-tile, F-tile), as csrc/dense.cu:
+    tile_coords: groups of ``group_m`` M-tiles, each walked down M first."""
+    g, mt, ft = plan["group_m"], plan["m_tiles"], plan["f_tiles"]
+    gi, r = divmod(t, g * ft)
+    first = gi * g
+    size = min(g, mt - first)
+    return first + r % size, r // size
+
+
+def dense_tile_order(plan: dict) -> list:
+    """Every (CTA, consumer warpgroup, M-tile, F-tile) the kernel computes, in
+    each CTA's order: CTA c takes tiles c, c + grid, ...; its warpgroups take
+    them in turns."""
+    grid, total = plan["grid"], plan["m_tiles"] * plan["f_tiles"]
+    return [(c, i % DENSE_CONSUMERS, *dense_tile(t, plan))
+            for c in range(grid) for i, t in enumerate(range(c, total, grid))]
+
 
 def dense_gelu_reference(x: torch.Tensor, weight: torch.Tensor,
                          bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -35,9 +74,11 @@ def _dense_gelu_fwd(x: torch.Tensor, weight: torch.Tensor,
     check_kernel_arg(x, "x", tuple(x.shape))
     check_kernel_arg(weight, "weight", (f, c))
     check_kernel_arg(bias, "bias", (f,))
+    plan = dense_plan(m, f, c, torch.cuda.get_device_properties(x.device).multi_processor_count)
     y = torch.empty(*x.shape[:-1], f, device=x.device, dtype=x.dtype)
     dense_gelu.launches += 1
-    kernels.launch("ovt_dense_gelu", x, weight, bias, y, m, f, c)
+    kernels.launch("ovt_dense_gelu", x, weight, bias, y, m, f, c, plan["grid"], plan["group_m"],
+                   plan["smem"])
     return y
 
 
@@ -79,7 +120,8 @@ def dense_gelu(x: torch.Tensor, weight: torch.Tensor,
     """``x [..., C]``, ``weight [F, C]``, ``bias [F]`` -> ``[..., F]``.
 
     CPU tensors take :func:`dense_gelu_reference`; CUDA tensors launch the
-    K-dense kernel (csrc/dense.cu): bf16, contiguous, C and F multiples of 8.
+    K-dense kernel (csrc/dense.cu, TMA + wgmma, :func:`dense_plan`): bf16,
+    contiguous, C and F multiples of 8.
     The backward (:func:`dense_gelu_bwd`) saves x and the weights only."""
     return _DenseGelu.apply(x, weight, bias)
 

@@ -5,6 +5,9 @@ and the interleaved wide qkv (probe e: ``ops.octic_attention_wide``, kernel
 row 13a), at ViT-H/14 B=64 bf16:
 
     octic kernel (current)   ops.octic_attention (row 5): 6-piece gather, octic scatter
+    standard whole-head core ops.full_attention (probe h): the core the octic rows run,
+                             on the standard layout; ops.standard_attention (the TMA +
+                             wgmma standard forward) is timed beside it under its name
     aligned loads (a)        one 80-column slice per q, k, v; octic scatter
     aligned everything (b)   the same loads, one store per head
     aligned, NO softmax (c)  out = bf16(s) v
@@ -63,7 +66,9 @@ def main() -> int:
               ops.octic_attention(*arrs, H))
         res = in_turns({
             "perturb floor (6 adds)": lambda: tuple(a + 1.0 for a in arrs),
-            "standard kernel (K-attn)": lambda: ops.standard_attention(qkv, H),
+            "standard whole-head core (probe h)": lambda: ops.full_attention(qkv, H),
+            "standard TMA + wgmma (ops.standard_attention)":
+                lambda: ops.standard_attention(qkv, H),
             "octic kernel (current)": lambda: ops.octic_attention(*arrs, H),
             "aligned loads, octic stores (a)": lambda: ops.aligned_loads_attention(*arrs, H),
             "aligned everything (b)": lambda: ops.aligned_all_attention(*arrs, H),
@@ -74,7 +79,9 @@ def main() -> int:
                 lambda: ops.octic_attention_wide(interleave_wide(arrs), H),
         })
     shape = (B, N, C, H, True)
-    bounds = {"standard kernel (K-attn)": cs.bound("standard_attention", shape),
+    bounds = {"standard whole-head core (probe h)": cs.bound("full_attention", shape),
+              "standard TMA + wgmma (ops.standard_attention)":
+                  cs.bound("standard_attention", shape),
               "octic kernel (current)": cs.bound("octic_attention", shape),
               "aligned loads, octic stores (a)": cs.bound("aligned_loads_attention", shape),
               "aligned everything (b)": cs.bound("aligned_all_attention", shape),
@@ -92,7 +99,8 @@ def main() -> int:
         - m["aligned, cheap softmax (d)"],
         "interleave + wide - octic": m["interleave + wide kernel (e)"]
         - m["octic kernel (current)"],
-        "octic - standard": m["octic kernel (current)"] - m["standard kernel (K-attn)"],
+        "octic - standard (whole-head core)": m["octic kernel (current)"]
+        - m["standard whole-head core (probe h)"],
     }
     report(card, res, bounds, split)
     return 0

@@ -5,15 +5,17 @@ stage, restructured, and fed the 128-padded qkv, at ViT-H/14 B=64 bf16
     loads only        the gather and the store (out = v; the H100 floor)
     scores only (f)   + q k^T and the online row max
     scores+softmax (g) + exp and the row sum
-    full (h)          + P.V: K-attn, built from the probe source
+    full (h)          + P.V: K-attn's whole-head core, built from the probe source
     interleave2 (i)   two heads a CTA, their chains advancing together
     phased (j)        a two-pass softmax through shared memory
     PADDED ... (k, l) the padded qkv [B, N, 3 H 128], 80 real channels
 
-timed in turns with ``ops.standard_attention`` (K-attn) and SDPA (the library
-call of ``chip_smoke.library_sdpa``). The split of K-attn's time is taken as
-differences of these times, as the TPU script derives its own
-(``profile_attn_kernel.py:258-272``). Run on the card from the repository
+timed in turns with SDPA (the library call of ``chip_smoke.library_sdpa``)
+and with ``ops.standard_attention``, which is K-attn's TMA + wgmma standard
+forward (csrc/attention_std.cu) and no longer the whole-head core these
+probes cut down: probe h is that core as it was. The split of the
+whole-head core's time is taken as differences of these times, as the TPU
+script derives its own (``profile_attn_kernel.py:258-272``). Run on the card from the repository
 root:
 
     python3 -m octic_vits_tpu_torch.probes.r3_attn_ablate
@@ -39,7 +41,8 @@ def main() -> int:
     qkv = cs.randn(gen, B, N, 3 * C)
     qkvp = pad_qkv(qkv)
     cases = {
-        "std current (K-attn)": (lambda: ops.standard_attention(qkv, H), "standard_attention"),
+        "std TMA + wgmma (ops.standard_attention)": (lambda: ops.standard_attention(qkv, H),
+                                                     "standard_attention"),
         "SDPA (library)": (cs.library_sdpa(qkv, H), None),
         "loads only": (lambda: ops.scores_only_attention(qkv, H, "loads"), "loads_only"),
         "scores only (f)": (lambda: ops.scores_only_attention(qkv, H), "scores_only_attention"),
@@ -75,13 +78,16 @@ def main() -> int:
         "scores: q k^T + row max (f - loads)": m["scores only (f)"] - m["loads only"],
         "softmax: exp + sum (g - f)": m["scores+softmax (g)"] - m["scores only (f)"],
         "P.V + normalise (h - g)": m["full (h)"] - m["scores+softmax (g)"],
-        "probe build - K-attn (h - std)": m["full (h)"] - m["std current (K-attn)"],
+        "TMA + wgmma - whole-head core (std - h)":
+            m["std TMA + wgmma (ops.standard_attention)"] - m["full (h)"],
         "two heads a CTA (i - h)": m["interleave2 (i)"] - m["full (h)"],
         "two-pass softmax (j - h)": m["phased (j)"] - m["full (h)"],
         "padded layout, scores (k - f)": m["PADDED scores only (k)"] - m["scores only (f)"],
         "padded layout, full (k - h)": m["PADDED full (k)"] - m["full (h)"],
         "octic scatter on padded (l - k)": m["PADDED + octic scatter (l)"] - m["PADDED full (k)"],
-        "K-attn - SDPA": m["std current (K-attn)"] - m["SDPA (library)"],
+        "whole-head core - SDPA (h - SDPA)": m["full (h)"] - m["SDPA (library)"],
+        "TMA + wgmma - SDPA": m["std TMA + wgmma (ops.standard_attention)"]
+        - m["SDPA (library)"],
     }
     report(card, res, bounds, split)
     return 0

@@ -1,9 +1,11 @@
 """H100 counterpart of ``scripts/r3_attn_bh.py``: attention on the 128-padded
 qkv ``[B, N, 3 H 128]`` on a grid of (batch, head), with the padded store
 (probe m, ``ops.bh_std_attention``) and with the octic scatter (probe n,
-``ops.bh_octic_attention``), against K-attn on the natural qkv. K-attn's grid
-is already (head, batch): these are the padded-layout cases of probe k and l,
-timed on their own. Run on the card from the repository root:
+``ops.bh_octic_attention``), against K-attn's whole-head core on the natural
+qkv (probe h, ``ops.full_attention``), whose grid is already (head, batch):
+these are the padded-layout cases of probe k and l, timed on their own. The
+TMA + wgmma standard forward (``ops.standard_attention``) is timed beside
+them under its own name. Run on the card from the repository root:
 
     python3 -m octic_vits_tpu_torch.probes.r3_attn_bh
 """
@@ -38,25 +40,27 @@ def main() -> int:
     qkvp = pad_qkv(qkv)
     shape = (B, N, C, H, True)
     with torch.no_grad():
-        ref = ops.standard_attention(qkv, H)
+        ref = ops.full_attention(qkv, H)
         got = ops.bh_std_attention(qkvp, H, DH)
         check(cs, "bh_std_attention", got, ops.bh_std_attention.reference(qkvp, H, DH))
-        check(cs, "bh_std_attention real columns vs standard_attention",
+        check(cs, "bh_std_attention real columns vs the whole-head core (h)",
               got.view(B, N, H, DHP)[..., :DH].reshape(B, N, C), ref)
         check(cs, "bh_octic_attention", ops.bh_octic_attention(qkvp, H, DH),
               ops.bh_octic_attention.reference(qkvp, H, DH))
         res = in_turns({
-            "std current (K-attn, natural)": lambda: ops.standard_attention(qkv, H),
+            "std whole-head core (h, natural)": lambda: ops.full_attention(qkv, H),
+            "std TMA + wgmma (natural)": lambda: ops.standard_attention(qkv, H),
             "std grid-(b,h) padded (m)": lambda: ops.bh_std_attention(qkvp, H, DH),
             "octic grid-(b,h) padded (n)": lambda: ops.bh_octic_attention(qkvp, H, DH),
             "pad_qkv (plain torch)": lambda: pad_qkv(qkv),
         })
     med = res["median"]
-    bounds = {"std current (K-attn, natural)": cs.bound("standard_attention", shape),
+    bounds = {"std whole-head core (h, natural)": cs.bound("full_attention", shape),
+              "std TMA + wgmma (natural)": cs.bound("standard_attention", shape),
               "std grid-(b,h) padded (m)": cs.bound("bh_std_attention", shape),
               "octic grid-(b,h) padded (n)": cs.bound("bh_octic_attention", shape)}
     split = {"padded layout, padded store - natural":
-             med["std grid-(b,h) padded (m)"] - med["std current (K-attn, natural)"],
+             med["std grid-(b,h) padded (m)"] - med["std whole-head core (h, natural)"],
              "octic scatter - padded store":
              med["octic grid-(b,h) padded (n)"] - med["std grid-(b,h) padded (m)"]}
     report(card, res, bounds, split)

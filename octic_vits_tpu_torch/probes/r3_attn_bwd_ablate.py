@@ -4,7 +4,8 @@ product inside the attention, against the shipped kernels, at ViT-H/14 bf16
 (forwards B=64, backwards B=32, as the script runs them; the ``ops`` of kernel
 row 14c in ``ops/attention_bwd_probe.py``). Its three modes are the script's:
 
-    default         std fwd: current (K-attn, row 1), pack G=1, 2, 4 (one row
+    default         std fwd: current (K-attn's whole-head core, probe h; row 1's
+                    TMA + wgmma forward beside it), pack G=1, 2, 4 (one row
                     max shared by the group), maskpair; octic fwd: current
                     (row 5), groups G=1, 2 (maskpair), 4 (maskquad); std bwd
                     (B=32): current (row 1b), pack G=1, 2, 4, maskpair; octic
@@ -102,8 +103,10 @@ def _families(mode, ops, cs, arrs, gs, qkv, g, gw, fused):
             bwd("octic_group_attention_bwd", grp, True))
     if mode == "quad":
         return {"octic fwd": octic_fwd, "octic bwd": octic_bwd}
-    std_fwd = {"std fwd current (K-attn)": (lambda: ops.standard_attention(qkv, H),
+    std_fwd = {"std fwd current (K-attn)": (lambda: ops.full_attention(qkv, H),
                                             fwd("standard_attention")),
+               "std fwd TMA + wgmma (ops.standard_attention)":
+                   (lambda: ops.standard_attention(qkv, H), fwd("standard_attention")),
                "SDPA (library)": (cs.library_sdpa(qkv, H), None)}
     std_bwd = {"std bwd current (K-attn-bwd)": (lambda: ops.standard_attention_bwd(qb, g, H),
                                                 bwd("standard_attention_bwd")),

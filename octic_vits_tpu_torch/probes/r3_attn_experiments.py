@@ -3,7 +3,10 @@ forward attention against the shipped K-attn, at ViT-H/14 B=64 bf16 on the
 standard qkv ``[B, N, 3C]`` and the six octic arrays (the ``ops`` of kernel
 row 14b in ``ops/attention_probe.py``), in the script's order:
 
-    std current          ops.standard_attention (K-attn, row 1)
+    std current          K-attn's whole-head core on the standard layout (probe h,
+                         ops.full_attention): the core these levers change
+    std TMA + wgmma      ops.standard_attention, row 1's redesigned forward, under its
+                         own name
     std nb=2             two images a CTA (ops.multi_image_attention)
     octic nb=2           the same on the octic layout
     std cls-split        keys [N-1 | 1]: the 64-key blocks stop at key 256,
@@ -53,10 +56,11 @@ def main() -> int:
                 ("hoist+split phase 2", ops.padded_octic_attention, (qkvp, H, DH),
                  {"split": True})):
             check(cs, label, op(*args, **kw), op.reference(*args, **kw))
-        check(cs, "std cls-split vs K-attn", ops.cls_split_attention(qkv, H),
-              ops.standard_attention(qkv, H))
+        check(cs, "std cls-split vs the whole-head core (h)", ops.cls_split_attention(qkv, H),
+              ops.full_attention(qkv, H))
         cases = {
-            "std current (K-attn)": lambda: ops.standard_attention(qkv, H),
+            "std current (K-attn)": lambda: ops.full_attention(qkv, H),
+            "std TMA + wgmma (ops.standard_attention)": lambda: ops.standard_attention(qkv, H),
             "SDPA (library)": cs.library_sdpa(qkv, H),
             "std nb=2": lambda: ops.multi_image_attention(qkv, H),
             "octic nb=2": lambda: ops.multi_image_octic_attention(*arrs, H),
@@ -74,6 +78,7 @@ def main() -> int:
         res = in_turns(cases)
     shape = (B, N, C, H)
     work = {"std current (K-attn)": ("standard_attention", False),
+            "std TMA + wgmma (ops.standard_attention)": ("standard_attention", False),
             "std nb=2": ("multi_image_attention", False),
             "octic nb=2": ("multi_image_octic_attention", False),
             "std cls-split": ("cls_split_attention", True),

@@ -4,7 +4,9 @@ and its backward (probe p, ``ops.headmajor_attention_bwd``), K-attn and
 K-attn-bwd with batch strides, timed as the script's ``bench()`` does: the
 kernel alone, with the transpose in front, with the transpose back after,
 the transpose alone; the backward at B=32 against K-attn-bwd on the natural
-qkv. Run on the card from the repository root:
+qkv. The natural forward is K-attn's whole-head core (probe h), which the
+head-major kernel reuses; row 1's TMA + wgmma forward is timed beside it.
+Run on the card from the repository root:
 
     python3 -m octic_vits_tpu_torch.probes.r3_attn_headmajor
 """
@@ -50,7 +52,8 @@ def main() -> int:
         check(cs, "headmajor_attention_bwd", ops.headmajor_attention_bwd(hm32, g_hm32, H),
               ops.headmajor_attention_bwd.reference(hm32, g_hm32, H), scaled=True)
         fwd = in_turns({
-            "std fwd kernel (K-attn)": lambda: ops.standard_attention(qkv, H),
+            "std fwd kernel (K-attn)": lambda: ops.full_attention(qkv, H),
+            "std fwd TMA + wgmma (ops.standard_attention)": lambda: ops.standard_attention(qkv, H),
             "headmajor fwd kernel (o)": lambda: ops.headmajor_attention(hm, H),
             "transpose+hm fwd": lambda: ops.headmajor_attention(to_headmajor(qkv), H),
             "transpose+hm+untranspose":
@@ -65,7 +68,9 @@ def main() -> int:
                 to_headmajor(qkv32), g_hm32, H).permute(0, 3, 1, 2, 4).reshape(B_BWD, N, 3 * C),
         })
     shape, shape32 = (B, N, C, H, True), (B_BWD, N, C, H, True)
-    report(card, fwd, {"std fwd kernel (K-attn)": cs.bound("standard_attention", shape),
+    report(card, fwd, {"std fwd kernel (K-attn)": cs.bound("full_attention", shape),
+                       "std fwd TMA + wgmma (ops.standard_attention)":
+                           cs.bound("standard_attention", shape),
                        "headmajor fwd kernel (o)": cs.bound("headmajor_attention", shape)},
            {"head-major - natural, fwd": fwd["median"]["headmajor fwd kernel (o)"]
             - fwd["median"]["std fwd kernel (K-attn)"]})

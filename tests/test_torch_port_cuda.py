@@ -87,6 +87,32 @@ def test_dense_gelu_kernel(gen, b, n, c, heads, bias):
     _assert_close(_counted(ops.dense_gelu, x, w, bb), ops.dense_gelu_reference(x, w, bb))
 
 
+# The TMA + wgmma kernels' edges: every head width's column boxes (16, 16 +
+# 8, 32, 32 + 8, 64, 64 + 16, 64 + 32 + 16 + 8, 64 + 64), token counts that
+# fold key N - 1 in (65, 257), end on a masked key tile (37, 197) or hold
+# one token; K-dense's ragged M, K of one and three 64-blocks, F off the
+# 128-column tile, M below one tile.
+STD_EDGES = [(2, n, 2, dh) for dh in (16, 24, 32, 40, 64, 80, 120, 128)
+             for n in (1, 37, 65, 197, 257)]
+DENSE_EDGES = [(130, 64, 264, True), (300, 192, 8, False), (1000, 1280, 520, True),
+               (129, 1280, 5120, True), (7, 64, 128, False)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", STD_EDGES)
+def test_standard_attention_sm90_edges(gen, b, n, heads, dh):
+    qkv = _randn(gen, b, n, 3 * heads * dh)
+    _assert_close(_counted(ops.standard_attention, qkv, heads),
+                  ops.standard_attention_reference(qkv, heads))
+
+
+@pytest.mark.parametrize("m,k,f,bias", DENSE_EDGES)
+def test_dense_gelu_sm90_edges(gen, m, k, f, bias):
+    x = _randn(gen, m, k)
+    w = _randn(gen, f, k, scale=k ** -0.5)
+    bb = _randn(gen, f, scale=0.1) if bias else None
+    _assert_close(_counted(ops.dense_gelu, x, w, bb), ops.dense_gelu_reference(x, w, bb))
+
+
 @pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
 def test_mlp_d8_fused_kernel(gen, b, n, c, heads, bias):
     c8, h8 = c // 8, c // 2

@@ -91,7 +91,13 @@ def test_gelu_d8_eager(flat_e):
         _close(o, t)
 
 
-@pytest.mark.parametrize("b,n,heads,dh", [(2, 17, 2, 8), (1, 65, 3, 16)])
+# the card gates' head widths and token counts (csrc/attention_std.cu's
+# boxes: 16, 16 + 8, 32, 64, 64 + 16; N = 257 and 65 fold key N - 1 in as a
+# rank-1 update, 37 and 197 end on a masked key tile)
+STD_EDGES = [(1, n, 2, dh) for dh in (16, 24, 32, 64, 80) for n in (37, 65, 197, 257)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(2, 17, 2, 8), (1, 65, 3, 16)] + STD_EDGES)
 def test_standard_attention(b, n, heads, dh):
     qkv = _n(_rng(4), b, n, 3 * heads * dh)
     ours = ops.standard_attention(_t(qkv), heads)
@@ -125,6 +131,19 @@ def test_dense_gelu(rank, bias):
     x = _n(rng, *shape)
     w = _n(rng, 16, 40, scale=0.3)  # flax layout [C, F]
     bb = _n(rng, 40) if bias else None
+    ours = ops.dense_gelu(_t(x), _t(w.T), None if bb is None else _t(bb))
+    theirs = j_dense_gelu(jnp.asarray(x), jnp.asarray(w), None if bb is None else jnp.asarray(bb))
+    _close(ours, theirs)
+
+
+# K-dense's ragged edges: M not a multiple of the 128-row tile, K of one,
+# three and twenty 64-wide blocks, F a multiple of 8 but not of 128
+@pytest.mark.parametrize("m,k,bias", [(130, 64, True), (300, 192, False), (130, 1280, True)])
+def test_dense_gelu_ragged(m, k, bias):
+    rng = _rng(16)
+    x = _n(rng, m, k)
+    w = _n(rng, k, 264, scale=k ** -0.5)  # flax layout [C, F]
+    bb = _n(rng, 264) if bias else None
     ours = ops.dense_gelu(_t(x), _t(w.T), None if bb is None else _t(bb))
     theirs = j_dense_gelu(jnp.asarray(x), jnp.asarray(w), None if bb is None else jnp.asarray(bb))
     _close(ours, theirs)
