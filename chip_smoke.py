@@ -107,7 +107,9 @@ Phases, one line each (any failure raises and exits non-zero):
              attention of scripts/r3_attn_experiments.py at ViT-H/14 B=64 and
              at B=4, N=37; K-lin-d8's tile sweep (scripts/profile_lin_tiles.py,
              both stores, M = 16448 and 148), each tile also bitwise equal to
-             the shipped K-lin-d8; the product-cost law's twelve shapes
+             the mma.sync core's 64 x 32 instantiation (ops.lin_d8_sync, the
+             model paths' K-lin-d8 before its TMA + wgmma redesign); the
+             product-cost law's twelve shapes
              (scripts/r3_matmul_law.py, B=64) with the law's own bar
              (LAW_ATOL, LAW_RTOL), shown to fail a kernel that drops an
              edge or a head; each with its time, bound and library call;
@@ -132,6 +134,25 @@ Phases, one line each (any failure raises and exits non-zero):
              default SDPA launched), K-dense against cuBLASLt's GELU
              epilogue, each with TFLOP/s and share of the bound; and the host
              time per call of each (tensor maps are encoded per launch)
+  P25 redesign 2  K-lin-d8 (csrc/lin_d8.cu) and the octic attention forward
+             (csrc/attention_octic.cu), both TMA + wgmma: K-lin-d8 in every
+             mode and store against its plain version at the ViT-H/14 B=64
+             and B=32 and L/16 shapes and at ragged edges (M = 148, F = 24,
+             c = 16; d1 = 2, 8, 10; packed row strides); the five octic
+             forwards (rows 2, 5, 10, 12, 13a) at the same shapes; every
+             octic forward and every attention backward layout (std, octic,
+             wide-1d, wide, rows 2b and 10b; the backwards streamed) just past
+             the old whole-head limits and at N = 1025; then, in turns by
+             CUDA-graph replay, K-lin-d8 against the mma.sync core it replaced
+             (ops.lin_d8_sync) and a cuBLAS bmm + matmul pair, the octic
+             forward against the whole-head core (ops.whole_head_octic_
+             attention), each beside its bound; route (b) of rows 5 and 12 in
+             turns with one copy into the wide qkv + route (a); K-attn-bwd's
+             whole-head and streamed forms in turns at N = 257; the host time
+             per call; the yardsticks launched once each (0 on every model
+             path: P3 checks every counter).
+             `python3 chip_smoke.py --p25` runs P25 alone after the build and
+             prints no result
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -476,7 +497,7 @@ GROUP_SRC = "octic_vits_tpu_torch/csrc/attention_group.cu"
 META = {
     "standard_attention": ("octic_vits_tpu_torch/csrc/attention_std.cu",
                            "octic_vits_tpu/ops/pallas_attention.py:1234", "inference"),
-    "octic_attention_fused_qkv": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "octic_attention_fused_qkv": ("octic_vits_tpu_torch/csrc/attention_octic.cu",
                                   "octic_vits_tpu/ops/pallas_attention.py:538", "inference"),
     "dense_gelu": ("octic_vits_tpu_torch/csrc/dense.cu", "octic_vits_tpu/ops/pallas_dense.py:111",
                    "inference"),
@@ -484,7 +505,7 @@ META = {
                      "octic_vits_tpu/ops/pallas_linear.py:550", "inference"),
     "standard_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
                                "octic_vits_tpu/ops/pallas_attention.py:1259", "train"),
-    "octic_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "octic_attention": ("octic_vits_tpu_torch/csrc/attention_octic.cu",
                         "octic_vits_tpu/ops/pallas_attention.py:356", "train"),
     "octic_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
                             "octic_vits_tpu/ops/pallas_attention.py:391", "train"),
@@ -508,7 +529,7 @@ META = {
                            "octic_vits_tpu/ops/pallas_linear.py:196", "epilogue_inference"),
     "mlp_branch_d8": ("octic_vits_tpu_torch/csrc/ln_d8.cu",
                       "octic_vits_tpu/ops/pallas_mlp_branch.py:251", "fused_branch_inference"),
-    "octic_attention_fused_qkv_packed": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "octic_attention_fused_qkv_packed": ("octic_vits_tpu_torch/csrc/attention_octic.cu",
                                          "octic_vits_tpu/ops/pallas_attention.py:904",
                                          "packed_inference"),
     "octic_attention_fused_qkv_packed_bwd": ("octic_vits_tpu_torch/csrc/lin_d8_bwd.cu",
@@ -518,11 +539,11 @@ META = {
                             "octic_vits_tpu/ops/pallas_linear.py:712", "packed_inference"),
     "mlp_d8_fused_bwd": ("octic_vits_tpu_torch/csrc/lin_d8.cu",
                          "octic_vits_tpu/ops/pallas_linear.py:566", "packed_train"),
-    "octic_attention_wide1d": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "octic_attention_wide1d": ("octic_vits_tpu_torch/csrc/attention_octic.cu",
                                "octic_vits_tpu/ops/pallas_attention.py:1058", "wide_inference"),
     "octic_attention_wide1d_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
                                    "octic_vits_tpu/ops/pallas_attention.py:1087", "wide_train"),
-    "octic_attention_wide": ("octic_vits_tpu_torch/csrc/attention.cu",
+    "octic_attention_wide": ("octic_vits_tpu_torch/csrc/attention_octic.cu",
                              "octic_vits_tpu/ops/pallas_attention.py:1154", "wide_segments"),
     "octic_attention_wide_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
                                  "octic_vits_tpu/ops/pallas_attention.py:1188", "wide_segments"),
@@ -576,6 +597,11 @@ META = {
                             "scripts/r3_attn_bwd_ablate.py:735", "probe_14c"),
     "octic_qkv_attention_proj": ("octic_vits_tpu_torch/csrc/qkv_attention.cu",
                                  "scripts/r3_attn_bwd_ablate.py:693", "probe_14c"),
+    # the yardsticks of the Hopper redesigns (P25): the kernels they replaced
+    "lin_d8_sync": ("octic_vits_tpu_torch/csrc/lin_d8_probe.cu",
+                    "octic_vits_tpu/ops/pallas_linear.py:196", "probe_25"),
+    "whole_head_octic_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
+                                   "octic_vits_tpu/ops/pallas_attention.py:356", "probe_25"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -874,6 +900,12 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     summary = {}
+    if sys.argv[1:] == ["--p25"]:  # P25 alone, for work on its kernels; prints no result
+        summary = {"octic_attention": {"max_abs_err": 0.0},
+                   "octic_attention_fused_qkv": {"max_abs_err": 0.0},
+                   "standard_attention_bwd": {"max_abs_err": 0.0}}
+        redesign_25_phases(gen, summary, card)
+        return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
 
@@ -895,14 +927,19 @@ def main() -> int:
     launches = {op.__name__: op.launches for op in ops.INFERENCE_OPS}
     if tuple(logits.shape) != (BATCH, 1000) or not bool(logits.isfinite().all()):
         raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
-    if any(v != 16 for v in launches.values()):
-        raise AssertionError(f"expected 16 launches of each kernel, got {launches}")
+    # 16 launches of each inference kernel and none of any other op: the
+    # yardsticks that the redesigns replaced (ops.PARENT_OPS) stay at 0
+    if ops.launch_counts() != expected_launches({name: 16 for name in launches}):
+        raise AssertionError(f"expected 16 launches of each kernel and 0 of the others, got "
+                             f"{ops.launch_counts()}")
     with torch.no_grad():
         ref = cpu_model(images[:2].to(torch.bfloat16).float())
     got = logits[:2].float().cpu()
     rel = ((got - ref).norm() / ref.norm()).item()
     phase("P3", f"hybrid_deit_huge_patch14 B={BATCH} bf16: logits {tuple(logits.shape)} finite, "
-                f"launches {launches}; 2 images vs CPU f32 plain path: rel L2 err {rel:.3e} "
+                f"launches {launches}, yardsticks "
+                f"{ {op.__name__: op.launches for op in ops.PARENT_OPS} }; "
+                f"2 images vs CPU f32 plain path: rel L2 err {rel:.3e} "
                 f"(tol {SLICE_REL_TOL}), max abs err {(got - ref).abs().max().item():.3e}, "
                 f"|ref| max {ref.abs().max().item():.3e}")
     if not rel <= SLICE_REL_TOL:
@@ -1033,9 +1070,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     redesign_phases(gen, summary, card)
 
+    torch.cuda.empty_cache()
+    probe_25_launches = redesign_25_phases(gen, summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
-              "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches}
+              "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
+              "probe_25": probe_25_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -2078,9 +2119,11 @@ def experiment_cases(gen, b, n, c, heads):
 
 def lin_tile_cases(gen, m, c8, heads):
     """(label, kernel op, args, keyword args, library call, work, extra
-    check) of K-lin-d8's tile sweep (scripts/profile_lin_tiles.py) at M
-    tokens: both stores at every tile. The extra check holds the output
-    bitwise equal to the shipped K-lin-d8 of the same store."""
+    check) of the tile sweep of K-lin-d8's mma.sync core
+    (scripts/profile_lin_tiles.py) at M tokens: both stores at every tile.
+    The extra check holds the output bitwise equal to the core's own 64 x 32
+    instantiation (ops.lin_d8_sync, the model paths' kernel before the TMA +
+    wgmma redesign, which sums in another order) of the same store."""
     from octic_vits_tpu_torch import ops
     from octic_vits_tpu_torch.ops.linear_probe import STORES, TILES
     from octic_vits_tpu_torch.probes.profile_lin_tiles import lin_inputs, shipped
@@ -2092,7 +2135,7 @@ def lin_tile_cases(gen, m, c8, heads):
         def check(out):
             want = flat(shipped(store, *xs, heads))
             same = all(torch.equal(o, r) for o, r in zip(flat(out), want))
-            return same, f"bitwise equal to the shipped K-lin-d8: {same}"
+            return same, f"bitwise equal to the mma.sync core at 64x32: {same}"
         return check
 
     return [(f"lin_d8_tiled[{store} {bm}x{bn}]", ops.lin_d8_tiled, xs,
@@ -2186,7 +2229,7 @@ def probe_14b_phases(gen, summary, card) -> dict:
     """P22, the probes of kernel row 14b: each against its plain version with
     P21's bars (the law's ops with theirs, `tol_of`) at the scripts'
     full-width shapes and a ragged one, with each case's extra check (each
-    K-lin-d8 tile bitwise equal to the shipped K-lin-d8; the law's bar
+    K-lin-d8 tile bitwise equal to the mma.sync core at 64 x 32; the law's bar
     failing every mutant of `law_mutants`); times at the
     full-width shape (tools/timing.py, as P21), bound and library call. An
     op's summary row is its first case, its other cases listed under
@@ -2467,20 +2510,6 @@ def device_kernel_names(fn) -> list:
     return sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
 
 
-def host_us_per_call(fn, calls: int = 200) -> float:
-    """Host microseconds to enqueue one call of `fn` (no synchronisation
-    inside the window; at a small shape the card keeps up)."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 def redesign_phases(gen, summary, card) -> None:
     """P24: K-attn's standard forward and K-dense on TMA + wgmma against their
     plain versions (P2's bar) at every main-path shape and at the plans'
@@ -2494,7 +2523,7 @@ def redesign_phases(gen, summary, card) -> None:
     from torch.nn.attention import SDPBackend
 
     from octic_vits_tpu_torch import ops
-    from octic_vits_tpu_torch.tools.timing import in_turns
+    from octic_vits_tpu_torch.tools.timing import host_us_per_call, in_turns
 
     failed = []
     with torch.no_grad():
@@ -2587,6 +2616,431 @@ def redesign_phases(gen, summary, card) -> None:
                      + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
         summary["standard_attention"]["host_us"] = host["std TMA + wgmma"]
         summary["dense_gelu"]["host_us"] = host["K-dense TMA + wgmma"]
+
+
+# ---------------------------------------------------------------------------
+# P25: K-lin-d8 (csrc/lin_d8.cu) and the octic attention forward
+# (csrc/attention_octic.cu) on TMA + wgmma; the octic kernels at any N
+# ---------------------------------------------------------------------------
+# K-lin-d8's cases (label, m, c, f, mode, heads of the wide stores): the H/14
+# B=64 qkv (tuple, wide and wide-1d stores), fc1 + GELU, fc2 + LayerScale and
+# proj + LayerScale; the same at B=32 and at the L/16 SSL crops; ragged
+# edges (M = 148, F = 24, c = 16; d1 = 2, 8, 10) and the packed views
+LIN_CASES = [("qkv", 160, 480, "tuple", 16), ("qkv_wide", 160, 480, "wide", 16),
+             ("qkv_wide1d", 160, 480, "wide1d", 16), ("fc1_gelu", 160, 640, "gelu", None),
+             ("fc2_ls", 640, 160, "ls", None), ("proj_ls", 160, 160, "ls", None)]
+LIN_SSL_CASES = [("qkv", 128, 384, "tuple", 16), ("fc1_gelu", 128, 512, "gelu", None),
+                 ("fc2_ls", 512, 128, "ls", None), ("proj_ls", 128, 128, "ls", None)]
+LIN_EDGES = [("ragged_d1_2", 148, 16, 24, 4), ("d1_8", 148, 24, 48, 2), ("d1_10", 300, 40, 120, 4)]
+# the octic forward: (label, b, n, heads, d1)
+OCTIC_SHAPES = (("vith14_b64", BATCH, 257, 16, 10), ("vith14_b32", TRAIN_BATCH, 257, 16, 10),
+                ("l16_global", 2 * SSL_BATCH, 197, 16, 8), ("l16_local", 8 * SSL_BATCH, 37, 16, 8))
+# just past the old limits, and one long N: forward (b, n, heads, d1),
+# backward (b, n, heads, dh)
+OCTIC_LONG = (("fwd_449_dh80", 2, 449, 4, 10), ("fwd_545_dh64", 2, 545, 4, 8),
+              ("fwd_1025_dh80", 2, 1025, 4, 10))
+BWD_LONG = (("bwd_321_dh80", 2, 321, 4, 80), ("bwd_385_dh64", 2, 385, 4, 64),
+            ("bwd_257_dh128", 2, 257, 2, 128), ("bwd_1025_dh80", 2, 1025, 4, 80))
+
+
+def lin_work(m, c, f, mode) -> tuple:
+    """(bytes, tensor-core operations) of one K-lin-d8 launch: the flat-E
+    input (8c a token) and the weights (8cf) read once, the output (8f a
+    token) written once, the LayerScale's residual read; 24 m c f products."""
+    nbytes = (m * 8 * c + 8 * c * f + f + m * 8 * f) * 2
+    if mode == "ls":
+        nbytes += (m * 8 * f + 6 * f) * 2
+    return nbytes, 24 * m * c * f
+
+
+def lin_inputs(gen, m, c, f, mode, packed=False):
+    """(args, keyword args) of ops.lin_d8_sync and of the op that runs the
+    new kernel in `mode` (see lin_run)."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    if packed:
+        xs = unpack_packed_5f(randn(gen, m, 8 * c, scale=0.5))
+    else:
+        xs = tuple(randn(gen, m, c, scale=0.5) for _ in range(4)) + (
+            randn(gen, m, 4 * c, scale=0.5),)
+    w1, we = randn(gen, 4, c, f, scale=c ** -0.5), randn(gen, 2 * c, 2 * f, scale=(2 * c) ** -0.5)
+    bias = randn(gen, f, scale=0.1)
+    kw = {}
+    if mode == "gelu":
+        kw = dict(gelu=True)
+    if mode == "ls":
+        kw = dict(layerscale=(randn(gen, 4, f, scale=0.5), randn(gen, 2 * f, scale=0.5)),
+                  residual=tuple(randn(gen, m, f) for _ in range(4)) + (randn(gen, m, 4 * f),))
+    return (xs, w1, we, bias), kw
+
+
+def lin_run(mode, heads):
+    """(new kernel, its plain version) on the arguments of lin_inputs."""
+    from octic_vits_tpu_torch import ops
+
+    if mode == "wide":
+        return (lambda xs, w1, we, b: ops.linear_d8_qkv_wide(torch.stack(xs[:4]), xs[4], w1, we,
+                                                             b, heads),
+                lambda xs, w1, we, b: ops.linear_d8_qkv_wide_reference(
+                    torch.stack(xs[:4]), xs[4], w1, we, b, heads))
+    if mode == "wide1d":
+        return (lambda xs, w1, we, b: ops.linear_d8_wide1d(xs, w1, we, b, heads),
+                lambda xs, w1, we, b: ops.linear_d8_wide1d_reference(xs, w1, we, b, heads))
+    return (lambda xs, w1, we, b, **kw: ops.linear_d8_fused(xs, w1, we, b, **_fused_kw(kw)),
+            lambda xs, w1, we, b, **kw: ops.linear_d8_fused_reference(xs, w1, we, b,
+                                                                      **_fused_kw(kw)))
+
+
+def _fused_kw(kw):
+    return {"fuse_gelu" if k == "gelu" else k: v for k, v in kw.items()}
+
+
+def octic_fwd_cases(gen, b, n, heads, d1):
+    """(row, op, plain version, args) of the five octic forwards at one shape:
+    row 2 (fused qkv + attention, route (a)), row 5 (the six arrays, route
+    (b)), row 10 (the packed container, route (a)), row 12 (wide-1d, route
+    (b)) and row 13a (the wide qkv, route (a))."""
+    from octic_vits_tpu_torch import ops
+
+    c8 = heads * d1
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    wq = (randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5),
+          randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5), randn(gen, 3 * c8, scale=0.1))
+    ef = randn(gen, b, n, 12 * c8)
+    qs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + (ef[..., :6 * c8], ef[..., 6 * c8:])
+    y1d = randn(gen, b, n, 12 * c8)
+    w = 4 * c8
+    q1d = (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8], ef[..., 6 * c8:])
+    x = randn(gen, b, n, 8 * c8)
+    qkv = randn(gen, b, n, 24 * c8)
+    return [("row2", ops.octic_attention_fused_qkv, ops.octic_attention_fused_qkv_reference,
+             (*xs, *wq, heads)),
+            ("row5", ops.octic_attention, ops.octic_attention_reference, (*qs, heads)),
+            ("row10", ops.octic_attention_fused_qkv_packed,
+             ops.octic_attention_fused_qkv_packed_reference, (x, *wq, heads)),
+            ("row12", ops.octic_attention_wide1d, ops.octic_attention_wide1d_reference,
+             (*q1d, heads)),
+            ("row13a", ops.octic_attention_wide, ops.octic_attention_wide_reference, (qkv, heads))]
+
+
+def octic_bwd_cases(gen, b, n, heads, dh):
+    """(layout, op, plain version, args) of the attention backwards: the
+    standard, octic, wide-1d and wide layouts and the chains of rows 2b and
+    10's backward."""
+    from octic_vits_tpu_torch import ops
+
+    c = heads * dh
+    c8 = c // 8
+    gs = tuple(randn(gen, b, n, c8) for _ in range(4)) + tuple(
+        randn(gen, b, n, 2 * c8) for _ in range(2))
+    ef = randn(gen, b, n, 12 * c8)
+    qs = tuple(randn(gen, b, n, 3 * c8) for _ in range(4)) + (ef[..., :6 * c8], ef[..., 6 * c8:])
+    y1d = randn(gen, b, n, 12 * c8)
+    w = 4 * c8
+    q1d = (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8], ef[..., 6 * c8:])
+    xs = tuple(randn(gen, b, n, c8) for _ in range(4)) + (randn(gen, b, n, 4 * c8),)
+    wq = (randn(gen, 4, c8, 3 * c8, scale=c8 ** -0.5),
+          randn(gen, 2 * c8, 6 * c8, scale=(2 * c8) ** -0.5), randn(gen, 3 * c8, scale=0.1))
+    x = randn(gen, b, n, c)
+    qkv, g = randn(gen, b, n, 3 * c), randn(gen, b, n, c)
+    return [("std", ops.standard_attention_bwd, ops.standard_attention_bwd_reference,
+             (qkv, g, heads)),
+            ("octic", ops.octic_attention_bwd, ops.octic_attention_bwd_reference,
+             (qs, gs, heads)),
+            ("wide1d", ops.octic_attention_wide1d_bwd, ops.octic_attention_wide1d_bwd_reference,
+             (q1d, gs, heads)),
+            ("wide", ops.octic_attention_wide_bwd, ops.octic_attention_wide_bwd_reference,
+             (qkv, gs, heads)),
+            ("row2b", ops.octic_attention_fused_qkv_bwd,
+             ops.octic_attention_fused_qkv_bwd_reference, (xs, *wq, gs, heads)),
+            ("row10b", ops.octic_attention_fused_qkv_packed_bwd,
+             ops.octic_attention_fused_qkv_packed_bwd_reference, (x, *wq, gs, heads))]
+
+
+def redesign_25_phases(gen, summary, card) -> dict:
+    """P25: K-lin-d8 on TMA + wgmma against its plain version in every mode
+    and store at the main path's shapes and at ragged edges; the octic
+    forward (rows 2, 5, 10, 12, 13a) at H/14 B=64 and B=32 and the L/16
+    crops; every octic forward and every attention backward layout just past
+    the old whole-head limits and at N = 1025 (the backwards in their
+    streamed form); then, in turns, K-lin-d8 against its mma.sync core at 64
+    x 32 (ops.lin_d8_sync) and the octic forward against the whole-head core
+    (ops.whole_head_octic_attention), each beside its bound, with the cuBLAS
+    pair of the products for information: device times, each window one
+    replay of a CUDA graph of 20 launches (tools/timing.py), since a K-lin-d8
+    launch's host time (its Python checks and its 14-19 tensor maps,
+    printed) is of the order of its device time; route (b)
+    against copy + route (a) at the octic shapes; K-attn-bwd's two forms at
+    N = 257; then the two yardstick ops once each.
+    Returns the launches of that run."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.ops.attention import _qkv_rows
+    from octic_vits_tpu_torch.tools.timing import host_us_per_call, in_turns
+
+    failed = []
+
+    def check(label, out, ref, scaled=False):
+        torch.cuda.synchronize()
+        err, ok = compare(out, ref, scaled)
+        bar = f"{BWD_TOL}*(max|ref|+|ref|)" if scaled else f"{ATOL}+{RTOL}*|ref|"
+        phase("P25", f"{label} max_abs_err {err:.3e} (tol {bar}) " + ("ok" if ok else "FAIL"))
+        if not ok:
+            failed.append(label)
+        return err
+
+    with torch.no_grad():
+        lin_err = 0.0
+        shapes = [(f"vith14_b64 {k}", BATCH * 257, c, f, mode, hd) for k, c, f, mode, hd in
+                  LIN_CASES] + [(f"vith14_b32 {k}", TRAIN_BATCH * 257, c, f, mode, hd)
+                                for k, c, f, mode, hd in LIN_CASES[:1] + LIN_CASES[3:]]
+        shapes += [(f"l16_{crop} {k}", m, c, f, mode, hd) for crop, m in
+                   (("global", 2 * SSL_BATCH * 197), ("local", 8 * SSL_BATCH * 37))
+                   for k, c, f, mode, hd in LIN_SSL_CASES]
+        shapes += [(f"{k} {mode}", m, c, f, mode, hd) for k, m, c, f, hd in LIN_EDGES
+                   for mode in ("tuple", "gelu", "ls", "wide", "wide1d")]
+        for label, m, c, f, mode, hd in shapes:
+            args, kw = lin_inputs(gen, m, c, f, mode)
+            run, ref = lin_run(mode, hd)
+            lin_err = max(lin_err, check(f"K-lin-d8 [{label} M={m} c={c} F={f}]",
+                                         run(*args, **kw), ref(*args, **kw)))
+            del args, kw
+        for m, c, f in ((148, 16, 24), (BATCH * 257, 160, 640)):  # the packed views, in and out
+            for mode in ("tuple", "gelu"):
+                (xs, w1, we, bias), kw = lin_inputs(gen, m, c, f, mode, packed=True)
+                from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+                y = torch.full((m, 8 * f), float("nan"), device="cuda", dtype=torch.bfloat16)
+                out = ops.lin_d8_launch(xs, w1, we, bias, mode == "gelu", out=unpack_packed_5f(y))
+                lin_err = max(lin_err, check(
+                    f"K-lin-d8 [packed row strides {mode} M={m} c={c} F={f}]", tuple(out),
+                    ops.linear_d8_fused_reference(xs, w1, we, bias, mode == "gelu")))
+                del xs, y, out
+        torch.cuda.empty_cache()
+
+        attn_err = 0.0
+        for label, b, n, heads, d1 in OCTIC_SHAPES + OCTIC_LONG:
+            for row, op, ref, args in octic_fwd_cases(gen, b, n, heads, d1):
+                attn_err = max(attn_err, check(f"octic forward {row} [{label} B={b} N={n} "
+                                               f"H={heads} d1={d1}]", op(*args), ref(*args)))
+            torch.cuda.empty_cache()
+        for label, b, n, heads, dh in BWD_LONG:
+            if not ops.attention_bwd_plan(n, dh)["streamed"]:
+                raise AssertionError(f"{label}: the plan does not stream")
+            for lay, op, ref, args in octic_bwd_cases(gen, b, n, heads, dh):
+                check(f"backward {lay} [{label} streamed B={b} N={n} H={heads} dh={dh}]",
+                      op(*args), ref(*args), scaled=True)
+        torch.cuda.empty_cache()
+        if failed:
+            raise AssertionError(f"P25 kernels outside tolerance: {failed}")
+
+        # ---- times in turns at H/14 B=64, each beside its bound
+        m = BATCH * 257
+        lin_times = {}
+        for key, c, f, mode, hd in LIN_CASES[:2] + LIN_CASES[3:]:
+            args, kw = lin_inputs(gen, m, c, f, mode)
+            run, _ = lin_run(mode, hd)
+            xs, w1, we, bias = args
+            sync_kw = dict(kw, num_heads=hd) if mode == "wide" else kw
+            x1 = torch.stack(xs[:4])
+            rows = xs[4].view(m, 2, 2 * c)
+            cases = {"K-lin-d8 TMA + wgmma": lambda: run(*args, **kw),
+                     "mma.sync core 64x32 (parent)": lambda: ops.lin_d8_sync(*args, **sync_kw),
+                     "cuBLAS bmm + matmul (no epilogue)": lambda: (torch.bmm(x1, w1),
+                                                                   torch.matmul(rows, we))}
+            res = in_turns(cases, graph=True)
+            bms, bby = bound_of(*lin_work(m, c, f, mode))
+            med = res["median"]
+            lin_times[key] = {"ms": med["K-lin-d8 TMA + wgmma"],
+                              "parent_ms": med["mma.sync core 64x32 (parent)"],
+                              "cublas_ms": med["cuBLAS bmm + matmul (no epilogue)"],
+                              "bound_ms": bms, "bound_by": bby,
+                              "turns": res["ms"]}
+            phase("P25", f"K-lin-d8 [{key} vith14_b64 M={m} c={c} F={f}] in turns on {card}: "
+                         + "; ".join(f"{k} {v:.4f} ms ({bms / v:.1%} of bound)"
+                                     for k, v in med.items())
+                         + f"; bound {bms:.4f} ms ({bby}); turns "
+                         + str({k: [round(t, 4) for t in v] for k, v in res["ms"].items()}))
+            del args, kw, cases, x1
+        g = lin_times["qkv_wide"]["ms"] / lin_times["qkv"]["ms"]
+        phase("P25", f"K-lin-d8 grouped-column store / tuple store at the H/14 qkv: {g:.3f}")
+        args, kw = lin_inputs(gen, 148, 16, 24, "tuple")
+        host = {"K-lin-d8 TMA + wgmma": host_us_per_call(lambda: ops.lin_d8_launch(*args, False)),
+                "mma.sync core 64x32 (parent)": host_us_per_call(lambda: ops.lin_d8_sync(*args)),
+                "linear_d8_fused (the op)": host_us_per_call(lambda: ops.linear_d8_fused(*args))}
+        phase("P25", "host us per call (enqueue, small shape; the first two launch directly): "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+
+        b, n, heads, d1 = BATCH, 257, 16, 10
+        cases5 = {c[0]: c for c in octic_fwd_cases(gen, b, n, heads, d1)}
+        _, _, _, a5 = cases5["row5"]
+        _, _, _, a2 = cases5["row2"]
+        _, _, _, a13 = cases5["row13a"]
+        _, _, _, a12 = cases5["row12"]
+        xs2, wq2 = a2[:5], a2[5:8]
+        std_qkv = randn(gen, b, n, 3 * 8 * heads * d1)
+        cases = {"row 5, route (b)": lambda: ops.octic_attention(*a5),
+                 "whole-head core (parent)": lambda: ops.whole_head_octic_attention(*a5),
+                 "row 13a, route (a)": lambda: ops.octic_attention_wide(*a13),
+                 "row 12, route (b)": lambda: ops.octic_attention_wide1d(*a12),
+                 "standard forward, same bytes": lambda: ops.standard_attention(std_qkv, heads),
+                 "row 2: qkv + route (a)": lambda: ops.octic_attention_fused_qkv(*a2),
+                 "row 2 parent: mma.sync qkv + whole-head core": lambda: (
+                     ops.whole_head_octic_attention(*_qkv_rows(ops.lin_d8_sync(xs2, *wq2)),
+                                                    heads))}
+        res = in_turns(cases, graph=True)
+        med = res["median"]
+        bms, bby = bound_of(*work("octic_attention", b, n, 8 * heads * d1, heads, False))
+        b2ms, b2by = bound_of(*work("octic_attention_fused_qkv", b, n, 8 * heads * d1, heads,
+                                    True))
+        phase("P25", f"octic forward [vith14_b64] in turns on {card}: "
+                     + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+                     + f"; bound {bms:.4f} ms ({bby}), row 2's {b2ms:.4f} ms ({b2by}); turns "
+                     + str({k: [round(t, 4) for t in v] for k, v in res["ms"].items()}))
+        del cases, cases5, a5, a2, a13, a12, std_qkv
+        torch.cuda.empty_cache()
+        route_b = route_b_against_copy(gen, card)
+        bwd_forms = bwd_forms_at_257(gen, card)
+
+        summary.setdefault("linear_d8_fused", {}).setdefault("cases", {}).update(
+            {f"p25_{k}": v for k, v in lin_times.items()})
+        summary["linear_d8_fused"]["max_abs_err"] = max(
+            summary["linear_d8_fused"].get("max_abs_err", 0.0), lin_err)
+        summary["octic_attention"].setdefault("cases", {})["p25_vith14_b64"] = {
+            "ms": med["row 5, route (b)"], "route_a_ms": med["row 13a, route (a)"],
+            "wide1d_ms": med["row 12, route (b)"], "parent_ms": med["whole-head core (parent)"],
+            "bound_ms": bms, "bound_by": bby}
+        summary["octic_attention"]["cases"].update(
+            {f"p25_route_b_{k}": v for k, v in route_b.items()})
+        summary["standard_attention_bwd"].setdefault("cases", {}).update(
+            {f"p25_{k}": v for k, v in bwd_forms.items()})
+        summary["octic_attention"]["max_abs_err"] = max(summary["octic_attention"]["max_abs_err"],
+                                                        attn_err)
+        summary["octic_attention_fused_qkv"].setdefault("cases", {})["p25_vith14_b64"] = {
+            "ms": med["row 2: qkv + route (a)"],
+            "parent_ms": med["row 2 parent: mma.sync qkv + whole-head core"],
+            "bound_ms": b2ms, "bound_by": b2by}
+        # the yardsticks' own rows: their time here, the plain version's, the bound
+        (xs, w1, we, bias), _ = lin_inputs(gen, m, 160, 480, "tuple")
+        _, _, _, a5 = octic_fwd_cases(gen, b, n, heads, d1)[1]
+        summary["lin_d8_sync"] = {
+            "ms": lin_times["qkv"]["parent_ms"], "max_abs_err": 0.0, "library_ms": None,
+            "plain_ms": time_ms(lambda: ops.lin_d8_sync.reference(xs, w1, we, bias), iters=5),
+            "bound": (lin_times["qkv"]["bound_ms"], lin_times["qkv"]["bound_by"]),
+            "shape": [m, 160, 480], "cases": lin_times}
+        summary["whole_head_octic_attention"] = {
+            "ms": med["whole-head core (parent)"], "max_abs_err": 0.0, "library_ms": None,
+            "plain_ms": time_ms(lambda: ops.whole_head_octic_attention.reference(*a5), iters=5),
+            "bound": (bms, bby), "shape": [b, n, 8 * heads * d1, heads, False]}
+        for op, args, kw in ((ops.lin_d8_sync, (xs, w1, we, bias), {}),
+                             (ops.whole_head_octic_attention, a5, {})):
+            err, ok = compare(op(*args, **kw), op.reference(*args, **kw))
+            summary[op.__name__]["max_abs_err"] = err
+            phase("P25", f"{op.__name__} [vith14_b64] max_abs_err {err:.3e} (tol {ATOL}+{RTOL}"
+                         f"*|ref|) " + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"{op.__name__} outside tolerance")
+        # the yardsticks' path: each once
+        ops.reset_launch_counts()
+        ops.lin_d8_sync(xs, w1, we, bias)
+        ops.whole_head_octic_attention(*a5)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = {op.__name__: 1 for op in ops.PARENT_OPS}
+    if counts != expected_launches(want):
+        raise AssertionError(f"P25 yardstick launches {counts}, expected {want}")
+    phase("P25", f"yardstick path: {sorted(want)} launched once each on {card}")
+    del xs, a5
+    torch.cuda.empty_cache()
+    return counts
+
+
+def route_b_against_copy(gen, card) -> dict:
+    """Route (b) of rows 5 and 12 (the caller's arrays read in place as
+    padded boxes) in turns with the same op as one copy into the wide qkv
+    (torch.cat) and route (a), and with the copy alone, at H/14 B=64 and B=32
+    and the L/16 crops: device times by CUDA-graph replay."""
+    from octic_vits_tpu_torch.ops import attention as A
+    from octic_vits_tpu_torch.tools.timing import in_turns
+
+    out = {}
+    with torch.no_grad():
+        for label, b, n, heads, d1 in OCTIC_SHAPES:
+            cases = {c[0]: c[3] for c in octic_fwd_cases(gen, b, n, heads, d1)}
+            a5, a12 = cases["row5"][:6], cases["row12"][:5]
+            res = in_turns({
+                "row 5, route (b)": lambda: A._octic_rows_launch(a5, heads),
+                "row 5, copy + route (a)": lambda: A._octic_wide_launch(
+                    A._octic_to_wide(a5, heads), heads),
+                "row 12, route (b)": lambda: A.octic_attention_wide1d(*a12, heads),
+                "row 12, copy + route (a)": lambda: A._octic_wide_launch(
+                    A._wide1d_to_wide(a12, heads), heads),
+                "copy alone (row 5)": lambda: A._octic_to_wide(a5, heads)}, graph=True)
+            med = res["median"]
+            out[label] = {k: round(v, 5) for k, v in med.items()}
+            phase("P25", f"route (b) against copy + route (a) [{label} B={b} N={n} H={heads} "
+                         f"d1={d1}] in turns on {card}: "
+                         + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items()) + "; turns "
+                         + str({k: [round(t, 4) for t in v] for k, v in res["ms"].items()}))
+            del cases, a5, a12
+            torch.cuda.empty_cache()
+    return out
+
+
+def bwd_forms_at_257(gen, card) -> dict:
+    """K-attn-bwd's two forms at a shape where both run (ViT-H/14 B=32, N =
+    257, dh 80; the standard and the octic layouts): the whole-head form the
+    plan picks there, and the streamed form the plan picks past it, each
+    held to the backward bar, then timed in turns by CUDA-graph replay."""
+    from octic_vits_tpu_torch import kernels, ops
+    from octic_vits_tpu_torch.ops import attention as A
+    from octic_vits_tpu_torch.tools.timing import in_turns
+
+    b, n, heads, dh = TRAIN_BATCH, 257, 16, 80
+    d1, c8 = dh // 8, heads * dh // 8
+    lay = {c[0]: c[3] for c in octic_bwd_cases(gen, b, n, heads, dh)}
+    qkv, g, _ = lay["std"]
+    qs, gs, _ = lay["octic"]
+    lq = [t.stride(-2) for t in qs]
+    lg = [t.stride(-2) for t in gs]
+
+    def std(streamed):
+        dqkv = torch.empty_like(qkv)
+        st = torch.empty(2, b, heads, n, device="cuda", dtype=torch.float32)
+        kernels.launch("ovt_attention_std_bwd", qkv, g, g.stride(-2), dqkv, st[0], st[1], b, n,
+                       heads, dh, streamed)
+        return dqkv
+
+    def octic(streamed):
+        grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), device="cuda",
+                                  dtype=qs[0].dtype) for i in range(6))
+        st = torch.empty(2, b, heads, n, device="cuda", dtype=torch.float32)
+        kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, st[0], st[1], b,
+                       n, heads, d1, 2 * d1, streamed)
+        return grads
+
+    if A.attention_bwd_plan(n, dh)["streamed"]:
+        raise AssertionError("the plan streams at N=257, dh 80")
+    with torch.no_grad():
+        refs = {"std": ops.standard_attention_bwd_reference(qkv, g, heads),
+                "octic": ops.octic_attention_bwd_reference(qs, gs, heads)}
+        cases = {}
+        for name, fn in (("std", std), ("octic", octic)):
+            for streamed in (0, 1):
+                form = "streamed" if streamed else "whole-head"
+                err, ok = compare(fn(streamed), refs[name], scaled=True)
+                phase("P25", f"backward {name} {form} [vith14_b32 N={n} dh={dh}] max_abs_err "
+                             f"{err:.3e} (tol {BWD_TOL}*(max|ref|+|ref|)) " + ("ok" if ok else "FAIL"))
+                if not ok:
+                    raise AssertionError(f"backward {name} {form} outside tolerance")
+                cases[f"{name} {form}"] = (lambda f=fn, s=streamed: f(s))
+        res = in_turns(cases, graph=True)
+    med = res["median"]
+    bms, bby = bound_of(*work("standard_attention_bwd", b, n, heads * dh, heads, False))
+    phase("P25", f"K-attn-bwd forms [vith14_b32 N={n} dh={dh}] in turns on {card}: "
+                 + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+                 + f"; bound {bms:.4f} ms ({bby}); turns "
+                 + str({k: [round(t, 4) for t in v] for k, v in res["ms"].items()}))
+    return {f"bwd_{k.replace(' ', '_')}": {"ms": v, "bound_ms": bms, "bound_by": bby}
+            for k, v in med.items()}
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

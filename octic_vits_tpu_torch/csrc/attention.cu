@@ -1,10 +1,14 @@
 // K-attn: softmax(Q K^T * scale) V for each (batch, head), with the head's
 // channels gathered from the producer's natural layout and the output
-// scattered back into the consumer's layout. The standard layout's forward
-// is csrc/attention_std.cu (TMA + wgmma); this whole-head core serves the
-// octic layouts and, through csrc/attention_probe.cu, the probes.
+// scattered back into the consumer's layout. The model paths' forwards are
+// the streamed TMA + wgmma kernels (csrc/attention_std.cu,
+// csrc/attention_octic.cu); this whole-head core serves the probes: row 5's
+// octic layout below (ops/attention_probe.py:whole_head_octic_attention, the
+// yardstick of the streamed octic forward) and, through
+// csrc/attention_probe.cu, the probes of rows 14a-14c.
 //
-// Replaces
+// Replaced, until the streamed kernels took their place (its time is the
+// yardstick of csrc/attention_octic.cu's):
 //   octic_vits_tpu/ops/pallas_attention.py:octic_attention (`_octic_fwd_kernel`)
 //     and the attention half of octic_attention_fused_qkv (`_qkv_attn_store`,
 //     `_group_attn_fwd`): head h's dh = 4*d1 + 2*de channels are a1|a2|b1|b2
@@ -12,15 +16,7 @@
 //     e0|e1 at column (s*H + h)*de of the two E rows [B,N,3C/4] (each with
 //     its own row stride: on the train path they are the two column halves
 //     of one flat-E qkv); the output goes back to 4 x [B,N,C/8] +
-//     2 x [B,N,C/4] in irrep layout. The backward is csrc/attention_bwd.cu;
-//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide1d
-//     (`_octic_w1d_fwd_kernel`): head h's 1-d channels a1|a2|b1|b2 are ONE
-//     4*d1 slice at column h*4*d1 of q1d, k1d or v1d [B,N,C/2] (three arrays,
-//     one per s), its E channels as in octic_attention; the same six outputs;
-//   octic_vits_tpu/ops/pallas_attention.py:octic_attention_wide
-//     (`_octic_wide_fwd_kernel`): head h's dh channels [a1|a2|b1|b2|e0|e1]
-//     are one slice at column (s*H + h)*dh of one qkv [B,N,3C], the standard
-//     layout's gather; the same six outputs.
+//     2 x [B,N,C/4] in irrep layout. The backward is csrc/attention_bwd.cu.
 // One kernel serves every layout: a gather table says where each segment of
 // a head's channels lies (a base pointer per s, a row stride, a batch
 // stride, a width and a head stride or a per-head column table) and a
@@ -78,52 +74,5 @@ OVT_EXPORT int ovt_attention_octic_rows(const void* q1, const void* q2, const vo
   L.N = N;
   L.H = H;
   L.dh = 4 * d1 + 2 * de;
-  return k_attn(L, B, stream);
-}
-
-// Wide-1d octic layout: q1d, k1d, v1d [B,N,4*H*d1] with columns (H, [a1|a2|
-// b1|b2], d1), each with its own token row stride (they may be column views
-// of one [B,N,12*H*d1] buffer); e0, e1 as in ovt_attention_octic_rows; the
-// same six outputs.
-OVT_EXPORT int ovt_attention_wide1d(const void* q1d, const void* k1d, const void* v1d,
-                                    const void* e0, const void* e1, int ldq, int ldk, int ldv,
-                                    int lde0, int lde1, void* o1, void* o2, void* o3, void* o4,
-                                    void* oe0, void* oe1, int B, int N, int H, int d1, int de,
-                                    void* stream) {
-  ovt::attn::Layout L = {};
-  L.in.nseg = 3;
-  const void* one[3] = {q1d, k1d, v1d};
-  const int ld1[3] = {ldq, ldk, ldv};
-  for (int s = 0; s < 3; ++s) {
-    L.in.p[0][s] = static_cast<const ovt::bf16*>(one[s]);
-    L.in.ld[0][s] = ld1[s];
-  }
-  L.in.width[0] = 4 * d1;
-  L.in.hs[0] = 4 * d1;
-  ovt::attn::set_gather_3h(L.in, 1, e0, lde0, de, H);
-  ovt::attn::set_gather_3h(L.in, 2, e1, lde1, de, H);
-  void* const outs[6] = {o1, o2, o3, o4, oe0, oe1};
-  ovt::attn::set_octic_scatter(L.out, outs, H, d1, de);
-  L.N = N;
-  L.H = H;
-  L.dh = 4 * d1 + 2 * de;
-  return k_attn(L, B, stream);
-}
-
-// Wide octic layout: qkv [B,N,3*H*dh] contiguous with columns (3, H, [a1|a2|
-// b1|b2|e0|e1]), dh = 4*d1 + 2*de (the standard layout's gather); the same six
-// outputs as ovt_attention_octic_rows.
-OVT_EXPORT int ovt_attention_wide(const void* qkv, void* o1, void* o2, void* o3, void* o4,
-                                  void* oe0, void* oe1, int B, int N, int H, int d1, int de,
-                                  void* stream) {
-  ovt::attn::Layout L = {};
-  const int dh = 4 * d1 + 2 * de;
-  L.in.nseg = 1;
-  ovt::attn::set_gather_3h(L.in, 0, qkv, 3 * H * dh, dh, H);
-  void* const outs[6] = {o1, o2, o3, o4, oe0, oe1};
-  ovt::attn::set_octic_scatter(L.out, outs, H, d1, de);
-  L.N = N;
-  L.H = H;
-  L.dh = dh;
   return k_attn(L, B, stream);
 }

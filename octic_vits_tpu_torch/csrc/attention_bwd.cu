@@ -44,6 +44,12 @@
 // What the design does about it: two kernels in FlashAttention-2 style, one
 // CTA of 8 warps per (head, batch), each gathering the head's q, k, v and dO
 // rows once into shared memory with the widest load the segments allow.
+// Where a head does not fit (N above 320 at dh = 80, 384 at dh = 64; dh =
+// 128 from N = 257), the streamed form runs instead (the op's plan picks
+// it): a CTA owns 128 query rows (query pass) or 128 key rows (key pass) and
+// 64-row tiles of the other operands stream through shared memory, as
+// csrc/attention_group.cu does at G = 1; its sums keep the same order of
+// terms over the keys and queries, so its numerics are the whole-head form's.
 // 1. Query pass: each warp owns 16 query rows; a first sweep over 64-key
 //    blocks carries the online max, the softmax sum and the online sum of
 //    exp(s - m) * dP (so rowsum(dP o P) needs no third sweep); a second sweep
@@ -59,11 +65,16 @@
 
 // qkv [B,N,3*H*dh] contiguous in (3, H, dh) column order, g [B,N,H*dh] with
 // token row stride ld_g, dqkv [B,N,3*H*dh] contiguous; lse and dsum f32
-// scratch [B,H,N]. Returns the cudaError_t of the launches.
+// scratch [B,H,N]; `streamed` the form of the launch plan
+// (ops/attention.py:attention_bwd_plan: 0 whole-head staging, 1 the streamed
+// form), as in every entry point below but the head-major one (whole-head).
+// Returns the cudaError_t of the launches, or ERR_PLAN for a whole-head plan
+// of a head that does not fit.
 OVT_EXPORT int ovt_attention_std_bwd(const void* qkv, const void* g, int ld_g, void* dqkv,
                                      void* lse, void* dsum, int B, int N, int H, int dh,
-                                     void* stream) {
+                                     int streamed, void* stream) {
   ovt::attn_bwd::Args A = {};
+  A.streamed = streamed;
   A.qkv.nseg = 1;
   ovt::attn_bwd::set_qkv_3h(A, 0, qkv, 3 * H * dh, dqkv, dh, H);
   A.g.nseg = 1;
@@ -84,8 +95,9 @@ OVT_EXPORT int ovt_attention_octic_bwd(
     const void* g2, const void* g3, const void* g4, const void* ge0, const void* ge1, int lg1,
     int lg2, int lg3, int lg4, int lge0, int lge1, void* d1p, void* d2p, void* d3p, void* d4p,
     void* de0, void* de1, void* lse, void* dsum, int B, int N, int H, int d1, int de,
-    void* stream) {
+    int streamed, void* stream) {
   ovt::attn_bwd::Args A = {};
+  A.streamed = streamed;
   A.qkv.nseg = 6;
   const void* ins[6] = {q1, q2, q3, q4, e0, e1};
   const int lq[6] = {lq1, lq2, lq3, lq4, le0, le1};
@@ -99,17 +111,18 @@ OVT_EXPORT int ovt_attention_octic_bwd(
   return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
 }
 
-// Wide-1d octic layout (see ovt_attention_wide1d in csrc/attention.cu): q1d,
-// k1d, v1d [B,N,4*H*d1] and e0, e1 [B,N,3*H*de], each with its own token row
-// stride; the six cotangents as in ovt_attention_octic_bwd; dq1d, dk1d, dv1d
+// Wide-1d octic layout (see ovt_attention_wide1d_pieces in
+// csrc/attention_octic.cu): q1d, k1d, v1d [B,N,4*H*d1] and e0, e1
+// [B,N,3*H*de], each with its own token row stride; the six cotangents as in ovt_attention_octic_bwd; dq1d, dk1d, dv1d
 // [B,N,4*H*d1] and de0, de1 [B,N,3*H*de] contiguous.
 OVT_EXPORT int ovt_attention_wide1d_bwd(
     const void* q1d, const void* k1d, const void* v1d, const void* e0, const void* e1, int lq,
     int lk, int lv, int le0, int le1, const void* g1, const void* g2, const void* g3,
     const void* g4, const void* ge0, const void* ge1, int lg1, int lg2, int lg3, int lg4,
     int lge0, int lge1, void* dq1d, void* dk1d, void* dv1d, void* de0, void* de1, void* lse,
-    void* dsum, int B, int N, int H, int d1, int de, void* stream) {
+    void* dsum, int B, int N, int H, int d1, int de, int streamed, void* stream) {
   ovt::attn_bwd::Args A = {};
+  A.streamed = streamed;
   A.qkv.nseg = 3;
   const void* one[3] = {q1d, k1d, v1d};
   const int l1[3] = {lq, lk, lv};
@@ -130,15 +143,17 @@ OVT_EXPORT int ovt_attention_wide1d_bwd(
   return ovt::attn_bwd::dispatch(A, B, static_cast<cudaStream_t>(stream));
 }
 
-// Wide octic layout (see ovt_attention_wide in csrc/attention.cu): qkv
+// Wide octic layout (see ovt_attention_std_octic in csrc/attention_octic.cu): qkv
 // [B,N,3*H*dh] contiguous, dh = 4*d1 + 2*de; the six cotangents as in
 // ovt_attention_octic_bwd; dqkv [B,N,3*H*dh] contiguous.
 OVT_EXPORT int ovt_attention_wide_bwd(const void* qkv, const void* g1, const void* g2,
                                       const void* g3, const void* g4, const void* ge0,
                                       const void* ge1, int lg1, int lg2, int lg3, int lg4,
                                       int lge0, int lge1, void* dqkv, void* lse, void* dsum,
-                                      int B, int N, int H, int d1, int de, void* stream) {
+                                      int B, int N, int H, int d1, int de, int streamed,
+                                      void* stream) {
   ovt::attn_bwd::Args A = {};
+  A.streamed = streamed;
   const int dh = 4 * d1 + 2 * de;
   A.qkv.nseg = 1;
   ovt::attn_bwd::set_qkv_3h(A, 0, qkv, 3 * H * dh, dqkv, dh, H);

@@ -14,7 +14,7 @@
 
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace ovt {
 namespace attn_bwd {
@@ -48,18 +48,21 @@ struct Args {
   float* dsum;  // [B,H,N] scratch: rowsum(dP o P)
   int N, H, dh;
   int pair_out;  // 1: the gradients take 4-byte bf16x2 stores
+  int streamed;  // 1: the streamed form (the caller's plan), 0: whole-head staging
   float scale;
 };
 
-// rows [kpad][DS] of one segment of one operand (`width` channels from
+// rows [nrows][DS] of one segment of one operand (`width` channels from
 // `src`, the head's column in row 0 of batch 0, token rows `ld` and batch
-// rows `bs` apart) at channels
-// [d_off, d_off + width); rows >= N are zero. Each thread keeps one V-element
-// chunk of the row and steps over the rows, UNROLL loads in flight, so the
-// loop has no division; consecutive threads take consecutive chunks of a row.
+// rows `bs` apart) at channels [d_off, d_off + width): shared-memory row i
+// holds token row0 + i, and tokens >= N are zero. Each thread keeps one
+// V-element chunk of the row and steps over the rows, UNROLL loads in flight,
+// so the loop has no division; consecutive threads take consecutive chunks of
+// a row.
 template <int DHP, int V>
 __device__ __forceinline__ void gather_seg(const bf16* src, int ld, size_t bs, int width,
-                                           int d_off, int b, int N, int kpad, bf16* dst) {
+                                           int d_off, int b, int N, int row0, int nrows,
+                                           bf16* dst) {
   typedef typename VecOf<V>::T Vec;
   constexpr int DS = DHP + 8;
   const int cpr = width / V, rows = THREADS / cpr;
@@ -67,31 +70,32 @@ __device__ __forceinline__ void gather_seg(const bf16* src, int ld, size_t bs, i
   const int c = threadIdx.x % cpr;
   const bf16* from = src + b * bs + c * V;
   bf16* to = dst + d_off + c * V;
-  for (int n = threadIdx.x / cpr; n < kpad; n += rows * UNROLL) {
+  for (int n = threadIdx.x / cpr; n < nrows; n += rows * UNROLL) {
     Vec v[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int m = n + u * rows;
+      const int m = row0 + n + u * rows;
       v[u] = Vec{};
       if (m < N) v[u] = *reinterpret_cast<const Vec*>(from + (size_t)m * ld);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int m = n + u * rows;
-      if (m < kpad) *reinterpret_cast<Vec*>(to + m * DS) = v[u];
+      if (m < nrows) *reinterpret_cast<Vec*>(to + m * DS) = v[u];
     }
   }
 }
 
-// rows [kpad][DS] of operand s of table T for head h; rows >= N and channels
-// >= dh are zero. Each segment takes its own load width.
+// rows [nrows][DS] of operand s of table T for head h, token rows row0 ..
+// row0 + nrows - 1; tokens >= N and channels >= dh are zero. Each segment
+// takes its own load width.
 template <int DHP>
 __device__ __forceinline__ void gather_rows(const Heads& T, int s, const Args& A, int b, int h,
-                                            int kpad, bf16* dst) {
+                                            int row0, int nrows, bf16* dst) {
   constexpr int DS = DHP + 8;
   const bf16 zero = __float2bfloat16(0.f);
   const int pad = DHP - A.dh;
-  for (int i = threadIdx.x; i < kpad * pad; i += THREADS)
+  for (int i = threadIdx.x; i < nrows * pad; i += THREADS)
     dst[(i / pad) * DS + A.dh + i % pad] = zero;
   int d_off = 0;
   for (int i = 0; i < T.nseg; ++i) {
@@ -99,10 +103,10 @@ __device__ __forceinline__ void gather_rows(const Heads& T, int s, const Args& A
     const int ld = T.ld[i][s], w = T.width[i];
     const size_t bs = T.bs[i][s];
     switch (T.vec[i]) {
-      case 8: gather_seg<DHP, 8>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
-      case 4: gather_seg<DHP, 4>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
-      case 2: gather_seg<DHP, 2>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
-      default: gather_seg<DHP, 1>(src, ld, bs, w, d_off, b, A.N, kpad, dst); break;
+      case 8: gather_seg<DHP, 8>(src, ld, bs, w, d_off, b, A.N, row0, nrows, dst); break;
+      case 4: gather_seg<DHP, 4>(src, ld, bs, w, d_off, b, A.N, row0, nrows, dst); break;
+      case 2: gather_seg<DHP, 2>(src, ld, bs, w, d_off, b, A.N, row0, nrows, dst); break;
+      default: gather_seg<DHP, 1>(src, ld, bs, w, d_off, b, A.N, row0, nrows, dst); break;
     }
     d_off += w;
   }
@@ -112,6 +116,32 @@ __device__ __forceinline__ void gather_rows(const Heads& T, int s, const Args& A
 // [2][kpad] f32, the channel -> (segment, offset) tables
 __host__ __device__ constexpr int smem_bytes(int kpad, int dhp) {
   return 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp;
+}
+
+// The streamed form, where a head does not fit (ops/attention.py:
+// attention_bwd_plan): a CTA owns a block of SROWS query rows (the query pass)
+// or key rows (the key pass) and streams STILE-row tiles of the other
+// operands through shared memory, FlashAttention-2 style.
+constexpr int SROWS = WARPS * 16, STILE = 64;
+constexpr int SMEM_LIMIT = 232448;
+
+// the streamed form's shared memory: its block's two operands [SROWS][DS],
+// a tile of the two streamed operands [STILE][DS], the tile's statistics
+// [2][STILE] f32 (the key pass), the channel tables
+__host__ __device__ constexpr int stream_smem_bytes(int dhp) {
+  return 2 * (SROWS + STILE) * (dhp + 8) * 2 + 2 * STILE * 4 + 2 * dhp;
+}
+
+// the channel -> (gradient segment, channel within it) tables, for the stores
+template <int DHP>
+__device__ __forceinline__ void channel_tables(const Args& A, unsigned char* seg_of,
+                                               unsigned char* w_of) {
+  for (int d = threadIdx.x; d < DHP; d += THREADS) {
+    int i = 0, base = 0;
+    while (i < A.d_nseg - 1 && d >= base + A.d_width[i]) base += A.d_width[i++];
+    seg_of[d] = static_cast<unsigned char>(i);
+    w_of[d] = static_cast<unsigned char>(d - base);
+  }
 }
 
 struct Smem {
@@ -134,17 +164,11 @@ __device__ __forceinline__ Smem load_head(const Args& A, unsigned char* raw, int
   S.dsum = S.lse + kpad;
   S.seg_of = reinterpret_cast<unsigned char*>(S.dsum + kpad);
   S.w_of = S.seg_of + DHP;
-  // channel of dq, dk, dv -> (gradient segment, channel within it), for the stores
-  for (int d = threadIdx.x; d < DHP; d += THREADS) {
-    int i = 0, base = 0;
-    while (i < A.d_nseg - 1 && d >= base + A.d_width[i]) base += A.d_width[i++];
-    S.seg_of[d] = static_cast<unsigned char>(i);
-    S.w_of[d] = static_cast<unsigned char>(d - base);
-  }
-  gather_rows<DHP>(A.qkv, 0, A, b, h, kpad, S.qs);
-  gather_rows<DHP>(A.qkv, 1, A, b, h, kpad, S.ks);
-  gather_rows<DHP>(A.qkv, 2, A, b, h, kpad, S.vs);
-  gather_rows<DHP>(A.g, 0, A, b, h, kpad, S.gs);
+  channel_tables<DHP>(A, S.seg_of, S.w_of);
+  gather_rows<DHP>(A.qkv, 0, A, b, h, 0, kpad, S.qs);
+  gather_rows<DHP>(A.qkv, 1, A, b, h, 0, kpad, S.ks);
+  gather_rows<DHP>(A.qkv, 2, A, b, h, 0, kpad, S.vs);
+  gather_rows<DHP>(A.g, 0, A, b, h, 0, kpad, S.gs);
   return S;
 }
 
@@ -410,10 +434,236 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(const Args A) {
   }
 }
 
+// The streamed form's shared memory, carved as in stream_smem_bytes: the
+// block's two operands, the tile's two, the tile's statistics, the tables.
+template <int DHP>
+__device__ __forceinline__ Smem stream_smem(const Args& A, unsigned char* raw) {
+  constexpr int DS = DHP + 8;
+  Smem S;
+  S.qs = reinterpret_cast<bf16*>(raw);  // the block: q rows (query pass) or k rows (key pass)
+  S.gs = S.qs + SROWS * DS;             //            dO rows               v rows
+  S.ks = S.gs + SROWS * DS;             // the tile:  k rows                q rows
+  S.vs = S.ks + STILE * DS;             //            v rows                dO rows
+  S.lse = reinterpret_cast<float*>(S.vs + STILE * DS);
+  S.dsum = S.lse + STILE;
+  S.seg_of = reinterpret_cast<unsigned char*>(S.dsum + STILE);
+  S.w_of = S.seg_of + DHP;
+  channel_tables<DHP>(A, S.seg_of, S.w_of);
+  return S;
+}
+
+// Query pass, streamed: the CTA's SROWS query rows and their dO rows stay in
+// shared memory; 64-key tiles of k and v stream through, once for the row
+// statistics and once for dQ (the same two sweeps as attn_bwd_dq_kernel).
+template <int DHP>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dq_stream_kernel(const Args A) {
+  constexpr int KC = DHP / 16, NT = DHP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = A.N, h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * SROWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3, g = lane >> 2;
+  const Smem S = stream_smem<DHP>(A, smem_raw);
+  gather_rows<DHP>(A.qkv, 0, A, b, h, q0, SROWS, S.qs);
+  gather_rows<DHP>(A.g, 0, A, b, h, q0, SROWS, S.gs);
+  __syncthreads();
+  const float sl2 = A.scale * 1.4426950408889634f;
+  const int r0 = warp * 16;
+  uint32_t qf[KC][4], gf[KC][4];
+  load_a<DHP>(qf, S.qs, r0, lane);
+  load_a<DHP>(gf, S.gs, r0, lane);
+
+  // sweep 1: online max m, sum l of exp2(s - m), and sum of exp2(s - m) dP
+  float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F}, lrow[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};
+  for (int kb = 0; kb < N; kb += STILE) {
+    __syncthreads();  // the previous tile is consumed
+    gather_rows<DHP>(A.qkv, 1, A, b, h, kb, STILE, S.ks);
+    gather_rows<DHP>(A.qkv, 2, A, b, h, kb, STILE, S.vs);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+      mma_rows<DHP>(s[nt], qf, S.ks, nt * 8, lane);
+      mma_rows<DHP>(dp[nt], gf, S.vs, nt * 8, lane);
+    }
+    // every tile holds a real key (kb < N): the max is finite
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kb + nt * 8 + 2 * t + (e & 1);
+        s[nt][e] = key < N ? s[nt][e] * sl2 : -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(mrow[r], mx[r]);
+      const float alpha = exp2f(mrow[r] - mnew);
+      mrow[r] = mnew;
+      lrow[r] *= alpha;
+      drow[r] *= alpha;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - mrow[e >> 1]);
+        lrow[e >> 1] += p;
+        drow[e >> 1] += p * dp[nt][e];
+      }
+  }
+  float lse[2], dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    drow[r] += __shfl_xor_sync(0xffffffffu, drow[r], 1);
+    drow[r] += __shfl_xor_sync(0xffffffffu, drow[r], 2);
+    lse[r] = mrow[r] + log2f(lrow[r]);
+    dsum[r] = drow[r] / lrow[r];
+  }
+
+  // sweep 2: P, dP -> dS -> dQ += dS K
+  float dq[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+  for (int kb = 0; kb < N; kb += STILE) {
+    __syncthreads();
+    gather_rows<DHP>(A.qkv, 1, A, b, h, kb, STILE, S.ks);
+    gather_rows<DHP>(A.qkv, 2, A, b, h, kb, STILE, S.vs);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+      mma_rows<DHP>(s[nt], qf, S.ks, nt * 8, lane);
+      mma_rows<DHP>(dp[nt], gf, S.vs, nt * 8, lane);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kb + nt * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float p = key < N ? exp2f(s[nt][e] * sl2 - lse[r]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dsum[r]) * A.scale;
+      }
+#pragma unroll
+    for (int kc = 0; kc < STILE / 16; ++kc) {
+      uint32_t af[4];
+      c_to_a(af, s[2 * kc], s[2 * kc + 1]);
+      mma_trans<DHP>(dq, af, S.ks, kc * 16, lane);
+    }
+  }
+  store_rows<DHP>(A, S, dq, 0, b, h, q0 + r0, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = q0 + r0 + g + r * 8;
+      if (n < N) {
+        const size_t o = ((size_t)b * A.H + h) * N + n;
+        A.lse[o] = lse[r];
+        A.dsum[o] = dsum[r];
+      }
+    }
+  }
+}
+
+// Key pass, streamed: the CTA's SROWS key rows and their v rows stay in
+// shared memory; 64-query tiles of q and dO stream through with their row
+// statistics (the same sweep as attn_bwd_dkv_kernel, 32 queries a step).
+template <int DHP>
+__global__ void __launch_bounds__(THREADS) attn_bwd_dkv_stream_kernel(const Args A) {
+  constexpr int KC = DHP / 16, NT = DHP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = A.N, h = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * SROWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const Smem S = stream_smem<DHP>(A, smem_raw);
+  bf16* const kblk = S.qs;  // the block's key rows
+  bf16* const vblk = S.gs;  // and value rows
+  bf16* const qt = S.ks;    // the tile's query rows
+  bf16* const gt = S.vs;    // and dO rows
+  gather_rows<DHP>(A.qkv, 1, A, b, h, j0, SROWS, kblk);
+  gather_rows<DHP>(A.qkv, 2, A, b, h, j0, SROWS, vblk);
+  __syncthreads();
+  const float sl2 = A.scale * 1.4426950408889634f;
+  const int r0 = warp * 16;
+  uint32_t kf[KC][4], vf[KC][4];
+  load_a<DHP>(kf, kblk, r0, lane);
+  load_a<DHP>(vf, vblk, r0, lane);
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int ib = 0; ib < N; ib += STILE) {
+    __syncthreads();  // the previous tile is consumed
+    gather_rows<DHP>(A.qkv, 0, A, b, h, ib, STILE, qt);
+    gather_rows<DHP>(A.g, 0, A, b, h, ib, STILE, gt);
+    for (int n = threadIdx.x; n < STILE; n += THREADS) {
+      const size_t o = ((size_t)b * A.H + h) * N + ib + n;
+      S.lse[n] = ib + n < N ? A.lse[o] : 0.f;
+      S.dsum[n] = ib + n < N ? A.dsum[o] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int sb = 0; sb < STILE; sb += QB) {
+      // transposed tiles: rows = this warp's keys, columns = queries
+      float st[QB / 8][4], dpt[QB / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < QB / 8; ++nt) {
+        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
+        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+        mma_rows<DHP>(st[nt], kf, qt, sb + nt * 8, lane);
+        mma_rows<DHP>(dpt[nt], vf, gt, sb + nt * 8, lane);
+      }
+#pragma unroll
+      for (int nt = 0; nt < QB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = sb + nt * 8 + 2 * t + (e & 1);
+          const float p = ib + qi < N ? exp2f(st[nt][e] * sl2 - S.lse[qi]) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - S.dsum[qi]) * A.scale;
+        }
+#pragma unroll
+      for (int kc = 0; kc < QB / 16; ++kc) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, st[2 * kc], st[2 * kc + 1]);
+        c_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+        mma_trans<DHP>(dv, pa, gt, sb + kc * 16, lane);
+        mma_trans<DHP>(dk, da, qt, sb + kc * 16, lane);
+      }
+    }
+  }
+  store_rows<DHP>(A, S, dk, 1, b, h, j0 + r0, lane);
+  store_rows<DHP>(A, S, dv, 2, b, h, j0 + r0, lane);
+}
+
 template <int DHP>
 int launch(const Args& A, int B, cudaStream_t stream) {
+  if (A.streamed) {
+    const int smem = stream_smem_bytes(DHP);
+    const dim3 grid(A.H, B, (A.N + SROWS - 1) / SROWS);
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_stream_kernel<DHP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attn_bwd_dkv_stream_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_dq_stream_kernel<DHP><<<grid, THREADS, smem, stream>>>(A);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_dkv_stream_kernel<DHP><<<grid, THREADS, smem, stream>>>(A);
+    return cudaGetLastError();
+  }
   const int kpad = (A.N + 15) / 16 * 16;
   const int smem = smem_bytes(kpad, DHP);
+  if (smem > SMEM_LIMIT) return ERR_PLAN;  // the whole head does not fit: the plan streams
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

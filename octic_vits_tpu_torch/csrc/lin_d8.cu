@@ -32,8 +32,8 @@
 //   Both are grouped-column stores in the epilogue: output column j of a 1-d
 //   irrep goes to (j / g1) * s1 + j % g1 of its base pointer, column j of an
 //   E row's [e_r1 | e_r2] to (j / ge) * se + j % ge (the plain layout is g1 =
-//   F, ge = 2F). The stores are 2-byte stores, so the wide layouts' 20-byte
-//   groups need no 16-byte alignment; only the inputs are read with cp.async.
+//   F, ge = 2F). The grouped stores are bf16x2 stores (2-byte ones for odd
+//   groups), so the wide layouts' 20-byte groups need no 16-byte alignment.
 //
 // Math, for every token m and output channel j < F (x_g [M,C] with row stride
 // ldx, ef [M,4C] = [row0 | row1] with row stride ldxe, w1 [4,C,F], we [2C,2F],
@@ -55,19 +55,58 @@
 // it back. About 200 FLOP per byte: near the card's ridge, so both the
 // tensor cores and HBM matter; the qkv (F = 480) is the same shape class.
 //
-// What the design does about it: one CTA owns a 64-token x 32-channel tile
-// ACROSS ALL EIGHT SLOTS, so the D8-GELU octet of each (m, j) meets in one
-// CTA and the epilogue needs no second pass over HBM. 8 warps: warp w
-// computes half the rows of 1-d slot w/2 (K = C) and of E slot w/2 (K = 2C),
-// which balances the 1-d and E work exactly. Operands (6 A tiles and 6 B
-// tiles a stage) are staged with a 2-stage cp.async pipeline; m16n8k16 bf16
-// MMAs accumulate in f32; the accumulators go through shared memory once
-// for the epilogue. The hidden still round-trips HBM between fc1 and fc2
-// (the TPU kernel keeps it in VMEM): fusing the two launches is the first
-// perf item in ROADMAP.md.
-// The device code is in csrc/lin_d8_core.cuh, which csrc/lin_d8_probe.cu
-// (the tile sweep) shares.
-#include "lin_d8_core.cuh"
+// Each output tile reads its A rows (x and the E rows, 8C values a token)
+// and its weight columns (8C a channel) from L2, so the tile's shape, not
+// the tensor cores, sets the on-chip traffic: a 64 x 32 tile moves 0.95 GB
+// through L2 for the qkv at H/14 B=64, a 64 x 64 tile 0.67 GB.
+//
+// What the design does about it (csrc/lin_d8_sm90.cuh): a persistent CTA
+// an SM walks 64-token x 64-channel tiles ACROSS ALL EIGHT SLOTS, one
+// M-tile's channel tiles in a row (the A rows stay in L2). A producer warp
+// issues TMA loads into a 3-stage ring of 32-wide k blocks: 6 A boxes (x_a1..
+// x_b2, E row 0, E row 1; 64B swizzle) and 12 B boxes (w1[0..3], we[:, j],
+// we[:, F + j], each in two 32-channel halves; the weights are [C, F]
+// row-major, so B is MN-major and the wgmmas set the transpose bit); the k
+// blocks past C carry only the 2 E rows and the 4 we boxes. Two consumer
+// warpgroups take the two 32-channel halves and share the A boxes: each holds
+// all eight m64n32 products of its half in registers (128 f32 a thread, under
+// setmaxnreg), so a thread holds the whole octet of each of its (m, j): the
+// bias, the D8-GELU butterfly and the LayerScale + residual run on the
+// accumulators, with no f32 staging pass. The bf16 results are staged once
+// in shared memory (64B swizzle) and leave by TMA store, one box a product
+// (the tuple store, rows and channels past the arrays clipped), or, for the
+// grouped-column maps, whose 20- and 40-byte runs no TMA box can hold, by
+// bf16x2 stores of consecutive channel pairs from consecutive threads. The
+// producer runs ahead into the next tile while the consumers' epilogue runs.
+// The launch plan is ops/linear.py:lin_d8_plan, checked here (ERR_PLAN).
+// The hidden still round-trips HBM between fc1 and fc2 (the TPU kernel keeps
+// it in VMEM). The mma.sync core that ran here before (csrc/lin_d8_core.cuh)
+// stays for the tile probes and as the parent yardstick
+// (csrc/lin_d8_probe.cu:ovt_lin_d8_sync).
+#include "lin_d8_sm90.cuh"
+
+namespace {
+
+using namespace ovt::lind8w;
+
+template <int EPI, bool GROUPED>
+int run(const Maps& maps, const Args& a, int grid, cudaStream_t s) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      lin_d8_kernel<EPI, GROUPED>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  lin_d8_kernel<EPI, GROUPED><<<grid, THREADS, SMEM_BYTES, s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// a 2-D map over rows of `cols` bf16 values (row stride ld elements)
+int map2(CUtensorMap* m, const void* p, int cols, int rows, int ld, int box0, int box1) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)ld * 2};
+  const uint32_t box[2] = {(uint32_t)box0, (uint32_t)box1};
+  return ovt::encode_bf16_map(m, p, 2, dims, strides, box, 64);
+}
+
+}  // namespace
 
 // x0..x3 [M,C] (row stride ldx), xef [M,4C] (ldxe), w1 [4,C,F], we [2C,2F],
 // bias [F] or null; the outputs y0..y3 (row stride ldy) and ye0, ye1 (ldye)
@@ -75,57 +114,93 @@
 // plain layout: y_g [M,F], ye0 and ye1 the halves of yef [M,4F], g1 = F, ge
 // = 2F); the LayerScale epilogue's ls1 [4,F], lse [2F], r0..r3 [M,F] and ref
 // [M,4F] (contiguous), or all null; all bf16 with unit channel stride, every
-// input's start 16-byte aligned, ldx and ldxe multiples of 8, C % 8 == 0 and
-// F % 8 == 0 (checked by the Python wrapper).
+// view's start and row stride 16-byte aligned (the plain layout's outputs
+// too; the grouped ones 4-byte aligned for pairs), C % 8 == 0 and F % 8 == 0
+// (checked by the Python wrapper). The launch plan (ops/linear.py:
+// lin_d8_plan): `grid` persistent CTAs and `smem` bytes, which must be this
+// kernel's. Returns the cudaError_t of the launch or an ERR_* code.
 OVT_EXPORT int ovt_lin_d8(const void* x0, const void* x1, const void* x2, const void* x3,
                           const void* xef, const void* w1, const void* we, const void* bias,
                           void* y0, void* y1, void* y2, void* y3, void* ye0, void* ye1,
                           const void* ls1, const void* lse, const void* r0, const void* r1,
                           const void* r2, const void* r3, const void* ref, int M, int C, int F,
                           int gelu, int ldx, int ldxe, int ldy, int ldye, int g1, int s1, int ge,
-                          int se, void* stream) {
-  using namespace ovt::lind8;
+                          int se, int grid, int smem, void* stream) {
   using ovt::bf16;
-  constexpr int BM = 64, BN = 32;  // the model paths' tile
-  Args a;
-  a.x[0] = static_cast<const bf16*>(x0);
-  a.x[1] = static_cast<const bf16*>(x1);
-  a.x[2] = static_cast<const bf16*>(x2);
-  a.x[3] = static_cast<const bf16*>(x3);
-  a.xef = static_cast<const bf16*>(xef);
-  a.w1 = static_cast<const bf16*>(w1);
-  a.we = static_cast<const bf16*>(we);
+  if (g1 <= 0 || ge <= 0 || (gelu && ls1 != nullptr)) return cudaErrorInvalidValue;
+  Args a = {};
+  a.MT = (M + BM - 1) / BM;
+  a.NT = (F + BN - 1) / BN;
+  a.KT1 = (C + BK - 1) / BK;
+  a.KTE = (2 * C + BK - 1) / BK;
+  if (smem != SMEM_BYTES || grid < 1 || grid > a.MT * a.NT) return ovt::ERR_PLAN;
+  // the plain layout keeps the TMA store; the others take the grouped store
+  const bool grouped = !(g1 >= F && ge >= 2 * F);
+  if (grouped && (gelu || ls1 != nullptr)) return cudaErrorInvalidValue;
   a.bias = static_cast<const bf16*>(bias);
-  a.y[0] = static_cast<bf16*>(y0);
-  a.y[1] = static_cast<bf16*>(y1);
-  a.y[2] = static_cast<bf16*>(y2);
-  a.y[3] = static_cast<bf16*>(y3);
+  a.ls1 = static_cast<const bf16*>(ls1);
+  a.lse = static_cast<const bf16*>(lse);
+  const void* rs[4] = {r0, r1, r2, r3};
+  void* ys[4] = {y0, y1, y2, y3};
+  const void* xs[4] = {x0, x1, x2, x3};
+  for (int g = 0; g < 4; ++g) {
+    a.r[g] = static_cast<const bf16*>(rs[g]);
+    a.y[g] = static_cast<bf16*>(ys[g]);
+  }
+  a.ref = static_cast<const bf16*>(ref);
   a.ye[0] = static_cast<bf16*>(ye0);
   a.ye[1] = static_cast<bf16*>(ye1);
-  if (g1 <= 0 || ge <= 0) return cudaErrorInvalidValue;
   a.g1 = g1;
   a.s1 = s1;
   a.ge = ge;
   a.se = se;
-  a.ls1 = static_cast<const bf16*>(ls1);
-  a.lse = static_cast<const bf16*>(lse);
-  a.r[0] = static_cast<const bf16*>(r0);
-  a.r[1] = static_cast<const bf16*>(r1);
-  a.r[2] = static_cast<const bf16*>(r2);
-  a.r[3] = static_cast<const bf16*>(r3);
-  a.ref = static_cast<const bf16*>(ref);
-  if (gelu && ls1 != nullptr) return cudaErrorInvalidValue;
   a.M = M;
   a.C = C;
   a.F = F;
-  a.ldx = ldx;
-  a.ldxe = ldxe;
   a.ldy = ldy;
   a.ldye = ldye;
+  a.pairs = g1 % 2 == 0 && ge % 2 == 0 && s1 % 2 == 0 && se % 2 == 0 && ldy % 2 == 0 &&
+            ldye % 2 == 0;
+  for (int g = 0; g < 4; ++g) a.pairs = a.pairs && reinterpret_cast<uintptr_t>(ys[g]) % 4 == 0;
+  a.pairs = a.pairs && reinterpret_cast<uintptr_t>(ye0) % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(ye1) % 4 == 0;
+
+  Maps maps = {};
+  int err = 0;
+  for (int g = 0; g < 4 && err == 0; ++g) err = map2(&maps.a[g], xs[g], C, M, ldx, BK, BM);
+  if (err == 0) err = map2(&maps.a[4], xef, 2 * C, M, ldxe, BK, BM);
+  if (err == 0)
+    err = map2(&maps.a[5], static_cast<const bf16*>(xef) + 2 * C, 2 * C, M, ldxe, BK, BM);
+  if (err == 0) {
+    const uint64_t dims[3] = {(uint64_t)F, (uint64_t)C, 4};
+    const uint64_t strides[2] = {(uint64_t)F * 2, (uint64_t)C * F * 2};
+    const uint32_t box[3] = {BNW, BK, 1};
+    err = ovt::encode_bf16_map(&maps.w1, w1, 3, dims, strides, box, 64);
+  }
+  if (err == 0) err = map2(&maps.we, we, 2 * F, 2 * C, 2 * F, BNW, BK);
+  if (ls1 != nullptr) {  // the residual, prefetched into the staging: r_g [M, F], ref [M, 4F]
+    for (int g = 0; g < 4 && err == 0; ++g) err = map2(&maps.r[g], rs[g], F, M, F, BNW, BM);
+    if (err == 0) {
+      const uint64_t dims[3] = {(uint64_t)F, 4, (uint64_t)M};
+      const uint64_t strides[2] = {(uint64_t)F * 2, (uint64_t)F * 8};
+      const uint32_t box[3] = {BNW, 1, BM};
+      err = ovt::encode_bf16_map(&maps.ref, ref, 3, dims, strides, box, 64);
+    }
+  }
+  if (!grouped) {
+    for (int g = 0; g < 4 && err == 0; ++g) err = map2(&maps.y[g], ys[g], F, M, ldy, BNW, BM);
+    void* yes[2] = {ye0, ye1};
+    for (int r = 0; r < 2 && err == 0; ++r) {
+      const uint64_t dims[3] = {(uint64_t)F, 2, (uint64_t)M};
+      const uint64_t strides[2] = {(uint64_t)F * 2, (uint64_t)ldye * 2};
+      const uint32_t box[3] = {BNW, 1, BM};
+      err = ovt::encode_bf16_map(&maps.ye[r], yes[r], 3, dims, strides, box, 64);
+    }
+  }
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the plain layout keeps the store without the column tables
-  const bool grouped = !(g1 >= F && ge >= 2 * F);
-  if (grouped && gelu) return cudaErrorInvalidValue;
-  return gelu ? launch<true, false, BM, BN>(a, s)
-              : grouped ? launch<false, true, BM, BN>(a, s) : launch<false, false, BM, BN>(a, s);
+  if (grouped) return run<NONE, true>(maps, a, grid, s);
+  if (gelu) return run<GELU, false>(maps, a, grid, s);
+  if (ls1 != nullptr) return run<LS, false>(maps, a, grid, s);
+  return run<NONE, false>(maps, a, grid, s);
 }

@@ -1,18 +1,22 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels: K-dense
-// (csrc/dense.cu) and K-attn's standard forward (csrc/attention_std.cu).
+// (csrc/dense.cu), K-attn's streamed forward (csrc/attention_std_core.cuh)
+// and K-lin-d8 (csrc/lin_d8_sm90.cuh).
 //
 //   mbarrier  init, arrive, arrive with an expected transaction count, and a
 //             wait on a phase parity (a wait on parity P returns once the
 //             phase with that parity has completed; a fresh barrier counts
 //             its "previous" phase, parity 1, as complete)
 //   TMA       tile loads (2-D and 3-D boxes, completion reported to an
-//             mbarrier as bytes) and the 2-D tile store with its bulk group;
+//             mbarrier as bytes) and the 2-D and 3-D tile stores with their
+//             bulk groups;
 //             out-of-bounds elements of a load arrive as zeros, and the
 //             transaction count is always the whole box
 //   wgmma     the shared-memory matrix descriptor, fence / commit / wait,
 //             m64nNk16 bf16 products with f32 accumulators: A and B from
-//             shared memory, both K-major (wgmma_ss), or A from registers and
-//             B MN-major (wgmma_rs_t: the transpose bit on B)
+//             shared memory, both K-major (wgmma_ss), A K-major and B
+//             MN-major (wgmma_ss_t: the transpose bit on B), or A from
+//             registers and B MN-major (wgmma_rs_t)
+//   named barriers  bar.sync on an id other than 0, for one warpgroup
 //   setmaxnreg  the register hand-over between a producer and its consumers
 //   host      cuTensorMapEncodeTiled, reached through the runtime's
 //             cudaGetDriverEntryPoint, so the library links without -lcuda
@@ -122,6 +126,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                : "memory");
 }
 
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -130,6 +143,17 @@ __device__ __forceinline__ void tma_store_commit() {
 template <int N>
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N committed store groups are still writing global memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier of `count` threads (a multiple of 32) on id `id` (1..15)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -175,6 +199,11 @@ __device__ __forceinline__ void fence_regs(float* d) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d);
 
+// d[N/2] (+)= A[64x16] B[16xN]: A K-major, B MN-major (transpose bit set),
+// both in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t da, uint64_t db, int scale_d);
+
 // d[N/2] (+)= A[64x16] B[16xN]: A in registers (the m16n8k16 A fragment of
 // each warp's 16 rows: a0 = (g, 2t..), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
 // a3 = (g+8, 2t+8..)), B MN-major in shared memory (transpose bit set).
@@ -199,6 +228,16 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<32>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -304,6 +343,12 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
                            const uint64_t* strides, const uint32_t* box, int swizzle_bytes) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return ERR_ENTRY_POINT;
+  // The driver's encoder needs a current context, which a thread that has
+  // made no runtime call yet lacks (PyTorch's autograd worker, running a
+  // backward that recomputes a product): a runtime call binds the device's
+  // primary context to the thread, once.
+  static thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  (void)bound;
   const cuuint32_t estride[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                         strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -38,16 +38,18 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "ovt_dense_gelu": [_P] * 4 + [_I] * 6 + [_P],
-    "ovt_lin_d8": [_P] * 21 + [_I] * 12 + [_P],
+    "ovt_lin_d8": [_P] * 21 + [_I] * 14 + [_P],
+    "ovt_lin_d8_sync": [_P] * 21 + [_I] * 12 + [_P],
     "ovt_attention_std": [_P] * 2 + [_I] * 11 + [_P],
+    "ovt_attention_std_octic": [_P] * 7 + [_I] * 12 + [_P],
+    "ovt_attention_octic_pieces": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 8 + [_P],
+    "ovt_attention_wide1d_pieces": [_P] * 5 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
     "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
-    "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 5 + [_P],
-    "ovt_attention_wide1d": [_P] * 5 + [_I] * 5 + [_P] * 6 + [_I] * 5 + [_P],
-    "ovt_attention_wide": [_P] * 7 + [_I] * 5 + [_P],
+    "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 6 + [_P],
     "ovt_attention_wide1d_bwd": [_P] * 5 + [_I] * 5 + [_P] * 6 + [_I] * 6 + [_P] * 7
-                                + [_I] * 5 + [_P],
-    "ovt_attention_wide_bwd": [_P] * 7 + [_I] * 6 + [_P] * 3 + [_I] * 5 + [_P],
+                                + [_I] * 6 + [_P],
+    "ovt_attention_wide_bwd": [_P] * 7 + [_I] * 6 + [_P] * 3 + [_I] * 6 + [_P],
     "ovt_lin_d8_bwd": [_P] * 22 + [_I] * 8 + [_P],
     "ovt_ln_d8_fwd": [_P] * 14 + [_I] * 4 + [_F, _P],
     "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],

@@ -3,6 +3,7 @@ CUDA tensors and runs its ``*_reference`` plain version for CPU tensors;
 ``<op>.launches`` counts its kernel launches."""
 
 from octic_vits_tpu_torch.ops.attention import (
+    attention_bwd_plan,
     octic_attention,
     octic_attention_bwd,
     octic_attention_bwd_reference,
@@ -22,6 +23,7 @@ from octic_vits_tpu_torch.ops.attention import (
     octic_attention_wide1d_reference,
     octic_attention_wide_bwd,
     octic_attention_wide_bwd_reference,
+    octic_attention_plan,
     octic_attention_wide_reference,
     standard_attention,
     standard_attention_bwd,
@@ -51,6 +53,7 @@ from octic_vits_tpu_torch.ops.attention_probe import (
     phased_attention,
     scores_only_attention,
     scores_softmax_attention,
+    whole_head_octic_attention,
 )
 from octic_vits_tpu_torch.ops.attention_probe import EXPERIMENT_OPS
 from octic_vits_tpu_torch.ops.attention_bwd_probe import (
@@ -80,6 +83,7 @@ from octic_vits_tpu_torch.ops.gelu_d8 import (
 from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
     lin_d8_launch,
+    lin_d8_plan,
     lin_d8_bwd_reference,
     linear_d8,
     linear_d8_epilogue,
@@ -100,7 +104,7 @@ from octic_vits_tpu_torch.ops.linear import (
     mlp_d8_packed,
     uninterleave_wide,
 )
-from octic_vits_tpu_torch.ops.linear_probe import lin_d8_tiled
+from octic_vits_tpu_torch.ops.linear_probe import lin_d8_sync, lin_d8_tiled
 from octic_vits_tpu_torch.ops.ln_d8 import (
     ln_affine_d8_bwd,
     ln_affine_d8_bwd_reference,
@@ -145,7 +149,11 @@ PROBE_OPS_14B = EXPERIMENT_OPS + (lin_d8_tiled, matmul_law, matmul_law_batched)
 #: every probe op (kernel rows 14a, 14b and 14c, the last the probes of
 #: scripts/r3_attn_bwd_ablate.py); each one's plain version is also
 #: ``<op>.reference``
-PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B + PROBE_OPS_14C
+#: the kernels the Hopper redesigns replaced on the model paths, kept as the
+#: yardsticks they are timed against: K-lin-d8's mma.sync core and K-attn's
+#: whole-head octic core
+PARENT_OPS = (lin_d8_sync, whole_head_octic_attention)
+PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B + PROBE_OPS_14C + PARENT_OPS
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
 #: linear_d8_fused and dense_gelu; the DINOv2 step adds the backward of the
@@ -166,6 +174,9 @@ def launch_counts() -> dict:
 
 
 __all__ = [
+    "attention_bwd_plan",
+    "lin_d8_plan",
+    "octic_attention_plan",
     "GLUE_OPS",
     "INFERENCE_OPS",
     "KERNEL_OPS",
@@ -189,6 +200,7 @@ __all__ = [
     "hoist_assembly",
     "hoist_octic_attention",
     "interleave2_attention",
+    "lin_d8_sync",
     "lin_d8_tiled",
     "matmul_law",
     "matmul_law_batched",
@@ -278,4 +290,5 @@ __all__ = [
     "standard_attention_bwd_reference",
     "standard_attention_reference",
     "uninterleave_wide",
+    "whole_head_octic_attention",
 ]

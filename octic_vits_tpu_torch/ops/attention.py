@@ -23,11 +23,15 @@ layout (counterpart of octic_vits_tpu/ops/pallas_attention.py).
   interleaved qkv ``[B, N, 3C]`` (each head's q, k and v one dh slice, the
   output of ``linear_d8_qkv_wide``); differentiable.
 
-K-attn's whole-head core (csrc/attention.cu) and K-attn-bwd
-(csrc/attention_bwd.cu) serve every layout through a gather table (q, k, v)
-and a scatter table (the outputs, and the cotangent in the backward); the
-standard layout's forward has its own TMA + wgmma kernel
-(csrc/attention_std.cu).
+The forwards run K-attn's streamed TMA + wgmma kernel: the standard layout
+through csrc/attention_std.cu, the octic layouts through
+csrc/attention_octic.cu (:func:`octic_attention_plan`: route (a) reads the
+wide qkv and scatters the output into the six irrep arrays, route (b) loads
+the caller's arrays as padded pieces); any N. K-attn-bwd
+(csrc/attention_bwd.cu) serves every layout through a gather table (q, k, v),
+a cotangent table and a gradient table, with a streamed form where a head
+does not fit (:func:`attention_bwd_plan`). K-attn's whole-head core
+(csrc/attention.cu) stays for the probes (ops/attention_probe.py).
 
 As in the JAX custom VJPs, each backward saves only the op's inputs (the
 qkv arrays; for the fused op the normed input and the qkv weights) and
@@ -47,6 +51,7 @@ from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
     lin_d8_bwd_reference,
     lin_d8_launch,
+    lin_d8_wide_launch,
     linear_d8,
 )
 
@@ -55,9 +60,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 
 
 def _check_attention_shape(n: int, dh: int) -> None:
-    """The octic layouts' forward kernel (K-attn's whole-head core) keeps a
-    whole head's q, k and v^T in shared memory
-    (csrc/attention_core.cuh:smem_bytes)."""
+    """K-attn's whole-head core (csrc/attention.cu, the probes' kernel since
+    the octic forwards stream their keys) keeps a whole head's q, k and v^T in
+    shared memory (csrc/attention_core.cuh:smem_bytes)."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     smem = (2 * kpad * (dhp + 8) + dhp * (kpad + 8)) * 2 + 2 * dhp + 6 * 8
     if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
@@ -112,6 +117,76 @@ def std_attention_rows(x: int, plan: dict, heads: int) -> list:
     return [(b, h, r) for r in range(qt * STD_ROWS, min(qt * STD_ROWS + STD_ROWS, n))]
 
 
+OMAP_BYTES = 256  # the octic scatter's column table in shared memory
+
+
+def _octic_pieces(heads: int, d1: int, layout: str) -> list:
+    """(width, the column of head 0's piece in q, k and v, head stride) of
+    the six pieces of a head in the caller's layout: ``"octic"`` (row 5, the
+    six arrays) or ``"wide1d"`` (row 12, the 1-d part one 4 d1 slice of q1d,
+    k1d, v1d); the E rows are in (3, H, de) order in both."""
+    de = 2 * d1
+    if layout == "octic":
+        ones = [(d1, [s * heads * d1 for s in range(3)], d1)] * 4
+    elif layout == "wide1d":
+        ones = [(d1, [g * d1] * 3, 4 * d1) for g in range(4)]
+    else:
+        raise ValueError(f"octic attention: layout {layout!r} is not 'octic' or 'wide1d'")
+    return ones + [(de, [s * heads * de for s in range(3)], de)] * 2
+
+
+def octic_attention_plan(b: int, n: int, heads: int, d1: int, route: str,
+                         layout: str = "octic") -> dict:
+    """The launch plan of the octic forward on K-attn's streamed kernel
+    (csrc/attention_octic.cu), any N:
+
+    * route ``"a"`` (the wide qkv, every (s, head) slice ``[a1|a2|b1|b2|e0|
+      e1]``): the standard plan at dh = 8 d1 (its boxes, grid and key tiles),
+      the shared memory grown by the scatter's column table;
+    * route ``"b"`` (the caller's octic arrays in `layout`, see
+      :func:`_octic_pieces`): box j = 0..3 the 1-d piece j (d1 columns in a
+      16-column box, 32-byte swizzle), j = 4, 5 the E rows (de = 2 d1 columns
+      in a box of 16 or 32), so a head takes ``dhp`` = 96 or 128 padded
+      columns. A TMA box starts on a 16-byte boundary: box j starts at the
+      piece's column rounded down to a multiple of 8, and head h's piece sits
+      at ``offsets[j][h]`` in it, which must be the same in q, k and v and
+      leave the piece inside the box (``fits``; else the op takes route
+      ``"a"``). The boxes' other columns are zeroed in q and in each k tile;
+      a 2-stage ring at 128 columns.
+
+    ``boxes`` are (offset, width, swizzle bytes, real columns) in the padded
+    head; ``dh`` the real width, whose dh^-0.5 scales the scores."""
+    if not 1 <= d1 <= MAX_HEAD_DIM // 8 or n < 1:
+        raise ValueError(f"octic attention kernel: N={n}, d1={d1} unsupported "
+                         f"(d1 from 1 to {MAX_HEAD_DIM // 8})")
+    dh, de = 8 * d1, 2 * d1
+    if route == "a":
+        plan = std_attention_plan(b, n, heads, dh)
+        plan["boxes"] = [(off, w, sw, w) for off, w, sw in plan["boxes"]]
+        plan["smem"] += OMAP_BYTES
+        plan.update(route="a", dh=dh, dhp=dh, d1=d1, stages=STD_STAGES, fits=True,
+                    offsets=[[0] * heads for _ in plan["boxes"]])
+        return plan
+    if route != "b":
+        raise ValueError(f"octic attention: route {route!r} is not 'a' or 'b'")
+    pieces = _octic_pieces(heads, d1, layout)
+    offsets = [[(cols[0] + h * hs) % 8 for h in range(heads)] for _, cols, hs in pieces]
+    need = [max(o) + w for o, (w, _, _) in zip(offsets, pieces)]
+    we = 16 if max(need[4:]) <= 16 else 32
+    same = all((cols[s] - cols[0]) % 8 == 0 for _, cols, _ in pieces for s in range(3))
+    dhp = 64 + 2 * we
+    plan = std_attention_plan(b, n, heads, dhp)
+    plan["boxes"] = [(16 * j, 16, 32, d1) for j in range(4)] + [
+        (64 + r * we, we, 2 * we, de) for r in range(2)]
+    # a 2-stage ring at 128 padded columns, so that two CTAs share an SM
+    stages = 2 if dhp > 96 else STD_STAGES
+    plan["smem"] = (1024 + STD_ROWS * dhp * 2 * (1 + 2 * stages) + 512 + OMAP_BYTES
+                    + (2 + 3 * stages) * 8)
+    plan.update(route="b", dh=dh, dhp=dhp, d1=d1, stages=stages, offsets=offsets,
+                fits=same and max(need[:4]) <= 16 and max(need[4:]) <= we)
+    return plan
+
+
 def _check_std_attention_shape(n: int, dh: int) -> dict:
     """K-attn's standard forward streams the keys, so N is free; the head
     width is a multiple of 8 up to 128 (one instantiation each). Returns the
@@ -127,14 +202,45 @@ def _check_std_attention_shape(n: int, dh: int) -> dict:
 
 
 def _check_attention_bwd_shape(n: int, dh: int) -> None:
-    """The backward kernels keep a whole head's q, k, v and dO rows and two
-    f32 row statistics in shared memory (csrc/attention_bwd.cu:smem_bytes)."""
+    """K-attn-bwd's whole-head form keeps a whole head's q, k, v and dO rows
+    and two f32 row statistics in shared memory
+    (csrc/attention_bwd_core.cuh:smem_bytes): the guard of that form alone
+    (the probes of row 14c run it); the ops go through
+    :func:`attention_bwd_plan`, which streams where a head does not fit."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     smem = 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp
     if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
         raise ValueError(f"attention backward kernel: N={n}, head dim {dh} unsupported "
                          f"(head dim a multiple of 8 up to {MAX_HEAD_DIM}; "
                          f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available)")
+
+
+# K-attn-bwd's streamed form (csrc/attention_bwd_core.cuh): a CTA owns
+# BWD_BLOCK query rows (query pass) or key rows (key pass) and streams
+# BWD_TILE-row tiles of the other operands through shared memory
+BWD_BLOCK, BWD_TILE = 128, 64
+
+
+def attention_bwd_plan(n: int, dh: int) -> dict:
+    """The launch plan of K-attn-bwd: the whole-head form (one CTA a (head,
+    batch), every row of the head in shared memory) where it fits, else the
+    streamed form (one CTA a (head, batch, block of BWD_BLOCK rows), tiles of
+    BWD_TILE rows streamed). Any N; the head width a multiple of 8 up to 128.
+    ``blocks`` is the number of row blocks a (head, batch), ``tiles`` the
+    tiles a CTA streams in each sweep, ``smem`` the bytes of shared memory."""
+    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM or n < 1:
+        raise ValueError(f"attention backward kernel: N={n}, head dim {dh} unsupported "
+                         f"(head dim a multiple of 8 up to {MAX_HEAD_DIM})")
+    try:
+        _check_attention_bwd_shape(n, dh)
+    except ValueError:
+        dhp = -(-dh // 16) * 16
+        smem = 2 * (BWD_BLOCK + BWD_TILE) * (dhp + 8) * 2 + 2 * BWD_TILE * 4 + 2 * dhp
+        return {"streamed": True, "blocks": -(-n // BWD_BLOCK), "tiles": -(-n // BWD_TILE),
+                "smem": smem, "n": n}
+    kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
+    return {"streamed": False, "blocks": 1, "tiles": -(-kpad // BWD_TILE),
+            "smem": 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp, "n": n}
 
 
 def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -210,14 +316,14 @@ def standard_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -
     if not on_cuda((qkv, g)):
         return standard_attention_bwd_reference(qkv, g, num_heads)
     b, n, c, dh = _std_dims(qkv, num_heads)
-    _check_attention_bwd_shape(n, dh)
+    plan = attention_bwd_plan(n, dh)
     check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
     ld_g = row_stride(g, "g", (b, n, c))
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
     standard_attention_bwd.launches += 1
     kernels.launch("ovt_attention_std_bwd", qkv, g, ld_g, dqkv, stats[0], stats[1],
-                   b, n, num_heads, dh)
+                   b, n, num_heads, dh, int(plan["streamed"]))
     return dqkv
 
 
@@ -303,16 +409,56 @@ def octic_attention_bwd_reference(qs: tuple, gs: tuple, num_heads: int) -> tuple
     )
 
 
-def _octic_rows_launch(qs: tuple, num_heads: int) -> tuple:
-    """One K-attn launch in the octic layout; each qkv array may be a column
-    slice of a larger tensor (the E rows of a flat-E qkv). Counts nothing."""
+def _octic_outputs(ref: torch.Tensor, b: int, n: int, c8: int) -> tuple:
+    kw = dict(device=ref.device, dtype=ref.dtype)
+    return tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
+
+
+def _plan_args(plan: dict) -> list:
+    widths = [w for _, w, _, _ in plan["boxes"]]
+    return [plan["grid"], plan["smem"], len(widths)] + widths + [0] * (4 - len(widths))
+
+
+def _octic_wide_launch(qkv: torch.Tensor, num_heads: int) -> tuple:
+    """Route (a): the octic forward over the wide qkv ``[B, N, 3C]`` (each
+    (s, head) slice ``[a1|a2|b1|b2|e0|e1]``) on K-attn's streamed kernel with
+    the octic output scatter (csrc/attention_octic.cu). Counts nothing."""
+    b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
+    check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
+    plan = octic_attention_plan(b, n, num_heads, d1, "a")
+    outs = _octic_outputs(qkv, b, n, c8)
+    kernels.launch("ovt_attention_std_octic", qkv, *outs, b, n, num_heads, d1, de,
+                   *_plan_args(plan))
+    return outs
+
+
+def _tma_ready(t: torch.Tensor, ld: int) -> bool:
+    """A TMA map can address the view: 16-byte aligned start and row stride."""
+    return t.data_ptr() % 16 == 0 and ld % 8 == 0
+
+
+def _octic_to_wide(qs: tuple, num_heads: int) -> torch.Tensor:
+    """The six octic qkv arrays -> the wide qkv ``[B, N, 3C]`` of route (a)."""
     b, n, c8, d1, de = _octic_dims(qs, num_heads)
-    _check_attention_shape(n, 8 * d1)
+    parts = [t.reshape(b, n, 3, num_heads, d1 if i < 4 else de) for i, t in enumerate(qs)]
+    return torch.cat(parts, dim=-1).reshape(b, n, 24 * c8)
+
+
+def _octic_rows_launch(qs: tuple, num_heads: int) -> tuple:
+    """One launch of the octic forward over the six octic arrays; each may be
+    a column slice of a larger tensor (the E rows of a flat-E qkv). Route (b)
+    reads them in place where TMA can address them and the pieces fit their
+    boxes (:func:`octic_attention_plan`); otherwise the wide qkv is assembled
+    (one copy) and route (a) runs. Counts nothing."""
+    b, n, c8, d1, de = _octic_dims(qs, num_heads)
     lds = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
            for i, t in enumerate(qs)]
-    kw = dict(device=qs[0].device, dtype=qs[0].dtype)
-    outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
-    kernels.launch("ovt_attention_octic_rows", *qs, *lds, *outs, b, n, num_heads, d1, de)
+    plan = octic_attention_plan(b, n, num_heads, d1, "b", "octic")
+    if not (plan["fits"] and all(_tma_ready(t, ld) for t, ld in zip(qs, lds))):
+        return _octic_wide_launch(_octic_to_wide(qs, num_heads), num_heads)
+    outs = _octic_outputs(qs[0], b, n, c8)
+    kernels.launch("ovt_attention_octic_pieces", *qs, *lds, *outs, b, n, num_heads, d1, de,
+                   plan["dhp"], plan["grid"], plan["smem"])
     return outs
 
 
@@ -326,7 +472,7 @@ def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     """One K-attn-bwd launch in the octic layout; the qkv arrays and the
     cotangents may be column slices of larger tensors. Counts nothing."""
     b, n, c8, d1, de = _octic_dims(qs, num_heads)
-    _check_attention_bwd_shape(n, 8 * d1)
+    plan = attention_bwd_plan(n, 8 * d1)
     lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
           for i, t in enumerate(qs)]
     lg = _octic_out_row_strides(gs, b, n, c8)
@@ -334,7 +480,7 @@ def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
     stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
     kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
-                   b, n, num_heads, d1, de)
+                   b, n, num_heads, d1, de, int(plan["streamed"]))
     return grads
 
 
@@ -366,10 +512,11 @@ class _OcticAttention(torch.autograd.Function):
 def octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
     """Attention over the LinearD8 qkv outputs in their natural layouts
     (signature of the JAX ``octic_attention``). CPU tensors take
-    :func:`octic_attention_reference`; CUDA tensors launch K-attn
-    (csrc/attention.cu) in its octic head layout, taking e0 and e1 as
-    column slices of one flat-E qkv without a copy. The gradient goes
-    through :func:`octic_attention_bwd`; only the six qkv arrays are saved."""
+    :func:`octic_attention_reference`; CUDA tensors launch K-attn's
+    streamed octic forward (csrc/attention_octic.cu, route (b) of
+    :func:`octic_attention_plan`), taking e0 and e1 as column slices of one
+    flat-E qkv without a copy. The gradient goes through
+    :func:`octic_attention_bwd`; only the six qkv arrays are saved."""
     return _OcticAttention.apply(num_heads, a1, a2, b1, b2, e0, e1)
 
 
@@ -438,7 +585,7 @@ def octic_attention_fused_qkv_bwd(xs: tuple, w1, we, bias: Optional[torch.Tensor
     if not on_cuda(tuple(xs) + (w1, we, bias) + tuple(gs)):
         return octic_attention_fused_qkv_bwd_reference(xs, w1, we, bias, gs, num_heads)
     _, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
-    _check_attention_bwd_shape(n, c8 // num_heads * 8)
+    attention_bwd_plan(n, c8 // num_heads * 8)
     octic_attention_fused_qkv_bwd.launches += 1
     qkv = lin_d8_launch(tuple(xs), w1, we, bias, gelu=False)
     dq = _octic_bwd_launch(_qkv_rows(qkv), tuple(gs), num_heads)
@@ -453,11 +600,9 @@ class _OcticAttentionFusedQKV(torch.autograd.Function):
         ctx.num_heads = num_heads
         if not on_cuda(xs + (w1, we, bias)):
             return octic_attention_fused_qkv_reference(*xs, w1, we, bias, num_heads)
-        _, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
-        _check_attention_shape(n, c8 // num_heads * 8)
+        _fused_qkv_dims(xs, w1, num_heads)
         octic_attention_fused_qkv.launches += 1
-        return _octic_rows_launch(_qkv_rows(lin_d8_launch(xs, w1, we, bias, gelu=False)),
-                                  num_heads)
+        return _octic_wide_launch(lin_d8_wide_launch(xs, w1, we, bias, num_heads), num_heads)
 
     @staticmethod
     def backward(ctx, *gs):
@@ -472,10 +617,13 @@ def octic_attention_fused_qkv(a1, a2, b1, b2, ef, w1, we, bias: Optional[torch.T
     weights (w1 ``[4, C/8, 3C/8]``, we ``[C/4, 3C/4]``, A1 bias ``[3C/8]``)
     -> ``(o1, o2, o3, o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``.
 
-    CPU tensors take the reference; CUDA tensors launch K-lin-d8 (the qkv
-    5-tuple, no epilogue) and then K-attn in its octic head layout. The
-    gradient goes through :func:`octic_attention_fused_qkv_bwd`; only the
-    inputs and the weights are saved, as in the JAX custom VJP."""
+    CPU tensors take the reference; CUDA tensors launch K-lin-d8 (the qkv,
+    no epilogue, written by its grouped-column store as the wide qkv) and
+    then K-attn's streamed octic forward on it (route (a) of
+    :func:`octic_attention_plan`). The gradient goes through
+    :func:`octic_attention_fused_qkv_bwd`, which recomputes the qkv in the
+    tuple layout; only the inputs and the weights are saved, as in the JAX
+    custom VJP."""
     return _OcticAttentionFusedQKV.apply(num_heads, w1, we, bias, a1, a2, b1, b2, ef)
 
 
@@ -526,7 +674,7 @@ def octic_attention_fused_qkv_packed_bwd(x, w1, we, bias: Optional[torch.Tensor]
     if not on_cuda((x, w1, we, bias) + tuple(gs)):
         return octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bias, gs, num_heads)
     _, n, c8 = _packed_dims(x, w1, num_heads)
-    _check_attention_bwd_shape(n, c8 // num_heads * 8)
+    attention_bwd_plan(n, c8 // num_heads * 8)
     octic_attention_fused_qkv_packed_bwd.launches += 1
     xs = unpack_packed_5f(x)
     qkv = lin_d8_launch(xs, w1, we, bias, gelu=False)
@@ -544,11 +692,10 @@ class _OcticAttentionFusedQKVPacked(torch.autograd.Function):
         ctx.num_heads = num_heads
         if not on_cuda((x, w1, we, bias)):
             return octic_attention_fused_qkv_packed_reference(x, w1, we, bias, num_heads)
-        _, n, c8 = _packed_dims(x, w1, num_heads)
-        _check_attention_shape(n, c8 // num_heads * 8)
+        _packed_dims(x, w1, num_heads)
         octic_attention_fused_qkv_packed.launches += 1
-        qkv = lin_d8_launch(unpack_packed_5f(x), w1, we, bias, gelu=False)
-        return _octic_rows_launch(_qkv_rows(qkv), num_heads)
+        qkv = lin_d8_wide_launch(unpack_packed_5f(x), w1, we, bias, num_heads)
+        return _octic_wide_launch(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, *gs):
@@ -564,8 +711,8 @@ def octic_attention_fused_qkv_packed(x: torch.Tensor, w1, we, bias: Optional[tor
     octic_attention_fused_qkv_packed, kernel row 10).
 
     CPU tensors take the plain version; CUDA tensors launch K-lin-d8 on the
-    container's slot views, read in place through their row strides, then
-    K-attn in its octic head layout. The gradient goes through
+    container's slot views, read in place through their row strides, writing
+    the wide qkv, then K-attn's streamed octic forward (route (a)). The gradient goes through
     :func:`octic_attention_fused_qkv_packed_bwd`; only the packed input and
     the weights are saved, as in the JAX custom VJP."""
     return _OcticAttentionFusedQKVPacked.apply(num_heads, x, w1, we, bias)
@@ -621,6 +768,14 @@ def octic_attention_wide1d_bwd_reference(qs: tuple, gs: tuple, num_heads: int) -
     return tuple(t.to(qs[0].dtype) for t in d1d + des)
 
 
+def _wide1d_to_wide(qs: tuple, num_heads: int) -> torch.Tensor:
+    """(q1d, k1d, v1d, e0, e1) -> the wide qkv ``[B, N, 3C]`` of route (a)."""
+    b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
+    heads = [torch.cat([qs[s].reshape(b, n, num_heads, 4 * d1)] + [
+        t.reshape(b, n, 3, num_heads, de)[:, :, s] for t in qs[3:]], dim=-1) for s in range(3)]
+    return torch.stack(heads, dim=2).reshape(b, n, 24 * c8)
+
+
 def _wide1d_row_strides(qs: tuple, b: int, n: int, c8: int) -> list:
     return [row_stride(t, f"qkv[{i}]", (b, n, 4 * c8 if i < 3 else 6 * c8))
             for i, t in enumerate(qs)]
@@ -635,7 +790,7 @@ def octic_attention_wide1d_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     if not on_cuda(tuple(qs) + tuple(gs)):
         return octic_attention_wide1d_bwd_reference(qs, gs, num_heads)
     b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
-    _check_attention_bwd_shape(n, 8 * d1)
+    plan = attention_bwd_plan(n, 8 * d1)
     lq = _wide1d_row_strides(qs, b, n, c8)
     lg = _octic_out_row_strides(gs, b, n, c8)
     kw = dict(device=qs[0].device, dtype=qs[0].dtype)
@@ -643,7 +798,7 @@ def octic_attention_wide1d_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
     octic_attention_wide1d_bwd.launches += 1
     kernels.launch("ovt_attention_wide1d_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
-                   b, n, num_heads, d1, de)
+                   b, n, num_heads, d1, de, int(plan["streamed"]))
     return grads
 
 
@@ -655,12 +810,14 @@ class _OcticAttentionWide1d(torch.autograd.Function):
         if not on_cuda(qs):
             return octic_attention_wide1d_reference(*qs, num_heads)
         b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
-        _check_attention_shape(n, 8 * d1)
         lds = _wide1d_row_strides(qs, b, n, c8)
-        kw = dict(device=qs[0].device, dtype=qs[0].dtype)
-        outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
         octic_attention_wide1d.launches += 1
-        kernels.launch("ovt_attention_wide1d", *qs, *lds, *outs, b, n, num_heads, d1, de)
+        plan = octic_attention_plan(b, n, num_heads, d1, "b", "wide1d")
+        if not (plan["fits"] and all(_tma_ready(t, ld) for t, ld in zip(qs, lds))):
+            return _octic_wide_launch(_wide1d_to_wide(qs, num_heads), num_heads)
+        outs = _octic_outputs(qs[0], b, n, c8)
+        kernels.launch("ovt_attention_wide1d_pieces", *qs, *lds, *outs, b, n, num_heads, d1, de,
+                       plan["dhp"], plan["grid"], plan["smem"])
         return outs
 
     @staticmethod
@@ -674,9 +831,9 @@ def octic_attention_wide1d(q1d, k1d, v1d, e0, e1, num_heads: int) -> tuple:
     [a1|a2|b1|b2], d1), e0, e1 ``[B, N, 3C/4]`` in (3, h, de) order, each
     with its own row stride (column views of the wide-1d qkv product) ->
     ``(o1..o4 [B, N, C/8], oe0, oe1 [B, N, C/4])``. CPU tensors take
-    :func:`octic_attention_wide1d_reference`; CUDA tensors launch K-attn
-    (csrc/attention.cu) in its wide-1d layout: each head's 1-d part is one
-    4*d1 slice. The gradient goes through :func:`octic_attention_wide1d_bwd`;
+    :func:`octic_attention_wide1d_reference`; CUDA tensors launch K-attn's
+    streamed octic forward (csrc/attention_octic.cu, route (b)): each head's
+    1-d part is one 4*d1 slice, loaded as four padded pieces. The gradient goes through :func:`octic_attention_wide1d_bwd`;
     only the five inputs are saved, as in the JAX custom VJP."""
     return _OcticAttentionWide1d.apply(num_heads, q1d, k1d, v1d, e0, e1)
 
@@ -719,14 +876,14 @@ def octic_attention_wide_bwd(qkv: torch.Tensor, gs: tuple, num_heads: int) -> to
     if not on_cuda((qkv,) + tuple(gs)):
         return octic_attention_wide_bwd_reference(qkv, gs, num_heads)
     b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
-    _check_attention_bwd_shape(n, 8 * d1)
+    plan = attention_bwd_plan(n, 8 * d1)
     check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
     lg = _octic_out_row_strides(gs, b, n, c8)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
     octic_attention_wide_bwd.launches += 1
     kernels.launch("ovt_attention_wide_bwd", qkv, *gs, *lg, dqkv, stats[0], stats[1], b, n,
-                   num_heads, d1, de)
+                   num_heads, d1, de, int(plan["streamed"]))
     return dqkv
 
 
@@ -737,14 +894,8 @@ class _OcticAttentionWide(torch.autograd.Function):
         ctx.num_heads = num_heads
         if not on_cuda((qkv,)):
             return octic_attention_wide_reference(qkv, num_heads)
-        b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
-        _check_attention_shape(n, 8 * d1)
-        check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
-        kw = dict(device=qkv.device, dtype=qkv.dtype)
-        outs = tuple(torch.empty(b, n, c8 if i < 4 else 2 * c8, **kw) for i in range(6))
         octic_attention_wide.launches += 1
-        kernels.launch("ovt_attention_wide", qkv, *outs, b, n, num_heads, d1, de)
-        return outs
+        return _octic_wide_launch(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, *gs):
@@ -758,8 +909,9 @@ def octic_attention_wide(qkv: torch.Tensor, num_heads: int) -> tuple:
     (pallas_attention.py:octic_attention_wide, kernel row 13a; the output of
     :func:`~octic_vits_tpu_torch.ops.linear.linear_d8_qkv_wide`) -> the six
     irrep outputs of :func:`octic_attention`. CPU tensors take the
-    reference; CUDA tensors launch K-attn (csrc/attention.cu) with the
-    standard layout's gather and the octic scatter. The gradient goes
+    reference; CUDA tensors launch K-attn's streamed octic forward
+    (csrc/attention_octic.cu, route (a): the standard layout's loads and the
+    octic scatter). The gradient goes
     through :func:`octic_attention_wide_bwd`; only qkv is saved."""
     return _OcticAttentionWide.apply(num_heads, qkv)
 

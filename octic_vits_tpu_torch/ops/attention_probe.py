@@ -37,7 +37,11 @@ and those of ``scripts/r3_attn_experiments.py`` (row 14b):
 =================================  ===========================================
 
 (Row e, the octic attention over one interleaved qkv, is
-:func:`~octic_vits_tpu_torch.ops.attention.octic_attention_wide`.)
+:func:`~octic_vits_tpu_torch.ops.attention.octic_attention_wide`.) And
+:func:`whole_head_octic_attention`: row 5's forward on K-attn's whole-head
+core, which every octic forward ran until they moved to the streamed TMA +
+wgmma kernel (csrc/attention_octic.cu), kept as the yardstick that kernel is
+timed against.
 
 Each ``<op>_reference`` is the plain version with the JAX kernel's numerics:
 in bf16 the unnormalised bf16 probabilities of
@@ -57,7 +61,15 @@ import torch
 
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
-from octic_vits_tpu_torch.ops.attention import SMEM_LIMIT, _check_attention_bwd_shape
+from octic_vits_tpu_torch.ops import attention as _attention
+from octic_vits_tpu_torch.ops.attention import (
+    SMEM_LIMIT,
+    _check_attention_bwd_shape,
+    _check_attention_shape,
+    _octic_outputs,
+    octic_attention_reference,
+)
+from octic_vits_tpu_torch.ops._dispatch import row_stride
 
 PROBE_HEAD_DIMS = (64, 80)  # the head dims csrc/attention_probe.cu instantiates
 ALIGN = 128  # the TPU lane width: the aligned and padded probes' head slots
@@ -762,3 +774,32 @@ for _op in PROBE_OPS_14A + EXPERIMENT_OPS:
     _op.launches = 0
     _op.reference = globals()[f"{_op.__name__}_reference"]
 del _op
+
+
+def whole_head_octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    return octic_attention_reference(a1, a2, b1, b2, e0, e1, num_heads)
+
+
+def whole_head_octic_attention(a1, a2, b1, b2, e0, e1, num_heads: int) -> tuple:
+    """:func:`~octic_vits_tpu_torch.ops.attention.octic_attention`'s forward
+    on K-attn's whole-head core (csrc/attention.cu:ovt_attention_octic_rows:
+    one CTA a (head, batch), the whole head gathered into shared memory before
+    the first product), the kernel the octic forwards ran before streaming
+    their keys; N up to the core's shared memory (:func:`~octic_vits_tpu_torch.
+    ops.attention._check_attention_shape`). CPU tensors take the reference;
+    CUDA tensors launch the core. The op runs on no model path."""
+    qs = (a1, a2, b1, b2, e0, e1)
+    if not on_cuda(qs):
+        return whole_head_octic_attention_reference(*qs, num_heads)
+    b, n, c8, d1, de = _attention._octic_dims(qs, num_heads)
+    _check_attention_shape(n, 8 * d1)
+    lds = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
+           for i, t in enumerate(qs)]
+    outs = _octic_outputs(a1, b, n, c8)
+    whole_head_octic_attention.launches += 1
+    kernels.launch("ovt_attention_octic_rows", *qs, *lds, *outs, b, n, num_heads, d1, de)
+    return outs
+
+
+whole_head_octic_attention.launches = 0
+whole_head_octic_attention.reference = whole_head_octic_attention_reference

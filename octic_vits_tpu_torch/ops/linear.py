@@ -29,6 +29,7 @@ five views may be column slices of one packed container
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -86,6 +87,62 @@ def _row_strides(xs: tuple, c: int, name: str) -> tuple:
     return lead, ld1.pop(), row_stride(xs[4], f"{name}[4]", lead + (4 * c,), align=True)
 
 
+# K-lin-d8's tiling (csrc/lin_d8_sm90.cuh): persistent CTAs walking tiles of
+# 64 tokens x 64 channels across all eight slots, two consumer warpgroups of
+# 32 channels each sharing the A boxes (all eight products of their half in
+# registers), 32-wide k blocks of 6 A boxes and 12 B boxes through a ring of
+# LIN_STAGES stages
+LIN_BM, LIN_BN, LIN_BNW, LIN_BK, LIN_STAGES = 64, 64, 32, 32, 3
+LIN_MODES = ("tuple", "gelu", "ls", "wide", "wide1d")
+NUM_SMS = 132  # streaming multiprocessors of the H100 (SXM)
+
+
+@functools.lru_cache(maxsize=256)
+def lin_d8_plan(m: int, c: int, f: int, mode: str = "tuple", sms: int = NUM_SMS) -> dict:
+    """The launch plan of K-lin-d8 (csrc/lin_d8.cu) for ``m`` tokens, input
+    width ``c`` and output width ``f`` per slot: one persistent CTA an SM
+    (never more than tiles), tile t at (M-tile t // n_tiles, channel tile t %
+    n_tiles) so that one M-tile's channel tiles run together; ``k1`` and
+    ``ke`` the 32-wide k blocks of the 1-d and the E products; ``boxes`` the
+    TMA boxes (operand, box, inner bytes, swizzle bytes); ``smem`` the shared
+    memory, which the C entry point checks: align slack, the ring, each
+    warpgroup's output staging (8 products of 64 x 32 bf16), the barriers (a
+    stage's full and empty, each warpgroup's residual full and free for the
+    LayerScale epilogue, whose residual tile the producer loads into the
+    staging). ``mode`` is the epilogue and store: the tuple store (TMA)
+    with no epilogue, with the D8-GELU or with the LayerScale + residual, or
+    the grouped-column stores of the wide and wide-1d qkv. Cached: read it,
+    do not change it."""
+    if mode not in LIN_MODES:
+        raise ValueError(f"lin_d8: mode {mode!r} is not one of {LIN_MODES}")
+    if c % 8 or f % 8 or c < 8 or f < 8 or m < 1:
+        raise ValueError(f"lin_d8: widths c={c}, f={f} must be positive multiples of 8")
+    m_tiles, n_tiles = -(-m // LIN_BM), -(-f // LIN_BN)
+    a_box, b_box = LIN_BM * LIN_BK * 2, LIN_BK * LIN_BNW * 2
+    stage = 6 * a_box + 12 * b_box
+    staging = 8 * LIN_BM * LIN_BNW * 2
+    boxes = [("x", (LIN_BK, LIN_BM), 2 * LIN_BK, 64), ("w1", (LIN_BNW, LIN_BK, 1), 2 * LIN_BNW, 64),
+             ("we", (LIN_BNW, LIN_BK), 2 * LIN_BNW, 64)]
+    if mode in ("tuple", "gelu", "ls"):
+        boxes += [("y", (LIN_BNW, LIN_BM), 2 * LIN_BNW, 64),
+                  ("ye", (LIN_BNW, 1, LIN_BM), 2 * LIN_BNW, 64)]
+    if mode == "ls":
+        boxes += [("r", (LIN_BNW, LIN_BM), 2 * LIN_BNW, 64),
+                  ("ref", (LIN_BNW, 1, LIN_BM), 2 * LIN_BNW, 64)]
+    return {"grid": min(m_tiles * n_tiles, sms), "m_tiles": m_tiles, "n_tiles": n_tiles,
+            "k1": -(-c // LIN_BK), "ke": -(-2 * c // LIN_BK), "stage_bytes": stage,
+            "e_stage_bytes": 2 * a_box + 4 * b_box, "boxes": tuple(boxes), "mode": mode,
+            "smem": 1024 + LIN_STAGES * stage + 2 * staging + (2 * LIN_STAGES + 4) * 8,
+            # f32 accumulators a consumer thread holds (8 m64n32 products) and
+            # the registers setmaxnreg gives it
+            "acc_regs": 8 * LIN_BM * LIN_BNW // 128, "max_regs": 232, "m": m, "f": f}
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
                   bias: Optional[torch.Tensor], gelu: bool, layerscale: Optional[tuple] = None,
                   residual: Optional[tuple] = None, out: Optional[tuple] = None) -> tuple:
@@ -124,26 +181,46 @@ def lin_d8_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     olead, ldy, ldye = _row_strides(out, f, "out")
     if olead != lead:
         raise ValueError("lin_d8: the output views must have the input's leading shape")
+    mode = "gelu" if gelu else "tuple" if layerscale is None else "ls"
     _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, out[:4], (out[4], out[4][..., 2 * f:]),
-                 (ldy, ldye), (f, 0, 2 * f, 0), gelu, ls1, lse, rs)
+                 (ldy, ldye), (f, 0, 2 * f, 0), mode, ls1, lse, rs)
     return tuple(out)
 
 
 def _lin_d8_call(xs: tuple, ldxs: tuple, w1, we, bias, ys: tuple, yes: tuple, ldys: tuple,
-                 groups: tuple, gelu: bool = False, ls1=None, lse=None,
-                 rs: tuple = (None,) * 5) -> None:
+                 groups: tuple, mode: str, ls1=None, lse=None, rs: tuple = (None,) * 5) -> None:
     """One ``ovt_lin_d8`` launch on checked arguments: the inputs `xs` with
     the row strides ``ldxs`` of :func:`_row_strides`; the four 1-d outputs
     start at ``ys``, the E rows' outputs at ``yes`` (two starts), with the
     row strides ``ldys`` and the grouped-column maps ``groups = (g1, s1, ge,
     se)`` of csrc/lin_d8.cu (output column j of a 1-d irrep at ``(j // g1) *
-    s1 + j % g1``, of an E row at ``(j // ge) * se + j % ge``)."""
+    s1 + j % g1``, of an E row at ``(j // ge) * se + j % ge``); ``mode`` the
+    plan's (:func:`lin_d8_plan`)."""
     _, c, f = w1.shape
-    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, *yes, ls1, lse, *rs,
-                   xs[0].numel() // c, c, f, int(gelu), *ldxs, *ldys, *groups)
+    m = xs[0].numel() // c
+    plan = lin_d8_plan(m, c, f, mode, _sms(xs[0].device))
+    kernels.launch("ovt_lin_d8", *xs, w1, we, bias, *ys, *yes, ls1, lse, *rs, m, c, f,
+                   int(mode == "gelu"), *ldxs, *ldys, *groups, plan["grid"], plan["smem"])
 
 
-NUM_SMS = 132  # streaming multiprocessors of the H100 (SXM)
+def lin_d8_wide_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
+                       bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """One K-lin-d8 launch that stores the qkv LinearD8 as the wide qkv ``[...,
+    8f]`` (each (s, head) slice ``[a1|a2|b1|b2|e0|e1]``, the layout of
+    :func:`linear_d8_qkv_wide`) through the grouped-column store; the input
+    views may be column slices of one packed container. Counts nothing: the
+    fused qkv + attention ops feed it to the octic forward's route (a)."""
+    _, c, f = w1.shape
+    d1, de = _wide_dims(f, num_heads)
+    lead, ldx, ldxe = _row_strides(xs, c, "xs")
+    check_kernel_arg(w1, "w1", (4, c, f))
+    check_kernel_arg(we, "we", (2 * c, 2 * f))
+    check_kernel_arg(bias, "bias", (f,))
+    y = torch.empty(*lead, 8 * f, device=xs[0].device, dtype=xs[0].dtype)
+    _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, tuple(y[..., g * d1:] for g in range(4)),
+                 (y[..., 4 * d1:], y[..., 4 * d1 + de:]), (8 * f, 8 * f),
+                 (d1, 8 * d1, de, 8 * d1), "wide")
+    return y
 
 
 def lin_d8_bwd_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, de: tuple,
@@ -575,20 +652,10 @@ class _LinearD8QKVWide(torch.autograd.Function):
         ctx.num_heads = num_heads
         if not on_cuda((x1, xef, w1, we, bias)):
             return linear_d8_qkv_wide_reference(x1, xef, w1, we, bias, num_heads)
-        _, c, f = w1.shape
-        d1, de = _wide_dims(f, num_heads)
+        c = w1.shape[1]
         check_kernel_arg(x1, "x1", (4,) + tuple(x1.shape[1:-1]) + (c,))
-        xs = tuple(x1) + (xef,)
-        _, ldx, ldxe = _row_strides(xs, c, "xs")
-        check_kernel_arg(w1, "w1", (4, c, f))
-        check_kernel_arg(we, "we", (2 * c, 2 * f))
-        check_kernel_arg(bias, "bias", (f,))
-        y = torch.empty(*xef.shape[:-1], 8 * f, device=xef.device, dtype=xef.dtype)
         linear_d8_qkv_wide.launches += 1
-        _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, tuple(y[..., g * d1:] for g in range(4)),
-                     (y[..., 4 * d1:], y[..., 4 * d1 + de:]), (8 * f, 8 * f),
-                     (d1, 8 * d1, de, 8 * d1))
-        return y
+        return lin_d8_wide_launch(tuple(x1) + (xef,), w1, we, bias, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -662,7 +729,7 @@ class _LinearD8Wide1d(torch.autograd.Function):
         y1d, yef = torch.empty(*lead, 4 * f, **kw), torch.empty(*lead, 4 * f, **kw)
         linear_d8_wide1d.launches += 1
         _lin_d8_call(xs, (ldx, ldxe), w1, we, bias, tuple(y1d[..., g * d1:] for g in range(4)),
-                     (yef, yef[..., 2 * f:]), (4 * f, 4 * f), (d1, 4 * d1, 2 * f, 0))
+                     (yef, yef[..., 2 * f:]), (4 * f, 4 * f), (d1, 4 * d1, 2 * f, 0), "wide1d")
         w = 4 * f // 3
         return (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], yef[..., :2 * f],
                 yef[..., 2 * f:])

@@ -1,7 +1,10 @@
-"""The tile sweep of K-lin-d8 (kernel row 14b,
+"""The tile sweep of K-lin-d8's mma.sync core (kernel row 14b,
 ``scripts/profile_lin_tiles.py``): the qkv LinearD8 at other CTA tiles than
-the model paths' 64 tokens x 32 channels, through ``csrc/lin_d8_probe.cu``,
-which runs K-lin-d8's own device code (``csrc/lin_d8_core.cuh``).
+the 64 tokens x 32 channels that the model paths ran before K-lin-d8's TMA +
+wgmma redesign, through ``csrc/lin_d8_probe.cu``, which runs that core's
+device code (``csrc/lin_d8_core.cuh``); and :func:`lin_d8_sync`, that core at
+64 x 32 with every epilogue and store, the yardstick the redesigned K-lin-d8
+(``csrc/lin_d8.cu``) is timed against.
 
 The TPU script times ``pallas_linear.py``'s ``_kernel`` (the tuple store,
 ``call_tuple``) and ``_wide_kernel`` (the grouped-column wide store of row
@@ -9,7 +12,7 @@ The TPU script times ``pallas_linear.py``'s ``_kernel`` (the tuple store,
 two sides, tokens (BM) and channels (BN, across all eight slots), bounded by
 227 KB of shared memory: :data:`TILES` are the ones the kernel's warp layout
 admits. The tile changes no output's summation order, so every tile gives
-K-lin-d8's bits. CPU tensors take the reference; CUDA tensors launch the
+the bits of the core's 64 x 32 instantiation (:func:`lin_d8_sync`). CPU tensors take the reference; CUDA tensors launch the
 kernel. The op runs on no model path.
 """
 
@@ -23,6 +26,8 @@ from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
 from octic_vits_tpu_torch.ops.attention import SMEM_LIMIT
 from octic_vits_tpu_torch.ops.linear import (
+    _check_tuple,
+    _row_strides,
     _wide_dims,
     linear_d8_fused_reference,
     linear_d8_qkv_wide_reference,
@@ -110,3 +115,66 @@ def lin_d8_tiled(x1: torch.Tensor, xef: torch.Tensor, w1: torch.Tensor, we: torc
 
 lin_d8_tiled.launches = 0
 lin_d8_tiled.reference = lin_d8_tiled_reference
+
+
+def lin_d8_sync_reference(xs: tuple, w1, we, bias: Optional[torch.Tensor], gelu: bool = False,
+                          layerscale: Optional[tuple] = None, residual: Optional[tuple] = None,
+                          num_heads: Optional[int] = None):
+    """The plain versions: :func:`~octic_vits_tpu_torch.ops.linear.linear_d8_fused`'s
+    (the flat-E 5-tuple) or, with ``num_heads``, ``linear_d8_qkv_wide``'s."""
+    if num_heads is not None:
+        return linear_d8_qkv_wide_reference(torch.stack(tuple(xs[:4])), xs[4], w1, we, bias,
+                                            num_heads)
+    return linear_d8_fused_reference(tuple(xs), w1, we, bias, gelu, layerscale, residual)
+
+
+def lin_d8_sync(xs: tuple, w1, we, bias: Optional[torch.Tensor], gelu: bool = False,
+                layerscale: Optional[tuple] = None, residual: Optional[tuple] = None,
+                num_heads: Optional[int] = None):
+    """K-lin-d8 on its mma.sync core at 64 x 32 (csrc/lin_d8_probe.cu:
+    ovt_lin_d8_sync), the kernel the model paths ran before the TMA + wgmma
+    redesign: the flat-E tuple ``xs``, the weights and an A1 bias, with the
+    D8-GELU epilogue, the LayerScale + residual epilogue, or neither -> the
+    flat-E 5-tuple; with ``num_heads``, the wide qkv ``[..., 8f]`` through the
+    grouped-column store. CPU tensors take :func:`lin_d8_sync_reference`; CUDA
+    tensors launch the core. The op runs on no model path."""
+    if not on_cuda(tuple(xs) + (w1, we, bias)):
+        return lin_d8_sync_reference(xs, w1, we, bias, gelu, layerscale, residual, num_heads)
+    xs = tuple(xs)
+    _, c, f = w1.shape
+    lead, ldx, ldxe = _row_strides(xs, c, "xs")
+    check_kernel_arg(w1, "w1", (4, c, f))
+    check_kernel_arg(we, "we", (2 * c, 2 * f))
+    check_kernel_arg(bias, "bias", (f,))
+    if (num_heads is not None and (gelu or layerscale is not None)) or (
+            gelu and layerscale is not None):
+        raise ValueError("lin_d8_sync: one epilogue at most, and none with the wide store")
+    ls1 = lse = None
+    rs = (None,) * 5
+    if layerscale is not None:
+        ls1, lse = layerscale
+        check_kernel_arg(ls1, "ls1", (4, f))
+        check_kernel_arg(lse, "lse", (2 * f,))
+        rs = tuple(residual)
+        if _check_tuple(rs, f) != lead:
+            raise ValueError("lin_d8_sync: the residual must have the output's shape")
+    kw = dict(device=xs[0].device, dtype=xs[0].dtype)
+    if num_heads is not None:
+        d1, de = _wide_dims(f, num_heads)
+        out = torch.empty(*lead, 8 * f, **kw)
+        ys, yes = tuple(out[..., g * d1:] for g in range(4)), (out[..., 4 * d1:],
+                                                             out[..., 4 * d1 + de:])
+        lds, groups = (8 * f, 8 * f), (d1, 8 * d1, de, 8 * d1)
+    else:
+        out = tuple(torch.empty(*lead, f, **kw) for _ in range(4)) + (
+            torch.empty(*lead, 4 * f, **kw),)
+        ys, yes = out[:4], (out[4], out[4][..., 2 * f:])
+        lds, groups = (f, 4 * f), (f, 0, 2 * f, 0)
+    lin_d8_sync.launches += 1
+    kernels.launch("ovt_lin_d8_sync", *xs, w1, we, bias, *ys, *yes, ls1, lse, *rs,
+                   xs[0].numel() // c, c, f, int(gelu), ldx, ldxe, *lds, *groups)
+    return out
+
+
+lin_d8_sync.launches = 0
+lin_d8_sync.reference = lin_d8_sync_reference

@@ -1,10 +1,13 @@
 """H100 counterpart of ``scripts/profile_lin_tiles.py``: the qkv K-lin-d8 at
 hybrid ViT-H/14 B=64 (M = 16448 tokens, C = 160, F = 480, bf16) with the
 tuple store and the grouped-column wide store (row 13b) at every CTA tile
-that ``csrc/lin_d8_probe.cu`` builds (``ops.lin_d8_tiled``), in turns with
-the shipped K-lin-d8 (64 x 32: ``ops.linear_d8_fused`` and
+that ``csrc/lin_d8_probe.cu`` builds (``ops.lin_d8_tiled``, K-lin-d8's
+mma.sync core), in turns with that core's 64 x 32 instantiation
+(``ops.lin_d8_sync``, what the model paths ran before the TMA + wgmma
+redesign) and with the redesigned K-lin-d8 (``ops.linear_d8_fused`` and
 ``ops.linear_d8_qkv_wide``). Each tile is first held bitwise equal to the
-shipped kernel's output: the tile changes no summation order. The TPU
+64 x 32 core's output: the tile changes no summation order (the redesign
+sums in another order, and is held to the forward bar instead). The TPU
 script sweeps the token tile tm = 128 ... 1024 of a row block with every
 channel; an H100 tile has a token side BM and a channel side BN. Run on the
 card from the repository root:
@@ -31,13 +34,15 @@ def lin_inputs(cs, gen, m: int = M, c8: int = C8):
 
 
 def shipped(store: str, x1, xef, w1, we, heads: int = H):
-    """The shipped K-lin-d8 (64 x 32) in ``ops.lin_d8_tiled``'s layout: the
-    wide qkv [M, 8F], or the tuple store as (y1 [4, M, F], yef [M, 4F])."""
+    """The mma.sync core at 64 x 32 (``ops.lin_d8_sync``) in
+    ``ops.lin_d8_tiled``'s layout: the wide qkv [M, 8F], or the tuple store
+    as (y1 [4, M, F], yef [M, 4F])."""
     from octic_vits_tpu_torch import ops
 
+    xs = tuple(x1) + (xef,)
     if store == "wide":
-        return ops.linear_d8_qkv_wide(x1, xef, w1, we, None, heads)
-    y = ops.linear_d8_fused(tuple(x1) + (xef,), w1, we, None)
+        return ops.lin_d8_sync(xs, w1, we, None, num_heads=heads)
+    y = ops.lin_d8_sync(xs, w1, we, None)
     return torch.stack(y[:4]), y[4]
 
 
@@ -51,11 +56,16 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     xs = lin_inputs(cs, gen)
     x1, xef, w1, we = xs
-    # the shipped kernels' launches alone (shipped() stacks the tuple store)
-    names = {"tuple": "tuple store, K-lin-d8 64x32 (shipped)",
-             "wide": "WIDE store, K-lin-d8 64x32 (shipped, 13b)"}
-    cases = {names["tuple"]: lambda: ops.linear_d8_fused(tuple(x1) + (xef,), w1, we, None),
-             names["wide"]: lambda: ops.linear_d8_qkv_wide(x1, xef, w1, we, None, H)}
+    # the 64 x 32 core's launches alone (shipped() stacks the tuple store),
+    # and the redesigned K-lin-d8's
+    xs5 = tuple(x1) + (xef,)
+    names = {"tuple": "tuple store, mma.sync core 64x32",
+             "wide": "WIDE store, mma.sync core 64x32 (13b)"}
+    cases = {names["tuple"]: lambda: ops.lin_d8_sync(xs5, w1, we, None),
+             names["wide"]: lambda: ops.lin_d8_sync(xs5, w1, we, None, num_heads=H),
+             "tuple store, K-lin-d8 TMA + wgmma": lambda: ops.linear_d8_fused(xs5, w1, we, None),
+             "WIDE store, K-lin-d8 TMA + wgmma": lambda: ops.linear_d8_qkv_wide(x1, xef, w1, we,
+                                                                                None, H)}
     with torch.no_grad():
         for store in STORES:
             want = shipped(store, *xs)
@@ -63,10 +73,10 @@ def main() -> int:
                 kw = dict(bm=bm, bn=bn, store=store, num_heads=H)
                 got = ops.lin_d8_tiled(*xs, **kw)
                 same = all(torch.equal(g, w) for g, w in zip(cs.flat(got), cs.flat(want)))
-                print(f"check {store} {bm}x{bn} bitwise equal to the shipped kernel: {same}",
+                print(f"check {store} {bm}x{bn} bitwise equal to the 64x32 core: {same}",
                       flush=True)
                 if not same:
-                    raise AssertionError(f"{store} {bm}x{bn}: not the shipped kernel's bits")
+                    raise AssertionError(f"{store} {bm}x{bn}: not the 64x32 core's bits")
                 check(cs, f"{store} {bm}x{bn}", got, ops.lin_d8_tiled.reference(*xs, **kw))
                 cases[f"{store} store  {bm}x{bn}"] = (
                     lambda kw=kw: ops.lin_d8_tiled(*xs, **kw))
@@ -77,7 +87,8 @@ def main() -> int:
     split = {}
     for store in STORES:
         for bm, bn in TILES:
-            split[f"{store} {bm}x{bn} - shipped"] = m[f"{store} store  {bm}x{bn}"] - m[names[store]]
+            split[f"{store} {bm}x{bn} - core 64x32"] = (m[f"{store} store  {bm}x{bn}"]
+                                                        - m[names[store]])
     report(card, res, bounds, split)
     return 0
 

@@ -12,17 +12,29 @@ P8's fused qkv + attention backward at ViT-H/14 B=32) where that tree's
 ``chip_smoke.py`` has them: every kernel that runs K-attn-bwd is there (rows
 1b, 2b, 5, 10, 12 and 13a). P2's four kernels are timed again at ViT-H/14
 B=32 and at the L/16 SSL shapes (64 x 197 and 256 x 37 tokens), each under
-``name[shape]``. Each time is the median over 7 windows of 20
-back-to-back launches between one pair of CUDA events (this file's
-``timing.py``), so that the wrappers' host time, which ``chip_smoke.time_ms``
-keeps in its windows, is spread over the launches and both trees are timed
-by the same code. It prints the card's name and power limit and one JSON
-line ``{"card": ..., "root": ..., "ms": {kernel: ms}, "img_s": {model: img/s}}``
+``name[shape]``. Each time is the median over 7 windows of 20 launches
+between one pair of CUDA events (this file's ``timing.py``, so both trees
+are timed by the same code), each window one replay of a CUDA graph of the
+20 launches, which holds the card's time alone (``ms``), and 20 launches
+enqueued back to back, which holds the wrappers' host time where it exceeds
+the card's (``ms_window``); a kernel whose op cannot be captured in a graph
+(it synchronises) has its windowed time under ``ms`` too. It prints the
+card's name and power limit and one JSON line ``{"card": ..., "root": ...,
+"ms": {kernel: ms}, "ms_window": {kernel: ms}, "img_s": {model: img/s}}``
 (a kernel with several cases sums their times; img/s of one B=64 forward
 of the standard ViT-H/14 and of the hybrid's path B, P4's and P13's
 models). To compare two commits, unpack the other one into a git-ignored
 directory and run this file with ``--root`` on each in turns (parent,
-change, change, parent) in one call. Needs a CUDA device.
+change, change, parent) in one call. With ``--steps`` it times instead
+P7's hybrid DeiT train step (hybrid ViT-H/14, B=32) and P10's hybrid DINOv2
+step (hybrid ViT-L/16, B=32), seeded random weights, as those phases time
+them (the host clock around each synchronized step, median of 10 after 2
+warm-up), and the host microseconds to enqueue one ``linear_d8_fused`` at a
+small shape (M = 148, c = 16, F = 24; K-lin-d8 is launched 64-96 times a
+step), and prints ``{"card": ..., "root": ..., "step_ms": {...},
+"step_ms_all": {...}, "lin_host_us": ...}``: the steps' host time, which a
+wrapper's host cost moves and a CUDA-graph replay hides. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -72,9 +84,64 @@ def model_img_s(cs) -> dict:
     return ips
 
 
+def lin_host_us(timing) -> float:
+    """Host microseconds to enqueue one linear_d8_fused (bias, no epilogue)
+    at M = 148, c = 16, F = 24, where the card keeps up."""
+    from octic_vits_tpu_torch import ops
+
+    g = torch.Generator("cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    xs = tuple(randn(148, 16) for _ in range(4)) + (randn(148, 64),)
+    w1, we, bias = randn(4, 16, 24) * 0.25, randn(32, 48) * 0.18, randn(24) * 0.1
+    with torch.no_grad():
+        return timing.host_us_per_call(lambda: ops.linear_d8_fused(xs, w1, we, bias))
+
+
+def step_ms(cs) -> tuple:
+    """(median ms, every step's ms) of P7's hybrid DeiT step and P10's hybrid
+    SSL step, built and timed as chip_smoke.py builds and times them."""
+    from octic_vits_tpu_torch import create_model, init_weights
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
+    from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    med, every = {}, {}
+    cfg = DeiTConfig()
+    model = create_model("hybrid_deit_huge_patch14", remat=True, drop_path_rate=cfg.drop_path,
+                         compute_dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator("cuda").manual_seed(cs.SEED))
+    state, step = cs.train_setup(model, cfg)
+    tgen = torch.Generator().manual_seed(cs.SEED + 3)
+    images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=tgen).cuda()
+    labels = torch.randint(0, 1000, (cs.TRAIN_BATCH,), generator=tgen).cuda()
+    med["deit_hybrid"], every["deit_hybrid"] = cs.time_train_steps(state, step, images, labels,
+                                                                   tgen)
+    del state, step, model
+    torch.cuda.empty_cache()
+    arch = SSLMetaArch(SSLConfig(backbone_remat=True), device="cuda")
+    state = arch.init(torch.Generator("cuda").manual_seed(cs.SEED))
+    lr = sqrt_lr_scaling(4e-3, cs.SSL_BATCH)
+    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
+    batch = batch_to_device(cs.ssl_batch(cs.SSL_BATCH, cs.SEED + 5), "cuda")
+    med["ssl_hybrid"], every["ssl_hybrid"] = cs.time_ssl_steps(
+        state, arch.make_train_step(), batch, sched, torch.Generator().manual_seed(cs.SEED + 6))
+    del state, arch
+    torch.cuda.empty_cache()
+    return med, every
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".", help="root of the tree to time")
+    parser.add_argument("--steps", action="store_true",
+                        help="time P7's and P10's hybrid train steps instead of the kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
@@ -88,6 +155,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.gpu_name_and_power()
     print(card, flush=True)
+    if args.steps:
+        med, every = step_ms(cs)
+        print(json.dumps({"card": card, "root": root, "step_ms": med, "step_ms_all": every,
+                          "lin_host_us": lin_host_us(timing)}), flush=True)
+        return 0
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     h14 = (cs.BATCH, 257, 1280, 16, True)
     sets = [(cs.p2_cases, h14), (cs.train_kernel_cases, (cs.TRAIN_BATCH,) + h14[1:])]
@@ -101,17 +173,27 @@ def main() -> int:
     # (global 64 x 197, local 256 x 37 tokens), each under "name[shape]"
     extra = (("h14_b32", (cs.TRAIN_BATCH,) + h14[1:]), ("l16_global", (64, 197, 1024, 16, True)),
              ("l16_local", (256, 37, 1024, 16, True)))
-    times = {}
+    times, windows = {}, {}
+
+    def add(name, fn):
+        win = timing.time_per_launch(fn)
+        try:
+            dev = timing.time_per_launch(fn, graph=True)
+        except RuntimeError:  # the op synchronises: no graph of it
+            torch.cuda.synchronize()
+            dev = win
+        times[name] = times.get(name, 0.0) + dev
+        windows[name] = windows.get(name, 0.0) + win
+
     with torch.no_grad():
         for cases, shape in sets:
             for name, kern, _, args_, _, _ in cases(gen, *shape):
-                times[name] = times.get(name, 0.0) + timing.time_per_launch(
-                    lambda: kern(*args_))
+                add(name, lambda: kern(*args_))
         for label, shape in extra:
             for name, kern, _, args_, _, _ in cs.p2_cases(gen, *shape):
-                times[f"{name}[{label}]"] = timing.time_per_launch(lambda: kern(*args_))
-    print(json.dumps({"card": card, "root": root, "ms": times, "img_s": model_img_s(cs)}),
-          flush=True)
+                add(f"{name}[{label}]", lambda: kern(*args_))
+    print(json.dumps({"card": card, "root": root, "ms": times, "ms_window": windows,
+                      "img_s": model_img_s(cs)}), flush=True)
     return 0
 
 

@@ -6,8 +6,13 @@ back-to-back calls: while the host enqueues faster than the card runs, the
 window measures the card, and the host time of one call is spread over k.
 
     time_per_launch(fn)            median ms per call over several windows
+    time_per_launch(fn, graph=True)  the same with the k calls captured once in
+                                   a CUDA graph and each window one replay: the
+                                   card's time alone, where the host's enqueue
+                                   time per call would exceed the kernel's
     in_turns({"A": fa, "B": fb})   A B ... B A in one process, each time and
                                    each case's ratio to the first
+    host_us_per_call(fn)           host microseconds to enqueue one call
 
 Needs a CUDA device; nothing here runs at import.
 """
@@ -15,25 +20,40 @@ Needs a CUDA device; nothing here runs at import.
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
 
 
 def time_per_launch(fn: Callable[[], object], k: int = 20, windows: int = 7,
-                    warmup: int = 3) -> float:
+                    warmup: int = 3, graph: bool = False) -> float:
     """Median over `windows` windows of the ms per call of `fn`, each window
-    k back-to-back calls between one pair of CUDA events."""
+    k back-to-back calls between one pair of CUDA events. With `graph`, the k
+    calls are captured once into a CUDA graph (after the warm-up, on a side
+    stream as capture requires) and each window replays it: the kernels'
+    arguments, tensor maps included, are fixed at capture, so the window holds
+    no host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = None
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(k):
+                fn()
+        run = g.replay
     per_call = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(k):
-            fn()
+        if run is not None:
+            run()
+        else:
+            for _ in range(k):
+                fn()
         end.record()
         end.synchronize()
         per_call.append(start.elapsed_time(end) / k)
@@ -56,3 +76,17 @@ def in_turns(cases: dict, rounds: int = 2, **kw) -> dict:
     med = {name: statistics.median(t) for name, t in ms.items()}
     base = med[names[0]]
     return {"ms": ms, "median": med, "ratio": {name: m / base for name, m in med.items()}}
+
+
+def host_us_per_call(fn: Callable[[], object], calls: int = 200) -> float:
+    """Host microseconds to enqueue one call of `fn` (no synchronisation
+    inside the window; at a small shape the card keeps up)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us

@@ -1157,3 +1157,210 @@ def test_row_14c_probes_reject_unsupported_shapes(gen):
     w1, we = _randn(gen, 4, 120, 360), _randn(gen, 240, 720)
     with pytest.raises(ValueError, match="unsupported by the kernel"):
         ops.octic_qkv_attention(*xs, w1, we, None, 12)
+
+
+# ---- K-lin-d8 on TMA + wgmma (csrc/lin_d8.cu) in every mode and store, and
+# the octic forwards and backwards at sequence lengths past the whole-head
+# kernels' limits (forward: 448 at dh 80, 544 at dh 64; backward: 320 at dh
+# 80, 384 at dh 64, none at dh 128 from N = 257)
+
+# (label, m, c, f, heads of the wide stores): the H/14 qkv, fc1 and fc2, a
+# ragged M with c = 16 and f = 24 (d1 = 2), and d1 = 8 and 10
+LIN_SM90_SHAPES = [("qkv_h14", 16448, 160, 480, 16), ("fc1_h14", 16448, 160, 640, None),
+                   ("fc2_h14", 16448, 640, 160, None), ("ragged_d1_2", 148, 16, 24, 4),
+                   ("d1_8", 148, 24, 48, 2), ("d1_10", 300, 40, 120, 4)]
+LIN_SM90_MODES = ["tuple", "bias", "gelu", "ls", "strided", "wide", "wide1d"]
+
+
+def _lin_sm90_inputs(gen, m, c, f):
+    xs = tuple(_randn(gen, m, c) for _ in range(4)) + (_randn(gen, m, 4 * c),)
+    return (xs, _randn(gen, 4, c, f, scale=c ** -0.5), _randn(gen, 2 * c, 2 * f, scale=(2 * c) ** -0.5),
+            _randn(gen, f, scale=0.1))
+
+
+# every mode at every shape, but the wide stores only at the qkv's (f = 3 x heads x d1)
+LIN_SM90_CASES = [shape + (mode,) for shape in LIN_SM90_SHAPES for mode in LIN_SM90_MODES
+                  if shape[4] is not None or mode not in ("wide", "wide1d")]
+
+
+@pytest.mark.parametrize("label,m,c,f,heads,mode", LIN_SM90_CASES,
+                         ids=[f"{c[0]}-{c[5]}" for c in LIN_SM90_CASES])
+def test_lin_d8_sm90_modes(gen, label, m, c, f, heads, mode):
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    xs, w1, we, bq = _lin_sm90_inputs(gen, m, c, f)
+    if mode == "tuple":
+        _assert_close(tuple(ops.lin_d8_launch(xs, w1, we, None, False)),
+                      ops.linear_d8_fused_reference(xs, w1, we, None))
+    elif mode == "bias":
+        _assert_close(_counted(ops.linear_d8_fused, xs, w1, we, bq),
+                      ops.linear_d8_fused_reference(xs, w1, we, bq))
+    elif mode == "gelu":
+        _assert_close(_counted(ops.linear_d8_fused, xs, w1, we, bq, True),
+                      ops.linear_d8_fused_reference(xs, w1, we, bq, True))
+    elif mode == "ls":
+        ls = (_randn(gen, 4, f, scale=0.5), _randn(gen, 2 * f, scale=0.5))
+        res = tuple(_randn(gen, m, f) for _ in range(4)) + (_randn(gen, m, 4 * f),)
+        _assert_close(_counted(ops.linear_d8_epilogue, xs, w1, we, bq, ls, res),
+                      ops.linear_d8_fused_reference(xs, w1, we, bq, layerscale=ls, residual=res))
+    elif mode == "strided":
+        x = _randn(gen, m, 8 * c)
+        px = unpack_packed_5f(x)
+        y = torch.full((m, 8 * f), float("nan"), device="cuda", dtype=torch.bfloat16)
+        out = ops.lin_d8_launch(px, w1, we, bq, False, out=unpack_packed_5f(y))
+        torch.cuda.synchronize()
+        _assert_close(tuple(out), ops.linear_d8_fused_reference(px, w1, we, bq))
+    elif mode == "wide":
+        x1 = torch.stack(xs[:4])
+        _assert_close(_counted(ops.linear_d8_qkv_wide, x1, xs[4], w1, we, bq, heads),
+                      ops.linear_d8_qkv_wide_reference(x1, xs[4], w1, we, bq, heads))
+    else:
+        _assert_close(_counted(ops.linear_d8_wide1d, xs, w1, we, bq, heads),
+                      ops.linear_d8_wide1d_reference(xs, w1, we, bq, heads))
+
+
+def test_lin_d8_sync_is_the_parent(gen):
+    """The mma.sync core at 64 x 32 (the yardstick) in every mode."""
+    xs, w1, we, bq = _lin_sm90_inputs(gen, 148, 16, 24)
+    ls = (_randn(gen, 4, 24), _randn(gen, 48))
+    res = tuple(_randn(gen, 148, 24) for _ in range(4)) + (_randn(gen, 148, 96),)
+    for kw in (dict(), dict(gelu=True), dict(layerscale=ls, residual=res), dict(num_heads=4)):
+        before = ops.lin_d8_sync.launches
+        out = ops.lin_d8_sync(xs, w1, we, bq, **kw)
+        torch.cuda.synchronize()
+        assert ops.lin_d8_sync.launches == before + 1
+        _assert_close(out, ops.lin_d8_sync.reference(xs, w1, we, bq, **kw))
+
+
+# (b, n, heads, d1): just past the old forward limits, a long sequence, the
+# H/14 shape, the L/16 local crops' shape and an odd d1 (route (b) where its
+# pieces fit their boxes, route (a) after one copy where they do not)
+OCTIC_FWD_LONG = [(1, 449, 4, 10), (1, 545, 2, 8), (1, 1025, 4, 10), (2, 257, 16, 10),
+                  (3, 37, 2, 8), (2, 65, 8, 3)]
+OCTIC_FWD_LAYOUTS = ["row2", "row5", "row10", "row12", "row13a"]
+
+
+@pytest.mark.parametrize("layout", OCTIC_FWD_LAYOUTS)
+@pytest.mark.parametrize("b,n,heads,d1", OCTIC_FWD_LONG)
+def test_octic_forward_streams_any_n(gen, b, n, heads, d1, layout):
+    c8 = heads * d1
+    c = 8 * c8
+    if layout == "row2":
+        xs = [_randn(gen, b, n, c8) for _ in range(4)] + [_randn(gen, b, n, 4 * c8)]
+        ws = _qkv_weights(gen, c8, True)
+        _assert_close(_counted(ops.octic_attention_fused_qkv, *xs, *ws, heads),
+                      ops.octic_attention_fused_qkv_reference(*xs, *ws, heads))
+    elif layout == "row5":
+        qs = _octic_qkv(gen, b, n, c)
+        _assert_close(_counted(ops.octic_attention, *qs, heads),
+                      ops.octic_attention_reference(*qs, heads))
+    elif layout == "row10":
+        args = _packed_attn_args(gen, b, n, c, True) + (heads,)
+        _assert_close(_counted(ops.octic_attention_fused_qkv_packed, *args),
+                      ops.octic_attention_fused_qkv_packed_reference(*args))
+    elif layout == "row12":
+        qs = _wide1d_qkv(gen, b, n, c)
+        _assert_close(_counted(ops.octic_attention_wide1d, *qs, heads),
+                      ops.octic_attention_wide1d_reference(*qs, heads))
+    else:
+        qkv = _randn(gen, b, n, 3 * c)
+        _assert_close(_counted(ops.octic_attention_wide, qkv, heads),
+                      ops.octic_attention_wide_reference(qkv, heads))
+
+
+@pytest.mark.parametrize("layout", ["row5", "row12"])
+def test_route_b_keeps_heads_independent(gen, layout):
+    """Route (b) loads each piece in an over-wide box that also holds part
+    of the next head's columns: an Inf in every k column of head 1 leaves
+    head 0's outputs as they were (the box's extra columns are zeroed in q
+    and k)."""
+    b, n, heads, d1 = 2, 65, 4, 10
+    c8, de = heads * d1, 2 * d1
+    assert ops.octic_attention_plan(b, n, heads, d1, "b",
+                                    "octic" if layout == "row5" else "wide1d")["fits"]
+    if layout == "row5":
+        op, qs = ops.octic_attention, _octic_qkv(gen, b, n, 8 * c8)
+        k_cols = [slice(c8 + d1, c8 + 2 * d1)] * 4 + [slice(2 * c8 + de, 2 * c8 + 2 * de)] * 2
+    else:
+        op, qs = ops.octic_attention_wide1d, _wide1d_qkv(gen, b, n, 8 * c8)
+        k_cols = [None, slice(4 * d1, 8 * d1), None] + [slice(2 * c8 + de, 2 * c8 + 2 * de)] * 2
+    clean = [t.clone() for t in op(*qs, heads)]
+    for t, cols in zip(qs, k_cols):
+        if cols is not None:
+            t[..., cols] = float("inf")
+    got = op(*qs, heads)
+    torch.cuda.synchronize()
+    for i, (g, want) in enumerate(zip(got, clean)):
+        w = d1 if i < 4 else de
+        assert torch.equal(g[..., :w], want[..., :w]), f"output {i}: head 0 changed"
+
+
+# (b, n, heads, dh): just past the old backward limits, dh 128 at N = 257, a
+# long sequence
+BWD_LONG = [(1, 321, 4, 80), (1, 385, 2, 64), (1, 257, 2, 128), (1, 1025, 4, 80)]
+BWD_LAYOUTS = ["std", "octic", "wide1d", "wide", "row2b", "row10b"]
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+@pytest.mark.parametrize("b,n,heads,dh", BWD_LONG)
+def test_attention_bwd_streams_past_the_head(gen, b, n, heads, dh, layout):
+    c = heads * dh
+    c8 = c // 8
+    assert ops.attention_bwd_plan(n, dh)["streamed"]
+    gs = _octic_cotangents(gen, b, n, c)
+    if layout == "std":
+        qkv, g = _randn(gen, b, n, 3 * c), _randn(gen, b, n, c)
+        _assert_close_scaled(_counted(ops.standard_attention_bwd, qkv, g, heads),
+                             ops.standard_attention_bwd_reference(qkv, g, heads))
+    elif layout == "octic":
+        qs = _octic_qkv(gen, b, n, c)
+        _assert_close_scaled(_counted(ops.octic_attention_bwd, qs, gs, heads),
+                             ops.octic_attention_bwd_reference(qs, gs, heads))
+    elif layout == "wide1d":
+        qs = _wide1d_qkv(gen, b, n, c)
+        _assert_close_scaled(_counted(ops.octic_attention_wide1d_bwd, qs, gs, heads),
+                             ops.octic_attention_wide1d_bwd_reference(qs, gs, heads))
+    elif layout == "wide":
+        qkv = _randn(gen, b, n, 3 * c)
+        _assert_close_scaled(_counted(ops.octic_attention_wide_bwd, qkv, gs, heads),
+                             ops.octic_attention_wide_bwd_reference(qkv, gs, heads))
+    elif layout == "row2b":
+        xs = tuple(_randn(gen, b, n, c8) for _ in range(4)) + (_randn(gen, b, n, 4 * c8),)
+        ws = _qkv_weights(gen, c8, True)
+        got = _counted(ops.octic_attention_fused_qkv_bwd, xs, *ws, gs, heads)
+        _assert_close_scaled(got[:7], ops.octic_attention_fused_qkv_bwd_reference(
+            xs, *ws, gs, heads)[:7])
+    else:
+        x, w1, we, bq = _packed_attn_args(gen, b, n, c, True)
+        got = _counted(ops.octic_attention_fused_qkv_packed_bwd, x, w1, we, bq, gs, heads)
+        _assert_close_scaled(got[:3], ops.octic_attention_fused_qkv_packed_bwd_reference(
+            x, w1, we, bq, gs, heads)[:3])
+
+
+def test_tma_kernels_run_on_a_fresh_thread(gen):
+    """The TMA kernels encode their tensor maps through the driver, which
+    needs a context current on the calling thread: a thread that has made no
+    CUDA runtime call yet (PyTorch's autograd worker running a backward that
+    recomputes K-lin-d8) must launch them as the main thread does."""
+    import threading
+
+    xs, w1, we, bq = _lin_sm90_inputs(gen, 148, 16, 24)
+    qkv = _randn(gen, 2, 37, 3 * 2 * 80)
+    want = (ops.linear_d8_fused_reference(xs, w1, we, bq),
+            ops.standard_attention_reference(qkv, 2))
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(ops.linear_d8_fused(xs, w1, we, bq))
+            got.append(ops.standard_attention(qkv, 2))
+            torch.cuda.synchronize()
+        except Exception as exc:  # the assertion below reports it
+            errors.append(exc)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    _assert_close(got[0], want[0])
+    _assert_close(got[1], want[1])

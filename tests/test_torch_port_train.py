@@ -164,15 +164,26 @@ def test_dense_gelu_vjp(bias):
 
 
 def test_backward_kernel_shape_guard():
-    """The backward kernels hold q, k, v and dO of a head in shared memory:
-    ViT-H/14 (N=257, dh=80) fits, a long sequence or a wide head raises a
-    clear error before any launch."""
-    from octic_vits_tpu_torch.ops.attention import _check_attention_bwd_shape
+    """K-attn-bwd's whole-head form holds q, k, v and dO of a head in shared
+    memory: ViT-H/14 (N=257, dh=80) fits, a long sequence or a wide head is
+    refused by that form's guard before any launch; the ops' dispatch
+    streams those and still raises on a head width no kernel takes."""
+    from octic_vits_tpu_torch.ops.attention import (
+        _check_attention_bwd_shape,
+        attention_bwd_plan,
+    )
 
     _check_attention_bwd_shape(257, 80)
+    assert not attention_bwd_plan(257, 80)["streamed"]
     for n, dh in ((400, 80), (257, 128), (257, 20)):
         with pytest.raises(ValueError, match="shared memory|multiple of 8"):
             _check_attention_bwd_shape(n, dh)
+        if dh % 8:
+            with pytest.raises(ValueError, match="multiple of 8"):
+                attention_bwd_plan(n, dh)
+        else:
+            assert attention_bwd_plan(n, dh)["streamed"]
+    assert attention_bwd_plan(1024, 128)["streamed"]
 
 
 def test_row_stride_accepts_column_slices_only():

@@ -1,16 +1,80 @@
 """The launch plans of the TMA + wgmma kernels, computed in Python and
 passed to their C entry points as integers (csrc/dense.cu,
-csrc/attention_std.cu): the grid, the column boxes of a head, the shared
-memory and the persistent tile order, held here without a card."""
+csrc/attention_std.cu, csrc/attention_octic.cu, csrc/lin_d8.cu): the grid,
+the column boxes of a head, the shared memory, the persistent tile order,
+the octic output scatter and K-lin-d8's grouped-column store; and the
+dispatch of K-attn-bwd between its whole-head and streamed forms; held here
+without a card."""
 
 import pytest
 import torch
 
 from octic_vits_tpu_torch.ops import attention as A
 from octic_vits_tpu_torch.ops import dense as D
+from octic_vits_tpu_torch.ops import linear as L
 
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 HEAD_DIMS = list(range(8, 129, 8))
+
+
+# ---- the kernels' loops written out over a plan, as the C code walks them
+
+
+def attention_bwd_rows(plan: dict) -> list:
+    """(block, rows the block owns, rows of each streamed tile) of a
+    K-attn-bwd plan, as csrc/attention_bwd_core.cuh walks them."""
+    n = plan["n"]
+    if not plan["streamed"]:
+        return [(0, list(range(n)), [list(range(n))])]
+    tiles = [list(range(t * A.BWD_TILE, min(n, (t + 1) * A.BWD_TILE)))
+             for t in range(plan["tiles"])]
+    return [(z, list(range(z * A.BWD_BLOCK, min(n, (z + 1) * A.BWD_BLOCK))), tiles)
+            for z in range(plan["blocks"])]
+
+
+def octic_scatter_map(plan: dict, head: int = 0) -> list:
+    """For each (padded) column of head `head`, the output piece (0..3:
+    o1..o4, 4, 5: oe0, oe1) and the column in the piece's head slice, or None
+    for a padded column that is never stored (csrc/attention_std_core.cuh:
+    scatter_entry)."""
+    d1 = plan["d1"]
+    de = 2 * d1
+    if plan["route"] == "a":
+        return [(c // d1, c % d1) if c < 4 * d1 else (4 + (c - 4 * d1) // de, (c - 4 * d1) % de)
+                for c in range(plan["dh"])]
+    out = []
+    for j, (off, w, _, real) in enumerate(plan["boxes"]):
+        o = plan["offsets"][j][head]
+        out += [(j, c - o) if 0 <= c - o < real else None for c in range(w)]
+    return out
+
+
+def lin_d8_tiles(plan: dict) -> list:
+    """Every (CTA, consumer warpgroup, token rows, channels) K-lin-d8
+    computes, in each CTA's order (csrc/lin_d8_sm90.cuh): CTA x takes tiles
+    x, x + grid, ...; a tile's warpgroup w takes channels [j0 + 32 w, j0 + 32
+    w + 32) and computes all eight products of its rows and channels
+    (clipped at m and f)."""
+    out = []
+    m, f, nt = plan["m"], plan["f"], plan["n_tiles"]
+    for x in range(plan["grid"]):
+        for t in range(x, plan["m_tiles"] * nt, plan["grid"]):
+            m0, j0 = (t // nt) * L.LIN_BM, (t % nt) * L.LIN_BN
+            for wg in range(2):
+                jw = j0 + wg * L.LIN_BNW
+                out.append((x, wg, range(m0, min(m, m0 + L.LIN_BM)),
+                            range(jw, min(f, jw + L.LIN_BNW))))
+    return out
+
+
+def lin_d8_out_columns(f: int, groups: tuple) -> tuple:
+    """K-lin-d8's grouped-column store maps (csrc/lin_d8.cu): for ``groups =
+    (g1, s1, ge, se)`` the column of output channel j < f of a 1-d product,
+    and of column J < 2f of an E row's ``[e_r1 | e_r2]``, relative to the
+    product's base pointer."""
+    g1, s1, ge, se = groups
+    return ([(j // g1) * s1 + j % g1 for j in range(f)],
+            [(j // ge) * se + j % ge for j in range(2 * f)])
 
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
@@ -101,10 +165,218 @@ def test_std_shape_check_takes_any_token_count(n, dh):
 
 
 def test_whole_head_check_speaks_for_the_octic_core_only():
-    # the octic rows' whole-head core holds a head in shared memory: a long
-    # sequence it refuses is one the standard forward streams
+    # the whole-head core (now the probes' kernel) holds a head in shared
+    # memory: a long sequence it refuses is one the streamed forwards take,
+    # the standard one and the octic one in both routes
     with pytest.raises(ValueError):
         A._check_attention_shape(1024, 128)
     A._check_attention_shape(257, 80)
     A._check_std_attention_shape(1024, 128)
+    for route in ("a", "b"):
+        assert A.octic_attention_plan(2, 1024, 3, 128 // 8, route)["smem"] <= SMEM_LIMIT
 
+
+
+# ---- K-attn-bwd: the whole-head form where a head fits, the streamed form above
+
+
+@pytest.mark.parametrize("n,dh,streamed", [(257, 80, False), (320, 80, False), (321, 80, True),
+                                           (384, 64, False), (385, 64, True),
+                                           (257, 128, True), (208, 128, False), (209, 128, True),
+                                           (1025, 80, True), (37, 8, False)])
+def test_bwd_dispatch_streams_only_where_a_head_does_not_fit(n, dh, streamed):
+    plan = A.attention_bwd_plan(n, dh)
+    assert plan["streamed"] == streamed
+    assert plan["smem"] <= SMEM_LIMIT
+    fits = True
+    try:
+        A._check_attention_bwd_shape(n, dh)
+    except ValueError:
+        fits = False
+    assert fits == (not streamed)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 129, 257, 321, 385, 1025, 4097])
+@pytest.mark.parametrize("dh", [8, 64, 80, 128])
+def test_bwd_streamed_tiles_cover_every_key_and_query_once(n, dh):
+    plan = A.attention_bwd_plan(n, dh)
+    blocks = attention_bwd_rows(plan)
+    owned = [r for _, rows, _ in blocks for r in rows]
+    assert sorted(owned) == list(range(n))  # every row owned by one block
+    for _, _, tiles in blocks:  # each block's sweep meets every row once
+        assert sorted(r for t in tiles for r in t) == list(range(n))
+    if plan["streamed"]:
+        assert plan["blocks"] == -(-n // A.BWD_BLOCK) and plan["tiles"] == -(-n // A.BWD_TILE)
+
+
+@pytest.mark.parametrize("dh", [20, 136, 0])
+def test_bwd_plan_rejects_head_widths(dh):
+    with pytest.raises(ValueError):
+        A.attention_bwd_plan(257, dh)
+
+
+# ---- the octic forward on the streamed kernel: routes (a) and (b)
+
+
+def _octic_out(o, plan, heads):
+    """Scatter a head-major output [N, H, dhp] into the six irrep arrays
+    through the plan's column map of each head, as the kernel's store does."""
+    n, d1 = o.shape[0], plan["d1"]
+    widths = [d1] * 4 + [2 * d1] * 2
+    outs = [torch.full((n, heads * w), float("nan")) for w in widths]
+    for h in range(heads):
+        for c, e in enumerate(octic_scatter_map(plan, h)):
+            if e is not None:
+                p, off = e
+                outs[p][:, h * widths[p] + off] = o[:, h, c]
+    return outs
+
+
+def _real_columns(plan, head):
+    """The real head column each padded column of route (b) carries."""
+    d1 = plan["d1"]
+    starts = [g * d1 for g in range(4)] + [4 * d1, 6 * d1]
+    return [None if e is None else starts[e[0]] + e[1]
+            for e in octic_scatter_map(plan, head)]
+
+
+@pytest.mark.parametrize("route", ["a", "b"])
+@pytest.mark.parametrize("d1,heads,layout", [(1, 8, "octic"), (2, 4, "octic"), (3, 8, "wide1d"),
+                                             (8, 3, "octic"), (10, 16, "octic"),
+                                             (10, 16, "wide1d"), (16, 2, "octic")])
+def test_octic_scatter_map_is_octic_split(route, d1, heads, layout):
+    n = 5
+    plan = A.octic_attention_plan(2, n, heads, d1, route, layout)
+    assert plan["fits"]
+    o = torch.randn(n, heads, 8 * d1)
+    if route == "a":
+        op = o
+    else:
+        op = torch.full((n, heads, plan["dhp"]), 1e9)
+        for h in range(heads):
+            for i, c in enumerate(_real_columns(plan, h)):
+                if c is not None:
+                    op[:, h, i] = o[:, h, c]
+    got = _octic_out(op, plan, heads)
+    want = A._octic_split(o[None], d1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[0])
+
+
+@pytest.mark.parametrize("d1,heads,layout", [(1, 8, "octic"), (2, 4, "octic"), (4, 2, "octic"),
+                                             (8, 16, "octic"), (10, 16, "octic"),
+                                             (10, 16, "wide1d"), (10, 4, "wide1d"),
+                                             (12, 4, "octic"), (16, 2, "wide1d")])
+def test_route_b_boxes_cover_each_head_column_once(d1, heads, layout):
+    plan = A.octic_attention_plan(64, 257, heads, d1, "b", layout)
+    assert plan["fits"] and plan["dhp"] in (96, 128)
+    for h in range(heads):
+        cols = _real_columns(plan, h)
+        assert sorted(c for c in cols if c is not None) == list(range(8 * d1))
+        # every other column is zeroed in q: they add 0 to q k^T
+        assert len(cols) == plan["dhp"]
+        assert sum(c is None for c in cols) == plan["dhp"] - 8 * d1
+    for j, (off, w, swizzle, real) in enumerate(plan["boxes"]):
+        assert 2 * w % 16 == 0 and 2 * w == swizzle
+        assert off % 16 == 0  # each box starts on a k16 step of q k^T
+        # TMA boxes start on 16-byte boundaries: the piece at offset o < 8
+        assert all(o % (2 if d1 % 2 == 0 else 1) == 0 and o + real <= w
+                   for o in plan["offsets"][j])
+    assert plan["smem"] <= SMEM_LIMIT
+
+
+def test_route_b_refuses_pieces_that_leave_their_box():
+    # H/14 fits (d1 = 10: offsets 0, 2, 4, 6; de = 20: 0, 4); two heads of d1
+    # = 10 start q, k and v at different offsets; d1 = 14 runs past 16 columns
+    assert A.octic_attention_plan(64, 257, 16, 10, "b")["fits"]
+    assert not A.octic_attention_plan(1, 257, 2, 10, "b")["fits"]
+    assert not A.octic_attention_plan(1, 257, 16, 14, "b")["fits"]
+    assert A.octic_attention_plan(1, 257, 16, 14, "a")["fits"]
+
+
+@pytest.mark.parametrize("route", ["a", "b"])
+@pytest.mark.parametrize("n", [1, 257, 449, 545, 1025, 100000])
+def test_octic_plan_takes_any_token_count(route, n):
+    plan = A.octic_attention_plan(4, n, 16, 10, route)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert plan["grid"] == 4 * 16 * -(-n // 64)
+
+
+# ---- K-lin-d8 on TMA + wgmma
+
+# (m, c, f): the H/14 B=64 and B=32 qkv, fc1, fc2, proj; the L/16 SSL crops'
+# qkv, fc1, fc2 and proj; ragged edges (both schedules, f of one 32-channel tile)
+LIN_SHAPES = [(m, c, f) for m in (16448, 8224)
+              for c, f in ((160, 480), (160, 640), (640, 160), (160, 160))] + [
+    (m, c, f) for m in (12608, 9472) for c, f in ((128, 384), (128, 512), (512, 128), (128, 128))
+] + [(148, 16, 24), (148, 24, 48), (300, 40, 120), (1, 8, 8), (65, 16, 72)]
+
+
+@pytest.mark.parametrize("m,c,f", LIN_SHAPES)
+def test_lin_d8_plan_covers_every_output_once(m, c, f):
+    plan = L.lin_d8_plan(m, c, f)
+    seen = torch.zeros(m, f, dtype=torch.int32)
+    for _, _, rows, cols in lin_d8_tiles(plan):
+        if len(rows) and len(cols):
+            seen[rows.start:rows.stop, cols.start:cols.stop] += 1
+    # each (m, j) once: the warpgroup that holds it computes all eight products
+    assert bool((seen == 1).all())
+    assert plan["grid"] == min(132, plan["m_tiles"] * plan["n_tiles"])
+    assert plan["k1"] * 32 >= c > (plan["k1"] - 1) * 32
+    assert plan["ke"] * 32 >= 2 * c > (plan["ke"] - 1) * 32
+
+
+@pytest.mark.parametrize("mode", L.LIN_MODES)
+def test_lin_d8_plan_boxes_smem_and_registers(mode):
+    plan = L.lin_d8_plan(16448, 160, 480, mode)
+    for _, box, inner, swizzle in plan["boxes"]:
+        assert inner % 16 == 0 and inner == 2 * box[0] and inner <= swizzle
+    assert any(name == "y" for name, *_ in plan["boxes"]) == (mode in ("tuple", "gelu", "ls"))
+    assert plan["smem"] <= SMEM_LIMIT
+    # the eight products of a 64 x 32 half: 128 f32 a thread, within the
+    # consumers' setmaxnreg budget; two consumer warpgroups and the producer's
+    # 40 fit the SM's 65536 registers
+    assert plan["acc_regs"] == 128 <= plan["max_regs"] - 64
+    assert 2 * 128 * plan["max_regs"] + 128 * 40 <= 65536
+    # a stage past k = C carries only the E rows and the we boxes
+    assert plan["e_stage_bytes"] < plan["stage_bytes"]
+
+
+def test_lin_d8_plan_rejects_widths():
+    for m, c, f in ((16, 12, 8), (16, 8, 20), (0, 8, 8)):
+        with pytest.raises(ValueError):
+            L.lin_d8_plan(m, c, f)
+    with pytest.raises(ValueError):
+        L.lin_d8_plan(16, 8, 8, "dense")
+
+
+def _grouped(y: tuple, f: int, groups: tuple, bases: tuple, width: tuple) -> list:
+    """Scatter a flat-E tuple through the grouped-column maps into buffers,
+    as the kernel's store does: 1-d product g at base bases[g] of buffer
+    width[0], E row r at bases[4 + r] of buffer width[1]."""
+    m = y[0].shape[0]
+    col1, cole = lin_d8_out_columns(f, groups)
+    bufs = [torch.full((m, w), float("nan")) for w in width]
+    for g in range(4):
+        bufs[0][:, [bases[g] + c for c in col1]] = y[g]
+    for r in range(2):
+        bufs[1][:, [bases[4 + r] + c for c in cole]] = y[4][:, 2 * f * r:2 * f * (r + 1)]
+    return bufs
+
+
+@pytest.mark.parametrize("d1,heads", [(2, 4), (8, 2), (10, 16)])
+def test_lin_d8_grouped_maps_are_the_wide_layouts(d1, heads):
+    f, m = 3 * heads * d1, 5
+    de = 2 * d1
+    y = tuple(torch.randn(m, f) for _ in range(4)) + (torch.randn(m, 4 * f),)
+    # the wide qkv of row 13b and of the fused qkv + attention's route (a):
+    # one buffer, the 1-d and E products' columns interleaved in it
+    bufs = _grouped(y, f, (d1, 8 * d1, de, 8 * d1),
+                    tuple(g * d1 for g in range(4)) + (4 * d1, 4 * d1 + de), (8 * f, 8 * f))
+    merged = torch.where(torch.isnan(bufs[0]), bufs[1], bufs[0])
+    assert torch.equal(merged, L.interleave_wide(y, heads))
+    # the wide-1d qkv: the 1-d products interleaved, the E rows plain
+    bufs = _grouped(y, f, (d1, 4 * d1, 2 * f, 0), tuple(g * d1 for g in range(4)) + (0, 2 * f),
+                    (4 * f, 4 * f))
+    assert torch.equal(bufs[0], L.interleave_wide1d(y[:4], heads))
+    assert torch.equal(bufs[1], y[4])
