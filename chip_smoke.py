@@ -141,18 +141,32 @@ Phases, one line each (any failure raises and exits non-zero):
              c = 16; d1 = 2, 8, 10; packed row strides); the five octic
              forwards (rows 2, 5, 10, 12, 13a) at the same shapes; every
              octic forward and every attention backward layout (std, octic,
-             wide-1d, wide, rows 2b and 10b; the backwards streamed) just past
-             the old whole-head limits and at N = 1025; then, in turns by
+             wide-1d, wide, rows 2b and 10b) just past the old whole-head
+             limits and at N = 1025; then, in turns by
              CUDA-graph replay, K-lin-d8 against the mma.sync core it replaced
              (ops.lin_d8_sync) and a cuBLAS bmm + matmul pair, the octic
              forward against the whole-head core (ops.whole_head_octic_
              attention), each beside its bound; route (b) of rows 5 and 12 in
-             turns with one copy into the wide qkv + route (a); K-attn-bwd's
-             whole-head and streamed forms in turns at N = 257; the host time
-             per call; the yardsticks launched once each (0 on every model
+             turns with one copy into the wide qkv + route (a); the host time
+             per call; the two yardsticks launched once each (0 on every model
              path: P3 checks every counter).
              `python3 chip_smoke.py --p25` runs P25 alone after the build and
              prints no result
+  P26 redesign 3  K-attn-bwd on TMA + wgmma (csrc/attention_bwd.cu on
+             csrc/attention_bwd_sm90.cuh) in every layout (std; the octic
+             arrays of row 5, the wide-1d of row 12 and the wide qkv of row
+             13a, all through route (a); the chains of rows 2b and 10b)
+             against its plain version under the backward bar at ViT-H/14
+             B=32, the L/16 SSL shapes and the plan's edges (N from 1 to
+             1025, dh 16 to 128); two launches bitwise equal; a non-finite
+             value in one head reaching no other head's gradients; then in
+             turns by CUDA-graph replay the new kernel against its mma.sync
+             core in both forms (ops.attention_bwd_sync) and SDPA's backward
+             under each backend that runs (and the kernels the default SDPA
+             launched), each beside its bound, with route (a)'s assembly alone;
+             the host time per call; the yardstick launched once (0 on every
+             model path).
+             `python3 chip_smoke.py --p26` runs P26 alone
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -564,7 +578,7 @@ META = {
     "bh_std_attention": (PROBE_SRC, "scripts/r3_attn_bh.py:49", "probe"),
     "bh_octic_attention": (PROBE_SRC, "scripts/r3_attn_bh.py:54", "probe"),
     "headmajor_attention": (PROBE_SRC, "scripts/r3_attn_headmajor.py:44", "probe"),
-    "headmajor_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd.cu",
+    "headmajor_attention_bwd": ("octic_vits_tpu_torch/csrc/attention_bwd_probe.cu",
                                 "scripts/r3_attn_headmajor.py:69", "probe"),
     # kernel row 14b (P22): scripts/r3_attn_experiments.py, profile_lin_tiles.py and
     # r3_matmul_law.py
@@ -602,6 +616,9 @@ META = {
                     "octic_vits_tpu/ops/pallas_linear.py:196", "probe_25"),
     "whole_head_octic_attention": ("octic_vits_tpu_torch/csrc/attention.cu",
                                    "octic_vits_tpu/ops/pallas_attention.py:356", "probe_25"),
+    # the yardstick of K-attn-bwd's redesign (P26): its mma.sync core
+    "attention_bwd_sync": ("octic_vits_tpu_torch/csrc/attention_bwd_probe.cu",
+                           "octic_vits_tpu/ops/pallas_attention.py:1259", "probe_26"),
 }
 # kernels whose chain launches more than the source named in META
 ALSO = {"octic_attention_fused_qkv": ["octic_vits_tpu_torch/csrc/lin_d8.cu"],
@@ -839,22 +856,23 @@ def ssl_batch(b: int, seed: int, n_local: int = 8) -> dict:
 
 def chain_times(gen, b, n, c, heads) -> dict:
     """CUDA-event ms of each launch of the fused backward chain at one shape
-    (with bias): the K-lin-d8 qkv recompute, K-attn-bwd, and K-lin-d8-bwd
-    alone, which is also held against its plain version."""
+    (with bias): the K-lin-d8 qkv recompute (the wide store), K-attn-bwd
+    (route (a), with the cotangents' assembly), and K-lin-d8-bwd alone,
+    which is also held against its plain version."""
     from octic_vits_tpu_torch.ops import attention as A
     from octic_vits_tpu_torch.ops import linear as Lin
 
     ((_, _, _, (xs, w1, we, bq, gs, _), _, _),) = ssl_kernel_cases(gen, b, n, c, heads, True)
     with torch.no_grad():
-        rows = A._qkv_rows(Lin.lin_d8_launch(xs, w1, we, bq, gelu=False))
-        dq = A._octic_bwd_launch(rows, gs, heads)
+        qkv = Lin.lin_d8_wide_launch(xs, w1, we, bq, heads)
+        dq = A._octic_wide_bwd_tuple(qkv, gs, heads)
         out = Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], True)
         torch.cuda.synchronize()
         ref = Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4], dq[4:], bq)
         err, ok = compare(out[0] + out[1:], ref[0] + ref[1:])
         return {
-            "qkv_recompute": time_ms(lambda: Lin.lin_d8_launch(xs, w1, we, bq, gelu=False)),
-            "attention_bwd": time_ms(lambda: A._octic_bwd_launch(rows, gs, heads)),
+            "qkv_recompute": time_ms(lambda: Lin.lin_d8_wide_launch(xs, w1, we, bq, heads)),
+            "attention_bwd": time_ms(lambda: A._octic_wide_bwd_tuple(qkv, gs, heads)),
             "lin_d8_bwd": time_ms(lambda: Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:],
                                                                True)),
             "lin_d8_bwd_plain": time_ms(lambda: Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4],
@@ -905,6 +923,9 @@ def main() -> int:
                    "octic_attention_fused_qkv": {"max_abs_err": 0.0},
                    "standard_attention_bwd": {"max_abs_err": 0.0}}
         redesign_25_phases(gen, summary, card)
+        return 1
+    if sys.argv[1:] == ["--p26"]:  # P26 alone, likewise
+        redesign_26_phases(gen, {"standard_attention_bwd": {}}, card)
         return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
@@ -1073,10 +1094,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_25_launches = redesign_25_phases(gen, summary, card)
 
+    torch.cuda.empty_cache()
+    probe_26_launches = redesign_26_phases(gen, summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
-              "probe_25": probe_25_launches}
+              "probe_25": probe_25_launches, "probe_26": probe_26_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -2499,15 +2523,20 @@ def sdpa_backend(qkv, heads, backend):
 
 
 def device_kernel_names(fn) -> list:
-    """The CUDA kernels one call of `fn` launches (torch.profiler)."""
+    """The CUDA kernels one call of `fn` launches (torch.profiler; a second
+    try where the process's first profile saw none, as --p26 alone did)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+        if names:
+            break
+    return names
 
 
 def redesign_phases(gen, summary, card) -> None:
@@ -2762,16 +2791,16 @@ def redesign_25_phases(gen, summary, card) -> dict:
     and store at the main path's shapes and at ragged edges; the octic
     forward (rows 2, 5, 10, 12, 13a) at H/14 B=64 and B=32 and the L/16
     crops; every octic forward and every attention backward layout just past
-    the old whole-head limits and at N = 1025 (the backwards in their
-    streamed form); then, in turns, K-lin-d8 against its mma.sync core at 64
+    the old whole-head limits and at N = 1025; then, in turns, K-lin-d8
+    against its mma.sync core at 64
     x 32 (ops.lin_d8_sync) and the octic forward against the whole-head core
     (ops.whole_head_octic_attention), each beside its bound, with the cuBLAS
     pair of the products for information: device times, each window one
     replay of a CUDA graph of 20 launches (tools/timing.py), since a K-lin-d8
     launch's host time (its Python checks and its 14-19 tensor maps,
     printed) is of the order of its device time; route (b)
-    against copy + route (a) at the octic shapes; K-attn-bwd's two forms at
-    N = 257; then the two yardstick ops once each.
+    against copy + route (a) at the octic shapes; then the two yardstick ops
+    once each.
     Returns the launches of that run."""
     from octic_vits_tpu_torch import ops
     from octic_vits_tpu_torch.ops.attention import _qkv_rows
@@ -2823,10 +2852,8 @@ def redesign_25_phases(gen, summary, card) -> dict:
                                                f"H={heads} d1={d1}]", op(*args), ref(*args)))
             torch.cuda.empty_cache()
         for label, b, n, heads, dh in BWD_LONG:
-            if not ops.attention_bwd_plan(n, dh)["streamed"]:
-                raise AssertionError(f"{label}: the plan does not stream")
             for lay, op, ref, args in octic_bwd_cases(gen, b, n, heads, dh):
-                check(f"backward {lay} [{label} streamed B={b} N={n} H={heads} dh={dh}]",
+                check(f"backward {lay} [{label} B={b} N={n} H={heads} dh={dh}]",
                       op(*args), ref(*args), scaled=True)
         torch.cuda.empty_cache()
         if failed:
@@ -2898,7 +2925,6 @@ def redesign_25_phases(gen, summary, card) -> dict:
         del cases, cases5, a5, a2, a13, a12, std_qkv
         torch.cuda.empty_cache()
         route_b = route_b_against_copy(gen, card)
-        bwd_forms = bwd_forms_at_257(gen, card)
 
         summary.setdefault("linear_d8_fused", {}).setdefault("cases", {}).update(
             {f"p25_{k}": v for k, v in lin_times.items()})
@@ -2910,8 +2936,6 @@ def redesign_25_phases(gen, summary, card) -> dict:
             "bound_ms": bms, "bound_by": bby}
         summary["octic_attention"]["cases"].update(
             {f"p25_route_b_{k}": v for k, v in route_b.items()})
-        summary["standard_attention_bwd"].setdefault("cases", {}).update(
-            {f"p25_{k}": v for k, v in bwd_forms.items()})
         summary["octic_attention"]["max_abs_err"] = max(summary["octic_attention"]["max_abs_err"],
                                                         attn_err)
         summary["octic_attention_fused_qkv"].setdefault("cases", {})["p25_vith14_b64"] = {
@@ -2944,7 +2968,7 @@ def redesign_25_phases(gen, summary, card) -> dict:
         ops.whole_head_octic_attention(*a5)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-    want = {op.__name__: 1 for op in ops.PARENT_OPS}
+    want = {"lin_d8_sync": 1, "whole_head_octic_attention": 1}
     if counts != expected_launches(want):
         raise AssertionError(f"P25 yardstick launches {counts}, expected {want}")
     phase("P25", f"yardstick path: {sorted(want)} launched once each on {card}")
@@ -2985,62 +3009,244 @@ def route_b_against_copy(gen, card) -> dict:
     return out
 
 
-def bwd_forms_at_257(gen, card) -> dict:
-    """K-attn-bwd's two forms at a shape where both run (ViT-H/14 B=32, N =
-    257, dh 80; the standard and the octic layouts): the whole-head form the
-    plan picks there, and the streamed form the plan picks past it, each
-    held to the backward bar, then timed in turns by CUDA-graph replay."""
-    from octic_vits_tpu_torch import kernels, ops
+# ---------------------------------------------------------------------------
+# P26: K-attn-bwd (csrc/attention_bwd.cu on csrc/attention_bwd_sm90.cuh) on
+# TMA + wgmma, every layout, against its mma.sync core
+# ---------------------------------------------------------------------------
+# (label, b, n, heads, dh): the main path's shapes, then the plan's edges
+# (heads so that C/8 is a multiple of 8, as the chains' K-lin-d8 needs)
+BWD_SHAPES = (("vith14_b32", TRAIN_BATCH, 257, 16, 80),
+              ("l16_global", 2 * SSL_BATCH, 197, 16, 64),
+              ("l16_local", 8 * SSL_BATCH, 37, 16, 64))
+BWD_EDGES = tuple((f"n{n}_dh{dh}", 2, n, 64 // math.gcd(dh, 64) * (2 if dh % 64 == 0 else 1), dh)
+                  for n, dh in ((1, 16), (37, 24), (64, 40), (65, 64), (197, 80), (257, 120),
+                                (321, 128), (385, 80), (1025, 80), (65, 16), (257, 128),
+                                (1025, 64)))
+
+
+def sdpa_backend_bwd(qkv, g, heads, backend):
+    """SDPA's backward (as library_sdpa_bwd) after one forward recorded under
+    one backend (torch.nn.attention.SDPBackend), which picks the backward's
+    kernel."""
+    from torch.nn.attention import sdpa_kernel
+
+    leaf = qkv.detach().requires_grad_()
+    with torch.enable_grad(), sdpa_kernel(backend):
+        out = torch.nn.functional.scaled_dot_product_attention(*sdpa_views(leaf, heads))
+    b, n, c = g.shape
+    gv = g.view(b, n, heads, c // heads).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaf, gv, retain_graph=True)
+
+
+def bwd_heads_independent(gen, b=2, n=65, heads=4, dh=80) -> bool:
+    """An Inf in every column of head 1 of q, k, v and of the cotangent, in
+    each octic layout's arrays, leaves head 0's gradients as they were."""
+    from octic_vits_tpu_torch import ops
+
+    d1 = dh // 8
+    ok = True
+    for lay, op, _, args in octic_bwd_cases(gen, b, n, heads, dh)[1:4]:
+        clean = [t.clone() for t in op(*args)]
+        qs, gs = args[0], args[1]
+        if lay == "wide":  # one interleaved qkv: head 1's slice of each of q, k, v
+            for s_ in range(3):
+                qs[..., (s_ * heads + 1) * dh:(s_ * heads + 2) * dh] = float("inf")
+        elif lay == "octic":
+            for i, t in enumerate(qs):
+                w = d1 if i < 4 else 2 * d1
+                for s_ in range(3):
+                    t[..., (s_ * heads + 1) * w:(s_ * heads + 2) * w] = float("inf")
+        else:  # wide1d: q1d, k1d, v1d head 1's 4 d1 slice; e0, e1 as the octic arrays
+            for i, t in enumerate(qs):
+                w = 4 * d1 if i < 3 else 2 * d1
+                for s_ in range(1 if i < 3 else 3):
+                    t[..., (s_ * heads + 1) * w:(s_ * heads + 2) * w] = float("inf")
+        for i, t in enumerate(gs):
+            w = d1 if i < 4 else 2 * d1
+            t[..., w:2 * w] = float("inf")
+        got = op(*args)
+        torch.cuda.synchronize()
+        for out, want in zip(got, clean):
+            w = out.shape[-1] // (3 * heads) if lay != "wide" else dh
+            if lay == "wide1d" and out.shape[-1] == 4 * heads * d1:
+                cols = [slice(0, 4 * d1)]
+            else:
+                cols = [slice(s_ * heads * w, s_ * heads * w + w) for s_ in range(3)]
+            ok &= all(torch.equal(out[..., c], want[..., c]) for c in cols)
+    return ok
+
+
+def redesign_26_phases(gen, summary, card) -> dict:
+    """P26: K-attn-bwd on TMA + wgmma in every layout against its plain
+    version under the backward bar at the main path's shapes and at the
+    plan's edges; bitwise repeatable; heads independent; then in turns by
+    CUDA-graph replay (tools/timing.py) the new kernel against its mma.sync
+    core in both forms (ops.attention_bwd_sync, the form forced) and SDPA's
+    backward under each backend that runs, each beside its bound; route (a)'s
+    assembly alone; the host time per call; the yardstick launched once.
+    Returns the launches of that run."""
+    from torch.nn.attention import SDPBackend
+
+    from octic_vits_tpu_torch import ops
     from octic_vits_tpu_torch.ops import attention as A
-    from octic_vits_tpu_torch.tools.timing import in_turns
+    from octic_vits_tpu_torch.tools.timing import host_us_per_call, in_turns
 
-    b, n, heads, dh = TRAIN_BATCH, 257, 16, 80
-    d1, c8 = dh // 8, heads * dh // 8
-    lay = {c[0]: c[3] for c in octic_bwd_cases(gen, b, n, heads, dh)}
-    qkv, g, _ = lay["std"]
-    qs, gs, _ = lay["octic"]
-    lq = [t.stride(-2) for t in qs]
-    lg = [t.stride(-2) for t in gs]
-
-    def std(streamed):
-        dqkv = torch.empty_like(qkv)
-        st = torch.empty(2, b, heads, n, device="cuda", dtype=torch.float32)
-        kernels.launch("ovt_attention_std_bwd", qkv, g, g.stride(-2), dqkv, st[0], st[1], b, n,
-                       heads, dh, streamed)
-        return dqkv
-
-    def octic(streamed):
-        grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), device="cuda",
-                                  dtype=qs[0].dtype) for i in range(6))
-        st = torch.empty(2, b, heads, n, device="cuda", dtype=torch.float32)
-        kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, st[0], st[1], b,
-                       n, heads, d1, 2 * d1, streamed)
-        return grads
-
-    if A.attention_bwd_plan(n, dh)["streamed"]:
-        raise AssertionError("the plan streams at N=257, dh 80")
+    failed, errs = [], {}
     with torch.no_grad():
-        refs = {"std": ops.standard_attention_bwd_reference(qkv, g, heads),
-                "octic": ops.octic_attention_bwd_reference(qs, gs, heads)}
-        cases = {}
-        for name, fn in (("std", std), ("octic", octic)):
-            for streamed in (0, 1):
+        for label, b, n, heads, dh in BWD_SHAPES + BWD_EDGES:
+            for lay, op, ref, args in octic_bwd_cases(gen, b, n, heads, dh):
+                out, want = op(*args), ref(*args)
+                torch.cuda.synchronize()
+                err, ok = compare(out, want, scaled=True)
+                errs[lay] = max(errs.get(lay, 0.0), err)
+                phase("P26", f"backward {lay} [{label} B={b} N={n} H={heads} dh={dh}] "
+                             f"max_abs_err {err:.3e} (tol {BWD_TOL}*(max|ref|+|ref|)) "
+                             + ("ok" if ok else "FAIL"))
+                failed += [] if ok else [f"{lay}[{label}]"]
+            torch.cuda.empty_cache()
+        b, n, heads, dh = BWD_SHAPES[0][1:]
+        cases = {c[0]: c for c in octic_bwd_cases(gen, b, n, heads, dh)}
+        for lay in ("std", "octic", "row2b"):
+            _, op, _, args = cases[lay]
+            first, second = op(*args), op(*args)
+            same = all(torch.equal(x, y) for x, y in zip(
+                first if isinstance(first, tuple) else (first,),
+                second if isinstance(second, tuple) else (second,)) if x is not None)
+            phase("P26", f"backward {lay} [vith14_b32] two launches bitwise equal: {same}")
+            failed += [] if same else [f"{lay} not repeatable"]
+        apart = bwd_heads_independent(gen)
+        phase("P26", f"backward octic, wide-1d, wide: an Inf in head 1 leaves head 0's "
+                     f"gradients unchanged: {apart}")
+        failed += [] if apart else ["heads not independent"]
+        # the yardstick's mma.sync core in both layouts and both forms
+        for lay in ("std", "octic"):
+            _, _, ref, args = cases[lay]
+            want = ref(*args)
+            for streamed in (False, True):
                 form = "streamed" if streamed else "whole-head"
-                err, ok = compare(fn(streamed), refs[name], scaled=True)
-                phase("P25", f"backward {name} {form} [vith14_b32 N={n} dh={dh}] max_abs_err "
+                err, ok = compare(ops.attention_bwd_sync(*args, streamed), want, scaled=True)
+                errs["sync"] = max(errs.get("sync", 0.0), err)
+                phase("P26", f"attention_bwd_sync {lay} {form} [vith14_b32] max_abs_err "
                              f"{err:.3e} (tol {BWD_TOL}*(max|ref|+|ref|)) " + ("ok" if ok else "FAIL"))
-                if not ok:
-                    raise AssertionError(f"backward {name} {form} outside tolerance")
-                cases[f"{name} {form}"] = (lambda f=fn, s=streamed: f(s))
-        res = in_turns(cases, graph=True)
-    med = res["median"]
-    bms, bby = bound_of(*work("standard_attention_bwd", b, n, heads * dh, heads, False))
-    phase("P25", f"K-attn-bwd forms [vith14_b32 N={n} dh={dh}] in turns on {card}: "
-                 + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
-                 + f"; bound {bms:.4f} ms ({bby}); turns "
-                 + str({k: [round(t, 4) for t in v] for k, v in res["ms"].items()}))
-    return {f"bwd_{k.replace(' ', '_')}": {"ms": v, "bound_ms": bms, "bound_by": bby}
-            for k, v in med.items()}
+                failed += [] if ok else [f"attention_bwd_sync {lay} {form}"]
+        if failed:
+            raise AssertionError(f"P26 kernels outside tolerance: {failed}")
+
+        # ---- times in turns, each beside its bound
+        times = {}
+        for label, b, n, heads, dh in BWD_SHAPES + (("n1025_dh80", 2, 1025, 16, 80),):
+            c = heads * dh
+            qkv, g = randn(gen, b, n, 3 * c), randn(gen, b, n, c)
+            cs = {"TMA + wgmma": lambda: ops.standard_attention_bwd(qkv, g, heads),
+                  "mma.sync core, streamed": lambda: ops.attention_bwd_sync(qkv, g, heads, True)}
+            if not A.attention_bwd_plan(n, dh)["streamed"]:
+                cs["mma.sync core, whole-head"] = (
+                    lambda: ops.attention_bwd_sync(qkv, g, heads, False))
+            res = in_turns(cs, graph=True)
+            lib = {"SDPA backward (yardstick)": library_sdpa_bwd(qkv, g, heads)}
+            for name, be in (("SDPA flash", SDPBackend.FLASH_ATTENTION),
+                             ("SDPA efficient", SDPBackend.EFFICIENT_ATTENTION),
+                             ("SDPA cuDNN", SDPBackend.CUDNN_ATTENTION)):
+                try:
+                    fn = sdpa_backend_bwd(qkv, g, heads, be)
+                    fn()
+                    torch.cuda.synchronize()
+                    lib[name] = fn
+                except RuntimeError as exc:  # the backend has no kernel for these inputs
+                    phase("P26", f"{name} backward does not run at {label}: "
+                                 f"{str(exc).splitlines()[0]}")
+            lres = in_turns(lib)  # autograd's backward: windows of 20 calls, host included
+            med = res["median"] | lres["median"]
+            bms, bby = bound_of(*work("standard_attention_bwd", b, n, c, heads, False))
+            yard = device_kernel_names(lib["SDPA backward (yardstick)"])
+            phase("P26", f"standard_attention_bwd [{label} B={b} N={n} H={heads} dh={dh}] in "
+                         f"turns on {card}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+                         + f"; bound {bms:.4f} ms ({bby}); the yardstick SDPA launched {yard}; "
+                         f"turns {res['ms']}")
+            times[label] = {"ms": med["TMA + wgmma"], "sync_ms": {
+                k: v for k, v in med.items() if k.startswith("mma.sync")},
+                "library_ms": med["SDPA backward (yardstick)"], "sdpa_kernels": yard,
+                "sdpa_backend_ms": {k: v for k, v in med.items() if k.startswith("SDPA ")},
+                "bound_ms": bms, "bound_by": bby}
+            del qkv, g, cs, lib
+            torch.cuda.empty_cache()
+        for label in ("vith14_b32", "n1025_dh80"):
+            t = times[label]
+            phase("P26", f"[{label}] mma.sync streamed / TMA + wgmma: "
+                         f"{t['sync_ms']['mma.sync core, streamed'] / t['ms']:.3f}")
+
+        b, n, heads, dh = BWD_SHAPES[0][1:]
+        c8 = heads * dh // 8
+        cases = {c[0]: c for c in octic_bwd_cases(gen, b, n, heads, dh)}
+        qs, gs, _ = cases["octic"][3]
+        lq, lg = [t.stride(-2) for t in qs], [t.stride(-2) for t in gs]
+        segs = [dh // 8] * 4 + [dh // 4] * 2
+        wide = torch.empty(b, n, 24 * c8, device="cuda", dtype=torch.bfloat16)
+        gw = torch.empty(b, n, 8 * c8, device="cuda", dtype=torch.bfloat16)
+        run = {f"{lay} TMA + wgmma": (lambda op=op, args=args: op(*args))
+               for lay, op, _, args in cases.values()}
+        run |= {"octic mma.sync core, whole-head": lambda: ops.attention_bwd_sync(qs, gs, heads,
+                                                                                  False),
+                "octic mma.sync core, streamed": lambda: ops.attention_bwd_sync(qs, gs, heads,
+                                                                                True),
+                "route (a) assembly of the octic qkv": lambda: A._pack_heads(
+                    wide, A._octic_array_pieces(qs, lq, heads, dh // 8), segs, heads),
+                "route (a) assembly of the cotangents": lambda: A._pack_heads(
+                    gw, [[(t, ld, 0, w) for t, ld, w in zip(gs, lg, segs)]], segs, heads)}
+        res = in_turns(run, graph=True)
+        bms, bby = bound_of(*work("octic_attention_bwd", b, n, heads * dh, heads, False))
+        phase("P26", f"octic backwards [vith14_b32] in turns on {card}: "
+                     + "; ".join(f"{k} {v:.4f} ms" for k, v in res["median"].items())
+                     + f"; bound {bms:.4f} ms ({bby}); turns {res['ms']}")
+        times["octic_vith14_b32"] = dict(res["median"], bound_ms=bms, bound_by=bby)
+        del cases, qs, gs, wide, gw, run
+        torch.cuda.empty_cache()
+
+        # the host's side of a launch: the plan, the table, the tensor maps
+        small = {c[0]: c[3] for c in octic_bwd_cases(gen, 1, 37, 2, 64)}
+        host = {"standard_attention_bwd": host_us_per_call(
+                    lambda: ops.standard_attention_bwd(*small["std"])),
+                "attention_bwd_sync (std)": host_us_per_call(
+                    lambda: ops.attention_bwd_sync(*small["std"])),
+                "octic_attention_bwd": host_us_per_call(
+                    lambda: ops.octic_attention_bwd(*small["octic"])),
+                "attention_bwd_sync (octic)": host_us_per_call(
+                    lambda: ops.attention_bwd_sync(*small["octic"]))}
+        phase("P26", "host us per call (enqueue, B=1, N=37, 2 heads, dh 64): "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+        times["host_us"] = host
+        del small
+
+        summary["standard_attention_bwd"].setdefault("cases", {}).update(
+            {f"p26_{k}": v for k, v in times.items()})
+        for lay, name in (("std", "standard_attention_bwd"), ("octic", "octic_attention_bwd"),
+                          ("wide1d", "octic_attention_wide1d_bwd"),
+                          ("wide", "octic_attention_wide_bwd")):
+            if name in summary and "max_abs_err" in summary[name]:
+                summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], errs[lay])
+        # the yardstick's own row: its time here (SDPA's backward at the same
+        # shape the library call), the plain version's, the bound
+        b, n, heads, dh = BWD_SHAPES[0][1:]
+        qkv, g = randn(gen, b, n, 3 * heads * dh), randn(gen, b, n, heads * dh)
+        t = times["vith14_b32"]
+        summary["attention_bwd_sync"] = {
+            "ms": t["sync_ms"]["mma.sync core, whole-head"], "max_abs_err": errs["sync"],
+            "library_ms": t["library_ms"],
+            "plain_ms": time_ms(lambda: ops.attention_bwd_sync.reference(qkv, g, heads), iters=5),
+            "bound": (t["bound_ms"], t["bound_by"]), "shape": [b, n, heads * dh, heads, False],
+            "cases": {"streamed_ms": t["sync_ms"]["mma.sync core, streamed"]}}
+        # the yardstick's path: once
+        ops.reset_launch_counts()
+        ops.attention_bwd_sync(qkv, g, heads)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = {"attention_bwd_sync": 1}
+    if counts != expected_launches(want):
+        raise AssertionError(f"P26 yardstick launches {counts}, expected {want}")
+    phase("P26", f"yardstick path: attention_bwd_sync launched once on {card}")
+    del qkv, g
+    torch.cuda.empty_cache()
+    return counts
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

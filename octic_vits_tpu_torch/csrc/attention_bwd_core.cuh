@@ -1,12 +1,33 @@
-// K-attn-bwd's device code: the gradient of softmax(Q K^T * scale) V with
+// K-attn-bwd's mma.sync core: the gradient of softmax(Q K^T * scale) V with
 // respect to q, k and v, through a gather table (q, k, v), a cotangent table
-// (g) and a gradient table (dq, dk, dv). csrc/attention_bwd.cu instantiates it
-// for the model paths (the gradients in the gather's layout) and the
-// head-major probe; csrc/attention_bwd_probe.cu for the probes of
+// (g) and a gradient table (dq, dk, dv). The model paths ran it until the TMA
+// + wgmma redesign (csrc/attention_bwd.cu on csrc/attention_bwd_sm90.cuh);
+// csrc/attention_bwd_probe.cu now instantiates it alone: for the probes of
 // scripts/r3_attn_bwd_ablate.py (the gradients in a wide layout of their own,
-// the cotangent pre-assembled per head), so the probes run this code and not
-// a copy of it. See csrc/attention_bwd.cu for what it replaces, what bounds it
-// on the H100 and why it is built this way.
+// the cotangent pre-assembled per head), the head-major probe of
+// scripts/r3_attn_headmajor.py, and the yardstick ops.attention_bwd_sync (the
+// standard and octic layouts, the form forced), so the probes run this code
+// and not a copy of it.
+//
+// Its design: two kernels in FlashAttention-2 style, one CTA of 8 warps per
+// (head, batch), each gathering the head's q, k, v and dO rows once into
+// shared memory with the widest load the segments allow (q, k, v and dO of
+// one ViT-H/14 head, zero-padded to 272 tokens x 88 channels, take 191 KB).
+// Where a head does not fit (N above 320 at dh = 80, 384 at dh = 64; dh =
+// 128 from N = 257) the streamed form runs instead (the caller's plan,
+// ops/attention.py:attention_bwd_plan): a CTA owns 128 query rows (query
+// pass) or 128 key rows (key pass) and 64-row tiles of the other operands
+// stream through shared memory; its sums keep the same order of terms.
+// 1. Query pass: each warp owns 16 query rows; a first sweep over 64-key
+//    blocks carries the online max, the softmax sum and the online sum of
+//    exp(s - m) * dP; a second sweep recomputes P and dP, forms dS and
+//    accumulates dQ in MMA fragments. The row log-sum-exp and rowsum(dP o P)
+//    go to f32 scratch [B,H,N].
+// 2. Key pass: each warp owns 16 key rows and sweeps 32-query blocks,
+//    recomputing P^T and dS^T from the scratch statistics, and accumulates
+//    dV = P^T dO and dK = dS^T Q in registers, no atomics. The transposed
+//    operands come from the row tiles through ldmatrix.trans. Products are
+//    m16n8k16 mma.sync on ldmatrix fragments.
 //
 // Everything here has internal linkage: each source that includes it keeps
 // its own instantiations.

@@ -40,8 +40,9 @@
 // the slice's width and alignment allow (16-byte loads for a standard group
 // or an octic quad, 8-byte for an octic pair, 4-byte for one octic head), and
 // land in shared memory head by head (each head's dh channels contiguous).
-// The backward is FlashAttention-2 style, as K-attn-bwd (csrc/attention_bwd.cu):
-// a query pass (two sweeps over key tiles: the row statistics, then dQ) writes
+// The backward is FlashAttention-2 style, as K-attn-bwd's mma.sync core
+// (csrc/attention_bwd_core.cuh): a query pass (two sweeps over key tiles: the
+// row statistics, then dQ) writes
 // the row log-sum-exp and rowsum(dP o P) to [B,H,N] f32 scratch; a key pass
 // (one sweep over 32-row query tiles) accumulates dK and dV. No atomics: every
 // sum has a fixed order. P and dS are rounded to bf16 only as MMA operands.

@@ -13,6 +13,7 @@ import the ops modules and only ever call the plain versions.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import hashlib
@@ -45,11 +46,10 @@ SIGNATURES = {
     "ovt_attention_octic_pieces": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 8 + [_P],
     "ovt_attention_wide1d_pieces": [_P] * 5 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
     "ovt_attention_octic_rows": [_P] * 6 + [_I] * 6 + [_P] * 6 + [_I] * 5 + [_P],
-    "ovt_attention_std_bwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ovt_attention_octic_bwd": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 6 + [_P],
-    "ovt_attention_wide1d_bwd": [_P] * 5 + [_I] * 5 + [_P] * 6 + [_I] * 6 + [_P] * 7
-                                + [_I] * 6 + [_P],
-    "ovt_attention_wide_bwd": [_P] * 7 + [_I] * 6 + [_P] * 3 + [_I] * 6 + [_P],
+    "ovt_attention_bwd": [_P, _P],
+    "ovt_attention_bwd_pack": [_P, _P],
+    "ovt_attention_std_bwd_sync": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ovt_attention_octic_bwd_sync": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 6 + [_P],
     "ovt_lin_d8_bwd": [_P] * 22 + [_I] * 8 + [_P],
     "ovt_ln_d8_fwd": [_P] * 14 + [_I] * 4 + [_F, _P],
     "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
@@ -157,13 +157,16 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call entry point `name` on the current CUDA stream and raise if the
-    launch was refused. Tensors are passed by data pointer (the caller keeps
-    them alive across the call); Python ints as C ints, floats as C floats."""
+    launch was refused. Tensors and host arrays (``array.array``, a launch
+    table) are passed by data pointer (the caller keeps them alive across the
+    call); Python ints as C ints, floats as C floats."""
     lib = library()
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
             cargs.append(ctypes.c_void_p(a.data_ptr()))
+        elif isinstance(a, array.array):
+            cargs.append(ctypes.c_void_p(a.buffer_info()[0]))
         elif a is None:
             cargs.append(ctypes.c_void_p(0))
         elif isinstance(a, float):

@@ -4,6 +4,7 @@ CUDA tensors and runs its ``*_reference`` plain version for CPU tensors;
 
 from octic_vits_tpu_torch.ops.attention import (
     attention_bwd_plan,
+    attention_bwd_sm90_plan,
     octic_attention,
     octic_attention_bwd,
     octic_attention_bwd_reference,
@@ -57,6 +58,7 @@ from octic_vits_tpu_torch.ops.attention_probe import (
 )
 from octic_vits_tpu_torch.ops.attention_probe import EXPERIMENT_OPS
 from octic_vits_tpu_torch.ops.attention_bwd_probe import (
+    attention_bwd_sync,
     PROBE_OPS_14C,
     octic_attention_bwd_wideg,
     octic_attention_bwd_widestore,
@@ -150,9 +152,9 @@ PROBE_OPS_14B = EXPERIMENT_OPS + (lin_d8_tiled, matmul_law, matmul_law_batched)
 #: scripts/r3_attn_bwd_ablate.py); each one's plain version is also
 #: ``<op>.reference``
 #: the kernels the Hopper redesigns replaced on the model paths, kept as the
-#: yardsticks they are timed against: K-lin-d8's mma.sync core and K-attn's
-#: whole-head octic core
-PARENT_OPS = (lin_d8_sync, whole_head_octic_attention)
+#: yardsticks they are timed against: K-lin-d8's mma.sync core, K-attn's
+#: whole-head octic core and K-attn-bwd's mma.sync core
+PARENT_OPS = (lin_d8_sync, whole_head_octic_attention, attention_bwd_sync)
 PROBE_OPS = PROBE_OPS_14A + PROBE_OPS_14B + PROBE_OPS_14C + PARENT_OPS
 #: every kernel op, each with its own launch counter (the DeiT III train path
 #: runs standard_attention, its backward, octic_attention, its backward,
@@ -175,6 +177,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "attention_bwd_plan",
+    "attention_bwd_sm90_plan",
+    "attention_bwd_sync",
     "lin_d8_plan",
     "octic_attention_plan",
     "GLUE_OPS",

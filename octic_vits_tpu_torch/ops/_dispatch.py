@@ -51,19 +51,19 @@ def row_stride(t: torch.Tensor, name: str, shape: tuple, align: bool = False) ->
     16 bytes, as the kernels' 16-byte copies (``cp.async``) need."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    lead, w = tuple(shape[:-1]), shape[-1]
+    w, strides = shape[-1], t.stride()
     # the stride of the innermost leading dim that has more than one index
-    ld = next((t.stride(i) for i in reversed(range(len(lead))) if lead[i] > 1), w)
+    ld = next((s for n, s in zip(reversed(shape[:-1]), reversed(strides[:-1])) if n > 1), w)
     span = ld
-    ok = t.stride(-1) == 1
-    for i in reversed(range(len(lead))):
-        ok &= lead[i] == 1 or t.stride(i) == span
-        span *= lead[i]
+    ok = strides[-1] == 1
+    for n, s in zip(reversed(shape[:-1]), reversed(strides[:-1])):
+        ok &= n == 1 or s == span
+        span *= n
     if not ok or ld < w:
         raise ValueError(f"{name}: needs unit channel stride and evenly spaced token rows, "
-                         f"got strides {t.stride()}")
+                         f"got strides {strides}")
     if align and (t.data_ptr() % 16 or ld % 8):
         raise ValueError(f"{name}: the view's start and its row stride ({ld} elements) must "
                          "be multiples of 16 bytes")

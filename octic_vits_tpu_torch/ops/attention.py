@@ -27,11 +27,16 @@ The forwards run K-attn's streamed TMA + wgmma kernel: the standard layout
 through csrc/attention_std.cu, the octic layouts through
 csrc/attention_octic.cu (:func:`octic_attention_plan`: route (a) reads the
 wide qkv and scatters the output into the six irrep arrays, route (b) loads
-the caller's arrays as padded pieces); any N. K-attn-bwd
-(csrc/attention_bwd.cu) serves every layout through a gather table (q, k, v),
-a cotangent table and a gradient table, with a streamed form where a head
-does not fit (:func:`attention_bwd_plan`). K-attn's whole-head core
-(csrc/attention.cu) stays for the probes (ops/attention_probe.py).
+the caller's arrays as padded pieces); any N. K-attn-bwd runs on TMA +
+wgmma too (csrc/attention_bwd.cu, :func:`attention_bwd_sm90_plan`), any N:
+the standard layout as it stands, the octic layouts on the wide qkv (route
+(a): the caller's wide qkv, or one :func:`_pack_heads` launch assembling it)
+with the cotangents assembled in head order, the gradients written into the
+caller's arrays through per-segment store tables. Its mma.sync core
+(csrc/attention_bwd_core.cuh, :func:`attention_bwd_plan`: whole-head or
+streamed) stays for the probes and as the yardstick ops.attention_bwd_sync;
+K-attn's whole-head core (csrc/attention.cu) for the probes
+(ops/attention_probe.py).
 
 As in the JAX custom VJPs, each backward saves only the op's inputs (the
 qkv arrays; for the fused op the normed input and the qkv weights) and
@@ -40,6 +45,8 @@ recomputes the probabilities (and, for the fused op, the qkv).
 
 from __future__ import annotations
 
+import array
+import functools
 from typing import Optional
 
 import torch
@@ -50,7 +57,6 @@ from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_st
 from octic_vits_tpu_torch.ops.linear import (
     lin_d8_bwd_launch,
     lin_d8_bwd_reference,
-    lin_d8_launch,
     lin_d8_wide_launch,
     linear_d8,
 )
@@ -202,11 +208,11 @@ def _check_std_attention_shape(n: int, dh: int) -> dict:
 
 
 def _check_attention_bwd_shape(n: int, dh: int) -> None:
-    """K-attn-bwd's whole-head form keeps a whole head's q, k, v and dO rows
-    and two f32 row statistics in shared memory
+    """The mma.sync core's whole-head form keeps a whole head's q, k, v and
+    dO rows and two f32 row statistics in shared memory
     (csrc/attention_bwd_core.cuh:smem_bytes): the guard of that form alone
-    (the probes of row 14c run it); the ops go through
-    :func:`attention_bwd_plan`, which streams where a head does not fit."""
+    (the probes of row 14c and the yardstick run it; the model paths run
+    :func:`attention_bwd_sm90_plan`'s kernel)."""
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     smem = 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp
     if dh % 8 or dh > MAX_HEAD_DIM or smem > SMEM_LIMIT:
@@ -215,14 +221,15 @@ def _check_attention_bwd_shape(n: int, dh: int) -> None:
                          f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available)")
 
 
-# K-attn-bwd's streamed form (csrc/attention_bwd_core.cuh): a CTA owns
+# the mma.sync core's streamed form (csrc/attention_bwd_core.cuh): a CTA owns
 # BWD_BLOCK query rows (query pass) or key rows (key pass) and streams
 # BWD_TILE-row tiles of the other operands through shared memory
 BWD_BLOCK, BWD_TILE = 128, 64
 
 
 def attention_bwd_plan(n: int, dh: int) -> dict:
-    """The launch plan of K-attn-bwd: the whole-head form (one CTA a (head,
+    """The launch plan of K-attn-bwd's mma.sync core (the probes' kernel and
+    the yardstick ops.attention_bwd_sync): the whole-head form (one CTA a (head,
     batch), every row of the head in shared memory) where it fits, else the
     streamed form (one CTA a (head, batch, block of BWD_BLOCK rows), tiles of
     BWD_TILE rows streamed). Any N; the head width a multiple of 8 up to 128.
@@ -241,6 +248,123 @@ def attention_bwd_plan(n: int, dh: int) -> dict:
     kpad, dhp = -(-n // 16) * 16, -(-dh // 16) * 16
     return {"streamed": False, "blocks": 1, "tiles": -(-kpad // BWD_TILE),
             "smem": 4 * kpad * (dhp + 8) * 2 + 2 * kpad * 4 + 2 * dhp, "n": n}
+
+
+# K-attn-bwd on TMA + wgmma (csrc/attention_bwd.cu on csrc/attention_bwd_sm90.cuh):
+# a CTA a 64-row tile of one (batch, head) in each pass, 64-row tiles
+# streamed through a ring (2 stages in the query pass; 3 in the key pass, 2
+# above 96 columns); a query tile's scratch rows (f32 log2-sum-exp and D), a
+# gradient column table, the tensor maps a launch encodes, the segments a
+# head's gradient columns may split into
+BWD_ROWS, BWD_STATS, BWD_OMAP, BWD_MAPS, BWD_SEGS = 64, 2 * 64 * 4, 256, 8, 6
+
+
+@functools.lru_cache(maxsize=64)
+def attention_bwd_sm90_plan(b: int, n: int, heads: int, dh: int) -> dict:
+    """The launch plan of K-attn-bwd on TMA + wgmma, any N; the C entry
+    checks it against the kernel's (``ERR_PLAN``).
+
+    Both passes launch ``grid`` = B * H * ``tiles`` CTAs, a CTA a 64-row
+    tile of one (batch, head): query rows in the query pass (the head's key
+    tiles streamed twice), key rows in the key pass (the query tiles streamed
+    once). The f32 scratch is ``[2, B*H, np]``, np = 64 ``tiles``, so a query
+    tile's rows are one 16-byte aligned bulk copy. ``smem_q`` and ``smem_k``
+    are the two kernels' bytes (``stages`` the key pass's ring; the query
+    pass's has 2, so three query-pass CTAs share an SM up to 80 columns).
+
+    Each operand's head is dh contiguous columns of its array, heads dh
+    apart: q, k and v of the qkv ``[B, N, 3C]`` at columns 0, C and 2C, dO of
+    the cotangent ``[B, N, C]`` at 0 (``columns``), loaded as the standard
+    forward's boxes (``boxes``: offset, width, swizzle bytes), each starting
+    on a 16-byte boundary (``starts[op][h]``: the array columns of head h's
+    boxes). Cached: callers read it and never change it."""
+    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM or n < 1:
+        raise ValueError(f"attention backward kernel: N={n}, head dim {dh} unsupported "
+                         f"(head dim a multiple of 8 up to {MAX_HEAD_DIM})")
+    c = heads * dh
+    boxes = std_attention_boxes(dh)
+    columns = {"q": 0, "k": c, "v": 2 * c, "o": 0}
+    stages = 2 if dh > 96 else 3
+    tile = BWD_ROWS * dh * 2
+    zero = BWD_ROWS * 16 if dh % 16 else 0
+    tiles = -(-n // BWD_ROWS)
+    return {"n": n, "heads": heads, "dh": dh, "tiles": tiles, "grid": b * heads * tiles,
+            "np": tiles * BWD_ROWS, "stages": stages, "boxes": boxes, "columns": columns,
+            "starts": {op: [[col + h * dh + off for off, _, _ in boxes] for h in range(heads)]
+                       for op, col in columns.items()},
+            "smem_q": 1024 + tile * 6 + zero + BWD_OMAP + 5 * 8,
+            "smem_k": (1024 + tile * (2 + 2 * stages) + BWD_STATS * stages + zero + BWD_OMAP
+                       + (1 + 2 * stages) * 8)}
+
+
+def _bwd_table(plan: dict, b: int, qkv: tuple, g: tuple, stores: list, segs: list,
+               stats: torch.Tensor) -> array.array:
+    """The int64 launch table of ovt_attention_bwd (csrc/attention_bwd_sm90.cuh:
+    Table): `qkv` and `g` (tensor, row stride) of the qkv ``[B, N, 3C]`` and
+    the cotangent ``[B, N, C]``; `stores` for each of dq, dk, dv its segments
+    (tensor, row stride, column at head 0, head stride), one a width of
+    `segs` (the head's columns in order)."""
+    if not 1 <= len(segs) <= BWD_SEGS or sum(segs) != plan["dh"]:
+        raise ValueError(f"attention backward: segments {segs} of a {plan['dh']}-column head")
+    c = plan["heads"] * plan["dh"]
+    maps, index, boxes = [], {}, []
+    for op, (t, ld), width in (("q", qkv, 3 * c), ("k", qkv, 3 * c), ("v", qkv, 3 * c),
+                               ("o", g, c)):
+        row = [plan["columns"][op]]
+        for _, w, _ in plan["boxes"]:
+            key = (t.data_ptr(), ld, w)
+            if key not in index:
+                index[key] = len(maps)
+                maps.append([t.data_ptr(), width, ld, w])
+            row.append(index[key])
+        boxes += row + [0] * (5 - len(row))
+    store_rows = []
+    for parts in stores:
+        row = [x for t, ld, col, hs in parts for x in (t.data_ptr(), ld, col, hs)]
+        store_rows += row + [0] * (24 - len(row))
+    head = [b, plan["n"], plan["heads"], plan["dh"], plan["stages"], plan["tiles"], plan["grid"],
+            plan["smem_q"], plan["smem_k"], plan["np"], len(maps), len(segs), stats.data_ptr(),
+            0, 0, 0]
+    return array.array("q", head + [x for m in maps for x in m]
+                       + [0] * (4 * (BWD_MAPS - len(maps))) + boxes + list(segs)
+                       + [0] * (BWD_SEGS - len(segs)) + store_rows)
+
+
+def _bwd_launch(qkv: torch.Tensor, g: tuple, heads: int, stores: list, segs: list) -> None:
+    """One launch of K-attn-bwd's two passes: qkv ``[B, N, 3C]`` (contiguous),
+    g (cotangent ``[B, N, C]``, its row stride), the gradients written into
+    `stores`' tensors. Counts nothing."""
+    b, n, w = qkv.shape
+    plan = attention_bwd_sm90_plan(b, n, heads, w // (3 * heads))
+    check_kernel_arg(qkv, "qkv", (b, n, w))
+    stats = torch.empty(2, b * heads, plan["np"], device=qkv.device, dtype=torch.float32)
+    table = _bwd_table(plan, b, (qkv, w), _tma_operand(*g), stores, segs, stats)
+    kernels.launch("ovt_attention_bwd", table)
+
+
+def _pack_heads(out: torch.Tensor, pieces: list, segs: list, heads: int) -> torch.Tensor:
+    """Route (a)'s assembly (csrc/attention_bwd.cu:pack_heads_kernel): into
+    ``out`` ``[B, N, S H dh]`` (S = len(pieces) operands; head h of operand s
+    its dh columns at (s H + h) dh), segment j of each head from ``pieces[s]
+    [j]`` = (tensor, row stride, column at head 0, head stride). CPU tensors
+    take the same copies as strided views; CUDA tensors one launch."""
+    b, n, w = out.shape
+    dh = sum(segs)
+    if on_cuda((out,) + tuple(t for ps in pieces for t, _, _, _ in ps)):
+        rows = [x for ps in pieces for t, ld, col, hs in ps for x in (t.data_ptr(), ld, col, hs)]
+        table = array.array("q", [b * n, w, heads, dh, len(segs), out.data_ptr(), 0, 0]
+                            + list(segs) + [0] * (BWD_SEGS - len(segs)) + rows
+                            + [0] * (72 - len(rows)))
+        kernels.launch("ovt_attention_bwd_pack", table)
+        return out
+    heads_out = out.view(b * n, len(pieces), heads, dh)
+    for s, ps in enumerate(pieces):
+        start = 0
+        for (t, ld, col, hs), sw in zip(ps, segs):
+            src = t.as_strided((b * n, heads, sw), (ld, hs, 1), t.storage_offset() + col)
+            heads_out[:, s, :, start:start + sw] = src
+            start += sw
+    return out
 
 
 def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -312,18 +436,16 @@ def _standard_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def standard_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     """dqkv from qkv and g. CPU tensors take
     :func:`standard_attention_bwd_reference`; CUDA tensors launch K-attn-bwd
-    (csrc/attention_bwd.cu) in its standard head layout."""
+    (csrc/attention_bwd.cu, TMA + wgmma, :func:`attention_bwd_sm90_plan`) in
+    its standard head layout."""
     if not on_cuda((qkv, g)):
         return standard_attention_bwd_reference(qkv, g, num_heads)
     b, n, c, dh = _std_dims(qkv, num_heads)
-    plan = attention_bwd_plan(n, dh)
-    check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
+    attention_bwd_sm90_plan(b, n, num_heads, dh)
     ld_g = row_stride(g, "g", (b, n, c))
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
     standard_attention_bwd.launches += 1
-    kernels.launch("ovt_attention_std_bwd", qkv, g, ld_g, dqkv, stats[0], stats[1],
-                   b, n, num_heads, dh, int(plan["streamed"]))
+    _bwd_launch(qkv, (g, ld_g), num_heads, [[(dqkv, 3 * c, s * c, dh)] for s in range(3)], [dh])
     return dqkv
 
 
@@ -437,6 +559,14 @@ def _tma_ready(t: torch.Tensor, ld: int) -> bool:
     return t.data_ptr() % 16 == 0 and ld % 8 == 0
 
 
+def _tma_operand(t: torch.Tensor, ld: int) -> tuple:
+    """(t, its row stride), or a contiguous copy where TMA cannot address the
+    view (a width that is a multiple of 8 gives a 16-byte row stride)."""
+    if _tma_ready(t, ld):
+        return t, ld
+    return t.clone(memory_format=torch.contiguous_format), t.shape[-1]
+
+
 def _octic_to_wide(qs: tuple, num_heads: int) -> torch.Tensor:
     """The six octic qkv arrays -> the wide qkv ``[B, N, 3C]`` of route (a)."""
     b, n, c8, d1, de = _octic_dims(qs, num_heads)
@@ -468,26 +598,49 @@ def _octic_out_row_strides(gs: tuple, b: int, n: int, c8: int) -> list:
     return [row_stride(t, f"g[{i}]", (b, n, c8 if i < 4 else 2 * c8)) for i, t in enumerate(gs)]
 
 
+def _octic_array_pieces(ts: tuple, lds: list, num_heads: int, d1: int) -> list:
+    """For each of q, k, v: the six pieces (tensor, row stride, column at
+    head 0, head stride) of the octic arrays `ts` (a1..b2 in (3, H, d1), e0,
+    e1 in (3, H, de) column order): the inputs of row 5 or their gradients."""
+    ws = [d1] * 4 + [2 * d1] * 2
+    return [[(t, ld, s * num_heads * w, w) for t, ld, w in zip(ts, lds, ws)] for s in range(3)]
+
+
+def _octic_bwd_route_a(wide_qkv: torch.Tensor, gs: tuple, num_heads: int, stores: list) -> None:
+    """Route (a) of the octic backward: K-attn-bwd on the wide qkv ``[B, N,
+    3C]`` (each (s, head) slice ``[a1|a2|b1|b2|e0|e1]``) and the six output
+    cotangents assembled in the same order (one :func:`_pack_heads` launch,
+    so that dO's columns meet v's in dP = dO v^T); the gradients into
+    `stores`: for each of dq, dk, dv its six pieces, or one piece of the
+    whole head (a wide gradient)."""
+    b, n, c8, d1, de = _wide_qkv_dims(wide_qkv, num_heads)
+    lg = _octic_out_row_strides(gs, b, n, c8)
+    segs = [d1] * 4 + [de] * 2
+    gw = _pack_heads(torch.empty(b, n, 8 * c8, device=wide_qkv.device, dtype=wide_qkv.dtype),
+                     [[(t, ld, 0, w) for t, ld, w in zip(gs, lg, segs)]], segs, num_heads)
+    _bwd_launch(wide_qkv, (gw, 8 * c8), num_heads, stores, segs if len(stores[0]) == 6
+                else [8 * d1])
+
+
 def _octic_bwd_launch(qs: tuple, gs: tuple, num_heads: int) -> tuple:
-    """One K-attn-bwd launch in the octic layout; the qkv arrays and the
-    cotangents may be column slices of larger tensors. Counts nothing."""
+    """One K-attn-bwd launch in the octic layout (route (a)): the six qkv
+    arrays, which may be column slices of larger tensors, assembled into the
+    wide qkv (one :func:`_pack_heads` launch), the six gradients written in
+    the arrays' layout. Counts nothing."""
     b, n, c8, d1, de = _octic_dims(qs, num_heads)
-    plan = attention_bwd_plan(n, 8 * d1)
     lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
           for i, t in enumerate(qs)]
-    lg = _octic_out_row_strides(gs, b, n, c8)
-    kw = dict(device=qs[0].device, dtype=qs[0].dtype)
-    grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
-    stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
-    kernels.launch("ovt_attention_octic_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
-                   b, n, num_heads, d1, de, int(plan["streamed"]))
-    return grads
+    wide = _pack_heads(torch.empty(b, n, 24 * c8, device=qs[0].device, dtype=qs[0].dtype),
+                       _octic_array_pieces(qs, lq, num_heads, d1), [d1] * 4 + [de] * 2,
+                       num_heads)
+    return _octic_wide_bwd_tuple(wide, gs, num_heads)
 
 
 def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     """The six qkv gradients from the six qkv arrays and the six output
     cotangents. CPU tensors take :func:`octic_attention_bwd_reference`; CUDA
-    tensors launch K-attn-bwd (csrc/attention_bwd.cu) in its octic layout."""
+    tensors launch K-attn-bwd (csrc/attention_bwd.cu) on the wide qkv that
+    :func:`_pack_heads` assembles from them (route (a))."""
     if not on_cuda(tuple(qs) + tuple(gs)):
         return octic_attention_bwd_reference(qs, gs, num_heads)
     octic_attention_bwd.launches += 1
@@ -569,6 +722,20 @@ def octic_attention_fused_qkv_bwd_reference(xs: tuple, w1, we, bias: Optional[to
     return dxs + (dw1, dwe, dbias)
 
 
+def _octic_wide_bwd_tuple(qkv: torch.Tensor, gs: tuple, num_heads: int) -> tuple:
+    """K-attn-bwd in route (a) on the wide qkv, the six gradients written in
+    the tuple layout (a1..b2 ``[B, N, 3C/8]``, e0, e1 ``[B, N, 3C/4]``): row
+    5's layout, and the one K-lin-d8-bwd takes in the chains of rows 2b and
+    10b, whose K-lin-d8 recomputes the qkv wide (its grouped-column store, as
+    row 2's forward). Counts nothing."""
+    b, n, c8, d1, _ = _wide_qkv_dims(qkv, num_heads)
+    kw = dict(device=qkv.device, dtype=qkv.dtype)
+    grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), **kw) for i in range(6))
+    _octic_bwd_route_a(qkv, gs, num_heads,
+                       _octic_array_pieces(grads, [t.shape[-1] for t in grads], num_heads, d1))
+    return grads
+
+
 def octic_attention_fused_qkv_bwd(xs: tuple, w1, we, bias: Optional[torch.Tensor], gs: tuple,
                                   num_heads: int) -> tuple:
     """Backward of :func:`octic_attention_fused_qkv` from its residuals (the
@@ -576,19 +743,19 @@ def octic_attention_fused_qkv_bwd(xs: tuple, w1, we, bias: Optional[torch.Tensor
     saves) and the six output cotangents `gs`.
 
     CPU tensors take :func:`octic_attention_fused_qkv_bwd_reference`. CUDA
-    tensors run the chain K-lin-d8 (recompute the flat-E qkv) -> K-attn-bwd
-    in its octic layout (the E rows as column slices) -> K-lin-d8-bwd
-    (csrc/lin_d8_bwd.cu: dx, dw1, dwe and dbias, no atomics); the qkv and
-    its gradient live only between these launches.
+    tensors run the chain K-lin-d8 (recompute the qkv, stored wide) ->
+    K-attn-bwd in route (a) (the gradients in the tuple layout) ->
+    K-lin-d8-bwd (csrc/lin_d8_bwd.cu: dx, dw1, dwe and dbias, no atomics);
+    the qkv and its gradient live only between these launches.
 
     Returns ``(da1, da2, db1, db2, def, dw1, dwe, dbias or None)``."""
     if not on_cuda(tuple(xs) + (w1, we, bias) + tuple(gs)):
         return octic_attention_fused_qkv_bwd_reference(xs, w1, we, bias, gs, num_heads)
-    _, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
-    attention_bwd_plan(n, c8 // num_heads * 8)
+    b, n, c8 = _fused_qkv_dims(xs, w1, num_heads)
+    attention_bwd_sm90_plan(b, n, num_heads, c8 // num_heads * 8)
     octic_attention_fused_qkv_bwd.launches += 1
-    qkv = lin_d8_launch(tuple(xs), w1, we, bias, gelu=False)
-    dq = _octic_bwd_launch(_qkv_rows(qkv), tuple(gs), num_heads)
+    qkv = lin_d8_wide_launch(tuple(xs), w1, we, bias, num_heads)
+    dq = _octic_wide_bwd_tuple(qkv, tuple(gs), num_heads)
     dxs, dw1, dwe, dbias = lin_d8_bwd_launch(tuple(xs), w1, we, dq[:4], dq[4:], bias is not None)
     return dxs + (dw1, dwe, dbias)
 
@@ -665,20 +832,20 @@ def octic_attention_fused_qkv_packed_bwd(x, w1, we, bias: Optional[torch.Tensor]
     """Backward of :func:`octic_attention_fused_qkv_packed` from its
     residuals (the packed input and the qkv weights) and the six output
     cotangents. CPU tensors take the plain version. CUDA tensors run the
-    chain of row 2b on the container: K-lin-d8 recomputes the qkv from the
-    five slot views in place, K-attn-bwd in the octic layout, and
+    chain of row 2b on the container: K-lin-d8 recomputes the qkv (stored
+    wide) from the five slot views in place, K-attn-bwd in route (a), and
     K-lin-d8-bwd writes the five dx pieces in place into one packed ``[B, N,
     C]`` gradient (no concatenate).
 
     Returns ``(dx [B, N, C], dw1, dwe, dbias or None)``."""
     if not on_cuda((x, w1, we, bias) + tuple(gs)):
         return octic_attention_fused_qkv_packed_bwd_reference(x, w1, we, bias, gs, num_heads)
-    _, n, c8 = _packed_dims(x, w1, num_heads)
-    attention_bwd_plan(n, c8 // num_heads * 8)
+    b, n, c8 = _packed_dims(x, w1, num_heads)
+    attention_bwd_sm90_plan(b, n, num_heads, c8 // num_heads * 8)
     octic_attention_fused_qkv_packed_bwd.launches += 1
     xs = unpack_packed_5f(x)
-    qkv = lin_d8_launch(xs, w1, we, bias, gelu=False)
-    dq = _octic_bwd_launch(_qkv_rows(qkv), tuple(gs), num_heads)
+    dq = _octic_wide_bwd_tuple(lin_d8_wide_launch(xs, w1, we, bias, num_heads), tuple(gs),
+                               num_heads)
     dx = torch.empty_like(x)
     _, dw1, dwe, dbias = lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], bias is not None,
                                            out=unpack_packed_5f(dx))
@@ -776,6 +943,17 @@ def _wide1d_to_wide(qs: tuple, num_heads: int) -> torch.Tensor:
     return torch.stack(heads, dim=2).reshape(b, n, 24 * c8)
 
 
+def _wide1d_array_pieces(ts: tuple, lds: list, num_heads: int, d1: int) -> list:
+    """For each of q, k, v: the six pieces (tensor, row stride, column at
+    head 0, head stride) of the wide-1d arrays `ts` (q1d, k1d, v1d with
+    columns (H, [a1|a2|b1|b2], d1); e0, e1 in (3, H, de) order): the inputs
+    of row 12 or their gradients."""
+    de = 2 * d1
+    return [[(ts[s], lds[s], j * d1, 4 * d1) for j in range(4)]
+            + [(ts[3 + r], lds[3 + r], s * num_heads * de, de) for r in range(2)]
+            for s in range(3)]
+
+
 def _wide1d_row_strides(qs: tuple, b: int, n: int, c8: int) -> list:
     return [row_stride(t, f"qkv[{i}]", (b, n, 4 * c8 if i < 3 else 6 * c8))
             for i, t in enumerate(qs)]
@@ -784,21 +962,23 @@ def _wide1d_row_strides(qs: tuple, b: int, n: int, c8: int) -> list:
 def octic_attention_wide1d_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     """``(dq1d, dk1d, dv1d, de0, de1)`` from the five inputs and the six
     output cotangents. CPU tensors take
-    :func:`octic_attention_wide1d_bwd_reference`; CUDA tensors launch
-    K-attn-bwd (csrc/attention_bwd.cu) in its wide-1d layout, which writes
-    the 1-d gradients in the wide layout (one 4*d1 slice per head)."""
+    :func:`octic_attention_wide1d_bwd_reference`; CUDA tensors assemble the
+    wide qkv (one :func:`_pack_heads` launch) and launch K-attn-bwd
+    (csrc/attention_bwd.cu) in route (a), which writes the 1-d gradients in
+    the wide-1d layout (one 4*d1 slice per head)."""
     if not on_cuda(tuple(qs) + tuple(gs)):
         return octic_attention_wide1d_bwd_reference(qs, gs, num_heads)
     b, n, c8, d1, de = _wide1d_dims(qs[0], num_heads)
-    plan = attention_bwd_plan(n, 8 * d1)
+    attention_bwd_sm90_plan(b, n, num_heads, 8 * d1)
     lq = _wide1d_row_strides(qs, b, n, c8)
-    lg = _octic_out_row_strides(gs, b, n, c8)
     kw = dict(device=qs[0].device, dtype=qs[0].dtype)
     grads = tuple(torch.empty(b, n, 4 * c8 if i < 3 else 6 * c8, **kw) for i in range(5))
-    stats = torch.empty(2, b, num_heads, n, device=qs[0].device, dtype=torch.float32)
     octic_attention_wide1d_bwd.launches += 1
-    kernels.launch("ovt_attention_wide1d_bwd", *qs, *lq, *gs, *lg, *grads, stats[0], stats[1],
-                   b, n, num_heads, d1, de, int(plan["streamed"]))
+    wide = _pack_heads(torch.empty(b, n, 24 * c8, **kw),
+                       _wide1d_array_pieces(qs, lq, num_heads, d1), [d1] * 4 + [de] * 2,
+                       num_heads)
+    _octic_bwd_route_a(wide, gs, num_heads, _wide1d_array_pieces(
+        grads, [t.shape[-1] for t in grads], num_heads, d1))
     return grads
 
 
@@ -871,19 +1051,17 @@ def octic_attention_wide_bwd_reference(qkv: torch.Tensor, gs: tuple, num_heads: 
 def octic_attention_wide_bwd(qkv: torch.Tensor, gs: tuple, num_heads: int) -> torch.Tensor:
     """dqkv from qkv and the six output cotangents. CPU tensors take
     :func:`octic_attention_wide_bwd_reference`; CUDA tensors launch
-    K-attn-bwd (csrc/attention_bwd.cu) in its wide layout, which writes one
-    dqkv."""
+    K-attn-bwd (csrc/attention_bwd.cu) in route (a): the wide qkv in the
+    standard loads, the cotangents assembled per head (one copy), one dqkv
+    written."""
     if not on_cuda((qkv,) + tuple(gs)):
         return octic_attention_wide_bwd_reference(qkv, gs, num_heads)
     b, n, c8, d1, de = _wide_qkv_dims(qkv, num_heads)
-    plan = attention_bwd_plan(n, 8 * d1)
-    check_kernel_arg(qkv, "qkv", (b, n, 24 * c8))
-    lg = _octic_out_row_strides(gs, b, n, c8)
+    attention_bwd_sm90_plan(b, n, num_heads, 8 * d1)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(2, b, num_heads, n, device=qkv.device, dtype=torch.float32)
     octic_attention_wide_bwd.launches += 1
-    kernels.launch("ovt_attention_wide_bwd", qkv, *gs, *lg, dqkv, stats[0], stats[1], b, n,
-                   num_heads, d1, de, int(plan["streamed"]))
+    _octic_bwd_route_a(qkv, gs, num_heads,
+                       [[(dqkv, 24 * c8, s * 8 * c8, 8 * d1)] for s in range(3)])
     return dqkv
 
 

@@ -23,8 +23,12 @@ The script's other four sites run kernels the port already has:
 the default ``_octic_fwd_kernel`` (:926) and ``_octic_bwd_kernel`` (:779)
 :func:`~octic_vits_tpu_torch.ops.octic_attention` and its backward.
 
-The kernels: the wide-store and wide-g backwards are K-attn-bwd
-(csrc/attention_bwd_core.cuh) with their own tables (csrc/attention_bwd_probe.cu);
+:func:`attention_bwd_sync` is no probe of the script: it is the yardstick of
+K-attn-bwd's TMA + wgmma redesign, the mma.sync core the model paths ran
+before it, in the standard and octic layouts with its form forced.
+
+The kernels: the wide-store and wide-g backwards are K-attn-bwd's mma.sync
+core (csrc/attention_bwd_core.cuh) with their own tables (csrc/attention_bwd_probe.cu);
 the group ops are K-attn-group (csrc/attention_group.cu): G heads a CTA, the
 keys in 64-row tiles under an online softmax, each group's rows moved as one
 G-wide slice; the fused ops are K-qkv-attn (csrc/qkv_attention.cu), one CTA a
@@ -62,7 +66,15 @@ import torch
 
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_stride
-from octic_vits_tpu_torch.ops.attention import SMEM_LIMIT, _check_attention_bwd_shape
+from octic_vits_tpu_torch.ops.attention import (
+    SMEM_LIMIT,
+    _check_attention_bwd_shape,
+    _octic_out_row_strides,
+    _std_dims,
+    attention_bwd_plan,
+    octic_attention_bwd_reference,
+    standard_attention_bwd_reference,
+)
 from octic_vits_tpu_torch.ops.attention_probe import (
     _attn_head_bwd,
     _attn_unnormalized,
@@ -501,3 +513,60 @@ for _op in PROBE_OPS_14C:
     _op.launches = 0
     _op.reference = globals()[f"{_op.__name__}_reference"]
 del _op
+
+
+# ---------------------------------------------------------------------------
+# the yardstick of K-attn-bwd's redesign: the mma.sync core the model paths
+# ran before it (csrc/attention_bwd_core.cuh, entries in attention_bwd_probe.cu)
+# ---------------------------------------------------------------------------
+
+
+def attention_bwd_sync_reference(qkv, g, num_heads: int, streamed: Optional[bool] = None):
+    if isinstance(qkv, torch.Tensor):
+        return standard_attention_bwd_reference(qkv, g, num_heads)
+    return octic_attention_bwd_reference(qkv, g, num_heads)
+
+
+def attention_bwd_sync(qkv, g, num_heads: int, streamed: Optional[bool] = None):
+    """The attention backward on K-attn-bwd's ``mma.sync`` core, the kernel
+    the model paths ran before the TMA + wgmma redesign: the standard layout
+    (qkv ``[B, N, 3C]`` and g ``[B, N, C]`` -> dqkv, as
+    :func:`~octic_vits_tpu_torch.ops.standard_attention_bwd`) or, for a qkv
+    tuple, the octic layout (the six qkv arrays and the six cotangents -> the
+    six gradients, as :func:`~octic_vits_tpu_torch.ops.octic_attention_bwd`).
+    `streamed` forces the core's form (whole-head staging or the streamed
+    tiles); None takes :func:`~octic_vits_tpu_torch.ops.attention.
+    attention_bwd_plan`'s. CPU tensors take the reference; the op runs on no
+    model path."""
+    octic = not isinstance(qkv, torch.Tensor)
+    if not on_cuda((tuple(qkv) + tuple(g)) if octic else (qkv, g)):
+        return attention_bwd_sync_reference(qkv, g, num_heads)
+    if octic:
+        b, n, c8, d1, de, dh = _octic_dims(qkv, num_heads)
+    else:
+        b, n, c, dh = _std_dims(qkv, num_heads)
+    if streamed is None:
+        streamed = attention_bwd_plan(n, dh)["streamed"]
+    elif not streamed:
+        _check_attention_bwd_shape(n, dh)
+    stats = torch.empty(2, b, num_heads, n, device=g[0].device if octic else g.device,
+                        dtype=torch.float32)
+    attention_bwd_sync.launches += 1
+    if not octic:
+        check_kernel_arg(qkv, "qkv", (b, n, 3 * c))
+        dqkv = torch.empty_like(qkv)
+        kernels.launch("ovt_attention_std_bwd_sync", qkv, g, row_stride(g, "g", (b, n, c)), dqkv,
+                       stats[0], stats[1], b, n, num_heads, dh, int(streamed))
+        return dqkv
+    lq = [row_stride(t, f"qkv[{i}]", (b, n, 3 * (c8 if i < 4 else 2 * c8)))
+          for i, t in enumerate(qkv)]
+    lg = _octic_out_row_strides(g, b, n, c8)
+    grads = tuple(torch.empty(b, n, 3 * (c8 if i < 4 else 2 * c8), device=qkv[0].device,
+                              dtype=qkv[0].dtype) for i in range(6))
+    kernels.launch("ovt_attention_octic_bwd_sync", *qkv, *lq, *g, *lg, *grads, stats[0],
+                   stats[1], b, n, num_heads, d1, de, int(streamed))
+    return grads
+
+
+attention_bwd_sync.launches = 0
+attention_bwd_sync.reference = attention_bwd_sync_reference

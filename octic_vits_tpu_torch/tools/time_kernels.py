@@ -27,11 +27,11 @@ models). To compare two commits, unpack the other one into a git-ignored
 directory and run this file with ``--root`` on each in turns (parent,
 change, change, parent) in one call. With ``--steps`` it times instead
 P7's hybrid DeiT train step (hybrid ViT-H/14, B=32) and P10's hybrid DINOv2
-step (hybrid ViT-L/16, B=32), seeded random weights, as those phases time
-them (the host clock around each synchronized step, median of 10 after 2
-warm-up), and the host microseconds to enqueue one ``linear_d8_fused`` at a
-small shape (M = 148, c = 16, F = 24; K-lin-d8 is launched 64-96 times a
-step), and prints ``{"card": ..., "root": ..., "step_ms": {...},
+step (hybrid ViT-L/16, B=32; ``--steps deit`` or ``--steps ssl`` one of
+them), seeded random weights, as those phases time them (the host clock
+around each synchronized step, median of 10 after 2 warm-up), and the host
+microseconds to enqueue one ``linear_d8_fused`` at a small shape (M = 148,
+c = 16, F = 24; K-lin-d8 is launched 64-96 times a step), and prints ``{"card": ..., "root": ..., "step_ms": {...},
 "step_ms_all": {...}, "lin_host_us": ...}``: the steps' host time, which a
 wrapper's host cost moves and a CUDA-graph replay hides. Needs a CUDA
 device.
@@ -100,9 +100,10 @@ def lin_host_us(timing) -> float:
         return timing.host_us_per_call(lambda: ops.linear_d8_fused(xs, w1, we, bias))
 
 
-def step_ms(cs) -> tuple:
+def step_ms(cs, which: str = "all") -> tuple:
     """(median ms, every step's ms) of P7's hybrid DeiT step and P10's hybrid
-    SSL step, built and timed as chip_smoke.py builds and times them."""
+    SSL step (`which`: "deit", "ssl" or "all"), built and timed as
+    chip_smoke.py builds and times them."""
     from octic_vits_tpu_torch import create_model, init_weights
     from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
     from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
@@ -113,18 +114,22 @@ def step_ms(cs) -> tuple:
     )
 
     med, every = {}, {}
-    cfg = DeiTConfig()
-    model = create_model("hybrid_deit_huge_patch14", remat=True, drop_path_rate=cfg.drop_path,
-                         compute_dtype=torch.bfloat16, device="cuda")
-    init_weights(model, torch.Generator("cuda").manual_seed(cs.SEED))
-    state, step = cs.train_setup(model, cfg)
-    tgen = torch.Generator().manual_seed(cs.SEED + 3)
-    images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=tgen).cuda()
-    labels = torch.randint(0, 1000, (cs.TRAIN_BATCH,), generator=tgen).cuda()
-    med["deit_hybrid"], every["deit_hybrid"] = cs.time_train_steps(state, step, images, labels,
-                                                                   tgen)
-    del state, step, model
-    torch.cuda.empty_cache()
+    if which != "ssl":
+        cfg = DeiTConfig()
+        model = create_model("hybrid_deit_huge_patch14", remat=True,
+                             drop_path_rate=cfg.drop_path, compute_dtype=torch.bfloat16,
+                             device="cuda")
+        init_weights(model, torch.Generator("cuda").manual_seed(cs.SEED))
+        state, step = cs.train_setup(model, cfg)
+        tgen = torch.Generator().manual_seed(cs.SEED + 3)
+        images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=tgen).cuda()
+        labels = torch.randint(0, 1000, (cs.TRAIN_BATCH,), generator=tgen).cuda()
+        med["deit_hybrid"], every["deit_hybrid"] = cs.time_train_steps(state, step, images,
+                                                                       labels, tgen)
+        del state, step, model
+        torch.cuda.empty_cache()
+    if which == "deit":
+        return med, every
     arch = SSLMetaArch(SSLConfig(backbone_remat=True), device="cuda")
     state = arch.init(torch.Generator("cuda").manual_seed(cs.SEED))
     lr = sqrt_lr_scaling(4e-3, cs.SSL_BATCH)
@@ -140,8 +145,8 @@ def step_ms(cs) -> tuple:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".", help="root of the tree to time")
-    parser.add_argument("--steps", action="store_true",
-                        help="time P7's and P10's hybrid train steps instead of the kernels")
+    parser.add_argument("--steps", nargs="?", const="all", choices=("all", "deit", "ssl"),
+                        help="time P7's and/or P10's hybrid train steps instead of the kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
@@ -156,7 +161,7 @@ def main() -> int:
     card = cs.gpu_name_and_power()
     print(card, flush=True)
     if args.steps:
-        med, every = step_ms(cs)
+        med, every = step_ms(cs, args.steps)
         print(json.dumps({"card": card, "root": root, "step_ms": med, "step_ms_all": every,
                           "lin_host_us": lin_host_us(timing)}), flush=True)
         return 0

@@ -1364,3 +1364,105 @@ def test_tma_kernels_run_on_a_fresh_thread(gen):
     assert not errors, errors
     _assert_close(got[0], want[0])
     _assert_close(got[1], want[1])
+
+
+# ---- K-attn-bwd on TMA + wgmma (csrc/attention_bwd.cu on attention_bwd_sm90.cuh):
+# every layout at the plan's edges (chip_smoke.py P26's shapes), repeatable
+# bits, heads apart, the autograd worker and a fresh thread, the yardstick
+
+def _bwd_edge_ids():
+    import chip_smoke
+
+    return [label for label, *_ in chip_smoke.BWD_EDGES]
+
+
+def _bwd_edges():
+    import chip_smoke
+
+    return [shape for _, *shape in chip_smoke.BWD_EDGES]
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+@pytest.mark.parametrize("b,n,heads,dh", _bwd_edges(), ids=_bwd_edge_ids())
+def test_attention_bwd_sm90_edges(gen, b, n, heads, dh, layout):
+    import chip_smoke
+
+    cases = {c[0]: c for c in chip_smoke.octic_bwd_cases(gen, b, n, heads, dh)}
+    _, op, ref, args = cases[layout]
+    got, want = _counted(op, *args), ref(*args)
+    if layout in ("row2b", "row10b"):  # dbias included: present on both sides
+        assert (got[-1] is None) == (want[-1] is None)
+        got = tuple(t for t in got if t is not None)
+        want = tuple(t for t in want if t is not None)
+    _assert_close_scaled(got, want)
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_attention_bwd_is_bitwise_repeatable(gen, layout):
+    import chip_smoke
+
+    cases = {c[0]: c for c in chip_smoke.octic_bwd_cases(gen, 2, 257, 16, 80)}
+    _, op, _, args = cases[layout]
+    first, second = op(*args), op(*args)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    assert all(torch.equal(x, y) for x, y in zip(first, second) if x is not None)
+
+
+def test_octic_bwd_keeps_heads_independent(gen):
+    """An Inf in head 1's columns of q, k, v and of the cotangents, in the
+    arrays of the octic, wide-1d and wide layouts, leaves head 0's gradients
+    as they were (chip_smoke.bwd_heads_independent)."""
+    import chip_smoke
+
+    assert chip_smoke.bwd_heads_independent(gen)
+
+
+def test_attention_bwd_runs_on_autograd_and_fresh_threads(gen):
+    """The backward encodes its tensor maps (cuTensorMapEncodeTiled) on the
+    calling thread, which needs a current context: PyTorch's autograd worker
+    (loss.backward) and a thread that has made no CUDA runtime call must
+    launch it as the main thread does."""
+    import threading
+
+    b, n, heads, dh = 2, 65, 2, 80
+    qkv, g = _randn(gen, b, n, 3 * heads * dh), _randn(gen, b, n, heads * dh)
+    want = ops.standard_attention_bwd_reference(qkv, g, heads)
+    x = qkv.clone().requires_grad_()
+    before = ops.standard_attention_bwd.launches
+    ops.standard_attention(x, heads).backward(g)
+    torch.cuda.synchronize()
+    assert ops.standard_attention_bwd.launches == before + 1
+    _assert_close_scaled(x.grad, want)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(ops.standard_attention_bwd(qkv, g, heads))
+            torch.cuda.synchronize()
+        except Exception as exc:  # the assertion below reports it
+            errors.append(exc)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    _assert_close_scaled(got[0], want)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("layout", ["std", "octic"])
+def test_attention_bwd_sync_is_the_parent(gen, layout, streamed):
+    """The yardstick: K-attn-bwd's mma.sync core in both forms, which no
+    model path launches any more."""
+    import chip_smoke
+
+    cases = {c[0]: c for c in chip_smoke.octic_bwd_cases(gen, 2, 257, 16, 80)}
+    qkv, g, heads = cases[layout][3]
+    before = {op.__name__: op.launches for op in ops.KERNEL_OPS}
+    got = ops.attention_bwd_sync(qkv, g, heads, streamed)
+    torch.cuda.synchronize()
+    after = {op.__name__: op.launches for op in ops.KERNEL_OPS}
+    assert {k: after[k] - before[k] for k in after} == _only(attention_bwd_sync=1)
+    _assert_close_scaled(got, ops.attention_bwd_sync.reference(qkv, g, heads))

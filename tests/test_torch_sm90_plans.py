@@ -2,9 +2,11 @@
 passed to their C entry points as integers (csrc/dense.cu,
 csrc/attention_std.cu, csrc/attention_octic.cu, csrc/lin_d8.cu): the grid,
 the column boxes of a head, the shared memory, the persistent tile order,
-the octic output scatter and K-lin-d8's grouped-column store; and the
-dispatch of K-attn-bwd between its whole-head and streamed forms; held here
-without a card."""
+the octic output scatter and K-lin-d8's grouped-column store; the
+dispatch of K-attn-bwd's mma.sync core between its whole-head and streamed
+forms; K-attn-bwd's TMA + wgmma plan (csrc/attention_bwd.cu: tiles, boxes,
+shared memory, the gradient store tables, route (a)'s assembly tables);
+held here without a card."""
 
 import pytest
 import torch
@@ -380,3 +382,140 @@ def test_lin_d8_grouped_maps_are_the_wide_layouts(d1, heads):
                     (4 * f, 4 * f))
     assert torch.equal(bufs[0], L.interleave_wide1d(y[:4], heads))
     assert torch.equal(bufs[1], y[4])
+
+
+# ---- K-attn-bwd on TMA + wgmma (csrc/attention_bwd.cu on attention_bwd_sm90.cuh)
+
+BWD_NS = [1, 37, 64, 65, 197, 257, 321, 385, 1025]
+BWD_DHS = [16, 24, 40, 64, 80, 120, 128]
+
+
+def bwd_sm90_rows(plan: dict, b: int) -> list:
+    """The (batch row, head, row)s each CTA of either pass owns, and the rows
+    each CTA's sweeps meet, as the kernels map blockIdx.x: tile x % tiles of
+    (batch, head) x // tiles, 64 rows a tile, rows >= N masked."""
+    n, heads, tiles = plan["n"], plan["heads"], plan["tiles"]
+    owned, swept = [], []
+    for x in range(plan["grid"]):
+        t, bh = x % tiles, x // tiles
+        bb, h = divmod(bh, heads)
+        owned += [(bb, h, r) for r in range(64 * t, min(n, 64 * t + 64))]
+        swept.append(sorted(r for u in range(tiles) for r in range(64 * u, 64 * u + 64) if r < n))
+    return owned, swept
+
+
+@pytest.mark.parametrize("n", BWD_NS)
+def test_bwd_sm90_tiles_cover_every_row_once(n):
+    b, heads = 2, 3
+    plan = A.attention_bwd_sm90_plan(b, n, heads, 80)
+    owned, swept = bwd_sm90_rows(plan, b)
+    # each pass's CTAs own every (batch, head, row) once; each CTA's sweep
+    # meets every key (query pass) or query (key pass) of its head once
+    assert sorted(owned) == [(bb, h, r) for bb in range(b) for h in range(heads)
+                             for r in range(n)]
+    assert all(s == list(range(n)) for s in swept)
+    assert plan["grid"] == b * heads * plan["tiles"]
+    # the scratch rows: every query tile's 64 rows, 16-byte aligned bulk copies
+    assert plan["np"] == 64 * plan["tiles"] >= n and (plan["np"] * 4) % 16 == 0
+
+
+@pytest.mark.parametrize("dh", BWD_DHS)
+@pytest.mark.parametrize("heads", [1, 2, 5])
+def test_bwd_sm90_boxes_cover_each_head_column_once(dh, heads):
+    plan = A.attention_bwd_sm90_plan(2, 257, heads, dh)
+    c = heads * dh
+    for op, base in (("q", 0), ("k", c), ("v", 2 * c), ("o", 0)):
+        for h in range(heads):
+            starts = plan["starts"][op][h]
+            cols = [s + i for s, (_, w, _) in zip(starts, plan["boxes"]) for i in range(w)]
+            assert cols == list(range(base + h * dh, base + (h + 1) * dh))
+            assert all(s % 8 == 0 for s in starts)  # a TMA box starts on 16 bytes
+
+
+@pytest.mark.parametrize("n", BWD_NS)
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_bwd_sm90_smem_at_every_stage_count(n, dh):
+    plan = A.attention_bwd_sm90_plan(4, n, 2, dh)
+    assert plan["stages"] == (2 if dh > 96 else 3)
+    assert plan["smem_q"] <= SMEM_LIMIT and plan["smem_k"] <= SMEM_LIMIT
+    # the query pass's 2-stage ring leaves room for three CTAs an SM (the SM's
+    # 228 KB) up to 80 columns, the key pass's for two
+    assert (3 if dh <= 80 else 2) * plan["smem_q"] <= 233472
+    assert 2 * plan["smem_k"] <= 233472
+
+
+@pytest.mark.parametrize("dh", [20, 136, 0, 4])
+def test_bwd_sm90_plan_rejects_head_widths(dh):
+    with pytest.raises(ValueError):
+        A.attention_bwd_sm90_plan(2, 257, 2, dh)
+
+
+def _stored(stores: list, segs: list, heads: int, grads: tuple) -> list:
+    """Write each head column of dq, dk, dv (value 1000 s + 100 h + column)
+    into copies of `grads` ([1, 1, width] each) through the store table, as
+    the kernels' column table does; NaN where nothing is written."""
+    outs = [torch.full(t.shape[-1:], float("nan"), dtype=torch.float64) for t in grads]
+    for s, parts in enumerate(stores):
+        for h in range(heads):
+            d = 0
+            for (t, ld, col, hs), sw in zip(parts, segs):
+                k = next(i for i, u in enumerate(grads) if u is t)
+                for o in range(sw):
+                    assert torch.isnan(outs[k][col + h * hs + o]), "a column written twice"
+                    outs[k][col + h * hs + o] = 1000 * s + 100 * h + d
+                    d += 1
+    return outs
+
+
+@pytest.mark.parametrize("d1,heads", [(5, 2), (8, 4), (10, 16), (16, 2)])
+def test_bwd_gradient_segments_cover_each_gradient_column_once(d1, heads):
+    """The store tables of the octic layouts (the six gradients of row 5,
+    the five of row 12) and the standard dqkv write every gradient column
+    exactly once, head h's column d of q, k, v where its input came from."""
+    c8, de = heads * d1, 2 * d1
+    segs = [d1] * 4 + [de] * 2
+    grads = tuple(torch.empty(1, 1, 3 * (c8 if i < 4 else 2 * c8)) for i in range(6))
+    outs = _stored(A._octic_array_pieces(grads, [t.shape[-1] for t in grads], heads, d1), segs,
+                   heads, grads)
+    assert not any(torch.isnan(o).any() for o in outs)
+    # value (s, h, d) lands in array j at column (s H + h) w + (d - start of j)
+    starts = [0, d1, 2 * d1, 3 * d1, 4 * d1, 4 * d1 + de]
+    for j, (o, w) in enumerate(zip(outs, segs)):
+        want = [1000 * s + 100 * h + starts[j] + i for s in range(3) for h in range(heads)
+                for i in range(w)]
+        assert o.tolist() == want
+    grads1d = tuple(torch.empty(1, 1, 4 * c8 if i < 3 else 6 * c8) for i in range(5))
+    outs = _stored(A._wide1d_array_pieces(grads1d, [t.shape[-1] for t in grads1d], heads, d1),
+                   segs, heads, grads1d)
+    assert not any(torch.isnan(o).any() for o in outs)
+    for s in range(3):
+        assert outs[s].tolist() == [1000 * s + 100 * h + i for h in range(heads)
+                                       for i in range(4 * d1)]
+
+
+@pytest.mark.parametrize("d1,heads", [(5, 2), (8, 4), (10, 3), (16, 2)])
+def test_route_a_assembly_is_the_wide_layout(d1, heads):
+    """Route (a)'s assembly tables (ops/attention.py:_pack_heads, the same
+    entries the card's pack_heads_kernel reads) give the wide qkv of the
+    octic arrays and of the wide-1d ones, and the cotangents in head order,
+    column views included."""
+    b, n, c8 = 2, 3, heads * d1
+    de = 2 * d1
+    segs = [d1] * 4 + [de] * 2
+    ef = torch.randn(b, n, 12 * c8)
+    qs = tuple(torch.randn(b, n, 3 * c8) for _ in range(4)) + (ef[..., :6 * c8], ef[..., 6 * c8:])
+    out = A._pack_heads(torch.empty(b, n, 24 * c8), A._octic_array_pieces(
+        qs, [t.stride(-2) for t in qs], heads, d1), segs, heads)
+    assert torch.equal(out, A._octic_to_wide(qs, heads))
+    y1d = torch.randn(b, n, 12 * c8)
+    w = 4 * c8
+    q1d = (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], ef[..., :6 * c8], ef[..., 6 * c8:])
+    out = A._pack_heads(torch.empty(b, n, 24 * c8), A._wide1d_array_pieces(
+        q1d, [t.stride(-2) for t in q1d], heads, d1), segs, heads)
+    assert torch.equal(out, A._wide1d_to_wide(q1d, heads))
+    gs = tuple(torch.randn(b, n, c8) for _ in range(4)) + tuple(
+        torch.randn(b, n, 2 * c8) for _ in range(2))
+    out = A._pack_heads(torch.empty(b, n, 8 * c8),
+                        [[(t, t.stride(-2), 0, w) for t, w in zip(gs, segs)]], segs, heads)
+    want = torch.cat([t.reshape(b, n, heads, -1) for t in gs], dim=-1).reshape(b, n, -1)
+    assert torch.equal(out, want)
