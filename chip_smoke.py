@@ -31,8 +31,16 @@ Phases, one line each (any failure raises and exits non-zero):
              K-lin-d8 -> K-attn-bwd -> K-lin-d8-bwd) against its plain version at
              the hybrid ViT-L/16 B=32 shapes (global crops 64 x 197 tokens, local
              crops 256 x 37) and at the ragged shape, with CUDA-event times of
-             the chain, its plain version and K-lin-d8-bwd alone; every other
-             kernel of the SSL step at the L/16 shapes (correctness only)
+             the chain and its plain version; then at the L/16 global and
+             local crops and, on the packed container, at ViT-H/14 B=32 (row
+             10b): the chain's first two launches, and K-lin-d8-bwd (one
+             persistent TMA + wgmma launch and its fixed-order reduction)
+             against its plain version under the forward bar (the weight
+             gradients too, stricter than the backward bar), two launches
+             bitwise equal, its device ms by CUDA-graph replay beside its
+             bound, its windowed ms, the host µs to enqueue one call and
+             cuBLAS doing the same products; every other kernel of the SSL
+             step at the L/16 shapes (correctness only)
   P9 SSL slice  hybrid_dinov2_vit_large_patch16 (full width and depth, f32
              parameters, bf16 compute, remat, drop path 0.3, DINO/iBOT head
              65536 wide) takes one DINOv2 step at B=32 (2 x 32 global 224^2 and
@@ -854,30 +862,52 @@ def ssl_batch(b: int, seed: int, n_local: int = 8) -> dict:
                                    mask_ratio_tuple=(0.1, 0.5), rng=random.Random(seed))
 
 
-def chain_times(gen, b, n, c, heads) -> dict:
-    """CUDA-event ms of each launch of the fused backward chain at one shape
-    (with bias): the K-lin-d8 qkv recompute (the wide store), K-attn-bwd
-    (route (a), with the cotangents' assembly), and K-lin-d8-bwd alone,
-    which is also held against its plain version."""
+def chain_times(gen, b, n, c, heads, packed=False) -> dict:
+    """The fused backward chain at one shape (with bias): CUDA-event ms of the
+    K-lin-d8 qkv recompute (the wide store) and of K-attn-bwd (route (a),
+    with the cotangents' assembly); then K-lin-d8-bwd on their output, held
+    against its plain version under the forward bar (dx, and dw1, dwe and
+    dbias too: stricter than the backward bar), two launches bitwise equal, its device ms by
+    CUDA-graph replay (tools/timing.py), its windowed ms, the host µs to
+    enqueue one call and the cuBLAS yardstick's device ms. With `packed` the
+    five inputs are the slot views of one packed container and dx lands in
+    the views of one packed gradient (row 10b)."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
     from octic_vits_tpu_torch.ops import attention as A
     from octic_vits_tpu_torch.ops import linear as Lin
+    from octic_vits_tpu_torch.tools import timing
+    from octic_vits_tpu_torch.tools.time_kernels import lin_d8_bwd_cublas
 
     ((_, _, _, (xs, w1, we, bq, gs, _), _, _),) = ssl_kernel_cases(gen, b, n, c, heads, True)
+    out = None
+    if packed:
+        xs = unpack_packed_5f(randn(gen, b, n, c))
+        out = unpack_packed_5f(torch.empty(b, n, c, device="cuda", dtype=torch.bfloat16))
     with torch.no_grad():
         qkv = Lin.lin_d8_wide_launch(xs, w1, we, bq, heads)
         dq = A._octic_wide_bwd_tuple(qkv, gs, heads)
-        out = Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], True)
+
+        def kern():
+            return Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:], True, out=out)
+        got = kern()
+        first = tuple(t.clone() for t in tuple(got[0]) + got[1:])
+        got = kern()
         torch.cuda.synchronize()
+        got = tuple(got[0]) + got[1:]
+        bitwise = all(torch.equal(x, y) for x, y in zip(first, got))
         ref = Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4], dq[4:], bq)
-        err, ok = compare(out[0] + out[1:], ref[0] + ref[1:])
+        err, ok = compare(got, tuple(ref[0]) + ref[1:])
         return {
             "qkv_recompute": time_ms(lambda: Lin.lin_d8_wide_launch(xs, w1, we, bq, heads)),
             "attention_bwd": time_ms(lambda: A._octic_wide_bwd_tuple(qkv, gs, heads)),
-            "lin_d8_bwd": time_ms(lambda: Lin.lin_d8_bwd_launch(xs, w1, we, dq[:4], dq[4:],
-                                                               True)),
+            "lin_d8_bwd": timing.time_per_launch(kern, graph=True),
+            "lin_d8_bwd_window": timing.time_per_launch(kern),
+            "lin_d8_bwd_host_us": timing.host_us_per_call(kern),
+            "lin_d8_bwd_cublas": timing.time_per_launch(
+                lin_d8_bwd_cublas(xs, w1, we, dq[:4], dq[4:]), graph=True),
             "lin_d8_bwd_plain": time_ms(lambda: Lin.lin_d8_bwd_reference(xs, w1, we, dq[:4],
                                                                         dq[4:], bq), iters=10),
-            "lin_d8_bwd_err": err, "lin_d8_bwd_ok": ok,
+            "lin_d8_bwd_err": err, "lin_d8_bwd_ok": ok, "lin_d8_bwd_bitwise": bitwise,
         }
 
 
@@ -1140,15 +1170,33 @@ def ssl_phases(gen, summary, card) -> dict:
            ("vitl16_local_b32", (8 * SSL_BATCH, 37, 1024, 16, True)),
            ("ragged", (3, 65, 64, 2, False)))
     kernel_phase("P8", ssl_kernel_cases, l16, gen, summary)
-    ct = chain_times(gen, *l16[0][1][:4])
-    lb_ms, lb_by = bound_lin_d8_bwd(*l16[0][1][:3])
-    phase("P8", f"fused qkv + attention backward chain at {l16[0][0]}: K-lin-d8 recompute "
-                f"{ct['qkv_recompute']:.4f} ms, K-attn-bwd {ct['attention_bwd']:.4f} ms, "
-                f"K-lin-d8-bwd {ct['lin_d8_bwd']:.4f} ms (bound {lb_ms:.4f} ms by {lb_by}; "
-                f"plain {ct['lin_d8_bwd_plain']:.4f} ms; max_abs_err {ct['lin_d8_bwd_err']:.3e} "
-                f"{'ok' if ct['lin_d8_bwd_ok'] else 'FAIL'})")
-    if not ct["lin_d8_bwd_ok"]:
-        raise AssertionError("K-lin-d8-bwd outside tolerance")
+    # K-lin-d8-bwd's shapes on the main paths: the SSL step's L/16 global and
+    # local crops (row 2b) and the packed DeiT step's H/14 B=32 (row 10b)
+    from octic_vits_tpu_torch.tools.time_kernels import LIN_BWD_SHAPES
+
+    cases = {}
+    for label, b, n, c, packed in LIN_BWD_SHAPES:
+        ct = chain_times(gen, b, n, c, 16, packed)
+        lb_ms, lb_by = bound_lin_d8_bwd(b, n, c)
+        phase("P8", f"fused qkv + attention backward chain at {label} ({b} x {n}, C={c}"
+                    f"{', packed' if packed else ''}): K-lin-d8 recompute "
+                    f"{ct['qkv_recompute']:.4f} ms, K-attn-bwd {ct['attention_bwd']:.4f} ms; "
+                    f"K-lin-d8-bwd {ct['lin_d8_bwd']:.4f} ms device (CUDA-graph replay; "
+                    f"windowed {ct['lin_d8_bwd_window']:.4f} ms; bound {lb_ms:.4f} ms by {lb_by}, "
+                    f"{lb_ms / ct['lin_d8_bwd']:.1%} of it; cuBLAS's products "
+                    f"{ct['lin_d8_bwd_cublas']:.4f} ms; plain {ct['lin_d8_bwd_plain']:.4f} ms), "
+                    f"host {ct['lin_d8_bwd_host_us']:.1f} us to enqueue; max_abs_err "
+                    f"{ct['lin_d8_bwd_err']:.3e} {'ok' if ct['lin_d8_bwd_ok'] else 'FAIL'}, two "
+                    f"launches {'bitwise equal' if ct['lin_d8_bwd_bitwise'] else 'DIFFER'}")
+        if not ct["lin_d8_bwd_ok"]:
+            raise AssertionError(f"K-lin-d8-bwd outside tolerance at {label}")
+        if not ct["lin_d8_bwd_bitwise"]:
+            raise AssertionError(f"K-lin-d8-bwd: two launches differ at {label}")
+        cases[f"lin_d8_bwd[{label}]"] = {
+            "ms": ct["lin_d8_bwd"], "bound_ms": lb_ms, "bound_by": lb_by,
+            "cublas_ms": ct["lin_d8_bwd_cublas"], "host_us": ct["lin_d8_bwd_host_us"],
+            "max_abs_err": ct["lin_d8_bwd_err"]}
+    summary["octic_attention_fused_qkv_bwd"]["cases"] = cases
     # the SSL step runs every other kernel at these shapes too: correctness only
     kernel_phase("P8", p2_cases, l16[:2], gen, summary, record=False)
     kernel_phase("P8", train_kernel_cases, l16[:2], gen, summary, record=False)

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels: K-dense
-// (csrc/dense.cu), K-attn's streamed forward (csrc/attention_std_core.cuh)
-// and K-lin-d8 (csrc/lin_d8_sm90.cuh).
+// (csrc/dense.cu), K-attn's streamed forward (csrc/attention_std_core.cuh),
+// K-lin-d8 (csrc/lin_d8_sm90.cuh) and K-lin-d8-bwd (csrc/lin_d8_bwd_sm90.cuh).
 //
 //   mbarrier  init, arrive, arrive with an expected transaction count, and a
 //             wait on a phase parity (a wait on parity P returns once the
@@ -14,7 +14,9 @@
 //   wgmma     the shared-memory matrix descriptor, fence / commit / wait,
 //             m64nNk16 bf16 products with f32 accumulators: A and B from
 //             shared memory, both K-major (wgmma_ss), A K-major and B
-//             MN-major (wgmma_ss_t: the transpose bit on B), or A from
+//             MN-major (wgmma_ss_t: the transpose bit on B), both MN-major
+//             (wgmma_ss_tt: the transpose bit on A and B, a product that
+//             contracts the token axis of two token-major tiles), or A from
 //             registers and B MN-major (wgmma_rs_t)
 //   named barriers  bar.sync on an id other than 0, for one warpgroup
 //   setmaxnreg  the register hand-over between a producer and its consumers
@@ -29,7 +31,7 @@
 //     matrices, rows 16 bytes apart, 8-row groups SBO apart, the two k halves
 //     of a k16 step LBO apart
 //   MN-major, swizzle S: rows (the k index) of S bytes of N; 8-row groups SBO
-//     apart; N = S / 2 columns a descriptor (one box)
+//     apart; blocks of S / 2 columns (one box each) LBO apart
 //   MN-major, no swizzle: rows of 8 columns, 16 bytes apart; 8-row groups
 //     LBO apart
 #pragma once
@@ -204,6 +206,11 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 template <int N>
 __device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t da, uint64_t db, int scale_d);
 
+// d[N/2] (+)= A[64x16] B[16xN]: A and B both MN-major (transpose bits on A
+// and B), in shared memory: A^T B where both tiles are stored k-row by k-row.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float* d, uint64_t da, uint64_t db, int scale_d);
+
 // d[N/2] (+)= A[64x16] B[16xN]: A in registers (the m16n8k16 A fragment of
 // each warp's 16 rows: a0 = (g, 2t..), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
 // a3 = (g+8, 2t+8..)), B MN-major in shared memory (transpose bit set).
@@ -238,6 +245,16 @@ __device__ __forceinline__ void wgmma_ss_t<32>(float* d, uint64_t da, uint64_t d
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<128>(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -50,7 +50,7 @@ SIGNATURES = {
     "ovt_attention_bwd_pack": [_P, _P],
     "ovt_attention_std_bwd_sync": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ovt_attention_octic_bwd_sync": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 6 + [_P],
-    "ovt_lin_d8_bwd": [_P] * 22 + [_I] * 8 + [_P],
+    "ovt_lin_d8_bwd": [_P] * 23 + [_I] * 13 + [_P],
     "ovt_ln_d8_fwd": [_P] * 14 + [_I] * 4 + [_F, _P],
     "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
     "ovt_gelu_d8": [_P] * 15 + [_I] * 3 + [_P],

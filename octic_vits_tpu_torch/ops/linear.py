@@ -30,6 +30,7 @@ five views may be column slices of one packed container
 from __future__ import annotations
 
 import functools
+import heapq
 from typing import Optional
 
 import torch
@@ -248,15 +249,114 @@ def lin_d8_bwd_reference(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tupl
             dbias)
 
 
+# K-lin-d8-bwd's tiling (csrc/lin_d8_bwd_sm90.cuh): units of one 128 x 128
+# output tile (two consumer warpgroups of 64 rows sharing the B box), 64-wide
+# k blocks of 32 KB through a ring of BWD_STAGES stages; dW tiles reduce the
+# token axis slab by slab into f32 partials (BWD_BIAS_PARTS quarters of a
+# k block's rows for dbias)
+BWD_BM, BWD_BN, BWD_BK, BWD_STAGES, BWD_BIAS_PARTS = 128, 128, 64, 6, 4
+BWD_KINDS = ("dx1", "dxe", "dw1", "dwe")  # a unit's kind, its code in the table
+# a slab's dq (the eight bf16 cotangent slots of its tokens) is kept under
+# this many bytes, so that it stays in the 50 MB L2 between its dx and dW units
+BWD_SLAB_BYTES = 14 << 20
+# the schedule's cost of a unit's epilogue, in k blocks: a dx tile's TMA
+# store, a dW tile's 64 KB f32 partial
+BWD_DX_EPI, BWD_DW_EPI = 2, 4
+
+
+@functools.lru_cache(maxsize=64)
+def lin_d8_bwd_plan(m: int, c: int, f: int, sms: int = NUM_SMS) -> dict:
+    """The launch plan of K-lin-d8-bwd (csrc/lin_d8_bwd.cu) for ``m`` tokens,
+    input width ``c`` and output width ``f`` per slot.
+
+    The token axis is cut into ``slabs`` slabs of whole 128-token tiles,
+    enough that each slab's cotangents take at most ``BWD_SLAB_BYTES``. The
+    units: for each 128-token tile, one dx unit per
+    128 input channels of each 1-d slot (``dx1``: K = f) and of each E row
+    (``dxe``: K = 2f); for each slab, one dW unit per 128 x 128 tile of each
+    w1[g] gradient (``dw1``) and of each E row's share of the we gradient
+    (``dwe``), K = the slab's tokens. Each unit is ``(kind + 4 slot, row tile,
+    column tile, slab)``. One persistent CTA an SM (never more than units)
+    takes its units in slab order: within a slab the longest first, each to
+    the CTA with the least work so far (``loads``, in k blocks plus each
+    epilogue's ``BWD_*_EPI``). ``table`` is what the kernel reads: the grid +
+    1 offsets of each CTA's units, padded to a multiple of 4, then the units
+    from ``units_at``. ``scratch_floats``: the f32 partials, ``slab_stride``
+    a slab (``tiles`` dW tiles of 128 x 128, then the dbias quarters).
+    ``smem``: align slack, the ring, each warpgroup's dx staging, the
+    barriers; the C entry point checks it. Cached: read it, do not change
+    it."""
+    if c % 8 or f % 8 or c < 8 or f < 8 or m < 1:
+        raise ValueError(f"lin_d8_bwd: widths c={c}, f={f} must be positive multiples of 8")
+
+    def cdiv(a, b):
+        return -(-a // b)
+
+    m_tiles = cdiv(m, BWD_BM)
+    ni1, nj1, nie, nje = cdiv(c, BWD_BM), cdiv(f, BWD_BN), cdiv(2 * c, BWD_BM), cdiv(2 * f, BWD_BN)
+    slab_tokens = cdiv(m_tiles, min(cdiv(m * 8 * f * 2, BWD_SLAB_BYTES), m_tiles)) * BWD_BM
+    slabs = cdiv(m, slab_tokens)
+    tiles = 4 * ni1 * nj1 + 2 * nie * nje
+    k_dx1, k_dxe = cdiv(f, BWD_BK) + BWD_DX_EPI, cdiv(2 * f, BWD_BK) + BWD_DX_EPI
+    per_slab = []
+    for s in range(slabs):
+        k_dw = cdiv(min(slab_tokens, m - s * slab_tokens), BWD_BK) + BWD_DW_EPI
+        dw = [((2 + 4 * g, i, j, s), k_dw) for g in range(4) for i in range(ni1)
+              for j in range(nj1)]
+        dw += [((3 + 4 * r, i, j, s), k_dw) for r in range(2) for i in range(nie)
+               for j in range(nje)]
+        dx = []
+        for mt in range(s * slab_tokens // BWD_BM, min(m_tiles, (s + 1) * slab_tokens // BWD_BM)):
+            dx += [((1 + 4 * r, mt, n, s), k_dxe) for r in range(2) for n in range(nie)]
+            dx += [((4 * g, mt, n, s), k_dx1) for g in range(4) for n in range(ni1)]
+        per_slab.append(sorted(dw + dx, key=lambda uc: -uc[1]))
+    n_units = sum(len(su) for su in per_slab)
+    grid = min(sms, n_units)
+    heap = [(0, cta) for cta in range(grid)]
+    lists = [[] for _ in range(grid)]
+    for su in per_slab:
+        for unit, cost in su:
+            load, cta = heapq.heappop(heap)
+            lists[cta].append(unit)
+            heapq.heappush(heap, (load + cost, cta))
+    loads = [0] * grid
+    for load, cta in heap:
+        loads[cta] = load
+    offsets = [0]
+    for lst in lists:
+        offsets.append(offsets[-1] + len(lst))
+    units_at = cdiv(grid + 1, 4) * 4
+    units = tuple(u for lst in lists for u in lst)
+    table = tuple(offsets) + (0,) * (units_at - grid - 1) + tuple(v for u in units for v in u)
+    slab_stride = tiles * BWD_BM * BWD_BN + BWD_BIAS_PARTS * nj1 * BWD_BN
+    stage = 4 * 64 * 64 * 2
+    return {"grid": grid, "slabs": slabs, "slab_tokens": slab_tokens,
+            "ni1": ni1, "nj1": nj1, "nie": nie, "nje": nje, "tiles": tiles,
+            "units": units, "n_units": n_units, "units_at": units_at, "table": table,
+            "loads": tuple(loads), "slab_stride": slab_stride,
+            "scratch_floats": slabs * slab_stride, "stage_bytes": stage,
+            "boxes": (("dq", (64, 64), 128, 128), ("x", (64, 64), 128, 128),
+                      ("w1", (64, BWD_BN, 1), 128, 128), ("we", (64, BWD_BN), 128, 128),
+                      ("dx", (64, 64), 128, 128), ("dxe", (64, 1, 64), 128, 128)),
+            "smem": 1024 + BWD_STAGES * stage + 2 * 2 * 64 * 64 * 2 + 2 * BWD_STAGES * 8}
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_table(m: int, c: int, f: int, sms: int, device: torch.device) -> torch.Tensor:
+    """The plan's unit table on `device`, made once a shape."""
+    return torch.tensor(lin_d8_bwd_plan(m, c, f, sms)["table"], dtype=torch.int32, device=device)
+
+
 def lin_d8_bwd_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, de: tuple,
                       with_bias: bool, out: Optional[tuple] = None) -> tuple:
-    """One launch of K-lin-d8-bwd (csrc/lin_d8_bwd.cu: three kernels in
-    stream order, no atomics) on CUDA bf16 tensors; the same outputs as
+    """One launch of K-lin-d8-bwd (csrc/lin_d8_bwd.cu: one persistent TMA +
+    wgmma kernel and its fixed-order reduction of the weight gradients, no
+    atomics) on CUDA bf16 tensors; the same outputs as
     :func:`lin_d8_bwd_reference`. The inputs `xs` may be column views of one
     packed container, and `out` (a flat-E 5-tuple of such views) receives dx
     in place (else it is allocated). The weight gradients reduce the token
-    axis in ``splits`` fixed chunks, enough for the 96 64x64 weight tiles of
-    ViT-L/16 to fill the card, through an f32 scratch. Counts nothing."""
+    axis slab by slab (:func:`lin_d8_bwd_plan`) through an f32 scratch.
+    Counts nothing."""
     _, c, f = w1.shape
     if c % 8 or f % 8:
         raise ValueError(f"lin_d8_bwd: widths c={c}, f={f} must be multiples of 8")
@@ -273,13 +373,15 @@ def lin_d8_bwd_launch(xs: tuple, w1: torch.Tensor, we: torch.Tensor, dq: tuple, 
     if olead != lead:
         raise ValueError("lin_d8_bwd: dx must have the input's shape")
     m = xs[0].numel() // c
-    tiles = 4 * -(-c // 64) * -(-f // 64) + -(-2 * c // 64) * -(-2 * f // 64)
-    splits = max(1, min(8, -(-4 * NUM_SMS // tiles), m // 512))
+    sms = _sms(xs[0].device)
+    plan = lin_d8_bwd_plan(m, c, f, sms)
     dw1, dwe = torch.empty_like(w1), torch.empty_like(we)
     dbias = torch.empty(f, device=w1.device, dtype=w1.dtype) if with_bias else None
-    scratch = torch.empty(splits * (8 * c * f + f), device=w1.device, dtype=torch.float32)
+    scratch = torch.empty(plan["scratch_floats"], device=w1.device, dtype=torch.float32)
     kernels.launch("ovt_lin_d8_bwd", *xs, w1, we, *dq, *de, *out, dw1, dwe, dbias, scratch,
-                   m, c, f, splits, ldx, ldxe, ldd, ldde)
+                   _bwd_table(m, c, f, sms, xs[0].device), m, c, f, ldx, ldxe, ldd, ldde,
+                   plan["grid"], plan["slabs"], plan["slab_tokens"], plan["n_units"],
+                   plan["units_at"], plan["smem"])
     return tuple(out), dw1, dwe, dbias
 
 

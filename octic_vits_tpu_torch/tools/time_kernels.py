@@ -7,12 +7,17 @@ It times the tree at DIR (default: the current directory; it imports DIR's
 ``chip_smoke`` and ``octic_vits_tpu_torch``, so DIR's own kernels are built
 and run): the forward kernels of P2 and the train-path kernels of P5 (B=64
 and B=32, with bias), and P11's, P15's and P18's B=64 kernels (the fused
-glue, the packed container, the wide qkv; P15's and P18's B=32 ones too, and
+glue, the packed container, the wide qkv; their B=32 ones too, and
 P8's fused qkv + attention backward at ViT-H/14 B=32) where that tree's
 ``chip_smoke.py`` has them: every kernel that runs K-attn-bwd is there (rows
 1b, 2b, 5, 10, 12 and 13a). P2's four kernels are timed again at ViT-H/14
 B=32 and at the L/16 SSL shapes (64 x 197 and 256 x 37 tokens), each under
-``name[shape]``. Each time is the median over 7 windows of 20 launches
+``name[shape]``. K-lin-d8-bwd alone (the tail of rows 2b and 10b) is timed
+at the L/16 global and local crops and on the packed container at H/14
+B=32 under ``lin_d8_bwd[shape]``, cuBLAS doing the same products beside it
+under ``lin_d8_bwd_cublas[shape]``, and the host microseconds to enqueue one
+of its calls under ``host_us``. Each time is the median over 7 windows of 20
+launches
 between one pair of CUDA events (this file's ``timing.py``, so both trees
 are timed by the same code), each window one replay of a CUDA graph of the
 20 launches, which holds the card's time alone (``ms``), and 20 launches
@@ -20,15 +25,17 @@ enqueued back to back, which holds the wrappers' host time where it exceeds
 the card's (``ms_window``); a kernel whose op cannot be captured in a graph
 (it synchronises) has its windowed time under ``ms`` too. It prints the
 card's name and power limit and one JSON line ``{"card": ..., "root": ...,
-"ms": {kernel: ms}, "ms_window": {kernel: ms}, "img_s": {model: img/s}}``
+"ms": {kernel: ms}, "ms_window": {kernel: ms}, "host_us": {kernel: µs},
+"img_s": {model: img/s}}``
 (a kernel with several cases sums their times; img/s of one B=64 forward
 of the standard ViT-H/14 and of the hybrid's path B, P4's and P13's
 models). To compare two commits, unpack the other one into a git-ignored
 directory and run this file with ``--root`` on each in turns (parent,
 change, change, parent) in one call. With ``--steps`` it times instead
-P7's hybrid DeiT train step (hybrid ViT-H/14, B=32) and P10's hybrid DINOv2
-step (hybrid ViT-L/16, B=32; ``--steps deit`` or ``--steps ssl`` one of
-them), seeded random weights, as those phases time them (the host clock
+P7's hybrid DeiT train step (hybrid ViT-H/14, B=32), P17's packed inv-early
+DeiT step (B=32) and P10's hybrid DINOv2 step (hybrid ViT-L/16, B=32;
+``--steps deit``, ``--steps packed`` or ``--steps ssl`` one of them), seeded
+random weights, as those phases time them (the host clock
 around each synchronized step, median of 10 after 2 warm-up), and the host
 microseconds to enqueue one ``linear_d8_fused`` at a small shape (M = 148,
 c = 16, F = 24; K-lin-d8 is launched 64-96 times a step), and prints ``{"card": ..., "root": ..., "step_ms": {...},
@@ -100,10 +107,68 @@ def lin_host_us(timing) -> float:
         return timing.host_us_per_call(lambda: ops.linear_d8_fused(xs, w1, we, bias))
 
 
+def lin_d8_bwd_cublas(xs, w1, we, dq, de):
+    """The products of K-lin-d8-bwd as cuBLAS calls, a yardstick timed beside
+    the kernel and never on the op's path: the operands stacked once
+    (untimed), then the four 1-d dx products as one bmm, the two E rows' as
+    one matmul, the four dw1 products as one bmm, dwe as one matmul over both
+    rows' tokens, and the dbias sum. Returns the callable."""
+    c = w1.shape[1]
+    dq4 = torch.stack([t.reshape(-1, t.shape[-1]) for t in dq])
+    de2 = torch.stack([t.reshape(-1, t.shape[-1]) for t in de])
+    x4 = torch.stack([t.reshape(-1, c) for t in xs[:4]])
+    ef = xs[4].reshape(-1, 4 * c)
+    rows, dec = torch.cat([ef[:, :2 * c], ef[:, 2 * c:]]), torch.cat(list(de2))
+    w1t, wet = w1.transpose(1, 2), we.t()
+
+    def run():
+        return (torch.bmm(dq4, w1t), torch.matmul(de2, wet), torch.bmm(x4.transpose(1, 2), dq4),
+                torch.mm(rows.t(), dec), dq4[0].sum(0))
+    return run
+
+
+# K-lin-d8-bwd alone (the tail of rows 2b and 10b): the L/16 global and local
+# crops, and the packed container at H/14 B=32 (row 10b), as (b, n, c, packed)
+LIN_BWD_SHAPES = (("l16_global", 64, 197, 1024, False), ("l16_local", 256, 37, 1024, False),
+                  ("h14_b32_packed", 32, 257, 1280, True))
+
+
+def lin_d8_bwd_cases(seed: int = 0) -> list:
+    """(label, the tree's K-lin-d8-bwd launch, cuBLAS's products) at each of
+    LIN_BWD_SHAPES with bias, seeded random bf16 operands; on the packed shape
+    the inputs are the slot views of one container and dx lands in the views
+    of another. Both trees of an A/B take the same launch signature."""
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+    from octic_vits_tpu_torch.ops import linear as Lin
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    cases = []
+    for label, b, n, c, packed in LIN_BWD_SHAPES:
+        c8 = c // 8
+        if packed:
+            xs, out = unpack_packed_5f(randn(b, n, c)), unpack_packed_5f(randn(b, n, c))
+        else:
+            xs, out = tuple(randn(b, n, c8) for _ in range(4)) + (randn(b, n, 4 * c8),), None
+        w1, we = randn(4, c8, 3 * c8, scale=c8 ** -0.5), randn(2 * c8, 6 * c8,
+                                                             scale=(2 * c8) ** -0.5)
+        dq = tuple(randn(b, n, 3 * c8) for _ in range(4))
+        de = tuple(randn(b, n, 6 * c8) for _ in range(2))
+        cases.append((label, lambda xs=xs, w1=w1, we=we, dq=dq, de=de, out=out:
+                      Lin.lin_d8_bwd_launch(xs, w1, we, dq, de, True, out=out),
+                      lin_d8_bwd_cublas(xs, w1, we, dq, de)))
+    return cases
+
+
 def step_ms(cs, which: str = "all") -> tuple:
-    """(median ms, every step's ms) of P7's hybrid DeiT step and P10's hybrid
-    SSL step (`which`: "deit", "ssl" or "all"), built and timed as
-    chip_smoke.py builds and times them."""
+    """(median ms, every step's ms) of P7's hybrid DeiT step, P17's packed
+    inv-early DeiT step (``packed_carry``, ``fuse_qkv``, ``fuse_mlp``: row
+    10b's chain runs in it) and P10's hybrid SSL step (`which`: "deit",
+    "packed", "ssl" or "all"), built and timed as chip_smoke.py builds and
+    times them (P17's at 10 steps after 2 warm-up, as P7's)."""
     from octic_vits_tpu_torch import create_model, init_weights
     from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
     from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
@@ -114,21 +179,25 @@ def step_ms(cs, which: str = "all") -> tuple:
     )
 
     med, every = {}, {}
-    if which != "ssl":
+    deit = {"deit": ("deit_hybrid", "hybrid_deit_huge_patch14", {}),
+            "packed": ("deit_inv_packed", "d8_inv_early_deit_huge_patch14",
+                       dict(packed_carry=True, fuse_qkv=True, fuse_mlp=True))}
+    for key in ("deit", "packed"):
+        if which not in ("all", key):
+            continue
+        label, arch, flags = deit[key]
         cfg = DeiTConfig()
-        model = create_model("hybrid_deit_huge_patch14", remat=True,
-                             drop_path_rate=cfg.drop_path, compute_dtype=torch.bfloat16,
-                             device="cuda")
+        model = create_model(arch, remat=True, drop_path_rate=cfg.drop_path,
+                             compute_dtype=torch.bfloat16, device="cuda", **flags)
         init_weights(model, torch.Generator("cuda").manual_seed(cs.SEED))
         state, step = cs.train_setup(model, cfg)
         tgen = torch.Generator().manual_seed(cs.SEED + 3)
         images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=tgen).cuda()
         labels = torch.randint(0, 1000, (cs.TRAIN_BATCH,), generator=tgen).cuda()
-        med["deit_hybrid"], every["deit_hybrid"] = cs.time_train_steps(state, step, images,
-                                                                       labels, tgen)
+        med[label], every[label] = cs.time_train_steps(state, step, images, labels, tgen)
         del state, step, model
         torch.cuda.empty_cache()
-    if which == "deit":
+    if which not in ("all", "ssl"):
         return med, every
     arch = SSLMetaArch(SSLConfig(backbone_remat=True), device="cuda")
     state = arch.init(torch.Generator("cuda").manual_seed(cs.SEED))
@@ -145,8 +214,10 @@ def step_ms(cs, which: str = "all") -> tuple:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".", help="root of the tree to time")
-    parser.add_argument("--steps", nargs="?", const="all", choices=("all", "deit", "ssl"),
-                        help="time P7's and/or P10's hybrid train steps instead of the kernels")
+    parser.add_argument("--steps", nargs="?", const="all",
+                        choices=("all", "deit", "packed", "ssl"),
+                        help="time P7's, P17's packed and/or P10's train steps instead of "
+                             "the kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
@@ -168,7 +239,8 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     h14 = (cs.BATCH, 257, 1280, 16, True)
     sets = [(cs.p2_cases, h14), (cs.train_kernel_cases, (cs.TRAIN_BATCH,) + h14[1:])]
-    for b64, b32 in (("glue_b64_cases", None), ("packed_b64_cases", "packed_b32_cases"),
+    for b64, b32 in (("glue_b64_cases", "glue_b32_cases"),
+                     ("packed_b64_cases", "packed_b32_cases"),
                      ("wide_b64_cases", "wide_b32_cases"), (None, "ssl_kernel_cases")):
         if b64 and hasattr(cs, b64):
             sets.append((getattr(cs, b64), h14))
@@ -197,8 +269,13 @@ def main() -> int:
         for label, shape in extra:
             for name, kern, _, args_, _, _ in cs.p2_cases(gen, *shape):
                 add(f"{name}[{label}]", lambda: kern(*args_))
+        host = {}
+        for label, kern, cublas in lin_d8_bwd_cases(cs.SEED):
+            add(f"lin_d8_bwd[{label}]", kern)
+            add(f"lin_d8_bwd_cublas[{label}]", cublas)
+            host[f"lin_d8_bwd[{label}]"] = timing.host_us_per_call(kern)
     print(json.dumps({"card": card, "root": root, "ms": times, "ms_window": windows,
-                      "img_s": model_img_s(cs)}), flush=True)
+                      "host_us": host, "img_s": model_img_s(cs)}), flush=True)
     return 0
 
 

@@ -315,7 +315,13 @@ def _fused_bwd_args(gen, b, n, c, bias):
     return xs, w1, we, bq, gs
 
 
-@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+# K-lin-d8-bwd also at the SSL step's L/16 width (global and local crops)
+# and, packed, at the DeiT step's H/14 B=32 (row 10b)
+LIN_BWD_SHAPES = SHAPES + [(64, 197, 1024, 16, True), (256, 37, 1024, 16, True)]
+LIN_BWD_PACKED_SHAPES = SHAPES + [(32, 257, 1280, 16, True)]
+
+
+@pytest.mark.parametrize("b,n,c,heads,bias", LIN_BWD_SHAPES)
 def test_lin_d8_bwd_kernel(gen, b, n, c, heads, bias):
     """K-lin-d8-bwd alone: bf16 operands, f32 sums, one bf16 rounding of each
     output on both sides, so the elementwise bar of the forward kernels."""
@@ -651,7 +657,7 @@ def test_lin_d8_strided_kernel(gen, b, n, c, heads, bias, gelu):
     _assert_close(tuple(out), ops.linear_d8_fused_reference(xs, w1, we, bq, gelu))
 
 
-@pytest.mark.parametrize("b,n,c,heads,bias", SHAPES)
+@pytest.mark.parametrize("b,n,c,heads,bias", LIN_BWD_PACKED_SHAPES)
 def test_lin_d8_bwd_strided_kernel(gen, b, n, c, heads, bias):
     """K-lin-d8-bwd reading the packed input in place and writing dx into the
     slot views of one packed gradient."""
@@ -669,6 +675,57 @@ def test_lin_d8_bwd_strided_kernel(gen, b, n, c, heads, bias):
     _assert_close(tuple(unpack_packed_5f(dx)) + (dw1, dwe), rxs + (rw1, rwe))
     if bias:
         _assert_close(db, rb)
+
+
+def _lin_bwd_inputs(gen, b, n, c, packed):
+    from octic_vits_tpu_torch.d8.group import unpack_packed_5f
+
+    c8 = c // 8
+    xs, w1, we, _, _ = _fused_bwd_args(gen, b, n, c, True)
+    if packed:
+        xs = _packed(gen, b, n, c8)[1]
+    dq = tuple(_randn(gen, b, n, 3 * c8) for _ in range(4))
+    de = tuple(_randn(gen, b, n, 6 * c8) for _ in range(2))
+    out = unpack_packed_5f(torch.empty(b, n, c, device="cuda", dtype=torch.bfloat16)) \
+        if packed else None
+    return xs, w1, we, dq, de, out
+
+
+@pytest.mark.parametrize("b,n,c,packed", [(64, 197, 1024, False), (32, 257, 1280, True),
+                                          (3, 65, 64, False)])
+def test_lin_d8_bwd_two_launches_are_bitwise_equal(gen, b, n, c, packed):
+    """No atomics: each dW partial has one writer and the slabs are summed in
+    a fixed order, so dx, dw1, dwe and dbias repeat bit for bit."""
+    xs, w1, we, dq, de, out = _lin_bwd_inputs(gen, b, n, c, packed)
+    first = ops.lin_d8_bwd_launch(xs, w1, we, dq, de, True, out=out)
+    first = tuple(t.clone() for t in first[0]) + tuple(t.clone() for t in first[1:])
+    second = ops.lin_d8_bwd_launch(xs, w1, we, dq, de, True, out=out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, tuple(second[0]) + second[1:]))
+
+
+def test_lin_d8_bwd_runs_on_a_fresh_thread(gen):
+    """K-lin-d8-bwd encodes its tensor maps on the calling thread: a thread
+    that has made no CUDA runtime call yet must launch it as the main
+    thread does."""
+    import threading
+
+    xs, w1, we, dq, de, _ = _lin_bwd_inputs(gen, 2, 37, 128, False)
+    want = ops.lin_d8_bwd_reference(xs, w1, we, dq, de, w1.new_zeros(w1.shape[2]))
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(ops.lin_d8_bwd_launch(xs, w1, we, dq, de, True))
+            torch.cuda.synchronize()
+        except Exception as exc:  # the assertion below reports it
+            errors.append(exc)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    _assert_close(tuple(got[0][0]) + got[0][1:], tuple(want[0]) + want[1:])
 
 
 def test_lin_d8_rejects_misaligned_views(gen):

@@ -6,7 +6,8 @@ the octic output scatter and K-lin-d8's grouped-column store; the
 dispatch of K-attn-bwd's mma.sync core between its whole-head and streamed
 forms; K-attn-bwd's TMA + wgmma plan (csrc/attention_bwd.cu: tiles, boxes,
 shared memory, the gradient store tables, route (a)'s assembly tables);
-held here without a card."""
+K-lin-d8-bwd's plan (csrc/lin_d8_bwd.cu: the units of every CTA, slab by
+slab, and the table the kernel reads); held here without a card."""
 
 import pytest
 import torch
@@ -519,3 +520,107 @@ def test_route_a_assembly_is_the_wide_layout(d1, heads):
                         [[(t, t.stride(-2), 0, w) for t, w in zip(gs, segs)]], segs, heads)
     want = torch.cat([t.reshape(b, n, heads, -1) for t in gs], dim=-1).reshape(b, n, -1)
     assert torch.equal(out, want)
+
+
+# ---- K-lin-d8-bwd (csrc/lin_d8_bwd.cu): one persistent launch of dx and dW
+# units, slab by slab, and the fixed-order reduction of the dW partials
+
+def lin_d8_bwd_units(plan: dict) -> list:
+    """(CTA, kind, slot, row tile, column tile, slab) of every unit, in each
+    CTA's order, read from the table as csrc/lin_d8_bwd_sm90.cuh reads it:
+    CTA x takes units table[x] .. table[x + 1] - 1 of the int4 units from
+    index units_at."""
+    t, at = plan["table"], plan["units_at"]
+    out = []
+    for x in range(plan["grid"]):
+        for u in range(t[x], t[x + 1]):
+            w = t[at + 4 * u:at + 4 * u + 4]
+            out.append((x, L.BWD_KINDS[w[0] & 3], w[0] >> 2, w[1], w[2], w[3]))
+    return out
+
+
+# the L/16 global and local crops, H/14 B=32, the ragged shape and 17 tokens;
+# the slot widths c = 8, 24, 40, 128, 160 (the qkv: f = 3c)
+BWD_SHAPES = [(12608, 128, 384), (9472, 128, 384), (8224, 160, 480), (195, 8, 24),
+              (34, 8, 24)] + [(1000, c, 3 * c) for c in (8, 24, 40, 128, 160)]
+
+
+@pytest.mark.parametrize("m,c,f", BWD_SHAPES)
+def test_lin_d8_bwd_plan_writes_every_dx_element_once(m, c, f):
+    """Each dx unit writes its 128 tokens x 128 channels of one slot's dx,
+    clipped at m and at the slot's width (c, or 2c for an E row): every
+    element of dx_g and of each E row's half of dxef once, each unit's
+    tokens inside its slab."""
+    plan = L.lin_d8_bwd_plan(m, c, f)
+    seen = [torch.zeros(m, c, dtype=torch.int32) for _ in range(4)] + [
+        torch.zeros(m, 2 * c, dtype=torch.int32) for _ in range(2)]
+    for _, kind, slot, rt, ct, slab in lin_d8_bwd_units(plan):
+        if kind in ("dx1", "dxe"):
+            out = seen[slot] if kind == "dx1" else seen[4 + slot]
+            m0, n0 = rt * L.BWD_BM, ct * L.BWD_BN
+            assert m0 < m and n0 < out.shape[1]
+            assert m0 // plan["slab_tokens"] == slab
+            out[m0:m0 + L.BWD_BM, n0:n0 + L.BWD_BN] += 1
+    assert all(bool((s == 1).all()) for s in seen)
+
+
+@pytest.mark.parametrize("m,c,f", BWD_SHAPES)
+def test_lin_d8_bwd_plan_sums_every_weight_gradient_once_a_slab(m, c, f):
+    """The slabs cut [0, m) into runs of whole 128-token tiles, in order;
+    every element of each w1[g] gradient and of each E row's share of the we
+    gradient is covered by exactly one dW unit in every slab, each unit
+    writing its own partial (csrc/lin_d8_bwd_sm90.cuh:tile_of), so the
+    reduction sums S partials (2S for we) in slab order."""
+    plan = L.lin_d8_bwd_plan(m, c, f)
+    s, st = plan["slabs"], plan["slab_tokens"]
+    assert st % L.BWD_BM == 0 and (s - 1) * st < m <= s * st
+    cover = {("dw1", g): torch.zeros(s, c, f, dtype=torch.int32) for g in range(4)}
+    cover |= {("dwe", r): torch.zeros(s, 2 * c, 2 * f, dtype=torch.int32) for r in range(2)}
+    partials = set()
+    for _, kind, slot, rt, ct, slab in lin_d8_bwd_units(plan):
+        if kind in ("dw1", "dwe"):
+            i0, j0 = rt * L.BWD_BM, ct * L.BWD_BN
+            cov = cover[kind, slot]
+            assert i0 < cov.shape[1] and j0 < cov.shape[2]
+            cov[slab, i0:i0 + L.BWD_BM, j0:j0 + L.BWD_BN] += 1
+            tile = ((slot * plan["ni1"] + rt) * plan["nj1"] + ct if kind == "dw1" else
+                    4 * plan["ni1"] * plan["nj1"] + (slot * plan["nie"] + rt) * plan["nje"] + ct)
+            assert 0 <= tile < plan["tiles"]
+            partials.add((slab, tile))
+    assert all(bool((cov == 1).all()) for cov in cover.values())
+    assert len(partials) == s * plan["tiles"]  # no partial written twice
+    per_slab = plan["tiles"] * L.BWD_BM * L.BWD_BN + L.BWD_BIAS_PARTS * plan["nj1"] * L.BWD_BN
+    assert plan["slab_stride"] == per_slab and plan["scratch_floats"] == s * per_slab
+
+
+@pytest.mark.parametrize("m,c,f", BWD_SHAPES)
+def test_lin_d8_bwd_plan_schedule_table_and_smem(m, c, f):
+    """One CTA an SM (never more than units), each with work, taking its
+    units slab by slab; the loads balanced; the table's offsets, padding and
+    units as the kernel reads them; the ring, the staging and the barriers
+    within the H100's 227 KB; the registers of two consumer warpgroups and
+    the producer within the SM's."""
+    plan = L.lin_d8_bwd_plan(m, c, f)
+    units = lin_d8_bwd_units(plan)
+    assert len(units) == plan["n_units"] == len(plan["units"])
+    assert plan["grid"] == min(L.NUM_SMS, plan["n_units"])
+    assert plan["units_at"] % 4 == 0 and plan["units_at"] >= plan["grid"] + 1
+    assert len(plan["table"]) == plan["units_at"] + 4 * plan["n_units"]
+    for x in range(plan["grid"]):
+        slabs = [u[5] for u in units if u[0] == x]
+        assert slabs and slabs == sorted(slabs)
+    loads = plan["loads"]
+    assert min(loads) > 0
+    if m >= 8224:  # the main path's shapes: the longest CTA within 15% of the mean
+        assert max(loads) <= 1.15 * sum(loads) / len(loads)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert plan["smem"] == 1024 + L.BWD_STAGES * plan["stage_bytes"] + 2 * 16384 + 16 * L.BWD_STAGES
+    assert 2 * 128 * 232 + 128 * 40 <= 65536
+    for _, box, inner, swizzle in plan["boxes"]:
+        assert inner == 2 * box[0] <= swizzle and max(box) <= 256
+
+
+def test_lin_d8_bwd_plan_rejects_widths():
+    for m, c, f in ((16, 12, 36), (16, 8, 20), (0, 8, 24), (16, 4, 8)):
+        with pytest.raises(ValueError):
+            L.lin_d8_bwd_plan(m, c, f)
