@@ -56,9 +56,15 @@ Phases, one line each (any failure raises and exits non-zero):
              statistics-only LN pair, the proj with the LayerScale + residual
              epilogue and the fused MLP branch at ViT-H/14 B=64; the affine LN
              backward and the D8-GELU forward and backward on the MLP hidden at
-             B=32; all of them at the ragged shape; then one forward and
-             backward of LayerNormD8(elementwise_affine=False), the only caller
-             of the statistics-only pair
+             B=32; all of them at the ragged shape; then the affine LN backward
+             (row 8; one persistent launch fed by 1-D bulk copies and the sum of
+             its partials) at ViT-H/14 B=32, the L/16 global crop and the ragged
+             shape: dx under the forward bar, the parameter gradients under the
+             backward bar, two launches bitwise equal, its device ms by
+             CUDA-graph replay beside its bound and the parent kernel's
+             (PARENT_LN_BWD_MS); then one forward and backward of
+             LayerNormD8(elementwise_affine=False), the only caller of the
+             statistics-only pair
   P12 path A  hybrid ViT-H/14 B=64 bf16 with fuse_mlp_branch and the LN kernel
              (OCTIC_PALLAS_LN): launches of every kernel, logits of two images
              against P3's CPU f32 logits (same weights)
@@ -1352,6 +1358,58 @@ def glue_b32_cases(gen, b, n, c, heads, bias):
     ]
 
 
+# The affine LN backward's device ms before its redesign (csrc/ln_d8.cu at
+# f5ef818: CTAs of 16 rows, the parameter sums in shared memory), by
+# CUDA-graph replay in tools/time_kernels.py (ln_bwd[shape]) on an NVIDIA H100
+# 80GB HBM3 at 700 W: its two turns in the A/B of PERF.md section 6, row 8
+PARENT_LN_BWD_MS = {"h14_b32": "0.0707-0.0709", "l16_global": "0.0900-0.0903",
+                    "ragged": "0.0066-0.0068"}
+
+
+def ln_bwd_checks(gen) -> dict:
+    """P11's affine LN backward (row 8) at tools/time_kernels.LN_BWD_SHAPES:
+    f32 scales as the train step holds them; dx against the forward bar and
+    the parameter gradients against the backward bar, two launches bitwise
+    equal, the device ms by CUDA-graph replay (tools/timing.py) beside its
+    bound, its plain version's ms and the parent's. Raises on a failed check;
+    returns each shape's numbers under ``ln_bwd[shape]``."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools import timing
+    from octic_vits_tpu_torch.tools.time_kernels import LN_BWD_SHAPES
+
+    cases, failed = {}, []
+    for label, b, n, c8 in LN_BWD_SHAPES:
+        xs, us = tuple5(gen, b, n, c8, shift=0.5), tuple5(gen, b, n, c8)
+        al, ae, _ = ln_params(gen, c8, torch.float32)
+
+        def kern():
+            return ops.ln_affine_d8_bwd(xs, al, ae, us)
+        with torch.no_grad():
+            first = tuple(t.clone() for t in flat(kern()))
+            got = flat(kern())
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(x, y) for x, y in zip(first, got, strict=True))
+            ref = ops.ln_affine_d8_bwd_reference(xs, al, ae, us)
+            err, ok = compare(got, flat(ref), (False,) * 5 + (True,) * 3)
+            ms = timing.time_per_launch(kern, graph=True)
+            plain_ms = time_ms(lambda: ops.ln_affine_d8_bwd_reference(xs, al, ae, us), iters=10)
+        b_ms, b_by = bound("ln_affine_d8_bwd", (b, n, 8 * c8, 0, False))
+        phase("P11", f"affine LN backward at {label} ({b} x {n}, c={c8}): {ms:.4f} ms device "
+                     f"(CUDA-graph replay; bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it; "
+                     f"parent {PARENT_LN_BWD_MS[label]} ms; plain {plain_ms:.4f} ms); "
+                     f"max_abs_err {err:.3e} (dx {ATOL}+{RTOL}*|ref|, parameters "
+                     f"{BWD_TOL}*(max|ref|+|ref|)) {'ok' if ok else 'FAIL'}, two launches "
+                     f"{'bitwise equal' if bitwise else 'DIFFER'}")
+        if not (ok and bitwise):
+            failed.append(label)
+        cases[f"ln_bwd[{label}]"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "plain_ms": plain_ms, "max_abs_err": err}
+        del xs, us, first, got, ref
+    if failed:
+        raise AssertionError(f"affine LN backward outside its bars or not repeatable: {failed}")
+    return cases
+
+
 def with_ln_kernel(on: bool) -> None:
     """The D8 LayerNorm kernel switch (OCTIC_PALLAS_LN), read at each call."""
     from octic_vits_tpu_torch.layers import d8_layers
@@ -1373,6 +1431,7 @@ def glue_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
     kernel_phase("P11", glue_b64_cases, (("vith14_b64", h14), ragged), gen, summary)
     kernel_phase("P11", glue_b32_cases, (("vith14_b32", (TRAIN_BATCH,) + h14[1:]), ragged), gen,
                  summary)
+    summary["ln_affine_d8_bwd"]["cases"] = ln_bwd_checks(gen)
     with_ln_kernel(True)
     c8 = h14[2] // 8
     xs = tuple(t.requires_grad_() for t in tuple5(gen, BATCH, 257, c8, shift=0.5))

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels: K-dense
 // (csrc/dense.cu), K-attn's streamed forward (csrc/attention_std_core.cuh),
-// K-lin-d8 (csrc/lin_d8_sm90.cuh) and K-lin-d8-bwd (csrc/lin_d8_bwd_sm90.cuh).
+// K-lin-d8 (csrc/lin_d8_sm90.cuh) and K-lin-d8-bwd (csrc/lin_d8_bwd_sm90.cuh);
+// the mbarrier and the 1-D bulk copy also feed K-ln-d8's affine backward
+// (csrc/ln_d8.cu).
 //
 //   mbarrier  init, arrive, arrive with an expected transaction count, and a
 //             wait on a phase parity (a wait on parity P returns once the
 //             phase with that parity has completed; a fresh barrier counts
 //             its "previous" phase, parity 1, as complete)
-//   TMA       tile loads (2-D and 3-D boxes, completion reported to an
-//             mbarrier as bytes) and the 2-D and 3-D tile stores with their
-//             bulk groups;
+//   TMA       1-D bulk copies and tile loads (2-D and 3-D boxes), completion
+//             reported to an mbarrier as bytes, and the 2-D and 3-D tile
+//             stores with their bulk groups;
 //             out-of-bounds elements of a load arrive as zeros, and the
 //             transaction count is always the whole box
 //   wgmma     the shared-memory matrix descriptor, fence / commit / wait,
@@ -99,6 +101,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // --------------------------------------------------------------------- TMA
+
+// 1-D bulk copy of `bytes` (a multiple of 16; `dst` and `src` 16-byte
+// aligned) from global to shared memory, completion reported to `bar` as
+// bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {

@@ -52,7 +52,7 @@ SIGNATURES = {
     "ovt_attention_octic_bwd_sync": ([_P] * 6 + [_I] * 6) * 2 + [_P] * 8 + [_I] * 6 + [_P],
     "ovt_lin_d8_bwd": [_P] * 23 + [_I] * 13 + [_P],
     "ovt_ln_d8_fwd": [_P] * 14 + [_I] * 4 + [_F, _P],
-    "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 5 + [_F, _P],
+    "ovt_ln_d8_bwd": [_P] * 20 + [_I] * 9 + [_F, _P],
     "ovt_gelu_d8": [_P] * 15 + [_I] * 3 + [_P],
     "ovt_attention_probe": [_P] * 3 + [_I] * 3 + [_P] * 7 + [_I] * 12 + [_P],
     "ovt_attention_headmajor_bwd": [_P] * 5 + [_I] * 4 + [_P],

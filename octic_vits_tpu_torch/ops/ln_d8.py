@@ -20,15 +20,52 @@ a2, b1, b2, ef)`` with a* ``[..., c]`` and ``ef [..., 4c] = [row0 | row1]``;
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_4
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
+from octic_vits_tpu_torch.ops.linear import NUM_SMS
 
 _K2 = SQRT2_OVER_4 * SQRT2_OVER_4
-ROWS_PER_SPLIT = 16  # csrc/ln_d8.cu: rows of one affine-backward CTA
 MAX_C = 256  # the kernel holds a token row in the registers of one warp
+# csrc/ln_d8.cu: the chunk registers a lane may hold (ceil(c / 32) rounded up
+# to one of these), the warps of a CTA and the stages of a warp's ring in the
+# affine backward
+LN_NV = (1, 2, 4, 5, 8)
+LN_WARPS = 8
+LN_BWD_STAGES = 2
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_plan(m: int, c: int, sms: int = NUM_SMS) -> dict:
+    """The launch plan of K-ln-d8's affine backward (csrc/ln_d8.cu) for
+    ``m`` token rows of slot width ``c``.
+
+    ``nv`` chunk registers a lane (8 bf16 each); ``grid`` persistent CTAs,
+    one an SM (the kernel's launch bounds: a warp holds a row's out and ust
+    in f32 beside its parameter-gradient sums), of ``rows`` contiguous rows
+    each (the last range ragged); a range holds at least ``stages`` rows a
+    warp, so a small ``m`` takes few CTAs. Each warp's ring holds
+    ``stages`` rows of x and u, each row ten 1-D bulk copies of ``copies``
+    bytes (the four slots and the E row) for each tensor.
+    ``partial_floats``: one CTA's f32 parameter-gradient slots; ``smem``: the
+    barriers and the larger of the rings and the warps' sums. The C entry
+    point checks the plan. Cached: read it, do not change it."""
+    if c % 8 or c < 8 or c > MAX_C or m < 1:
+        raise ValueError(f"ln_d8_bwd: the slot width c={c} must be a multiple of 8 in "
+                         f"[8, {MAX_C}], and m={m} at least 1")
+    nv = next(v for v in LN_NV if 32 * v >= c)
+    partial_floats = 256 * (nv + 1)
+    ring = LN_WARPS * LN_BWD_STAGES * 32 * c
+    smem = LN_WARPS * LN_BWD_STAGES * 8 + max(ring, LN_WARPS * partial_floats * 4)
+    rows = max(-(-m // sms), LN_WARPS * LN_BWD_STAGES)
+    return {"m": m, "c": c, "nv": nv, "warps": LN_WARPS, "stages": LN_BWD_STAGES,
+            "rows": rows, "grid": -(-m // rows),
+            "partial_floats": partial_floats, "smem": smem,
+            "copies": (2 * c,) * 4 + (8 * c,)}
 
 
 def _stats(xs: tuple, eps: float) -> tuple:
@@ -155,7 +192,8 @@ def ln_fwd_launch(xs: tuple, alpha, alpha_ef, beta, eps: float, with_var: bool =
 
 def ln_bwd_launch(xs: tuple, alpha, alpha_ef, us: tuple, var, eps: float) -> tuple:
     """One launch of the K-ln-d8 backward (two kernels in stream order with
-    the affine: the rows, then the parameter gradients' split-order sum).
+    the affine, on :func:`ln_bwd_plan`: the rows, then the fixed-order sum
+    of the CTAs' parameter-gradient partials).
     With `alpha`: `xs` is the forward's input; returns ``(dxs, dalpha,
     dalpha_ef, dbeta)`` with the parameter gradients in f32. Without: `xs` is
     the normalized output and `var` its variance; returns dxs."""
@@ -170,14 +208,15 @@ def ln_bwd_launch(xs: tuple, alpha, alpha_ef, us: tuple, var, eps: float) -> tup
         if var is None or var.dtype != torch.float32 or var.numel() != m or not var.is_contiguous():
             raise ValueError("ln_d8_bwd: var must be a contiguous f32 [M, 1]")
         kernels.launch("ovt_ln_d8_bwd", *xs, None, None, *us, var, *dxs, None, None, m, c, 0, 0,
-                       0, 0.0)
+                       0, 0, 0, 0, 0, 0.0)
         return dxs
     f32 = _check_params(alpha, alpha_ef, None, c)
-    splits = -(-m // ROWS_PER_SPLIT)
-    partial = torch.empty(splits, 9 * c, device=dev, dtype=torch.float32)
+    plan = ln_bwd_plan(m, c)
+    partial = torch.empty(plan["grid"], plan["partial_floats"], device=dev, dtype=torch.float32)
     dparams = torch.empty(9 * c, device=dev, dtype=torch.float32)
     kernels.launch("ovt_ln_d8_bwd", *xs, alpha, alpha_ef, *us, None, *dxs, partial, dparams, m, c,
-                   1, int(f32), splits, float(eps))
+                   1, int(f32), plan["grid"], plan["rows"], plan["stages"], plan["smem"],
+                   plan["partial_floats"], float(eps))
     return (dxs, dparams[:4 * c].reshape(4, c), dparams[4 * c:8 * c].reshape(1, 4 * c),
             dparams[8 * c:].reshape(1, c))
 

@@ -16,11 +16,14 @@ B=32 and at the L/16 SSL shapes (64 x 197 and 256 x 37 tokens), each under
 at the L/16 global and local crops and on the packed container at H/14
 B=32 under ``lin_d8_bwd[shape]``, cuBLAS doing the same products beside it
 under ``lin_d8_bwd_cublas[shape]``, and the host microseconds to enqueue one
-of its calls under ``host_us``. Each time is the median over 7 windows of 20
-launches
-between one pair of CUDA events (this file's ``timing.py``, so both trees
-are timed by the same code), each window one replay of a CUDA graph of the
-20 launches, which holds the card's time alone (``ms``), and 20 launches
+of its calls under ``host_us``. K-ln-d8's affine backward (row 8) is timed
+alone at H/14 B=32, the L/16 global crop and the ragged shape under
+``ln_bwd[shape]``. ``--only TEXT`` times only the kernels whose name holds
+TEXT (no img/s), for trial trees that differ in one kernel. Each time is the
+median over 7 windows of 20 launches between one pair of CUDA events (this
+file's ``timing.py``, so both trees are timed by the same code), each window
+one replay of a CUDA graph of the 20 launches, which holds the card's time
+alone (``ms``), and 20 launches
 enqueued back to back, which holds the wrappers' host time where it exceeds
 the card's (``ms_window``); a kernel whose op cannot be captured in a graph
 (it synchronises) has its windowed time under ``ms`` too. It prints the
@@ -32,14 +35,19 @@ of the standard ViT-H/14 and of the hybrid's path B, P4's and P13's
 models). To compare two commits, unpack the other one into a git-ignored
 directory and run this file with ``--root`` on each in turns (parent,
 change, change, parent) in one call. With ``--steps`` it times instead
-P7's hybrid DeiT train step (hybrid ViT-H/14, B=32), P17's packed inv-early
-DeiT step (B=32) and P10's hybrid DINOv2 step (hybrid ViT-L/16, B=32;
-``--steps deit``, ``--steps packed`` or ``--steps ssl`` one of them), seeded
-random weights, as those phases time them (the host clock
+P7's hybrid DeiT train step (hybrid ViT-H/14, B=32), P14's path-C DeiT step
+(plain octic linears, the D8-GELU and LN kernels: the 32 launches of the
+LN's affine backward a step run here), P17's packed inv-early DeiT step
+(B=32) and P10's hybrid DINOv2 step (hybrid ViT-L/16, B=32; ``--steps
+deit``, ``path_c``, ``packed`` or ``ssl`` one of them), seeded random
+weights, as those phases time them (the host clock
 around each synchronized step, median of 10 after 2 warm-up), and the host
 microseconds to enqueue one ``linear_d8_fused`` at a small shape (M = 148,
 c = 16, F = 24; K-lin-d8 is launched 64-96 times a step), and prints ``{"card": ..., "root": ..., "step_ms": {...},
-"step_ms_all": {...}, "lin_host_us": ...}``: the steps' host time, which a
+"step_ms_all": {...}, "lin_host_us": ..., "ln_bwd_views": ...}``
+(``ln_bwd_views``: in one path-C step, the LN backwards whose cotangents
+arrived as non-contiguous views, which the op copies, and the backwards in
+all): the steps' host time, which a
 wrapper's host cost moves and a CUDA-graph replay hides. Needs a CUDA
 device.
 """
@@ -163,13 +171,66 @@ def lin_d8_bwd_cases(seed: int = 0) -> list:
     return cases
 
 
+# K-ln-d8's affine backward alone (row 8): the path-C DeiT step's H/14 B=32,
+# the L/16 global crop and P11's ragged shape, as (b, n, c8)
+LN_BWD_SHAPES = (("h14_b32", 32, 257, 160), ("l16_global", 64, 197, 128), ("ragged", 3, 65, 8))
+
+
+def ln_bwd_cases(seed: int = 0) -> list:
+    """(label, one call of the tree's ``ops.ln_affine_d8_bwd``) at each of
+    LN_BWD_SHAPES: seeded bf16 input and cotangent, f32 scales near 1 (the
+    train step's parameters). Both trees of an A/B take the same call."""
+    from octic_vits_tpu_torch import ops
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def five(b, n, c8):
+        return tuple(torch.randn(b, n, w, generator=g, device="cuda").to(torch.bfloat16)
+                     for w in (c8,) * 4 + (4 * c8,))
+
+    cases = []
+    for label, b, n, c8 in LN_BWD_SHAPES:
+        xs, us = five(b, n, c8), five(b, n, c8)
+        al = 1.0 + 0.2 * torch.randn(4, c8, generator=g, device="cuda")
+        ae = 1.0 + 0.2 * torch.randn(1, 4 * c8, generator=g, device="cuda")
+        cases.append((label, lambda xs=xs, us=us, al=al, ae=ae:
+                      ops.ln_affine_d8_bwd(xs, al, ae, us)))
+    return cases
+
+
+def ln_bwd_views(cs, model, cfg, images, labels, gen) -> tuple:
+    """(LN backwards whose cotangents came as non-contiguous views, LN
+    backwards in all) over one train step of `model`: each such view costs
+    the op a copy (``u.contiguous()``) before its kernel."""
+    from octic_vits_tpu_torch.ops import ln_d8
+
+    seen = []
+    inner = ln_d8._LnAffine.backward
+
+    def backward(ctx, *us):
+        seen.append(any(not u.is_contiguous() for u in us))
+        return inner(ctx, *us)
+
+    state, step = cs.train_setup(model, cfg)
+    ln_d8._LnAffine.backward = staticmethod(backward)
+    try:
+        step(state, images, labels, gen)
+        torch.cuda.synchronize()
+    finally:
+        ln_d8._LnAffine.backward = staticmethod(inner)
+    return sum(seen), len(seen)
+
+
 def step_ms(cs, which: str = "all") -> tuple:
-    """(median ms, every step's ms) of P7's hybrid DeiT step, P17's packed
+    """(median ms, every step's ms, path C's ``ln_bwd_views``) of P7's
+    hybrid DeiT step, P14's path-C step (the LN kernel on), P17's packed
     inv-early DeiT step (``packed_carry``, ``fuse_qkv``, ``fuse_mlp``: row
     10b's chain runs in it) and P10's hybrid SSL step (`which`: "deit",
-    "packed", "ssl" or "all"), built and timed as chip_smoke.py builds and
-    times them (P17's at 10 steps after 2 warm-up, as P7's)."""
+    "path_c", "packed", "ssl" or "all"), built and timed as chip_smoke.py
+    builds and times them (P14's and P17's at 10 steps after 2 warm-up, as
+    P7's)."""
     from octic_vits_tpu_torch import create_model, init_weights
+    from octic_vits_tpu_torch.layers import d8_layers
     from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
     from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
     from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
@@ -178,11 +239,13 @@ def step_ms(cs, which: str = "all") -> tuple:
         batch_to_device,
     )
 
-    med, every = {}, {}
+    med, every, views = {}, {}, None
     deit = {"deit": ("deit_hybrid", "hybrid_deit_huge_patch14", {}),
+            "path_c": ("deit_path_c", "hybrid_deit_huge_patch14",
+                       dict(use_pallas_linear=False, use_pallas_gelu=True)),
             "packed": ("deit_inv_packed", "d8_inv_early_deit_huge_patch14",
                        dict(packed_carry=True, fuse_qkv=True, fuse_mlp=True))}
-    for key in ("deit", "packed"):
+    for key in ("deit", "path_c", "packed"):
         if which not in ("all", key):
             continue
         label, arch, flags = deit[key]
@@ -190,15 +253,19 @@ def step_ms(cs, which: str = "all") -> tuple:
         model = create_model(arch, remat=True, drop_path_rate=cfg.drop_path,
                              compute_dtype=torch.bfloat16, device="cuda", **flags)
         init_weights(model, torch.Generator("cuda").manual_seed(cs.SEED))
-        state, step = cs.train_setup(model, cfg)
+        d8_layers.OCTIC_PALLAS_LN = key == "path_c"
         tgen = torch.Generator().manual_seed(cs.SEED + 3)
         images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=tgen).cuda()
         labels = torch.randint(0, 1000, (cs.TRAIN_BATCH,), generator=tgen).cuda()
+        if key == "path_c":
+            views = ln_bwd_views(cs, model, cfg, images, labels, tgen)
+        state, step = cs.train_setup(model, cfg)
         med[label], every[label] = cs.time_train_steps(state, step, images, labels, tgen)
+        d8_layers.OCTIC_PALLAS_LN = False
         del state, step, model
         torch.cuda.empty_cache()
     if which not in ("all", "ssl"):
-        return med, every
+        return med, every, views
     arch = SSLMetaArch(SSLConfig(backbone_remat=True), device="cuda")
     state = arch.init(torch.Generator("cuda").manual_seed(cs.SEED))
     lr = sqrt_lr_scaling(4e-3, cs.SSL_BATCH)
@@ -208,16 +275,18 @@ def step_ms(cs, which: str = "all") -> tuple:
         state, arch.make_train_step(), batch, sched, torch.Generator().manual_seed(cs.SEED + 6))
     del state, arch
     torch.cuda.empty_cache()
-    return med, every
+    return med, every, views
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".", help="root of the tree to time")
     parser.add_argument("--steps", nargs="?", const="all",
-                        choices=("all", "deit", "packed", "ssl"),
-                        help="time P7's, P17's packed and/or P10's train steps instead of "
-                             "the kernels")
+                        choices=("all", "deit", "path_c", "packed", "ssl"),
+                        help="time P7's, P14's path-C, P17's packed and/or P10's train steps "
+                             "instead of the kernels")
+    parser.add_argument("--only", default=None,
+                        help="time only the kernels whose name holds this text")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
@@ -232,9 +301,10 @@ def main() -> int:
     card = cs.gpu_name_and_power()
     print(card, flush=True)
     if args.steps:
-        med, every = step_ms(cs, args.steps)
+        med, every, views = step_ms(cs, args.steps)
         print(json.dumps({"card": card, "root": root, "step_ms": med, "step_ms_all": every,
-                          "lin_host_us": lin_host_us(timing)}), flush=True)
+                          "lin_host_us": lin_host_us(timing), "ln_bwd_views": views}),
+              flush=True)
         return 0
     gen = torch.Generator("cuda").manual_seed(cs.SEED)
     h14 = (cs.BATCH, 257, 1280, 16, True)
@@ -253,6 +323,8 @@ def main() -> int:
     times, windows = {}, {}
 
     def add(name, fn):
+        if args.only is not None and args.only not in name:
+            return
         win = timing.time_per_launch(fn)
         try:
             dev = timing.time_per_launch(fn, graph=True)
@@ -273,9 +345,13 @@ def main() -> int:
         for label, kern, cublas in lin_d8_bwd_cases(cs.SEED):
             add(f"lin_d8_bwd[{label}]", kern)
             add(f"lin_d8_bwd_cublas[{label}]", cublas)
-            host[f"lin_d8_bwd[{label}]"] = timing.host_us_per_call(kern)
+            if args.only is None or args.only in f"lin_d8_bwd[{label}]":
+                host[f"lin_d8_bwd[{label}]"] = timing.host_us_per_call(kern)
+        for label, kern in ln_bwd_cases(cs.SEED):
+            add(f"ln_bwd[{label}]", kern)
+    img_s = model_img_s(cs) if args.only is None else {}
     print(json.dumps({"card": card, "root": root, "ms": times, "ms_window": windows,
-                      "host_us": host, "img_s": model_img_s(cs)}), flush=True)
+                      "host_us": host, "img_s": img_s}), flush=True)
     return 0
 
 

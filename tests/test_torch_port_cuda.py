@@ -445,13 +445,19 @@ def test_ln_affine_d8_kernel(gen, b, n, c8, param_dtype):
                   ops.ln_affine_d8_reference(xs, *params))
 
 
+# the affine backward's plan edges (ops/ln_d8.py:ln_bwd_plan): M = 13 inside one
+# CTA's range, M = 5000 over every CTA slot with a ragged last range, and the
+# L/16 global crop (M = 12608, c = 128)
+LN_BWD_SHAPES = GLUE_SHAPES + [(1, 13, 160), (5, 1000, 16), (64, 197, 128)]
+
+
 @pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)
+@pytest.mark.parametrize("b,n,c8", LN_BWD_SHAPES)
 def test_ln_affine_d8_bwd_kernel(gen, b, n, c8, param_dtype):
     """dx within the forward bar (f32 math on both sides, one bf16 rounding);
     the parameter gradients (f32 sums over the tokens, in another order)
     within the scaled bar; and the same bits on a second run, which pins the
-    fixed-order split-M reduction."""
+    fixed-order sum of the CTAs' partials."""
     xs, us = _tuple5(gen, b, n, c8, shift=0.5), _tuple5(gen, b, n, c8)
     al, ae, _ = _ln_params(gen, c8, param_dtype)
     out = _counted(ops.ln_affine_d8_bwd, xs, al, ae, us)
@@ -463,6 +469,22 @@ def test_ln_affine_d8_bwd_kernel(gen, b, n, c8, param_dtype):
     again = ops.ln_affine_d8_bwd(xs, al, ae, us)
     for o, a in zip(out[1:], again[1:]):
         assert torch.equal(o, a)
+
+
+@pytest.mark.parametrize("edit", [{"stages": 3}, {"smem": 16}, {"rows": 8}, {"grid": 3},
+                                  {"partial_floats": 256}])
+def test_ln_affine_d8_bwd_refuses_other_plans(gen, monkeypatch, edit):
+    """The C entry checks the plan of ops/ln_d8.py:ln_bwd_plan against the
+    kernel's (ring stages, shared memory, row ranges that cover M, partial
+    size) and launches nothing on a mismatch."""
+    from octic_vits_tpu_torch.ops import ln_d8
+
+    xs, us = _tuple5(gen, 1, 20, 160), _tuple5(gen, 1, 20, 160)
+    al, ae, _ = _ln_params(gen, 160, torch.float32)
+    plan = dict(ln_d8.ln_bwd_plan(20, 160), **edit)
+    monkeypatch.setattr(ln_d8, "ln_bwd_plan", lambda m, c: plan)
+    with pytest.raises(RuntimeError, match="launch plan disagrees"):
+        ops.ln_affine_d8_bwd(xs, al, ae, us)
 
 
 @pytest.mark.parametrize("b,n,c8", GLUE_SHAPES)

@@ -7,7 +7,9 @@ dispatch of K-attn-bwd's mma.sync core between its whole-head and streamed
 forms; K-attn-bwd's TMA + wgmma plan (csrc/attention_bwd.cu: tiles, boxes,
 shared memory, the gradient store tables, route (a)'s assembly tables);
 K-lin-d8-bwd's plan (csrc/lin_d8_bwd.cu: the units of every CTA, slab by
-slab, and the table the kernel reads); held here without a card."""
+slab, and the table the kernel reads); K-ln-d8's affine backward (csrc/ln_d8.cu:
+the CTAs' row ranges, the warps' rings of bulk copies, the parameter-gradient
+slots); held here without a card."""
 
 import pytest
 import torch
@@ -15,6 +17,7 @@ import torch
 from octic_vits_tpu_torch.ops import attention as A
 from octic_vits_tpu_torch.ops import dense as D
 from octic_vits_tpu_torch.ops import linear as L
+from octic_vits_tpu_torch.ops import ln_d8 as LN
 
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
 HEAD_DIMS = list(range(8, 129, 8))
@@ -624,3 +627,105 @@ def test_lin_d8_bwd_plan_rejects_widths():
     for m, c, f in ((16, 12, 36), (16, 8, 20), (0, 8, 24), (16, 4, 8)):
         with pytest.raises(ValueError):
             L.lin_d8_bwd_plan(m, c, f)
+
+
+# ---- K-ln-d8's affine backward (csrc/ln_d8.cu:ln_bwd_affine_kernel)
+
+# (m, c): H/14 B=32, the L/16 global crop, P11's ragged shape, one range cut
+# short, a ragged last range past the minimum, one row, every chunk count
+LN_BWD_CASES = [(8224, 160), (12608, 128), (195, 8), (9, 160), (5000, 16), (1, 256),
+                (4225, 64), (777, 40), (300, 96), (1000, 136), (2049, 256)]
+
+
+def ln_bwd_rows(plan: dict) -> list:
+    """(CTA, warp, rows in the warp's order) as ln_bwd_affine_kernel walks
+    them: CTA b's range [b rows, (b + 1) rows) cut at m, its warp w taking
+    rows w, w + warps, ... of the range."""
+    out = []
+    for b in range(plan["grid"]):
+        end = min(plan["m"], (b + 1) * plan["rows"])
+        for w in range(plan["warps"]):
+            out.append((b, w, list(range(b * plan["rows"] + w, end, plan["warps"]))))
+    return out
+
+
+def ln_bwd_param_of(p: int, nv: int, c: int) -> int:
+    """The parameter gradient of partial slot p (csrc/ln_d8.cu:bwd_param_of):
+    dalpha 8k + j over [alpha | alpha_ef], dbeta 8c + 8k + j; -1 for none."""
+    if p < 256 * nv:
+        k = 32 * (p >> 8) + (p & 31)
+        return 8 * k + ((p >> 5) & 7) if k < c else -1
+    r = p - 256 * nv
+    k = r & 31
+    return 8 * c + 8 * k + (r >> 5) if k < c // 8 else -1
+
+
+@pytest.mark.parametrize("m,c", LN_BWD_CASES)
+def test_ln_bwd_plan_covers_every_row_once_in_contiguous_ranges(m, c):
+    """Each CTA one non-empty contiguous range of ``rows`` rows (the last cut
+    at m), the ranges in CTA order covering [0, m); every row taken by one
+    warp of its CTA; at most one CTA an SM, each range at least a full ring
+    a warp."""
+    plan = LN.ln_bwd_plan(m, c)
+    rows, grid = plan["rows"], plan["grid"]
+    assert grid <= L.NUM_SMS
+    assert rows >= plan["warps"] * plan["stages"]
+    assert (grid - 1) * rows < m <= grid * rows
+    seen = torch.zeros(m, dtype=torch.int32)
+    for b, _, mine in ln_bwd_rows(plan):
+        assert all(b * rows <= r < min(m, (b + 1) * rows) for r in mine)
+        seen[mine] += 1
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("m,c", LN_BWD_CASES)
+def test_ln_bwd_plan_depends_only_on_m_c_and_sms(m, c):
+    """The plan is a function of (m, c, sms): recomputed, it is the same; on a
+    card of other SM counts only the grid and the rows move."""
+    plan = LN.ln_bwd_plan.__wrapped__(m, c)
+    assert plan == LN.ln_bwd_plan(m, c) == LN.ln_bwd_plan.__wrapped__(m, c, L.NUM_SMS)
+    for sms in (66, 114, 132):
+        other = LN.ln_bwd_plan.__wrapped__(m, c, sms)
+        assert {k: v for k, v in other.items() if k not in ("grid", "rows")} == \
+            {k: v for k, v in plan.items() if k not in ("grid", "rows")}
+        assert other["grid"] <= sms
+
+
+@pytest.mark.parametrize("c", range(8, LN.MAX_C + 1, 8))
+def test_ln_bwd_plan_smem_and_slots_at_every_width(c):
+    """Shared memory within the H100's 227 KB a CTA; the rings and the
+    warps' sums as the kernel lays them out; the partial's slots land on
+    each of the 9c parameter gradients once, the rest on none."""
+    plan = LN.ln_bwd_plan(8224, c)
+    nv, warps, stages = plan["nv"], plan["warps"], plan["stages"]
+    assert 32 * nv >= c and all(32 * v < c for v in LN.LN_NV if v < nv)
+    assert plan["smem"] <= SMEM_LIMIT
+    assert plan["smem"] == warps * stages * 8 + max(warps * stages * 32 * c,
+                                                    warps * plan["partial_floats"] * 4)
+    assert plan["partial_floats"] == 256 * (nv + 1)
+    params = [ln_bwd_param_of(p, nv, c) for p in range(plan["partial_floats"])]
+    assert sorted(e for e in params if e >= 0) == list(range(9 * c))
+
+
+@pytest.mark.parametrize("c", range(8, LN.MAX_C + 1, 8))
+def test_ln_bwd_plan_bulk_copies_are_16_byte_multiples(c):
+    """A row of x (and of u) is five 1-D bulk copies: four slots of 2c bytes
+    and the E row of 8c, each a multiple of 16 bytes, landing back to back
+    in the stage (chunk k at 16 k) and read from 16-byte multiples of the
+    arrays (row m at m 2c and m 8c bytes)."""
+    plan = LN.ln_bwd_plan(1000, c)
+    copies = plan["copies"]
+    assert copies == (2 * c,) * 4 + (8 * c,) and sum(copies) == 16 * c
+    at = 0
+    for nbytes in copies:
+        assert nbytes % 16 == 0 and at % 16 == 0
+        at += nbytes
+    for m in (1, 7, 999):
+        assert (m * 2 * c) % 16 == 0 and (m * 8 * c) % 16 == 0
+    assert (plan["warps"] * plan["stages"] * 8) % 16 == 0  # the rings start on 16 bytes
+
+
+def test_ln_bwd_plan_rejects_widths():
+    for m, c in ((16, 12), (16, 4), (16, 0), (16, 264), (0, 8), (16, 257)):
+        with pytest.raises(ValueError):
+            LN.ln_bwd_plan(m, c)
