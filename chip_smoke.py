@@ -181,6 +181,26 @@ Phases, one line each (any failure raises and exits non-zero):
              the host time per call; the yardstick launched once (0 on every
              model path).
              `python3 chip_smoke.py --p26` runs P26 alone
+  P27 evaluation  the eval suites (octic_vits_tpu_torch.eval) on
+             hybrid_dinov2_vit_large_patch16 features at full width: (a)
+             get_intermediate_layers(n=4) at B=64 bf16 (launches against
+             EVAL_LAUNCHES, the teacher's share of SSL_LAUNCHES; the last
+             normed cls bitwise equal to forward_features'; 2 images against
+             the CPU f32 plain path; img/s of feature extraction in turns with
+             dinov2_vit_large_patch16); (b) k-NN on a seeded IN1K-sized bank
+             (1,281,167 x 1024 bf16, 1000 classes, 10,000 queries, ks 10, 20,
+             100, 200), in f32 on a 100,000-row sub-bank against the CPU; (c)
+             the linear-probe grid (4 variants x 13 lrs) for 20 iterations on
+             the backbone at B=64, one bank step of each variant against the
+             CPU f32 step; (d) the attention-pool grid (cls, avg_patch, patch;
+             30 members) for 10 iterations, members 0 and 29's AdamW step
+             against the CPU; (e) the segmentation probes on an ADE20K-sized
+             bank (3,961,160 x 1024 bf16 train, 392,000 val, 150 classes): the
+             device logistic regression for 10 L-BFGS iterations (ragged last
+             chunk, non-increasing objective, peak memory within the two banks
+             + 2 GiB) and the k-NN probe (k 30, L2 and cosine; 20,000 val
+             patches; on a 100,000-row sub-bank equal to the CPU's
+             predictions); each segment's seconds and peak memory
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -192,6 +212,7 @@ phase prints its seconds.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import statistics
@@ -1133,10 +1154,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_26_launches = redesign_26_phases(gen, summary, card)
 
+    torch.cuda.empty_cache()
+    eval_launches = eval_phases(card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
-              "probe_25": probe_25_launches, "probe_26": probe_26_launches}
+              "probe_25": probe_25_launches, "probe_26": probe_26_launches,
+              "eval": eval_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -3354,6 +3379,344 @@ def redesign_26_phases(gen, summary, card) -> dict:
     del qkv, g
     torch.cuda.empty_cache()
     return counts
+
+
+# ---- P27: evaluation at full width on hybrid ViT-L/16 features ----
+# the teacher's share of SSL_LAUNCHES: one eval-mode forward of the hybrid
+# ViT-L/16 (12 octic and 12 standard blocks) launches each inference kernel
+# once per block of its half
+EVAL_LAUNCHES = {"octic_attention_fused_qkv": 12, "mlp_d8_fused": 12, "standard_attention": 12,
+                 "dense_gelu": 12}
+IN1K_TRAIN, IN1K_CLASSES, KNN_QUERIES = 1_281_167, 1000, 10_000  # IN1K val has 50,000
+ADE_TRAIN, ADE_VAL, ADE_CLASSES = 20_210 * 196, 2_000 * 196, 150  # images x 14 x 14 patches
+SEG_QUERIES = 20_000  # of the val bank, for the k-NN probe (a cut for time)
+# card against CPU, both in f32 (TF32 off): relative error of a query's votes
+# (max |card - CPU| over max |CPU|) and the share of queries within it
+KNN_REL_TOL, KNN_MIN_SHARE = 1e-4, 0.995
+# the segmentation k-NN's sub-bank, tiled so that four tiles of the bank and
+# a last one of 4 rows (fewer than k) merge on the card and on the CPU; a
+# query's 30 neighbours must be the CPU's, or as near in f64 within
+# SEG_NEAR_TOL of its nearest's score (two roundings of a near tie)
+SEG_SUB, SEG_SUB_TILE, SEG_SUB_QUERIES, SEG_NEAR_TOL = 100_000, 24_999, 2_000, 1e-5
+# one probe step on the card against the CPU f32 step from the same state:
+# relative L2 error of each updated tensor
+PROBE_REL_TOL = 1e-4
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def class_bank(gen, n, centers, noise, chunk=262144):
+    """``[n, D]`` bf16 features around the rows of `centers` (seeded labels),
+    drawn where `centers` lie a chunk at a time; and the int64 labels."""
+    dev = centers.device
+    labels = torch.randint(0, centers.shape[0], (n,), generator=gen, device=dev)
+    bank = torch.empty(n, centers.shape[1], device=dev, dtype=torch.bfloat16)
+    for s in range(0, n, chunk):
+        c = centers[labels[s: s + chunk]]
+        bank[s: s + chunk] = c + noise * torch.randn(c.shape, generator=gen, device=dev)
+    return bank, labels
+
+
+def segment(tag, card, what, t0) -> None:
+    torch.cuda.synchronize()
+    phase(tag, f"{what}: {time.perf_counter() - t0:.2f} s, peak "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+
+
+def seg_knn_neighbours_vs_cpu(bank, labels, queries, distance) -> tuple:
+    """KNNSegProbe's 30 neighbours of each query on the card and on the CPU,
+    the f32 bank tiled in SEG_SUB_TILE rows on both. Returns the number of
+    queries whose neighbour lists are equal, and the number whose lists'
+    f64 scores (sorted) agree within SEG_NEAR_TOL of the largest."""
+    from octic_vits_tpu_torch.eval.segmentation import KNNSegProbe
+
+    got = []
+    for dev in ("cuda", "cpu"):
+        probe = KNNSegProbe(30, distance, ADE_CLASSES, bank_tile=SEG_SUB_TILE).fit(
+            bank.to(dev), labels.to(dev))
+        got.append(probe._neighbours(probe._prepare(queries.to(dev)), 30).cpu())
+    t, q = bank.cpu().double(), queries.cpu().double()
+    if distance == "cosine":
+        t, q = t / t.norm(dim=-1, keepdim=True), q / q.norm(dim=-1, keepdim=True)
+        scores = [(q[:, None] * t[i]).sum(-1) for i in got]
+    else:
+        scores = [-((q[:, None] - t[i]) ** 2).sum(-1) for i in got]
+    scores = [s.sort(-1, descending=True).values for s in scores]
+    scale = scores[1].abs().amax(-1)
+    near = (scores[0] - scores[1]).abs().amax(-1) <= SEG_NEAR_TOL * scale
+    return int((got[0] == got[1]).all(-1).sum()), int(near.sum())
+
+
+def eval_phases(card) -> dict:
+    """P27: the evaluation suites on hybrid ViT-L/16 features at full width.
+    (a) get_intermediate_layers at B=64 (launches against EVAL_LAUNCHES, the
+    last normed cls bitwise equal to forward_features', B=2 against the CPU
+    f32 plain path, img/s in turns with dinov2_vit_large_patch16); (b) k-NN
+    on an IN1K-sized bf16 bank, checked in f32 against the CPU; (c) the
+    linear-probe grid on the backbone, one bank step against the CPU; (d)
+    the attention-pool grid, members 0 and 29's step against the CPU; (e)
+    the segmentation probes on an ADE20K-sized bank: the device logistic
+    regression (ragged chunks, non-increasing objective, peak memory within
+    the two banks + 2 GiB) and the k-NN probe (both distances; a tiled
+    sub-bank's neighbours against the CPU's). Returns the launches of (a)'s
+    forward."""
+    from octic_vits_tpu_torch import create_model, init_weights, ops
+    from octic_vits_tpu_torch.eval import (
+        LinearProbeBank,
+        build_probe_features,
+        evaluate_knn,
+        knn_classify,
+        train_and_eval_linear_probes,
+        train_probe_grid,
+        with_intermediate_layers,
+    )
+    from octic_vits_tpu_torch.eval import attnpool
+    from octic_vits_tpu_torch.eval.linear import DEFAULT_LRS, DEFAULT_VARIANTS, scale_lr
+    from octic_vits_tpu_torch.eval.metrics import confusion_matrix, miou_from_confusion
+    from octic_vits_tpu_torch.eval.segmentation import KNNSegProbe, LogregSegProbe
+
+    # ---- (a) features ----
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with_ln_kernel(False)  # P3's inference kernels
+    name = "hybrid_dinov2_vit_large_patch16"
+    cpu_model = create_model(name, init_scale=1.0, device="cpu").eval()
+    init_weights(cpu_model, torch.Generator().manual_seed(SEED))
+    model = create_model(name, init_scale=1.0, device="cuda", dtype=torch.bfloat16).eval()
+    model.load_state_dict(cpu_model.state_dict(), strict=True)
+    images = torch.randn(BATCH, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 27))
+    x = images.to("cuda", torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = model.get_intermediate_layers(x, 4, return_class_token=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with torch.no_grad():
+        cls_ref = model.forward_features(x)["x_norm_clstoken"]
+        cpu_outs = cpu_model.get_intermediate_layers(images[:2].to(torch.bfloat16).float(), 4,
+                                                     return_class_token=True)
+    got = torch.cat([t[:2].float().flatten().cpu() for pair in outs for t in pair])
+    ref = torch.cat([t.flatten() for pair in cpu_outs for t in pair])
+    rel = ((got - ref).norm() / ref.norm()).item()
+    bitwise = torch.equal(outs[-1][1], cls_ref)
+    shapes = [tuple(t.shape) for t in outs[0]]
+    phase("P27", f"(a) {name} B={BATCH} bf16 get_intermediate_layers(n=4): shapes {shapes}, "
+                 f"launches {launches}; last normed cls "
+                 f"{'bitwise equal to' if bitwise else 'DIFFERS from'} forward_features'; 2 images "
+                 f"vs CPU f32 plain path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+    if launches != expected_launches(EVAL_LAUNCHES):
+        raise AssertionError(f"eval launches {launches}, expected {EVAL_LAUNCHES}")
+    if not (bitwise and rel <= SLICE_REL_TOL and all(bool(t.isfinite().all())
+                                                      for pair in outs for t in pair)):
+        raise AssertionError("intermediate layers disagree with forward_features or the CPU")
+    del cpu_model, cpu_outs, cls_ref, outs
+    std = create_model("dinov2_vit_large_patch16", device="cuda", dtype=torch.bfloat16).eval()
+    init_weights(std, torch.Generator("cuda").manual_seed(SEED))
+    with torch.no_grad():
+        feats_ms = {}
+        for label, net in (("hybrid", model), ("standard", std), ("hybrid2", model),
+                           ("standard2", std)):
+            feats_ms[label] = time_ms(lambda: net.get_intermediate_layers(x, 4, True, True),
+                                      iters=10, warmup=2)
+    del std, net
+    ips = {k: BATCH / (v / 1e3) for k, v in feats_ms.items()}
+    ratio = (min(feats_ms["standard"], feats_ms["standard2"])
+             / min(feats_ms["hybrid"], feats_ms["hybrid2"]))
+    phase("P27", f"(a) feature extraction (n=4) B={BATCH} 224^2 bf16 on {card}, in turns: "
+                 + ", ".join(f"{k} {v:.2f} ms ({ips[k]:.1f} img/s)" for k, v in feats_ms.items())
+                 + f"; ratio hybrid/standard img/s {ratio:.4f}")
+    segment("P27", card, "(a) features", t0)
+
+    # ---- (b) k-NN at IN1K scale ----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 28)
+    centers = torch.randn(IN1K_CLASSES, 1024, generator=kgen, device="cuda")
+    bank, bank_labels = class_bank(kgen, IN1K_TRAIN, centers, 3.0)
+    queries, query_labels = class_bank(kgen, KNN_QUERIES, centers, 3.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    accs = evaluate_knn(bank, bank_labels, queries, query_labels, IN1K_CLASSES)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t1
+    phase("P27", f"(b) k-NN: bank {IN1K_TRAIN} x 1024 bf16 ({bank.numel() * 2 / 1e9:.2f} GB), "
+                 f"{IN1K_CLASSES} classes, {KNN_QUERIES} queries, ks (10, 20, 100, 200), T 0.07, "
+                 f"batch 1024: {knn_s:.2f} s ({KNN_QUERIES / knn_s:.0f} queries/s) on {card}; "
+                 f"{accs}")
+    sub, sub_labels, q = bank[:100_000].float(), bank_labels[:100_000], queries[:1024].float()
+    card_votes = knn_classify(sub, sub_labels, q, IN1K_CLASSES)
+    cpu_votes = knn_classify(sub.cpu(), sub_labels.cpu(), q.cpu(), IN1K_CLASSES)
+    for k, v in cpu_votes.items():
+        cv = card_votes[k].cpu()
+        within = (cv - v).abs().amax(1) <= KNN_REL_TOL * v.abs().amax(1)
+        same = (cv.argmax(1) == v.argmax(1))[within].all().item()
+        share = within.float().mean().item()
+        phase("P27", f"(b) f32 sub-bank 100000 x 1024, 1024 queries, k={k}: card vs CPU votes "
+                     f"within {KNN_REL_TOL} relative for {share:.4f} of queries (min "
+                     f"{KNN_MIN_SHARE}), same argmax on those {same}")
+        if not (share >= KNN_MIN_SHARE and same):
+            raise AssertionError(f"k-NN votes disagree with the CPU at k={k}")
+    del bank, bank_labels, queries, query_labels, sub, q, card_votes, cpu_votes
+    segment("P27", card, "(b) k-NN", t0)
+
+    # ---- (c) the linear-probe grid on the backbone ----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cgen = torch.Generator("cuda").manual_seed(SEED + 29)
+    batches = [(torch.randn(BATCH, IMG, IMG, 3, generator=cgen, device="cuda").to(torch.bfloat16),
+                torch.randint(0, 1000, (BATCH,), generator=cgen, device="cuda"))
+               for _ in range(4)]
+    feature_fn = with_intermediate_layers(model, n=4)
+    res = train_and_eval_linear_probes(feature_fn, lambda: iter(batches[:3]), batches[3:], 1000,
+                                       iters=20, batch_size=BATCH)
+    phase("P27", f"(c) linear-probe grid: 20 iterations at B={BATCH}, 4 variants x 13 lrs x 1000 "
+                 f"classes on {card}: best {res['best_classifier']} top-1 {res['best_top1']:.4f} "
+                 f"({len(res) - 2} classifiers)")
+    lrs = tuple(scale_lr(lr, BATCH) for lr in DEFAULT_LRS)
+    outs = feature_fn(batches[0][0])
+    for v in DEFAULT_VARIANTS:
+        feats = build_probe_features(outs, v)
+        bank_c = LinearProbeBank(feats.shape[-1], 1000, lrs, iters=20, device="cuda")
+        for it in range(3):  # a state with momentum
+            bank_c.train_step(feats, batches[it][1], it)
+        bank_h = LinearProbeBank(feats.shape[-1], 1000, lrs, iters=20, device="cpu")
+        for n in ("w", "b", "mw", "mb"):
+            setattr(bank_h, n, getattr(bank_c, n).cpu())
+        bank_c.train_step(feats, batches[3][1], 3)
+        bank_h.train_step(feats.cpu(), batches[3][1].cpu(), 3)
+        errs = {n: rel_l2(getattr(bank_c, n), getattr(bank_h, n)) for n in ("w", "b", "mw", "mb")}
+        phase("P27", f"(c) {v.name} (D={feats.shape[-1]}) one bank step, card vs CPU f32 from the "
+                     f"same state: rel L2 {errs} (tol {PROBE_REL_TOL})")
+        if not max(errs.values()) <= PROBE_REL_TOL:
+            raise AssertionError(f"linear-probe step disagrees with the CPU: {v.name}")
+    del bank_c, bank_h, outs
+    segment("P27", card, "(c) linear probes", t0)
+
+    # ---- (d) the attention-pool grid ----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def pool_feats(images):
+        with torch.no_grad():
+            f = model.forward_features(images)
+        return {"cls": f["x_norm_clstoken"], "avg_patch": f["x_norm_patchtokens"].mean(1),
+                "patch": f["x_norm_patchtokens"]}
+
+    res = train_probe_grid(pool_feats, lambda: iter(batches[:3]), batches[3:], 1000, n_iters=10,
+                           warmup_iters=1, batch_size=BATCH)
+    phase("P27", f"(d) attention-pool grid: 10 iterations at B={BATCH}, cls / avg_patch / patch "
+                 f"(D 1024, 16 heads, N 196), 30 members, 1000 classes on {card}: {res}")
+    if not math.isfinite(res["final_loss"]):
+        raise AssertionError("non-finite attention-pool loss")
+    grid = [(lr, wd) for lr in attnpool.LEARNING_RATES for wd in attnpool.WEIGHT_DECAYS]
+    feats_all = pool_feats(batches[0][0])
+    pick = [0, len(grid) - 1]
+    for rep, f in feats_all.items():
+        cls = attnpool.AttnPoolClassifier if f.dim() == 3 else attnpool.LinearClassifier
+        mod_c = cls(1024, 1000, len(grid), device="cuda")
+        mod_c.reset_parameters(torch.Generator("cuda").manual_seed(SEED))
+        mu_c = [torch.zeros_like(p) for p in mod_c.parameters()]
+        nu_c = [torch.zeros_like(p) for p in mod_c.parameters()]
+        lrs_c = torch.tensor([lr * BATCH / 256.0 for lr, _ in grid], device="cuda")
+        wds_c = torch.tensor([wd for _, wd in grid], device="cuda")
+        for it in range(2):
+            attnpool.bank_step(mod_c, mu_c, nu_c, f, batches[it][1], it, 0.5, lrs_c, wds_c)
+        mod_h = cls(1024, 1000, len(pick))
+        with torch.no_grad():
+            for ph, pc in zip(mod_h.parameters(), mod_c.parameters()):
+                ph.copy_(pc[pick])
+        mu_h = [m[pick].cpu() for m in mu_c]
+        nu_h = [v[pick].cpu() for v in nu_c]
+        attnpool.bank_step(mod_c, mu_c, nu_c, f, batches[3][1], 2, 0.5, lrs_c, wds_c)
+        attnpool.bank_step(mod_h, mu_h, nu_h, f.cpu(), batches[3][1].cpu(), 2, 0.5,
+                           lrs_c[pick].cpu(), wds_c[pick].cpu())
+        errs = {}
+        for (n, pc), ph, mc, mh, vc, vh in zip(mod_c.named_parameters(), mod_h.parameters(),
+                                               mu_c, mu_h, nu_c, nu_h):
+            # the key half of kv_bias shifts every logit of a head alike: its
+            # gradient is 0 in exact arithmetic, and AdamW moves it by the
+            # rounding noise over eps, which differs from card to CPU
+            cut = slice(1024, None) if n == "kv_bias" else slice(None)
+            errs[n] = max(rel_l2(pc[pick][..., cut], ph[..., cut]),
+                          rel_l2(mc[pick][..., cut], mh[..., cut]),
+                          rel_l2(vc[pick][..., cut], vh[..., cut]))
+        phase("P27", f"(d) {rep}: members 0 and {len(grid) - 1}, one AdamW step card vs CPU f32 "
+                     f"from the same state: rel L2 (parameter, m, v; worst; kv_bias's value "
+                     f"half) {errs} (tol {PROBE_REL_TOL})")
+        if not max(errs.values()) <= PROBE_REL_TOL:
+            raise AssertionError(f"attention-pool step disagrees with the CPU: {rep}")
+    del mod_c, mod_h, mu_c, nu_c, feats_all, batches, feature_fn, pool_feats, model, x
+    segment("P27", card, "(d) attention-pool probes", t0)
+
+    # ---- (e) segmentation at ADE20K scale ----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sgen = torch.Generator("cuda").manual_seed(SEED + 30)
+    seg_centers = torch.randn(ADE_CLASSES, 1024, generator=sgen, device="cuda")
+    train, train_labels = class_bank(sgen, ADE_TRAIN, seg_centers, 4.0)
+    val, val_labels = class_bank(sgen, ADE_VAL, seg_centers, 4.0)
+    host_labels = train_labels.cpu().numpy()
+    t1 = time.perf_counter()
+    importlib.import_module("torch._dynamo")  # torch.optim's first step imports it, once
+    import_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    banks_bytes = (train.numel() + val.numel()) * 2
+    start = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    probe = LogregSegProbe(C=1.0, max_iter=10, num_classes=ADE_CLASSES, backend="device").fit(
+        train, host_labels)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    obj = probe.objective_
+    pred = probe.predict(val)
+    m = miou_from_confusion(confusion_matrix(pred, val_labels.cpu().numpy(), ADE_CLASSES))
+    limit = banks_bytes + 2 * 2**30
+    ragged = ADE_TRAIN % probe.chunk_size
+    phase("P27", f"(e) logistic regression (device) on {ADE_TRAIN} x 1024 bf16 "
+                 f"({train.numel() * 2 / 1e9:.2f} GB; last chunk {ragged} of {probe.chunk_size} "
+                 f"rows), {ADE_CLASSES} classes, {probe.n_iter_} L-BFGS iterations: {fit_s:.2f} s "
+                 f"on {card} (and {import_s:.2f} s before it to import torch._dynamo); objective "
+                 f"{obj[0]:.6g} -> {obj[1]:.6g}; peak "
+                 f"{peak / 2**30:.2f} GiB (at the start {start / 2**30:.2f}; the two banks "
+                 f"{banks_bytes / 2**30:.2f} GiB + 2 GiB = {limit / 2**30:.2f}); val "
+                 f"{ADE_VAL} patches mIoU {m['miou']:.4f}, acc {m['acc']:.4f}")
+    if not (ragged and probe.n_iter_ == 10 and obj[1] < obj[0]
+            and peak <= limit and all(math.isfinite(o) for o in obj)):
+        raise AssertionError("device logistic regression: objective, iterations or memory")
+    del probe
+    torch.cuda.empty_cache()
+    for distance in ("L2", "cosine"):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        knn = KNNSegProbe(30, distance, ADE_CLASSES).fit(train, train_labels)
+        pred = knn.predict(val[:SEG_QUERIES])
+        knn_s = time.perf_counter() - t1
+        acc = float((pred == val_labels[:SEG_QUERIES].cpu().numpy()).mean())
+        peak = torch.cuda.max_memory_allocated()
+        del knn
+        torch.cuda.empty_cache()
+        same, near = seg_knn_neighbours_vs_cpu(train[:SEG_SUB], train_labels[:SEG_SUB],
+                                               val[:SEG_SUB_QUERIES], distance)
+        phase("P27", f"(e) k-NN probe k=30 {distance}: full bank {ADE_TRAIN} x {SEG_QUERIES} val "
+                     f"patches in {knn_s:.2f} s on {card} (peak {peak / 2**30:.2f} GiB), "
+                     f"accuracy {acc:.4f}; sub-bank {SEG_SUB} in tiles of {SEG_SUB_TILE}, "
+                     f"{SEG_SUB_QUERIES} queries: the 30 neighbours equal the CPU's for {same}, "
+                     f"as near within {SEG_NEAR_TOL} for {near} (min share {KNN_MIN_SHARE} "
+                     f"equal, all near)")
+        if not (same >= KNN_MIN_SHARE * SEG_SUB_QUERIES and near == SEG_SUB_QUERIES):
+            raise AssertionError(f"k-NN segmentation neighbours disagree with the CPU ({distance})")
+    del train, val, train_labels, val_labels
+    torch.cuda.empty_cache()
+    segment("P27", card, "(e) segmentation probes", t0)
+    return launches
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

@@ -1,11 +1,13 @@
 """octic_vits_tpu_torch — the PyTorch + CUDA port of octic_vits_tpu.
 
-The inference, DeiT III and DINOv2 training slices of the hybrid octic ViT:
-the D8 group algebra, the equivariant and standard layers, the hybrid and
-standard models with the DINOv2 backbones and head, mixup/cutmix
-(``data``), the train state, LAMB, the DeiT III train step and the DINOv2
-SSL step (``train``), and the hand-written Hopper kernels those paths run
-(``csrc/``, built and bound by ``kernels/``). The JAX package stays the
+The inference, DeiT III and DINOv2 training and evaluation slices of the
+hybrid octic ViT: the D8 group algebra, the equivariant and standard layers,
+the hybrid and standard models with the DINOv2 backbones and head,
+mixup/cutmix (``data``), the train state, LAMB, the DeiT III train step and
+the DINOv2 SSL step (``train``), k-NN, the probe grids and segmentation
+probing (``eval``), the hub and the reference-checkpoint converters
+(``hub``, ``utils.convert``), and the hand-written Hopper kernels those paths
+run (``csrc/``, built and bound by ``kernels/``). The JAX package stays the
 reference; this package imports torch and never jax.
 
 The entry points (``create_model``, ``SSLMetaArch``) build on the CUDA card

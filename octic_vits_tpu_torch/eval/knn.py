@@ -1,0 +1,152 @@
+"""k-NN classification on frozen features (counterpart of
+octic_vits_tpu/eval/knn.py, reference: dinov2/eval/knn.py:100-406).
+
+Protocol: features L2-normalized, cosine similarity, exp(sim/T) weighted
+class vote, k in {10, 20, 100, 200}, T = 0.07; optional few-shot
+`n_per_class` subsampling. Everything runs where the train bank lives: a
+tensor stays on its device, an array goes to the card. The
+similarities and their top-k are in the features' dtype, as in JAX; the
+votes are f32 sums of the neighbours' weights, scattered into ``[B, C]``
+(the JAX one-hot einsum's sum without its ``[B, max_k, C]`` intermediate).
+The mesh-sharded form (``knn_classify_sharded``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from octic_vits_tpu_torch.eval.metrics import as_tensor, to_numpy, topk_accuracy
+
+DEFAULT_KS = (10, 20, 100, 200)
+DEFAULT_T = 0.07
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12, out=None) -> torch.Tensor:
+    """``x / (||x|| + eps)`` over the last axis (not ``F.normalize``, which
+    divides by ``max(||x||, eps)``), into `out` if given. The norm is
+    ``jnp.linalg.norm``'s: the squares and their sum rounded to `x`'s dtype
+    (the sum accumulated in f32), then the root."""
+    return torch.div(x, torch.sqrt((x * x).sum(dim=-1, keepdim=True)) + eps, out=out)
+
+
+def padded_rows(n: int) -> int:
+    """`n` rounded up to a multiple of 8: a bank of that many rows keeps the
+    rows of its ``[B, rows]`` similarities 16-byte aligned in bf16, where
+    cuBLAS's fast kernels need them (an unaligned 1,281,167-column product
+    took 7.6x as long on an H100)."""
+    return n + (-n) % 8
+
+
+def topk_lowest_index_first(sims: torch.Tensor, k: int) -> tuple:
+    """``lax.top_k`` over the last axis of ``[B, N]`` `sims`: the k largest
+    values in descending order, and among equal values the lower index
+    first. ``torch.topk`` leaves both orders of ties open, and bf16
+    similarities tie often. Where a row's k-th value ties with values
+    outside its top k, the row's elements at or above the k-th value are
+    listed in index order (``nonzero``) and the lowest-index ones of those
+    equal to it fill the row."""
+    vals, idx = torch.topk(sims, k, dim=-1)
+    kth = vals[:, -1:]
+    ge = sims >= kth
+    n_ge = ge.sum(-1)
+    if bool((n_ge > k).any()):
+        rows, cols = ge.nonzero(as_tuple=True)                  # row by row, index order
+        eq = (sims[rows, cols] == kth[rows, 0]).long()
+        rank = eq.cumsum(0) - eq                                # tied elements before, in all rows
+        rank -= rank[n_ge.cumsum(0) - n_ge][rows]               # ... in the element's own row
+        n_gt = n_ge - torch.zeros_like(n_ge).index_add_(0, rows, eq)
+        idx = cols[(eq == 0) | (rank < (k - n_gt)[rows])].view(-1, k)
+        vals = sims.gather(-1, idx)
+    idx, order = torch.sort(idx, dim=-1)
+    vals, order = torch.sort(vals.gather(-1, order), dim=-1, descending=True, stable=True)
+    return vals, idx.gather(-1, order)
+
+
+def knn_classify(
+    train_features,             # [Ntr, D] (normalized or not)
+    train_labels,               # [Ntr]
+    test_features,              # [Nte, D]
+    num_classes: int,
+    ks: Sequence[int] = DEFAULT_KS,
+    temperature: float = DEFAULT_T,
+    batch_size: int = 1024,
+) -> Dict[int, torch.Tensor]:
+    """Returns {k: [Nte, num_classes] f32 vote scores} on the bank's device
+    (reference KnnModule semantics, dinov2/eval/knn.py:100-185)."""
+    train = as_tensor(train_features)
+    test = as_tensor(test_features, train.device).to(train.device)
+    dt = torch.promote_types(train.dtype, test.dtype)
+    n = train.shape[0]
+    bank = torch.zeros(padded_rows(n), train.shape[1], device=train.device, dtype=dt)
+    l2_normalize(train.to(dt), out=bank[:n])
+    test = l2_normalize(test.to(dt))
+    labels = as_tensor(train_labels, train.device).to(train.device, torch.int64)
+    max_k = max(ks)
+
+    out = {k: [] for k in ks}
+    for start in range(0, test.shape[0], batch_size):
+        chunk = test[start: start + batch_size]
+        sims = chunk @ bank.T
+        sims[:, n:] = float("-inf")  # the padding rows never rank
+        sims, idx = topk_lowest_index_first(sims, max_k)
+        neighbor_labels = labels[idx]                     # [B, max_k]
+        # the temperature in the features' dtype, as JAX's weakly typed scalar
+        weights = torch.exp(sims / torch.tensor(temperature, dtype=sims.dtype)).float()
+        for k in ks:
+            votes = torch.zeros(chunk.shape[0], num_classes, device=bank.device)
+            out[k].append(votes.scatter_add_(1, neighbor_labels[:, :k], weights[:, :k]))
+    return {k: torch.cat(v, dim=0) for k, v in out.items()}
+
+
+def filter_n_per_class(features, labels, n_per_class: int, seed: int = 0) -> Tuple:
+    """Few-shot filtering (reference: dinov2/eval/knn.py:199-238): the indices
+    come from ``np.random.RandomState(seed)`` on the host, as in JAX; the
+    features and labels are indexed where they live."""
+    rng = np.random.RandomState(seed)
+    host_labels = to_numpy(labels)
+    keep = []
+    for c in np.unique(host_labels):
+        idx = np.nonzero(host_labels == c)[0]
+        rng.shuffle(idx)
+        keep.append(idx[:n_per_class])
+    keep = np.concatenate(keep)
+
+    def take(x):
+        if isinstance(x, torch.Tensor):
+            return x[torch.as_tensor(keep, device=x.device)]
+        return np.asarray(x)[keep]
+
+    return take(features), take(labels)
+
+
+def extract_features(apply_fn, data_iter: Iterable,
+                     feature_dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``apply_fn(images) -> [B, D]`` over an iterator of ``(images,
+    labels)`` batches; returns the stacked features on the device where
+    `apply_fn` put them and the labels as int64 on that device. The
+    multi-host extraction of ``eval.distributed`` is not ported yet."""
+    feats, labels = [], []
+    for images, ys in data_iter:
+        f = apply_fn(images)
+        feats.append(f)
+        labels.append(as_tensor(ys, f.device).to(f.device, torch.int64))
+    return torch.cat(feats), torch.cat(labels)
+
+
+def evaluate_knn(train_features, train_labels, test_features, test_labels, num_classes: int,
+                 ks: Sequence[int] = DEFAULT_KS, temperature: float = DEFAULT_T,
+                 n_per_class: Optional[int] = None) -> Dict[str, float]:
+    if n_per_class is not None:
+        train_features, train_labels = filter_n_per_class(train_features, train_labels,
+                                                          n_per_class)
+    votes = knn_classify(train_features, train_labels, test_features, num_classes, ks,
+                         temperature)
+    results = {}
+    for k, v in votes.items():
+        acc = topk_accuracy(v, test_labels, ks=(1, 5))
+        results[f"knn_{k}_top1"] = acc["top1"]
+        results[f"knn_{k}_top5"] = acc["top5"]
+    return results

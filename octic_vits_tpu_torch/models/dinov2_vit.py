@@ -5,19 +5,18 @@ octic_vits_tpu/models/dinov2_vit.py): the hybrid
 
 Both give the SSL trainer ``prepare_tokens_with_masks`` (iBOT mask-token
 substitution), ``forward_features`` returning the token dict and the
-multi-crop ``forward_features_list``. The positional embedding is resized
-to each crop's patch grid (6 x 6 for a 96^2 local crop at patch 16). In
-training with drop path, ``forward_features`` takes a ``torch.Generator``
-and draws the masks of every block from it before the trunk runs.
-``get_intermediate_layers`` (the eval probes), registers, the
-invariant-early backbones and the packed carry on the SSL trunk are not
-ported yet: the octic backbone raises for ``invariant`` and
-``packed_carry``.
+multi-crop ``forward_features_list``, and ``get_intermediate_layers`` for
+the eval probes. The positional embedding is resized to each crop's patch
+grid (6 x 6 for a 96^2 local crop at patch 16). In training with drop path,
+``forward_features`` takes a ``torch.Generator`` and draws the masks of
+every block from it before the trunk runs. Registers, the invariant-early
+backbones and the packed carry on the SSL trunk are not ported yet: the
+octic backbone raises for ``invariant`` and ``packed_carry``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -38,6 +37,29 @@ def _output_dict(z_norm: torch.Tensor, z: torch.Tensor, masks) -> dict:
         "x_prenorm": z,
         "masks": masks,
     }
+
+
+def _layers_to_take(n: Union[int, Sequence[int]], depth: int) -> list:
+    """The last `n` blocks, or the blocks listed in `n`."""
+    return list(range(depth - n, depth)) if isinstance(n, int) else list(n)
+
+
+def _intermediate_outputs(model, x: torch.Tensor, outputs: list, reshape: bool,
+                          return_class_token: bool, norm: bool) -> tuple:
+    """The tail of ``get_intermediate_layers``: the final LayerNorm on each
+    taken block's tokens, the cls token split off, the patch tokens as a
+    ``[B, h, w, C]`` grid with `reshape`."""
+    if norm:
+        outputs = [model.norm(o) for o in outputs]
+    cls_tokens = [o[:, 0] for o in outputs]
+    outputs = [o[:, 1:] for o in outputs]
+    if reshape:
+        b, h, w, _ = x.shape
+        gh, gw = h // model.patch_size, w // model.patch_size
+        outputs = [o.reshape(b, gh, gw, -1) for o in outputs]
+    if return_class_token:
+        return tuple(zip(outputs, cls_tokens))
+    return tuple(outputs)
 
 
 class OcticDinoVisionTransformer(OcticVisionTransformer):
@@ -87,6 +109,29 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
     def forward_features_list(self, x_list, masks_list,
                               generator: Optional[torch.Generator] = None) -> list:
         return [self.forward_features(x, m, generator) for x, m in zip(x_list, masks_list)]
+
+    def get_intermediate_layers(self, x: torch.Tensor, n: Union[int, Sequence[int]] = 1,
+                                reshape: bool = False, return_class_token: bool = False,
+                                norm: bool = True) -> tuple:
+        """The tokens after each block in `n` (the last `n` blocks for an
+        int), without drop path: patch tokens ``[B, N, C]`` (``[B, h, w,
+        C]`` with `reshape`), each paired with its cls token under
+        `return_class_token`, through the final LayerNorm under `norm`
+        (JAX models/dinov2_vit.py:294). Every block taken must lie at or past
+        the equivariance break."""
+        take = _layers_to_take(n, self.depth)
+        if not all(i >= self.break_layer for i in take):
+            raise ValueError(f"intermediate layers must be past the equivariance break (got "
+                             f"{take}, break at {self.break_layer})")
+        x = x.to(self.compute_dtype or self.pos_embed.dtype)
+        masks = [(None, None)] * self.depth
+        z = self._run_to_break(self.prepare_tokens_with_masks(x), masks)
+        outputs = []
+        for i in range(self.break_layer, self.depth):
+            z = self.blocks[i](z, masks[i], False)
+            if i in take:
+                outputs.append(z)
+        return _intermediate_outputs(self, x, outputs, reshape, return_class_token, norm)
 
     def forward(self, x, masks=None, generator: Optional[torch.Generator] = None,
                 is_training: bool = False):
@@ -160,6 +205,21 @@ class DinoVisionTransformer(nn.Module):
     def forward_features_list(self, x_list, masks_list,
                               generator: Optional[torch.Generator] = None) -> list:
         return [self.forward_features(x, m, generator) for x, m in zip(x_list, masks_list)]
+
+    def get_intermediate_layers(self, x: torch.Tensor, n: Union[int, Sequence[int]] = 1,
+                                reshape: bool = False, return_class_token: bool = False,
+                                norm: bool = True) -> tuple:
+        """As :meth:`OcticDinoVisionTransformer.get_intermediate_layers`, any
+        block (JAX models/dinov2_vit.py:166)."""
+        take = _layers_to_take(n, self.depth)
+        x = x.to(self.compute_dtype or self.pos_embed.dtype)
+        z = self.prepare_tokens_with_masks(x)
+        outputs = []
+        for i, blk in enumerate(self.blocks):
+            z = blk(z, (None, None), False)
+            if i in take:
+                outputs.append(z)
+        return _intermediate_outputs(self, x, outputs, reshape, return_class_token, norm)
 
     def forward(self, x, masks=None, generator: Optional[torch.Generator] = None,
                 is_training: bool = False):

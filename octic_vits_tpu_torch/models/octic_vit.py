@@ -164,20 +164,26 @@ class OcticVisionTransformer(nn.Module):
             xs = tuple(xs[:4]) + (xs[4].unflatten(-1, (2, -1)),)  # E [..., 2, C/4]
         return self.invariant_proj(self.invariantization(xs))
 
-    def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The blocks on the token tuple (packed first with
-        ``packed_carry``): octic blocks, the break, standard blocks. Every
-        block's drop-path masks are drawn from `generator` before the first
-        block runs. Returns the pre-norm ``[B, N, C]``."""
-        x0 = xs[0]
-        masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
-                                 dtype=x0.dtype)
+    def _run_to_break(self, xs: tuple, masks: list) -> torch.Tensor:
+        """The octic blocks on the token tuple (packed first with
+        ``packed_carry``) and the break: the ``[B, N, C]`` input of the first
+        standard block. `masks` holds every block's drop-path masks."""
         if self.packed_carry:
             xs = pack_5_to_flat(xs)
         rb = self.remat and self.training
         for blk, m in zip(self.blocks[: self.break_layer], masks):
             xs = blk(xs, m, rb)
-        z = self._break_to_flat(xs)
+        return self._break_to_flat(xs)
+
+    def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The blocks on the token tuple: octic blocks, the break, standard
+        blocks. Every block's drop-path masks are drawn from `generator`
+        before the first block runs. Returns the pre-norm ``[B, N, C]``."""
+        x0 = xs[0]
+        masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
+                                 dtype=x0.dtype)
+        z = self._run_to_break(xs, masks)
+        rb = self.remat and self.training
         for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
             z = blk(z, m, rb)
         return z

@@ -44,6 +44,14 @@ def create_model(name: str, **kwargs):
 
 
 @register_model
+def hybrid_deit_large_patch16(img_size=224, **kwargs):
+    return OcticVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=4.0, qkv_bias=True, **kwargs,
+    )
+
+
+@register_model
 def hybrid_deit_huge_patch14(img_size=224, **kwargs):
     return OcticVisionTransformer(
         img_size=img_size, patch_size=14, embed_dim=1280, depth=32, num_heads=16,

@@ -1,4 +1,9 @@
-"""JAX (flax) parameter tree -> port ``state_dict``.
+"""Checkpoint conversion into the port: a JAX (flax) parameter tree -> port
+``state_dict`` (:func:`params_from_jax`), and a reference PyTorch
+checkpoint -> that flax layout (the port's own copy of the numpy converters
+of octic_vits_tpu/utils/convert.py: :func:`convert_octic_vit`,
+:func:`convert_dinov2_vit`, :func:`convert_linear_head`), the two composed
+by :func:`params_from_reference`.
 
 The port names its parameters after the flax tree, so the mapping is
 mechanical:
@@ -20,7 +25,7 @@ A tree of several models (the DINOv2 student ``{"backbone": ..., "dino_head":
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -79,3 +84,206 @@ def params_from_jax(flax_params: Mapping, model: nn.Module) -> Dict[str, torch.T
             t = t.to(device=own[key].device, dtype=own[key].dtype)
         sd[key] = t
     return sd
+
+
+# ---- reference (PyTorch) checkpoint -> flax layout --------------------------
+#
+# The reference state_dict layouts (reference: octic_vits/model.py for the
+# OcticVisionTransformer, ParameterList pos_embed.0-5 / cls_token.0, LinearD8
+# sub-linears lin_A1..lin_E, AffineD8/LayerScaleD8 alphas, LiftIrrepD8Conv2d
+# quadrant weights; dinov2/models/vision_transformer.py for DINOv2) mapped
+# onto the flax trees of the JAX package. Conventions: torch Linear weight
+# [out,in] -> kernel [in,out]; conv weight [O,I,kh,kw] -> [kh,kw,I,O];
+# ``_orig_mod.`` compile prefixes and ``module.``/``backbone.`` wrappers are
+# stripped (reference: deit/main.py:417-423, dinov2/utils/utils.py:20-33).
+
+_STRIP_PREFIXES = ("_orig_mod.", "module.", "backbone.")
+
+
+def normalize_keys(state_dict: Mapping) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in state_dict.items():
+        changed = True
+        while changed:
+            changed = False
+            for p in _STRIP_PREFIXES:
+                if k.startswith(p):
+                    k = k[len(p):]
+                    changed = True
+        out[k] = np.asarray(v)
+    return out
+
+
+def _t(w):  # torch linear -> flax kernel
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def _conv(w):  # [O, I, kh, kw] -> [kh, kw, I, O]
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+
+
+def _linear_d8(sd, prefix, has_bias):
+    out = {
+        "kernel_1d": np.stack([_t(sd[f"{prefix}.lin_{irr}.weight"])
+                               for irr in ("A1", "A2", "B1", "B2")]),
+        "kernel_e": _t(sd[f"{prefix}.lin_E.weight"]),
+    }
+    if has_bias and f"{prefix}.lin_A1.bias" in sd:
+        out["bias_a1"] = np.asarray(sd[f"{prefix}.lin_A1.bias"])
+    return out
+
+
+def _scale_d8(sd, prefix, with_bias=False):
+    out = {
+        "alpha_1d": np.stack([np.asarray(sd[f"{prefix}.alpha_{irr}"])
+                              for irr in ("A1", "A2", "B1", "B2")]),
+        "alpha_e": np.asarray(sd[f"{prefix}.alpha_E"]),
+    }
+    if with_bias and f"{prefix}.beta" in sd:
+        out["beta_a1"] = np.asarray(sd[f"{prefix}.beta"])
+    return out
+
+
+def _norm_d8(sd, prefix):
+    return {"affine": _scale_d8(sd, f"{prefix}.scaling", with_bias=True)}
+
+
+def _layer_norm(sd, prefix):
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def _dense(sd, prefix):
+    out = {"kernel": _t(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{prefix}.bias"])
+    return out
+
+
+def _attn_mlp(sd, p, linear):
+    return {
+        "attn": {"qkv": linear(sd, f"{p}.attn.qkv"), "proj": linear(sd, f"{p}.attn.proj")},
+        "mlp": {"fc1": linear(sd, f"{p}.mlp.fc1"), "fc2": linear(sd, f"{p}.mlp.fc2")},
+    }
+
+
+def _octic_block(sd, p, style: str):
+    """style: 'deit' (gamma_1/gamma_2 AffineD8) or 'dinov2' (ls1/ls2)."""
+    g1, g2 = (f"{p}.gamma_1", f"{p}.gamma_2") if style == "deit" else (f"{p}.ls1", f"{p}.ls2")
+    return {
+        "norm1": _norm_d8(sd, f"{p}.norm1"),
+        "norm2": _norm_d8(sd, f"{p}.norm2"),
+        **_attn_mlp(sd, p, lambda sd_, q: _linear_d8(sd_, q, True)),
+        "ls1": _scale_d8(sd, g1),
+        "ls2": _scale_d8(sd, g2),
+    }
+
+
+def _standard_block(sd, p):
+    gamma = {i: np.asarray(sd[f"{p}.gamma_{i}"] if f"{p}.gamma_{i}" in sd
+                           else sd[f"{p}.ls{i}.gamma"]) for i in (1, 2)}
+    return {
+        "norm1": _layer_norm(sd, f"{p}.norm1"),
+        "norm2": _layer_norm(sd, f"{p}.norm2"),
+        **_attn_mlp(sd, p, _dense),
+        "gamma_1": gamma[1],
+        "gamma_2": gamma[2],
+    }
+
+
+def convert_octic_vit(state_dict: Mapping, depth: int, break_layer: Optional[int] = None,
+                      style: str = "deit") -> Dict:
+    """Reference OcticVisionTransformer state_dict -> flax params dict."""
+    sd = normalize_keys(state_dict)
+    brk = depth // 2 if break_layer is None else break_layer
+    lift = "patch_embed.lift8.conv_"
+    params: Dict = {
+        "pos_embed": np.stack([np.asarray(sd[f"pos_embed.{i}"]) for i in range(6)]),
+        "patch_embed": {
+            **{f"w_{k.lower()}": _conv(sd[f"{lift}{k}.weight"])
+               for k in ("A1", "A2", "B1", "B2", "E_left", "E_right")},
+            "bias_a1": np.asarray(sd[f"{lift}A1.bias"]),
+        },
+        "norm": _layer_norm(sd, "norm"),
+    }
+    for ref, name in (("cls_token.0", "cls_token_a1"), ("mask_token.0", "mask_token_a1"),
+                      ("register_tokens.0", "register_tokens_a1")):
+        if ref in sd:
+            params[name] = np.asarray(sd[ref])
+    for i in range(depth):
+        p = f"blocks.{i}"
+        params[f"blocks_{i}"] = _octic_block(sd, p, style) if i < brk else _standard_block(sd, p)
+    for name in ("head", "invariant_proj"):
+        if f"{name}.weight" in sd:
+            params[name] = _dense(sd, name)
+    return params
+
+
+def _dinov2_block(sd, p):
+    """DINOv2-layout standard block: ls1/ls2 LayerScale, Mlp or SwiGLU FFN
+    (reference: dinov2/layers/block.py:43-130, swiglu_ffn.py:14-33)."""
+    if f"{p}.mlp.w12.weight" in sd:
+        mlp = {"w12": _dense(sd, f"{p}.mlp.w12"), "w3": _dense(sd, f"{p}.mlp.w3")}
+    else:
+        mlp = {"fc1": _dense(sd, f"{p}.mlp.fc1"), "fc2": _dense(sd, f"{p}.mlp.fc2")}
+    return {
+        "norm1": _layer_norm(sd, f"{p}.norm1"),
+        "norm2": _layer_norm(sd, f"{p}.norm2"),
+        "attn": {"qkv": _dense(sd, f"{p}.attn.qkv"), "proj": _dense(sd, f"{p}.attn.proj")},
+        "mlp": mlp,
+        "gamma_1": np.asarray(sd[f"{p}.ls1.gamma"]),
+        "gamma_2": np.asarray(sd[f"{p}.ls2.gamma"]),
+    }
+
+
+def convert_dinov2_vit(state_dict: Mapping, depth: int) -> Dict:
+    """Upstream DINOv2 ``DinoVisionTransformer`` state_dict -> flax params
+    (reference: dinov2/models/vision_transformer.py:57-165). Handles
+    +-register tokens and the giant's fused-SwiGLU FFN."""
+    sd = normalize_keys(state_dict)
+    w = sd["patch_embed.proj.weight"]
+    params: Dict = {
+        "cls_token": np.asarray(sd["cls_token"]),
+        "pos_embed": np.asarray(sd["pos_embed"]),
+        "mask_token": np.asarray(sd["mask_token"]),
+        "patch_embed": {"proj": {"kernel": _conv(w).reshape(-1, w.shape[0]),
+                                 "bias": np.asarray(sd["patch_embed.proj.bias"])}},
+        "norm": _layer_norm(sd, "norm"),
+    }
+    if "register_tokens" in sd:
+        params["register_tokens"] = np.asarray(sd["register_tokens"])
+    for i in range(depth):
+        params[f"blocks_{i}"] = _dinov2_block(sd, f"blocks.{i}")
+    return params
+
+
+def convert_linear_head(state_dict: Mapping) -> Dict:
+    """Upstream linear-classifier head ``{weight, bias}`` -> flax Dense params
+    (reference: dinov2/hub/classifiers.py:20-50)."""
+    sd = normalize_keys(state_dict)
+    key = "linear_head." if "linear_head.weight" in sd else ""
+    return {"kernel": _t(sd[f"{key}weight"]), "bias": np.asarray(sd[f"{key}bias"])}
+
+
+def params_from_reference(state_dict: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A reference PyTorch checkpoint (tensors or arrays, wrapper prefixes
+    allowed) -> `model`'s ``state_dict``: the octic models through
+    :func:`convert_octic_vit` (the DINOv2 backbone's blocks in the ``ls1`` /
+    ``ls2`` layout, the DeiT ones in ``gamma_1`` / ``gamma_2``), the standard
+    DINOv2 backbone through :func:`convert_dinov2_vit`, then
+    :func:`params_from_jax`."""
+    from octic_vits_tpu_torch.models.dinov2_vit import (
+        DinoVisionTransformer,
+        OcticDinoVisionTransformer,
+    )
+    from octic_vits_tpu_torch.models.octic_vit import OcticVisionTransformer
+
+    sd = {k: v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in state_dict.items()}
+    if isinstance(model, OcticVisionTransformer):
+        style = "dinov2" if isinstance(model, OcticDinoVisionTransformer) else "deit"
+        params = convert_octic_vit(sd, model.depth, model.break_layer, style)
+    elif isinstance(model, DinoVisionTransformer):
+        params = convert_dinov2_vit(sd, model.depth)
+    else:
+        raise TypeError(f"no reference layout for {type(model).__name__}")
+    return params_from_jax(params, model)

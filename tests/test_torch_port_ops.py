@@ -178,16 +178,23 @@ def test_kernel_ops_reject_other_devices():
 
 
 def test_port_never_imports_jax():
+    """The port and chip_smoke.py load neither JAX nor any module of the JAX
+    package (not even its numpy-only ones): once every port module and
+    chip_smoke.py are imported, and in no import statement of their sources,
+    lazy ones included."""
+    import ast
     import os
     import subprocess
     import sys
 
+    banned = ("jax", "flax", "jaxlib", "octic_vits_tpu")
     code = (
         "import importlib, pkgutil, sys\n"
         "import octic_vits_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+        "import chip_smoke\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {banned!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -195,3 +202,18 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    sources = [os.path.join(root, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(root, "octic_vits_tpu_torch")):
+        sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    found = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            found += [f"{os.path.relpath(path, root)}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in banned]
+    assert not found, found
