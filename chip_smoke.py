@@ -201,6 +201,23 @@ Phases, one line each (any failure raises and exits non-zero):
              + 2 GiB) and the k-NN probe (k 30, L2 and cosine; 20,000 val
              patches; on a 100,000-row sub-bank equal to the CPU's
              predictions); each segment's seconds and peak memory
+  P28 model surface  (a) one DINOv2 step of d8_inv_early_dinov2_vit_large_patch16
+             at B=32 with P9's settings (launches against SSL_LAUNCHES: the
+             power-spectrum break and its projection add none), the
+             deterministic B=2 step against the CPU f32 plain path (P9's bars),
+             the step's ms and peak memory in turns with P10's hybrid; (b) its
+             get_intermediate_layers(n=4) at B=64 bf16 (launches against
+             EVAL_LAUNCHES, 2 images against the CPU f32 path), feature img/s in
+             turns with the hybrid; (c) the upstream dinov2_vitg14_reg (SwiGLU,
+             4 registers, C=1536, 40 blocks, 24 heads) at 518^2 B=8 bf16 (N =
+             1374: 40 launches of the standard attention, no dense_gelu), img/s,
+             the standard attention at N = 1374 against its plain version and,
+             by CUDA-graph replay in turns, SDPA beside its bound; then
+             dinov2_vitl14_reg at 224^2 against the CPU f32 path; (d) the
+             hybrid ViT-L/16 with 4 registers and the break at block 8 (N =
+             201) at B=64 (launches against HYBRID_REG_LAUNCHES, 2 images against
+             the CPU f32 path); each part's seconds and peak memory.
+             `python3 chip_smoke.py --p28` runs P28 alone after the build
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -810,8 +827,12 @@ def grad_cosine(card_model, cpu_model) -> tuple:
 
 
 def set_drop_path(model, rate: float) -> None:
+    """The drop-path rate of every DropPath / DropPathD8 of `model` (not its
+    dropout modules, which have a rate too)."""
+    from octic_vits_tpu_torch.layers.common import DropPathMask
+
     for m in model.modules():
-        if hasattr(m, "draw"):  # DropPath / DropPathD8
+        if isinstance(m, DropPathMask):
             m.rate = rate
 
 
@@ -983,6 +1004,9 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--p26"]:  # P26 alone, likewise
         redesign_26_phases(gen, {"standard_attention_bwd": {}}, card)
+        return 1
+    if sys.argv[1:] == ["--p28"]:  # P28 alone, likewise
+        surface_phases({"standard_attention": {}}, card)
         return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
@@ -1157,11 +1181,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_launches = eval_phases(card)
 
+    torch.cuda.empty_cache()
+    surface_launches = surface_phases(summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
               "probe_25": probe_25_launches, "probe_26": probe_26_launches,
-              "eval": eval_launches}
+              "eval": eval_launches, **surface_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -3717,6 +3744,310 @@ def eval_phases(card) -> dict:
     torch.cuda.empty_cache()
     segment("P27", card, "(e) segmentation probes", t0)
     return launches
+
+
+# ---- P28: the model surface ported after the kernels ----
+# launches of one forward of hybrid ViT-L/16 with 4 registers and the break at
+# block 8 (N = 1 + 4 + 196 = 201): the fused inference kernels in the 8 octic
+# blocks, the standard ones in the 16 after the break
+HYBRID_REG_LAUNCHES = {"octic_attention_fused_qkv": 8, "mlp_d8_fused": 8, "standard_attention": 16,
+                       "dense_gelu": 16}
+# the upstream DINOv2 giant: 40 blocks of the standard attention, and its
+# SwiGLU FFN in plain products (no dense_gelu)
+GIANT_LAUNCHES = {"standard_attention": 40}
+GIANT_BATCH, GIANT_IMG, GIANT_HEADS = 8, 518, 24
+
+
+def tokens_rel_l2(card_out: dict, cpu_out: dict, b: int) -> float:
+    """Relative L2 error of the normed cls, register and patch tokens of the
+    first `b` images (card, in f32) against the CPU's."""
+    keys = ("x_norm_clstoken", "x_norm_regtokens", "x_norm_patchtokens")
+    got = torch.cat([card_out[k][:b].float().flatten().cpu() for k in keys])
+    ref = torch.cat([cpu_out[k].flatten() for k in keys])
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def seeded_pair(name: str, **kw) -> tuple:
+    """(f32 model on the CPU, bf16 model on the card) of registry `name` with
+    the same weights, drawn on the card from SEED (faster than on the CPU)."""
+    from octic_vits_tpu_torch import create_model, init_weights
+
+    ref = create_model(name, device="cuda", **kw)
+    init_weights(ref, torch.Generator("cuda").manual_seed(SEED))
+    cpu_model = create_model(name, device="cpu", **kw).eval()
+    cpu_model.load_state_dict(ref.state_dict(), strict=True)
+    return cpu_model, ref.to(torch.bfloat16).eval()
+
+
+def inv_ssl_phase(card) -> dict:
+    """P28 (a): one DINOv2 step of d8_inv_early_dinov2_vit_large_patch16 at
+    B=32 with P9's settings (launches against SSL_LAUNCHES), the
+    deterministic B=2 step against the CPU f32 plain path, and the step's ms
+    and peak memory in turns with P10's hybrid."""
+    from octic_vits_tpu_torch import init_weights, ops
+    from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    name = "d8_inv_early_dinov2_vit_large_patch16"
+    cfg = SSLConfig(arch=name, backbone_remat=True)  # drop path 0.3, heads 65536, bf16 compute
+    arch = SSLMetaArch(cfg, device="cuda")
+    state = arch.init(torch.Generator("cuda").manual_seed(SEED))
+    step = arch.make_train_step()
+    lr = sqrt_lr_scaling(4e-3, SSL_BATCH)
+    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
+    batch = batch_to_device(ssl_batch(SSL_BATCH, SEED + 5), "cuda")
+    sgen = torch.Generator().manual_seed(SEED + 6)
+    ops.reset_launch_counts()
+    state, metrics = step(state, batch, sched, sgen)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in state.student.parameters())
+    finite &= bool(torch.isfinite(state.dino_center).all() and torch.isfinite(
+        state.ibot_center).all())
+    terms = {k: round(v.item(), 5) for k, v in metrics.items()}
+    phase("P28", f"(a) {name} SSL step B={SSL_BATCH} (P9's crops, heads, remat, drop path "
+                 f"{cfg.drop_path_rate}, f32 params, bf16 compute): {terms}; finite grads and "
+                 f"centers {finite}; launches {launches}")
+    if not (math.isfinite(metrics["total_loss"].item()) and finite):
+        raise AssertionError("non-finite inv-early SSL loss, gradients or centers")
+    if launches != expected_launches(SSL_LAUNCHES):
+        raise AssertionError(f"inv-early SSL launches {launches}, expected {SSL_LAUNCHES}")
+
+    det = dict(drop_path_rate=0.0)
+    card_arch = SSLMetaArch(SSLConfig(arch=name, backbone_remat=True, **det), device="cuda",
+                            init_scale=1.0)
+    card_student = card_arch.build_student()
+    init_weights(card_student, torch.Generator("cuda").manual_seed(SEED))
+    cpu_arch = SSLMetaArch(SSLConfig(arch=name, compute_dtype=None, **det), device="cpu",
+                           init_scale=1.0)
+    cpu_student = cpu_arch.build_student()
+    cpu_student.load_state_dict(card_student.state_dict(), strict=True)
+    dbatch = ssl_batch(2, SEED + 7)
+    card_loss, _ = card_arch.forward_backward(card_arch.state_from_student(card_student),
+                                              batch_to_device(dbatch, "cuda"), 0.04)
+    cpu_loss, _ = cpu_arch.forward_backward(cpu_arch.state_from_student(cpu_student),
+                                            batch_to_device(dbatch, "cpu"), 0.04)
+    cos, _, norm_cpu, count = grad_cosine(card_student, cpu_student)
+    loss_rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    phase("P28", f"(a) deterministic SSL step, B=2: loss card {card_loss.item():.6f} vs CPU f32 "
+                 f"{cpu_loss.item():.6f} (rel err {loss_rel:.3e}, tol {SLICE_REL_TOL}); gradient "
+                 f"cosine {cos:.6f} (min {GRAD_COS_MIN}) over {count} values; CPU grad norm "
+                 f"{norm_cpu:.4f}")
+    if not (loss_rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError("inv-early SSL step disagrees with the CPU f32 plain path")
+    del cpu_student, card_student, cpu_arch, card_arch
+    torch.cuda.empty_cache()
+
+    hybrid = SSLMetaArch(SSLConfig(backbone_remat=True), device="cuda")
+    steps = {"hybrid": (hybrid.init(torch.Generator("cuda").manual_seed(SEED)),
+                        hybrid.make_train_step()),
+             "inv_early": (state, step)}
+    ms, peak = {}, {}
+    for label in ("hybrid", "inv_early", "inv_early", "hybrid"):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        med, times = time_ssl_steps(*steps[label], batch, sched, sgen, steps=3, warmup=1)
+        ms.setdefault(label, []).append(med)
+        peak.setdefault(label, []).append(torch.cuda.max_memory_allocated() - resident)
+    phase("P28", f"(a) SSL step B={SSL_BATCH} on {card}, in turns (median of 3 after 1 warm-up "
+                 "each turn): " + ", ".join(
+                     f"{k} {v[0]:.2f} / {v[1]:.2f} ms ({SSL_BATCH / min(v) * 1e3:.1f} img/s, "
+                     f"step peak {max(peak[k]) / 2**30:.2f} GiB over the resident states)"
+                     for k, v in ms.items())
+                 + f"; ratio inv-early/hybrid ms {min(ms['inv_early']) / min(ms['hybrid']):.4f}")
+    del steps, state, step, hybrid, arch
+    segment("P28", card, "(a) inv-early SSL step", t0)
+    return launches
+
+
+def inv_features_phase(card) -> dict:
+    """P28 (b): get_intermediate_layers(n=4) of the inv-early ViT-L/16 at
+    B=64 bf16 (launches against EVAL_LAUNCHES, 2 images against the CPU f32
+    plain path), feature img/s in turns with P27's hybrid."""
+    from octic_vits_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    name = "d8_inv_early_dinov2_vit_large_patch16"
+    cpu_model, model = seeded_pair(name, init_scale=1.0)
+    images = torch.randn(BATCH, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 28))
+    x = images.to("cuda", torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = model.get_intermediate_layers(x, 4, return_class_token=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with torch.no_grad():
+        cls_ref = model.forward_features(x)["x_norm_clstoken"]
+        cpu_outs = cpu_model.get_intermediate_layers(images[:2].to(torch.bfloat16).float(), 4,
+                                                     return_class_token=True)
+    got = torch.cat([t[:2].float().flatten().cpu() for pair in outs for t in pair])
+    ref = torch.cat([t.flatten() for pair in cpu_outs for t in pair])
+    rel = ((got - ref).norm() / ref.norm()).item()
+    bitwise = torch.equal(outs[-1][1], cls_ref)
+    phase("P28", f"(b) {name} B={BATCH} bf16 get_intermediate_layers(n=4): launches {launches}; "
+                 f"last normed cls {'bitwise equal to' if bitwise else 'DIFFERS from'} "
+                 f"forward_features'; 2 images vs CPU f32 plain path: rel L2 err {rel:.3e} "
+                 f"(tol {SLICE_REL_TOL})")
+    if launches != expected_launches(EVAL_LAUNCHES):
+        raise AssertionError(f"inv-early eval launches {launches}, expected {EVAL_LAUNCHES}")
+    if not (bitwise and rel <= SLICE_REL_TOL and all(bool(t.isfinite().all())
+                                                      for pair in outs for t in pair)):
+        raise AssertionError("inv-early intermediate layers disagree with the CPU")
+    del cpu_model, cpu_outs, outs
+    _, hybrid = seeded_pair("hybrid_dinov2_vit_large_patch16", init_scale=1.0)
+    nets = {"hybrid": hybrid, "inv_early": model}
+    feats_ms = {}
+    with torch.no_grad():
+        for label in ("hybrid", "inv_early", "inv_early", "hybrid"):
+            net = nets[label]
+            feats_ms.setdefault(label, []).append(
+                time_ms(lambda: net.get_intermediate_layers(x, 4, True, True), iters=5, warmup=1))
+    phase("P28", f"(b) feature extraction (n=4) B={BATCH} 224^2 bf16 on {card}, in turns: "
+                 + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} ms ({BATCH / min(v) * 1e3:.1f} img/s)"
+                             for k, v in feats_ms.items())
+                 + f"; ratio inv-early/hybrid img/s "
+                   f"{min(feats_ms['hybrid']) / min(feats_ms['inv_early']):.4f}")
+    del nets, hybrid, model, net
+    segment("P28", card, "(b) inv-early features", t0)
+    return launches
+
+
+def giant_phase(summary, card) -> dict:
+    """P28 (c): the upstream dinov2_vitg14_reg (SwiGLU, 4 registers, C=1536,
+    40 blocks, 24 heads of 64) at 518^2, B=8 bf16: launches against
+    GIANT_LAUNCHES, img/s, row 1 at N = 1374 against its plain version and,
+    by CUDA-graph replay in turns, SDPA and its bound; then dinov2_vitl14_reg
+    at 224^2 against the CPU f32 plain path on 2 images."""
+    from octic_vits_tpu_torch import create_model, init_weights, ops
+    from octic_vits_tpu_torch.tools.timing import in_turns
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    giant = create_model("dinov2_vitg14_reg", device="cuda", dtype=torch.bfloat16).eval()
+    init_weights(giant, torch.Generator("cuda").manual_seed(SEED))
+    x = torch.randn(GIANT_BATCH, GIANT_IMG, GIANT_IMG, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED + 29)).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = giant.forward_features(x)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    grid = GIANT_IMG // 14
+    shapes = {k: tuple(out[k].shape) for k in ("x_norm_clstoken", "x_norm_regtokens",
+                                                "x_norm_patchtokens", "x_prenorm")}
+    finite = all(bool(out[k].isfinite().all()) for k in shapes)
+    with torch.no_grad():
+        ms = [time_ms(lambda: giant.forward_features(x), iters=5, warmup=1) for _ in range(2)]
+    n_params = sum(p.numel() for p in giant.parameters())
+    phase("P28", f"(c) dinov2_vitg14_reg ({n_params} parameters) B={GIANT_BATCH} "
+                 f"{GIANT_IMG}^2 bf16 on {card}: tokens {shapes}, finite {finite}, launches "
+                 f"{launches}; {ms[0]:.2f} / {ms[1]:.2f} ms a forward "
+                 f"({GIANT_BATCH / min(ms) * 1e3:.1f} img/s)")
+    n_tokens = grid * grid + 1 + 4
+    if launches != expected_launches(GIANT_LAUNCHES):
+        raise AssertionError(f"giant launches {launches}, expected {GIANT_LAUNCHES}")
+    if not finite or shapes["x_prenorm"] != (GIANT_BATCH, n_tokens, 1536):
+        raise AssertionError("bad giant features")
+    del giant, out
+    torch.cuda.empty_cache()
+
+    # row 1 at the giant's shape: against its plain version, then in turns with SDPA
+    gen = torch.Generator("cuda").manual_seed(SEED + 30)
+    qkv = randn(gen, GIANT_BATCH, n_tokens, 3 * 1536)
+    with torch.no_grad():
+        got = ops.standard_attention(qkv, GIANT_HEADS)
+        torch.cuda.synchronize()
+        err, ok = compare(got, ops.standard_attention_reference(qkv, GIANT_HEADS))
+        plain_ms = time_ms(lambda: ops.standard_attention_reference(qkv, GIANT_HEADS), iters=5)
+        res = in_turns({"std TMA + wgmma": lambda: ops.standard_attention(qkv, GIANT_HEADS),
+                        "SDPA (yardstick)": library_sdpa(qkv, GIANT_HEADS)}, graph=True)
+    bms, bby = bound_of(*std_work(GIANT_BATCH, n_tokens, GIANT_HEADS, 64))
+    kms, lms = res["median"]["std TMA + wgmma"], res["median"]["SDPA (yardstick)"]
+    phase("P28", f"(c) standard_attention [giant B={GIANT_BATCH} N={n_tokens} H={GIANT_HEADS} "
+                 f"dh=64] max_abs_err {err:.3e} (tol {ATOL}+{RTOL}*|ref|) "
+                 f"{'ok' if ok else 'FAIL'}; CUDA-graph replay in turns on {card}: kernel "
+                 f"{res['ms']['std TMA + wgmma']} ms, SDPA {res['ms']['SDPA (yardstick)']} ms; "
+                 f"bound {bms:.4f} ms ({bby}), kernel {bms / kms:.1%} of it, SDPA "
+                 f"{bms / lms:.1%}; plain {plain_ms:.4f} ms")
+    if not ok:
+        raise AssertionError("standard_attention outside tolerance at the giant's shape")
+    summary["standard_attention"].setdefault("cases", {})[f"giant_b{GIANT_BATCH}_n{n_tokens}"] = {
+        "ms": kms, "library_ms": lms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "max_abs_err": err}
+    del qkv, got
+
+    name = "dinov2_vitl14_reg"
+    cpu_model, model = seeded_pair(name, img_size=IMG)
+    images = torch.randn(2, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 31))
+    with torch.no_grad():
+        card_out = model.forward_features(images.to("cuda", torch.bfloat16))
+        cpu_out = cpu_model.forward_features(images.to(torch.bfloat16).float())
+    rel = tokens_rel_l2(card_out, cpu_out, 2)
+    phase("P28", f"(c) {name} 224^2 bf16, 2 images vs CPU f32 plain path (normed cls, register "
+                 f"and patch tokens): rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError("the upstream DINOv2 backbone disagrees with the CPU f32 path")
+    del cpu_model, model
+    segment("P28", card, "(c) DINOv2 giant", t0)
+    return launches
+
+
+def hybrid_registers_phase(card) -> dict:
+    """P28 (d): hybrid_dinov2_vit_large_patch16 with 4 registers and the break
+    at block 8 (N = 201) at B=64 bf16: launches against HYBRID_REG_LAUNCHES,
+    2 images against the CPU f32 plain path."""
+    from octic_vits_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    name = "hybrid_dinov2_vit_large_patch16"
+    kw = dict(num_register_tokens=4, octic_equi_break_layer=8, init_scale=1.0)
+    cpu_model, model = seeded_pair(name, **kw)
+    images = torch.randn(BATCH, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 32))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = model.forward_features(images.to("cuda", torch.bfloat16))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with torch.no_grad():
+        cpu_out = cpu_model.forward_features(images[:2].to(torch.bfloat16).float())
+    rel = tokens_rel_l2(out, cpu_out, 2)
+    n = out["x_prenorm"].shape[1]
+    phase("P28", f"(d) {name} {kw} B={BATCH} bf16 (N={n}): launches {launches}; 2 images vs CPU "
+                 f"f32 plain path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+    if launches != expected_launches(HYBRID_REG_LAUNCHES):
+        raise AssertionError(f"launches {launches}, expected {HYBRID_REG_LAUNCHES}")
+    if not (n == 201 and rel <= SLICE_REL_TOL and bool(out["x_prenorm"].isfinite().all())):
+        raise AssertionError("the hybrid with registers disagrees with the CPU f32 path")
+    del cpu_model, model, out
+    segment("P28", card, "(d) hybrid with registers, break 8", t0)
+    return launches
+
+
+def surface_phases(summary, card) -> dict:
+    """P28: the inv-early SSL step and features, the upstream DINOv2 giant,
+    the hybrid with registers and a non-default break. Returns each path's
+    launches."""
+    t0 = time.perf_counter()
+    with_ln_kernel(False)  # P3's inference kernels
+    counts = {"inv_ssl": inv_ssl_phase(card)}
+    torch.cuda.empty_cache()
+    counts["inv_eval"] = inv_features_phase(card)
+    torch.cuda.empty_cache()
+    counts["giant"] = giant_phase(summary, card)
+    torch.cuda.empty_cache()
+    counts["hybrid_reg"] = hybrid_registers_phase(card)
+    torch.cuda.empty_cache()
+    phase("P28", f"the model surface: {time.perf_counter() - t0:.2f} s")
+    return counts
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

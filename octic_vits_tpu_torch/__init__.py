@@ -39,9 +39,9 @@ environment, or ``layers.d8_layers.OCTIC_PALLAS_LN = True``):
 """
 
 from octic_vits_tpu_torch.layers.init import init_weights
-from octic_vits_tpu_torch.models.registry import create_model
+from octic_vits_tpu_torch.models.registry import create_model, list_models
 from octic_vits_tpu_torch.utils.convert import params_from_jax
 
 __version__ = "0.1.0"
 
-__all__ = ["create_model", "init_weights", "params_from_jax"]
+__all__ = ["create_model", "init_weights", "list_models", "params_from_jax"]

@@ -6,8 +6,7 @@ Each entry names a registered model and the layout of its released
 checkpoint. A ``.pth`` file is read with ``torch.load(weights_only=True)``,
 its `checkpoint_key` sub-dict converted by ``params_from_reference`` and
 loaded strictly. Nothing is downloaded: the caller gives local files. The
-orbax checkpoints of the JAX package, the invariant-early DINOv2 backbones,
-the upstream DINOv2 backbones and the depth heads are not ported yet.
+orbax checkpoints of the JAX package and the depth heads are not ported yet.
 """
 
 from __future__ import annotations
@@ -61,11 +60,6 @@ HUB_ENTRIES: Dict[str, HubEntry] = {
                                                       "dinov2", 16),
 }
 
-# where ROADMAP.md's Queue 1 takes up the models the port still lacks
-_NOT_PORTED = {name: "the invariant-early DINOv2 backbones (Queue 1 item 4)"
-               for name in ("d8_inv_early_dinov2_vit_huge_patch16",
-                            "d8_inv_early_dinov2_vit_large_patch16")}
-
 # upstream DINOv2 backbones (reference: dinov2/hub/backbones.py:64-156);
 # weights-file-driven: the released *_pretrain.pth path is `checkpoint`
 for _tag, _depth, _dim in (("dinov2_vits14", 12, 384), ("dinov2_vitb14", 12, 768),
@@ -74,9 +68,6 @@ for _tag, _depth, _dim in (("dinov2_vits14", 12, 384), ("dinov2_vitb14", 12, 768
     HUB_ENTRIES[_tag + "_reg"] = HubEntry(_tag + "_reg", _depth, "dinov2", 14,
                                           num_register_tokens=4, family="dinov2_std",
                                           embed_dim=_dim)
-    for _name in (_tag, _tag + "_reg"):
-        _NOT_PORTED[_name] = ("the upstream DINOv2 backbones with their registers and SwiGLU FFN "
-                              "(Queue 1 item 5)")
 
 
 def load_backbone(name: str, checkpoint: Optional[str] = None, checkpoint_key: str = "teacher",
@@ -90,8 +81,6 @@ def load_backbone(name: str, checkpoint: Optional[str] = None, checkpoint_key: s
     generator seeded 0, so the model is always callable."""
     if name not in HUB_ENTRIES:
         raise KeyError(f"unknown hub entry {name}; known: {sorted(HUB_ENTRIES)}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} are not ported yet (ROADMAP.md)")
     if checkpoint is not None and os.path.isdir(checkpoint):
         raise NotImplementedError("orbax checkpoint directories are not ported yet (ROADMAP.md "
                                   "Queue 1 item 7); pass a .pth file")

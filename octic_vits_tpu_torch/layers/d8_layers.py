@@ -13,7 +13,10 @@ options on top of them: the D8 LayerNorm kernel (``OCTIC_PALLAS_LN``),
 (``packed_carry``: the block takes and returns ONE ``[B, N, C]`` container,
 d8/group.py), whose norms, LayerScales, drop path and residual adds run as
 full-width passes and whose attention and MLP take the packed-container
-ops; and of ``use_wide_qkv`` (the wide-1d qkv and attention). The port
+ops; and of ``use_wide_qkv`` (the wide-1d qkv and attention); and of the options no
+registry model turns on: :class:`DropoutD8` (``drop``), the eager attention
+with dropout on its probabilities (``attn_drop``) and
+:class:`IsotypicToPatchD8`. The port
 always runs the attention kernels (the JAX ``use_pallas_attention``), so
 its LayerNorms always take the LN kernel when
 ``OCTIC_PALLAS_LN`` is on, as the JAX norms do under ``use_pallas_linear or
@@ -36,12 +39,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from octic_vits_tpu_torch.d8.group import (
+    SQRT2,
     SQRT2_OVER_4,
     pack_5_to_flat,
     pack_8_to_5f,
+    unpack_5f_to_8,
     unpack_packed_5f,
 )
-from octic_vits_tpu_torch.layers.common import DropPathMask, cast, remat
+from octic_vits_tpu_torch.layers.common import Dropout, DropPathMask, cast, dropout, remat
 from octic_vits_tpu_torch.ops.attention import (
     octic_attention,
     octic_attention_fused_qkv,
@@ -107,6 +112,17 @@ class DropPathD8(DropPathMask):
 
     def forward(self, xs: tuple, mask: Optional[torch.Tensor] = None) -> tuple:
         return drop_path_d8(xs, mask)
+
+
+class DropoutD8(Dropout):
+    """Dropout on each element of a tuple with a mask of its own
+    (d8_layers.py:DropoutD8): ``draw`` takes the five shapes and returns five
+    masks, ``forward(xs, us)`` applies them."""
+
+
+def _tuple_shapes(batch: int, tokens: int, f8: int) -> tuple:
+    """The shapes of a flat-E tuple of width ``8 f8``."""
+    return ((batch, tokens, f8),) * 4 + ((batch, tokens, 4 * f8),)
 
 
 class LinearD8(nn.Module):
@@ -424,11 +440,14 @@ class MlpD8(nn.Module):
     ``forward`` gets `layerscale` and `residual`. Without
     ``use_pallas_linear``, fc1 and fc2 are plain products around
     :class:`GeluD8`, the GELU kernel op with ``use_pallas_gelu``. The hidden
-    is rounded to the working dtype between them."""
+    is rounded to the working dtype between them. ``drop`` is the
+    :class:`DropoutD8` on the hidden and on the output (d8_layers.py:676,
+    :680); in training with ``drop > 0`` the two-kernel path runs, as JAX's
+    ``fusable`` rule asks, with the masks of :meth:`draw_masks`."""
 
     def __init__(self, in_features: int, hidden_features: int, bias: bool = True, *,
                  use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
-                 fuse_mlp: bool = False, device=None, dtype=None):
+                 fuse_mlp: bool = False, drop: float = 0.0, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_pallas_linear = use_pallas_linear
@@ -438,22 +457,110 @@ class MlpD8(nn.Module):
         self.gelu = GeluD8(use_pallas_gelu)
         self.fc2 = LinearD8(hidden_features, in_features, bias, use_kernel=use_pallas_linear,
                             **kw)
+        self.drop = DropoutD8(drop)
 
-    def forward(self, xs, layerscale: Optional[tuple] = None, residual: Optional[tuple] = None):
+    def draw_masks(self, batch: int, tokens: int, generator, device=None) -> tuple:
+        """The hidden's and the output's five dropout masks each (``None`` when off)."""
+        return tuple(self.drop.draw(_tuple_shapes(batch, tokens, f.kernel_1d.shape[2]),
+                                    generator, device=device) for f in (self.fc1, self.fc2))
+
+    def forward(self, xs, layerscale: Optional[tuple] = None, residual: Optional[tuple] = None,
+                masks: tuple = (None, None)):
         packed = isinstance(xs, torch.Tensor)
         if not (self.use_pallas_linear and layerscale is None
-                and (self.fuse_mlp or not self.training)):
+                and (self.fuse_mlp or not self.training) and not self.drop.active()):
             if packed:
                 xs = unpack_packed_5f(xs)
             h = self.fc1(xs)
             if not self.use_pallas_linear:
                 h = self.gelu(h)
-            return self.fc2(h, layerscale, residual)
+            h = self.drop(h, masks[0])
+            return self.drop(self.fc2(h, layerscale, residual), masks[1])
         dt = xs.dtype if packed else xs[0].dtype
         f1, f2 = self.fc1, self.fc2
         params = tuple(cast(p, dt) for p in (f1.kernel_1d, f1.kernel_e, f1.bias_a1, f2.kernel_1d,
                                              f2.kernel_e, f2.bias_a1))
         return mlp_d8_packed(xs, *params) if packed else mlp_d8_fused(xs, *params)
+
+
+class IsotypicToPatchD8(nn.Module):
+    """The inverse lift (d8_layers.py:800-866): tokens of a flat-E tuple (or
+    a 5-tuple with E ``[..., 2, C/4]``) of width `dim` -> image patches
+    ``[B, L, p*p*out_channels]``, or with `reshape_to_image` the image
+    ``[B, H, W, out_channels]`` of a square token grid. ``lin8`` is a
+    LinearD8 to ``2 p^2 out_channels``; each irrep's output quadrant is
+    folded out with the symmetry of its irrep, as JAX does (the E12, E22
+    slots unused)."""
+
+    def __init__(self, dim: int, patch_side: int, out_channels: int = 3, use_bias: bool = True,
+                 reshape_to_image: bool = False, *, device=None, dtype=None):
+        super().__init__()
+        if patch_side % 2:
+            raise NotImplementedError("odd patch side not implemented (matches reference)")
+        self.patch_side = patch_side
+        self.out_channels = out_channels
+        self.reshape_to_image = reshape_to_image
+        self.lin8 = LinearD8(dim, 2 * patch_side * patch_side * out_channels, use_bias,
+                             device=device, dtype=dtype)
+
+    def forward(self, xs: tuple) -> torch.Tensor:
+        if xs[4].ndim != xs[0].ndim:
+            xs = tuple(xs[:4]) + (xs[4].flatten(-2),)
+        b, l, _ = xs[0].shape
+        ps, oc = self.patch_side, self.out_channels
+        parts = tuple(0.25 * t.reshape(b, l, ps // 2, ps // 2, oc)
+                      for t in unpack_5f_to_8(self.lin8(xs)))
+
+        def rot(x, k):
+            return torch.rot90(x, k, dims=(2, 3))
+
+        def flip3(x):
+            return torch.flip(x, dims=(3,))
+
+        def four_fold(x, sign):
+            top = torch.cat((x, sign * rot(x, 1)), dim=2)
+            bot = torch.cat((sign * rot(x, 3), rot(x, 2)), dim=2)
+            return torch.cat((top, bot), dim=3)
+
+        def e_fold(x):
+            col = torch.cat((x, torch.flip(x, dims=(2,))), dim=2)
+            return torch.cat((col, -flip3(col)), dim=3)
+
+        out = 0
+        for part, sign, sym in zip(parts[:4], (1.0, 1.0, -1.0, -1.0), (1.0, -1.0, 1.0, -1.0)):
+            f = four_fold(part, sign)
+            out = out + (f + sym * flip3(f))
+        out = out + e_fold(SQRT2 * parts[4]) + rot(e_fold(SQRT2 * parts[5]), 1)
+        if self.reshape_to_image:
+            g = math.isqrt(l)
+            return out.reshape(b, g, g, ps, ps, oc).permute(0, 1, 3, 2, 4, 5).reshape(
+                b, g * ps, g * ps, oc)
+        return out.reshape(b, l, ps * ps * oc)
+
+
+def octic_attention_eager(a1, a2, b1, b2, e0, e1, num_heads: int,
+                          u: Optional[torch.Tensor] = None, rate: float = 0.0) -> tuple:
+    """The octic attention as JAX's eager path computes it
+    (d8_layers.py:1106-1156), over :func:`octic_attention`'s six arrays (a1..b2
+    ``[B, N, 3C/8]`` and the E rows e0, e1 ``[B, N, 3C/4]``, each (3, H, .)
+    ordered): per-irrep logits summed in f32, softmax, dropout at `rate` on
+    the probabilities with the uniforms `u` ``[B, H, N, N]``, the
+    probabilities cast back to the inputs' dtype for the products with v.
+    Returns the six outputs (4 x ``[B, N, C/8]``, 2 x ``[B, N, C/4]``)."""
+    b, n, w = a1.shape
+    c8 = w // 3
+    d1 = c8 // num_heads
+    ones = torch.stack([t.reshape(b, n, 3, num_heads, d1) for t in (a1, a2, b1, b2)], dim=3)
+    es = torch.stack([t.reshape(b, n, 3, num_heads, 2 * d1) for t in (e0, e1)], dim=2)
+    q1, k1, v1 = ones.unbind(2)   # [B, N, 4, H, d1]
+    qe, ke, ve = es.unbind(3)     # [B, N, 2, H, de]
+    logits = (torch.einsum("bqghd,bkghd->bhqk", q1.float(), k1.float())
+              + torch.einsum("bqrhd,bkrhd->bhqk", qe.float(), ke.float()))
+    probs = dropout((logits * (8 * c8 // num_heads) ** -0.5).softmax(-1), u, rate).to(v1.dtype)
+    out1 = torch.einsum("bhqk,bkghd->bqghd", probs, v1)
+    oute = torch.einsum("bhqk,bkrhd->bqrhd", probs, ve)
+    return (tuple(out1[:, :, g].reshape(b, n, c8) for g in range(4))
+            + tuple(oute[:, :, r].reshape(b, n, 2 * c8) for r in range(2)))
 
 
 class AttentionD8(nn.Module):
@@ -469,10 +576,20 @@ class AttentionD8(nn.Module):
     parameters are the same. The proj is a plain LinearD8 (:meth:`project`).
     A packed ``[B, N, C]`` input takes the packed fused op
     (:func:`octic_attention_fused_qkv_packed`) where the fused op runs, and
-    is unpacked to its flat-E views otherwise (d8_layers.py:895-909)."""
+    is unpacked to its flat-E views otherwise (d8_layers.py:895-909).
+
+    In training with ``attn_drop > 0`` the attention is
+    :func:`octic_attention_eager` over a plain LinearD8 qkv, with dropout on
+    the probabilities: JAX selects that path by the same rule
+    (d8_layers.py:902-904, :931-932, :1012-1014, :1064-1065), by
+    configuration and never on a kernel's failure; every registry model
+    runs with ``attn_drop_rate = 0`` and keeps its kernels. ``proj_drop`` is
+    the :class:`DropoutD8` after the proj (d8_layers.py:1008, :1060, :1104,
+    :1156). The masks come from :meth:`draw_masks`."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, proj_bias: bool = True,
-                 fuse_qkv: bool = False, use_wide_qkv: bool = False, *, device=None, dtype=None):
+                 fuse_qkv: bool = False, use_wide_qkv: bool = False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, *, device=None, dtype=None):
         super().__init__()
         if (dim // num_heads) % 8:
             raise ValueError("head dim must be divisible by 8")
@@ -482,6 +599,19 @@ class AttentionD8(nn.Module):
         self.use_wide_qkv = use_wide_qkv
         self.qkv = LinearD8(dim, 3 * dim, qkv_bias, **kw)
         self.proj = LinearD8(dim, dim, proj_bias, **kw)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = DropoutD8(proj_drop)
+
+    def eager(self) -> bool:
+        """Whether this call takes the eager path (training, ``attn_drop > 0``)."""
+        return self.attn_drop.active()
+
+    def draw_masks(self, batch: int, tokens: int, generator, device=None) -> tuple:
+        """The probabilities' mask and the proj output's five (``None`` when off)."""
+        return (self.attn_drop.draw((batch, self.num_heads, tokens, tokens), generator,
+                                    device=device),
+                self.proj_drop.draw(_tuple_shapes(batch, tokens, self.proj.kernel_1d.shape[2]),
+                                    generator, device=device))
 
     def qkv_arrays(self, xs) -> tuple:
         """The attention kernel's inputs of the normed input (the flat-E
@@ -491,7 +621,7 @@ class AttentionD8(nn.Module):
         or with ``use_wide_qkv`` the five of :func:`octic_attention_wide1d`."""
         if isinstance(xs, torch.Tensor):
             xs = unpack_packed_5f(xs)
-        if self.use_wide_qkv:
+        if self.use_wide_qkv and not self.eager():
             q = self.qkv
             params = tuple(cast(p, xs[0].dtype) for p in (q.kernel_1d, q.kernel_e, q.bias_a1))
             return linear_d8_wide1d(xs, *params, self.num_heads)
@@ -499,16 +629,21 @@ class AttentionD8(nn.Module):
         half = qkv[4].shape[-1] // 2
         return qkv[:4] + (qkv[4][..., :half], qkv[4][..., half:])
 
-    def attention(self, inputs: tuple) -> tuple:
-        """The attention kernel over :meth:`qkv_arrays`' output."""
+    def attention(self, inputs: tuple, u: Optional[torch.Tensor] = None) -> tuple:
+        """The attention kernel over :meth:`qkv_arrays`' output, or the eager
+        path with the probabilities' dropout mask `u`."""
+        if self.eager():
+            if u is None:
+                raise ValueError("attention dropout in training needs the masks of draw_masks")
+            return octic_attention_eager(*inputs, self.num_heads, u, self.attn_drop.rate)
         op = octic_attention_wide1d if self.use_wide_qkv else octic_attention
         return op(*inputs, self.num_heads)
 
-    def attend(self, xs) -> tuple:
+    def attend(self, xs, u: Optional[torch.Tensor] = None) -> tuple:
         """The six attention outputs (``attn_out``) of the normed input (the
         flat-E tuple or the packed container)."""
-        if self.use_wide_qkv or (self.training and not self.fuse_qkv):
-            return self.attention(self.qkv_arrays(xs))
+        if self.eager() or self.use_wide_qkv or (self.training and not self.fuse_qkv):
+            return self.attention(self.qkv_arrays(xs), u)
         packed = isinstance(xs, torch.Tensor)
         dt = xs.dtype if packed else xs[0].dtype
         q = self.qkv
@@ -518,17 +653,18 @@ class AttentionD8(nn.Module):
         return octic_attention_fused_qkv(*xs, *params, self.num_heads)
 
     def project(self, outs: tuple, layerscale: Optional[tuple] = None,
-                residual: Optional[tuple] = None) -> tuple:
-        """The proj of the six attention outputs; with `layerscale` and
-        `residual`, ``residual + ls * proj(...)`` through the kernel's
-        epilogue (d8_layers.py:1055-1058, the proj's ``use_pallas=layerscale
-        is not None``)."""
+                residual: Optional[tuple] = None, u: Optional[tuple] = None) -> tuple:
+        """The proj of the six attention outputs, then the proj's dropout
+        (masks `u`); with `layerscale` and `residual`, ``residual + ls *
+        proj(...)`` through the kernel's epilogue (d8_layers.py:1055-1058, the
+        proj's ``use_pallas=layerscale is not None``)."""
         o1, o2, o3, o4, oe0, oe1 = outs
-        return self.proj((o1, o2, o3, o4, torch.cat((oe0, oe1), dim=-1)), layerscale, residual)
+        ys = self.proj((o1, o2, o3, o4, torch.cat((oe0, oe1), dim=-1)), layerscale, residual)
+        return self.proj_drop(ys, u)
 
     def forward(self, xs: tuple, layerscale: Optional[tuple] = None,
-                residual: Optional[tuple] = None) -> tuple:
-        return self.project(self.attend(xs), layerscale, residual)
+                residual: Optional[tuple] = None, masks: tuple = (None, None)) -> tuple:
+        return self.project(self.attend(xs, masks[0]), layerscale, residual, masks[1])
 
 
 class BlockD8(nn.Module):
@@ -561,7 +697,12 @@ class BlockD8(nn.Module):
     remat norm1 + the wide-1d qkv product are rematerialized and
     :func:`octic_attention_wide1d` saves their five outputs; a packed
     container is unpacked to its flat-E views for the qkv, as the JAX layer
-    does."""
+    does.
+
+    ``drop`` is the proj's and the MLP's dropout and ``attn_drop`` the
+    probabilities' (the eager attention in training); with ``drop > 0`` the
+    epilogue and MLP-branch fusions stay off, as in JAX. Their masks are the
+    third entry of :meth:`draw_masks`' tuple."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, layerscale_init: float = 1e-4,
@@ -569,20 +710,22 @@ class BlockD8(nn.Module):
                  fuse_qkv: bool = False, use_pallas_linear: bool = True,
                  use_pallas_gelu: bool = False, fuse_block_epilogues: bool = False,
                  fuse_mlp_branch: bool = False, fuse_mlp: bool = False,
-                 use_wide_qkv: bool = False, *, device=None, dtype=None):
+                 use_wide_qkv: bool = False, drop: float = 0.0, attn_drop: float = 0.0, *,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.use_pallas_linear = use_pallas_linear
         self.fuse_block_epilogues = fuse_block_epilogues
         self.fuse_mlp_branch = fuse_mlp_branch
+        self.drop = drop
         self.norm1 = LayerNormD8(dim, use_kernel=True, **kw)
         self.attn = AttentionD8(dim, num_heads, qkv_bias, proj_bias, fuse_qkv, use_wide_qkv,
-                                **kw)
+                                attn_drop, drop, **kw)
         self.ls1 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path1 = DropPathD8(drop_path)
         self.norm2 = LayerNormD8(dim, use_kernel=True, **kw)
         self.mlp = MlpD8(dim, int(dim * mlp_ratio), ffn_bias, use_pallas_linear=use_pallas_linear,
-                         use_pallas_gelu=use_pallas_gelu, fuse_mlp=fuse_mlp, **kw)
+                         use_pallas_gelu=use_pallas_gelu, fuse_mlp=fuse_mlp, drop=drop, **kw)
         self.ls2 = ScaleD8(dim, layerscale_init, **kw)
         self.drop_path2 = DropPathD8(drop_path)
 
@@ -591,12 +734,13 @@ class BlockD8(nn.Module):
 
     def fuse_epilogue(self) -> bool:
         """Whether this call writes the residual adds in the kernel epilogues."""
-        return self.fuse_block_epilogues and self.use_pallas_linear and self._no_drop_path()
+        return (self.fuse_block_epilogues and self.use_pallas_linear and self.drop == 0.0
+                and self._no_drop_path())
 
     def fuse_branch(self) -> bool:
         """Whether this call runs the MLP half as :func:`mlp_branch_d8`."""
-        return (self.fuse_mlp_branch and self.use_pallas_linear and self._no_drop_path()
-                and not self.fuse_epilogue())
+        return (self.fuse_mlp_branch and self.use_pallas_linear and self.drop == 0.0
+                and self._no_drop_path() and not self.fuse_epilogue())
 
     def branch_params(self, dt: torch.dtype) -> tuple:
         """The 11-tuple of :func:`mlp_branch_d8` from norm2, the MLP and ls2,
@@ -613,10 +757,16 @@ class BlockD8(nn.Module):
                 cast(self.ls2.alpha_1d, dt), cast(self.ls2.alpha_e, dt))
 
     def draw_masks(self, batch: int, generator: Optional[torch.Generator], *, device=None,
-                   dtype=None) -> tuple:
+                   dtype=None, tokens: int = 0) -> tuple:
+        """The two drop-path masks, and where dropout is on in training a third
+        entry: the masks of the probabilities, the proj output, the MLP's
+        hidden and its output at `tokens` tokens (``vit_layers.Block``'s)."""
         kw = dict(device=device, dtype=dtype)
-        return (self.drop_path1.draw(batch, generator, **kw),
-                self.drop_path2.draw(batch, generator, **kw))
+        masks = (self.drop_path1.draw(batch, generator, **kw),
+                 self.drop_path2.draw(batch, generator, **kw))
+        drop = (self.attn.draw_masks(batch, tokens, generator, device)
+                + self.mlp.draw_masks(batch, tokens, generator, device))
+        return masks if all(u is None for u in drop) else masks + (drop,)
 
     def _normed(self, *xs):
         """norm1 of the flat-E tuple `xs`, or of the packed container ``xs[0]``."""
@@ -625,16 +775,22 @@ class BlockD8(nn.Module):
     def _attn_in(self, *xs) -> tuple:
         return self.attn.qkv_arrays(self._normed(*xs))
 
+    @staticmethod
+    def _split_masks(masks: tuple) -> tuple:
+        """(m1, m2, the four dropout entries) of :meth:`draw_masks`' tuple."""
+        return masks[0], masks[1], masks[2] if len(masks) > 2 else (None,) * 4
+
     def _attn_out(self, *args) -> tuple:
-        xs, outs, (m1, m2) = args[:5], args[5:11], args[11:]
+        xs, outs = args[:5], args[5:11]
+        m1, m2, d = self._split_masks(args[11:])
         if self.fuse_epilogue():
             xs = self.attn.project(outs, (self.ls1.alpha_1d, self.ls1.alpha_e), xs)
             return self.mlp(self.norm2(xs), (self.ls2.alpha_1d, self.ls2.alpha_e), xs)
-        ys = self.drop_path1(self.ls1(self.attn.project(outs)), m1)
+        ys = self.drop_path1(self.ls1(self.attn.project(outs, u=d[1])), m1)
         xs = tuple(x + y for x, y in zip(xs, ys))
         if self.fuse_branch():
             return mlp_branch_d8(xs, self.branch_params(xs[0].dtype))
-        ys = self.drop_path2(self.ls2(self.mlp(self.norm2(xs))), m2)
+        ys = self.drop_path2(self.ls2(self.mlp(self.norm2(xs), masks=d[2:])), m2)
         return tuple(x + y for x, y in zip(xs, ys))
 
     @staticmethod
@@ -647,9 +803,10 @@ class BlockD8(nn.Module):
         return torch.addcmul(x, y, a if mask is None else a * mask)
 
     def _attn_out_packed(self, x: torch.Tensor, *args) -> torch.Tensor:
-        outs, (m1, m2) = args[:6], args[6:]
-        x = self._add_branch(x, pack_5_to_flat(self.attn.project(outs)), self.ls1, m1)
-        ys = self.mlp(self.norm2(x))
+        outs = args[:6]
+        m1, m2, d = self._split_masks(args[6:])
+        x = self._add_branch(x, pack_5_to_flat(self.attn.project(outs, u=d[1])), self.ls1, m1)
+        ys = self.mlp(self.norm2(x), masks=d[2:])
         if not isinstance(ys, torch.Tensor):
             ys = pack_5_to_flat(ys)
         return self._add_branch(x, ys, self.ls2, m2)
@@ -658,10 +815,11 @@ class BlockD8(nn.Module):
         packed = isinstance(xs, torch.Tensor)
         xs = (xs,) if packed else tuple(xs)
         out_fn = self._attn_out_packed if packed else self._attn_out
+        u = self._split_masks(masks)[2][0]
         if not remat_block:
-            return out_fn(*xs, *self.attn.attend(self._normed(*xs)), *masks)
-        if self.attn.fuse_qkv and not self.attn.use_wide_qkv:
+            return out_fn(*xs, *self.attn.attend(self._normed(*xs), u), *masks)
+        if self.attn.fuse_qkv and not (self.attn.use_wide_qkv or self.attn.eager()):
             outs = self.attn.attend(remat(self._normed, *xs))
         else:
-            outs = self.attn.attention(remat(self._attn_in, *xs))
+            outs = self.attn.attention(remat(self._attn_in, *xs), u)
         return remat(out_fn, *xs, *outs, *masks)

@@ -9,9 +9,12 @@ multi-crop ``forward_features_list``, and ``get_intermediate_layers`` for
 the eval probes. The positional embedding is resized to each crop's patch
 grid (6 x 6 for a 96^2 local crop at patch 16). In training with drop path,
 ``forward_features`` takes a ``torch.Generator`` and draws the masks of
-every block from it before the trunk runs. Registers, the invariant-early
-backbones and the packed carry on the SSL trunk are not ported yet: the
-octic backbone raises for ``invariant`` and ``packed_carry``.
+every block from it before the trunk runs. Both take register tokens
+(``num_register_tokens``: the token dict's ``x_norm_regtokens``, and
+``get_intermediate_layers`` skips them with the cls token); the octic
+backbone takes the invariant-early break (``invariant``, any
+``invariant_kind``) and the packed carry through the trunk it inherits,
+the standard one the SwiGLU FFN (``ffn_layer="swiglu"``).
 """
 
 from __future__ import annotations
@@ -24,16 +27,17 @@ from torch import nn
 from octic_vits_tpu_torch.d8.group import pack_8_to_5f, unpack_5f_to_8
 from octic_vits_tpu_torch.d8.posembed import resize_grid
 from octic_vits_tpu_torch.layers.common import draw_block_masks
-from octic_vits_tpu_torch.layers.d8_layers import trunc_normal_
+from octic_vits_tpu_torch.layers.d8_layers import normal_, trunc_normal_
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, PatchEmbed
 from octic_vits_tpu_torch.models.octic_vit import OcticVisionTransformer
 
 
-def _output_dict(z_norm: torch.Tensor, z: torch.Tensor, masks) -> dict:
+def _output_dict(z_norm: torch.Tensor, z: torch.Tensor, masks, r: int = 0) -> dict:
+    """The token dict, with `r` register tokens after the cls token."""
     return {
         "x_norm_clstoken": z_norm[:, 0],
-        "x_norm_regtokens": z_norm[:, 1:1],
-        "x_norm_patchtokens": z_norm[:, 1:],
+        "x_norm_regtokens": z_norm[:, 1:1 + r],
+        "x_norm_patchtokens": z_norm[:, 1 + r:],
         "x_prenorm": z,
         "masks": masks,
     }
@@ -48,11 +52,11 @@ def _intermediate_outputs(model, x: torch.Tensor, outputs: list, reshape: bool,
                           return_class_token: bool, norm: bool) -> tuple:
     """The tail of ``get_intermediate_layers``: the final LayerNorm on each
     taken block's tokens, the cls token split off, the patch tokens as a
-    ``[B, h, w, C]`` grid with `reshape`."""
+    ``[B, h, w, C]`` grid with `reshape`; the register tokens are dropped."""
     if norm:
         outputs = [model.norm(o) for o in outputs]
     cls_tokens = [o[:, 0] for o in outputs]
-    outputs = [o[:, 1:] for o in outputs]
+    outputs = [o[:, 1 + model.num_register_tokens:] for o in outputs]
     if reshape:
         b, h, w, _ = x.shape
         gh, gw = h // model.patch_size, w // model.patch_size
@@ -67,13 +71,10 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
     the DINOv2 cls init, and a per-irrep mask token of which only the A1 slot
     is a parameter (``mask_token_a1``; the other seven slots are zeros). The
     mask token replaces the patch embedding before the pos-embed is added,
-    in the 8-tuple form."""
+    in the 8-tuple form; the register tokens follow the cls token."""
 
     def __init__(self, qkv_bias: bool = True, num_classes: int = 0, cls_init: str = "dinov2",
                  **kwargs):
-        if kwargs.get("invariant") or kwargs.get("packed_carry"):
-            raise NotImplementedError("the invariant-early DINOv2 backbones and the packed carry "
-                                      "on the SSL trunk are not ported yet")
         super().__init__(qkv_bias=qkv_bias, num_classes=num_classes, cls_init=cls_init, **kwargs)
         p = self.cls_token_a1
         self.mask_token_a1 = nn.Parameter(torch.empty(1, self.embed_dim // 8, device=p.device,
@@ -97,14 +98,14 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
                 t.masked_fill(m, 0.0) for t in xs8[1:])
         pos8 = self._pos_embed_8tuple(grid_hw)
         xs8 = tuple(t + p.reshape(-1, p.shape[-1]).to(dt) for t, p in zip(xs8, pos8))
-        return self._cat_cls(pack_8_to_5f(xs8), b)
+        return self._cat_cls_and_registers(pack_8_to_5f(xs8), b)
 
     def forward_features(self, x, masks=None, generator: Optional[torch.Generator] = None):
         if isinstance(x, (list, tuple)):
             return self.forward_features_list(x, masks, generator)
         x = x.to(self.compute_dtype or self.pos_embed.dtype)
         z = self._trunk(self.prepare_tokens_with_masks(x, masks), generator)
-        return _output_dict(self.norm(z), z, masks)
+        return _output_dict(self.norm(z), z, masks, self.num_register_tokens)
 
     def forward_features_list(self, x_list, masks_list,
                               generator: Optional[torch.Generator] = None) -> list:
@@ -140,41 +141,46 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
 
 
 class DinoVisionTransformer(nn.Module):
-    """The standard DINOv2 ViT (the comparator of the hybrid), on the same
-    standard blocks and kernels as the hybrid's second half. Its pos-embed
-    ``[1, grid^2 + 1, C]`` includes the cls slot; the patch part is resized
-    to each crop's grid."""
+    """The standard DINOv2 ViT (the comparator of the hybrid, and the upstream
+    DINOv2 backbones), on the same standard blocks and kernels as the
+    hybrid's second half. Its pos-embed ``[1, grid^2 + 1, C]`` includes the
+    cls slot; the patch part is resized to each crop's grid. The register
+    tokens (``register_tokens``) go after the cls token once the pos-embed
+    is added; ``ffn_layer="swiglu"`` takes :class:`SwiGLUFFN` (the giant's)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, proj_bias: bool = True, ffn_bias: bool = True,
-                 drop_path_rate: float = 0.0, layerscale_init: float = 1.0,
+                 drop_path_rate: float = 0.0, layerscale_init: Optional[float] = 1.0,
                  num_register_tokens: int = 0, ffn_layer: str = "mlp", remat: bool = False,
                  compute_dtype: Optional[torch.dtype] = None, *, device=None, dtype=None):
         super().__init__()
-        if num_register_tokens or ffn_layer != "mlp":
-            raise NotImplementedError("registers and the SwiGLU FFN are not ported yet")
         kw = dict(device=device, dtype=dtype)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
+        self.num_register_tokens = num_register_tokens
         self.grid = img_size // patch_size
         self.remat = remat
         self.compute_dtype = compute_dtype
         self.patch_embed = PatchEmbed(patch_size, embed_dim, **kw)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim, **kw))
         self.pos_embed = nn.Parameter(torch.empty(1, self.grid ** 2 + 1, embed_dim, **kw))
+        self.register_tokens = (nn.Parameter(torch.empty(1, num_register_tokens, embed_dim, **kw))
+                                if num_register_tokens else None)
         self.mask_token = nn.Parameter(torch.empty(1, embed_dim, **kw))
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                   layerscale_init=layerscale_init, norm_eps=1e-6, drop_path=drop_path_rate,
-                  proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
+                  proj_bias=proj_bias, ffn_bias=ffn_bias, ffn_layer=ffn_layer, **kw)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.cls_token)
         trunc_normal_(self.pos_embed, 0.02, generator)
+        if self.register_tokens is not None:
+            normal_(self.register_tokens, 1e-6, generator)
         nn.init.zeros_(self.mask_token)
 
     def prepare_tokens_with_masks(self, x: torch.Tensor,
@@ -188,7 +194,11 @@ class DinoVisionTransformer(nn.Module):
         patch_pos = self.pos_embed[0, 1:].reshape(self.grid, self.grid, self.embed_dim)
         patch_pos = resize_grid(patch_pos, (h // self.patch_size, w // self.patch_size))
         pos = torch.cat((self.pos_embed[0, :1], patch_pos.reshape(-1, self.embed_dim)), dim=0)
-        return x + pos.to(dt)
+        x = x + pos.to(dt)
+        if self.register_tokens is None:
+            return x
+        regs = self.register_tokens.to(dt).expand(b, -1, -1)
+        return torch.cat((x[:, :1], regs, x[:, 1:]), dim=1)
 
     def forward_features(self, x, masks=None, generator: Optional[torch.Generator] = None):
         if isinstance(x, (list, tuple)):
@@ -196,11 +206,11 @@ class DinoVisionTransformer(nn.Module):
         x = x.to(self.compute_dtype or self.pos_embed.dtype)
         z = self.prepare_tokens_with_masks(x, masks)
         block_masks = draw_block_masks(self.blocks, z.shape[0], generator, device=z.device,
-                                       dtype=z.dtype)
+                                       dtype=z.dtype, tokens=z.shape[1])
         rb = self.remat and self.training
         for blk, m in zip(self.blocks, block_masks):
             z = blk(z, m, rb)
-        return _output_dict(self.norm(z), z, masks)
+        return _output_dict(self.norm(z), z, masks, self.num_register_tokens)
 
     def forward_features_list(self, x_list, masks_list,
                               generator: Optional[torch.Generator] = None) -> list:

@@ -7,12 +7,12 @@ two ``linear_d8_fused`` kernels in train mode; the attention and fc1 + GELU
 kernels in the standard blocks). The DINOv2 interface (mask tokens, the
 token dict) is models/dinov2_vit.py.
 
-The first ``break_layer`` blocks are D8-equivariant and carry the flat-E
-5-tuple, or with ``packed_carry`` ONE packed ``[B, N, C]`` container
-(d8/group.py); at the break the octic stream is concatenated to ``[B, N,
-C]`` in isotypic slot order (hybrid) or, with ``invariant``, invariantized
-and projected back to C (invariant-early), and standard blocks finish the
-network. Images are
+The first ``break_layer`` blocks (``octic_equi_break_layer``, depth // 2
+unless set) are D8-equivariant and carry the flat-E 5-tuple, or with
+``packed_carry`` ONE packed ``[B, N, C]`` container (d8/group.py); at the
+break the octic stream is concatenated to ``[B, N, C]`` in isotypic slot
+order (hybrid) or, with ``invariant``, invariantized and projected back to
+C (invariant-early), and standard blocks finish the network. Images are
 NHWC. The flax ``lax.scan`` trunk becomes a plain ``nn.ModuleList``;
 ``remat`` is its per-block rematerialization. ``dtype`` is the parameter
 dtype and ``compute_dtype`` the activations' (the flax ``param_dtype`` and
@@ -37,7 +37,7 @@ from octic_vits_tpu_torch.d8.group import (
     unpack_flat_to_5,
 )
 from octic_vits_tpu_torch.d8.posembed import resize_posembed, unfold_quadrant
-from octic_vits_tpu_torch.layers.common import draw_block_masks
+from octic_vits_tpu_torch.layers.common import Dropout, draw_block_masks
 from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, normal_, trunc_normal_
 from octic_vits_tpu_torch.layers.invariants import make_invariant
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, Linear
@@ -54,8 +54,8 @@ class OcticVisionTransformer(nn.Module):
     always run the configurations of the bench and train flags, which set
     it, so it defaults on here. ``fuse_mlp`` runs the fused MLP op in
     training too (differentiable). ``invariant`` breaks the equivariance with
-    ``invariant_kind`` (only "power_spectrum" is ported; the others raise)
-    and ``invariant_proj``, a ``Linear(6C/8 -> C)``. ``packed_carry`` packs
+    ``invariant_kind`` (any of the seven kinds of ``layers.invariants``) and
+    ``invariant_proj``, a ``Linear`` from its features to C. ``packed_carry`` packs
     the octic stream into one ``[B, N, C]`` container at trunk entry; the
     octic blocks take the packed ops where their fused ops run (eval mode,
     or ``fuse_qkv`` and ``fuse_mlp`` in training, as the JAX docstring asks)
@@ -63,8 +63,18 @@ class OcticVisionTransformer(nn.Module):
     ``use_wide_qkv`` runs the octic blocks' attention as the wide-1d qkv
     product and :func:`~octic_vits_tpu_torch.ops.octic_attention_wide1d`
     (kernel row 12) in both modes, over the same parameters; off by default,
-    as in JAX (models/octic_vit.py:78). Registers are not ported yet and
-    raise."""
+    as in JAX (models/octic_vit.py:78).
+
+    ``octic_equi_break_layer`` places the break (``None``: depth // 2, which
+    needs an even depth; else ``0 <= b < depth``). ``global_pool`` drops the
+    cls token and pools the mean of every token. ``num_register_tokens``
+    adds ``register_tokens_a1`` (only the A1 slot a parameter, as the cls
+    token), inserted after token 0 as JAX's ``_cat_cls_and_registers`` does:
+    with ``global_pool`` token 0 is the first patch token, a JAX quirk the
+    port copies. ``drop_rate`` is the blocks' proj and MLP dropout and the
+    head input's; ``attn_drop_rate`` the blocks' attention dropout (the
+    eager attention in training; see :class:`AttentionD8`). Their masks come
+    from the forward's generator, drawn before the trunk runs."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, num_classes: int = 1000,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -76,7 +86,9 @@ class OcticVisionTransformer(nn.Module):
                  invariant_kind: str = "power_spectrum", packed_carry: bool = False,
                  use_pallas_linear: bool = True, use_pallas_gelu: bool = False,
                  fuse_mlp_branch: bool = False, fuse_block_epilogues: bool = False,
-                 fuse_mlp: bool = False, use_wide_qkv: bool = False, *, device=None,
+                 fuse_mlp: bool = False, use_wide_qkv: bool = False,
+                 octic_equi_break_layer: Optional[int] = None, global_pool: bool = False,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0, *, device=None,
                  dtype=None):
         super().__init__()
         if embed_dim % 8:
@@ -84,10 +96,13 @@ class OcticVisionTransformer(nn.Module):
         grid = img_size // patch_size
         if grid % 2:
             raise ValueError("patch grid must be even for the quadrant pos-embed")
-        if depth % 2:
-            raise ValueError("depth must be even")
-        if num_register_tokens:
-            raise NotImplementedError("registers are not ported yet")
+        if octic_equi_break_layer is None:
+            if depth % 2:
+                raise ValueError("depth must be even")
+            octic_equi_break_layer = depth // 2
+        elif not 0 <= octic_equi_break_layer < depth:
+            raise ValueError(f"octic_equi_break_layer must lie in [0, {depth}), got "
+                             f"{octic_equi_break_layer}")
         if cls_init not in ("deit", "dinov2"):
             raise ValueError(f"cls_init must be 'deit' or 'dinov2', got {cls_init!r}")
         kw = dict(device=device, dtype=dtype)
@@ -95,7 +110,9 @@ class OcticVisionTransformer(nn.Module):
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.depth = depth
-        self.break_layer = depth // 2  # the first half of the blocks is octic
+        self.break_layer = octic_equi_break_layer
+        self.num_register_tokens = num_register_tokens
+        self.global_pool = global_pool
         self.cls_init = cls_init
         self.remat = remat
         self.compute_dtype = compute_dtype
@@ -103,14 +120,18 @@ class OcticVisionTransformer(nn.Module):
         self.patch_embed = PatchEmbedD8(patch_size, embed_dim, **kw)
         # 6 quadrant tensors stacked: [6, grid/2, grid/2, C/8]
         self.pos_embed = nn.Parameter(torch.empty(6, grid // 2, grid // 2, c8, **kw))
-        # only the A1 slot of the cls token is a parameter; the others are 0
-        self.cls_token_a1 = nn.Parameter(torch.empty(1, 1, c8, **kw))
+        # only the A1 slot of the cls and register tokens is a parameter; the
+        # others are 0
+        self.cls_token_a1 = None if global_pool else nn.Parameter(torch.empty(1, 1, c8, **kw))
+        self.register_tokens_a1 = (nn.Parameter(torch.empty(1, num_register_tokens, c8, **kw))
+                                   if num_register_tokens else None)
         self.invariantization = self.invariant_proj = None
         if invariant:
-            self.invariantization = make_invariant(invariant_kind, embed_dim)
+            self.invariantization = make_invariant(invariant_kind, embed_dim, **kw)
             self.invariant_proj = Linear(self.invariantization.output_dim, embed_dim, **kw)
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, layerscale_init=init_scale,
-                      drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias, **kw)
+                      drop_path=drop_path_rate, proj_bias=proj_bias, ffn_bias=ffn_bias,
+                      drop=drop_rate, attn_drop=attn_drop_rate, **kw)
         octic = dict(fuse_qkv=fuse_qkv, use_pallas_linear=use_pallas_linear,
                      use_pallas_gelu=use_pallas_gelu, fuse_mlp_branch=fuse_mlp_branch,
                      fuse_block_epilogues=fuse_block_epilogues, fuse_mlp=fuse_mlp,
@@ -121,15 +142,18 @@ class OcticVisionTransformer(nn.Module):
             for i in range(depth)
         )
         self.norm = LayerNorm(embed_dim, eps=1e-6, **kw)
+        self.head_drop = Dropout(drop_rate)
         self.head = Linear(embed_dim, num_classes, **kw) if num_classes > 0 else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         std = 8 * 0.02
         trunc_normal_(self.pos_embed, SQRT2_OVER_2 * std, generator)
-        if self.cls_init == "deit":
+        if self.cls_token_a1 is not None and self.cls_init == "deit":
             trunc_normal_(self.cls_token_a1, std, generator)
-        else:
+        elif self.cls_token_a1 is not None:
             normal_(self.cls_token_a1, 1e-6, generator)
+        if self.register_tokens_a1 is not None:
+            normal_(self.register_tokens_a1, 1e-6, generator)
 
     def _pos_embed_8tuple(self, grid_hw: tuple) -> tuple:
         pos8 = unfold_quadrant(tuple(self.pos_embed[i] for i in range(6)), dim=0)
@@ -140,14 +164,26 @@ class OcticVisionTransformer(nn.Module):
         dt = xs[0].dtype
         return tuple(x + p.reshape(-1, p.shape[-1]).to(dt) for x, p in zip(xs, pos5))
 
-    def _cat_cls(self, xs: tuple, batch: int) -> tuple:
-        c8 = self.embed_dim // 8
+    @staticmethod
+    def _tokens5(a1: torch.Tensor, batch: int) -> tuple:
+        """Flat-E tokens whose A1 slot is the parameter `a1` ``[1, r, C/8]``
+        and whose other slots are 0."""
+        a1 = a1.expand(batch, -1, -1)
+        zeros = torch.zeros_like(a1)
+        return (a1, zeros, zeros, zeros, torch.cat((zeros,) * 4, dim=-1))
+
+    def _cat_cls_and_registers(self, xs: tuple, batch: int) -> tuple:
+        """The cls token first (none with ``global_pool``), then the register
+        tokens after token 0 (octic_vit.py:_cat_cls_and_registers: with
+        ``global_pool`` token 0 is the first patch token)."""
         dt = xs[0].dtype
-        cls_a1 = self.cls_token_a1.to(dt).expand(batch, 1, c8)
-        zeros = torch.zeros_like(cls_a1)
-        zeros_e = torch.zeros(batch, 1, 4 * c8, device=cls_a1.device, dtype=dt)
-        cls5 = (cls_a1, zeros, zeros, zeros, zeros_e)
-        return tuple(torch.cat((c, x), dim=1) for c, x in zip(cls5, xs))
+        if self.cls_token_a1 is not None:
+            cls5 = self._tokens5(self.cls_token_a1.to(dt), batch)
+            xs = tuple(torch.cat((c, x), dim=1) for c, x in zip(cls5, xs))
+        if self.register_tokens_a1 is not None:
+            reg5 = self._tokens5(self.register_tokens_a1.to(dt), batch)
+            xs = tuple(torch.cat((x[:, :1], g, x[:, 1:]), dim=1) for g, x in zip(reg5, xs))
+        return xs
 
     def _break_to_flat(self, xs) -> torch.Tensor:
         """Equivariance break of the flat-E tuple or the packed container
@@ -177,11 +213,12 @@ class OcticVisionTransformer(nn.Module):
 
     def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
         """The blocks on the token tuple: octic blocks, the break, standard
-        blocks. Every block's drop-path masks are drawn from `generator`
-        before the first block runs. Returns the pre-norm ``[B, N, C]``."""
+        blocks. Every block's drop-path and dropout masks are drawn from
+        `generator` before the first block runs. Returns the pre-norm ``[B,
+        N, C]``."""
         x0 = xs[0]
         masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
-                                 dtype=x0.dtype)
+                                 dtype=x0.dtype, tokens=x0.shape[1])
         z = self._run_to_break(xs, masks)
         rb = self.remat and self.training
         for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
@@ -193,10 +230,13 @@ class OcticVisionTransformer(nn.Module):
         b, h, w, _ = x.shape
         x = x.to(self.compute_dtype or self.pos_embed.dtype)
         grid_hw = (h // self.patch_size, w // self.patch_size)
-        xs = self._cat_cls(self._add_pos(self.patch_embed(x), grid_hw), b)
-        return self.norm(self._trunk(xs, generator))[:, 0]
+        xs = self._cat_cls_and_registers(self._add_pos(self.patch_embed(x), grid_hw), b)
+        z = self.norm(self._trunk(xs, generator))
+        return z.mean(dim=1) if self.global_pool else z[:, 0]
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # the head input's dropout mask is drawn after the trunk's masks
         z = self.forward_features(x, generator)
+        z = self.head_drop(z, self.head_drop.draw(tuple(z.shape), generator, device=z.device))
         return z if self.head is None else self.head(z)
 

@@ -1,5 +1,6 @@
-"""Named model configurations of the ported slices (counterpart of the
-matching entries of octic_vits_tpu/models/registry.py)."""
+"""Named model configurations (counterpart of
+octic_vits_tpu/models/registry.py): every name the JAX registry holds, with
+its arguments, and the port's tiny DINOv2 test backbone."""
 
 from __future__ import annotations
 
@@ -31,6 +32,10 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def list_models() -> list:
+    return sorted(_REGISTRY)
+
+
 def create_model(name: str, **kwargs):
     """Build a registered model on ``kwargs["device"]``, the CUDA card when
     none is given (see :func:`resolve_device`); ``dtype`` and config
@@ -54,16 +59,6 @@ def hybrid_deit_large_patch16(img_size=224, **kwargs):
 @register_model
 def hybrid_deit_huge_patch14(img_size=224, **kwargs):
     return OcticVisionTransformer(
-        img_size=img_size, patch_size=14, embed_dim=1280, depth=32, num_heads=16,
-        mlp_ratio=4.0, qkv_bias=True, **kwargs,
-    )
-
-
-@register_model
-def deit_huge_patch14_LS(img_size=224, **kwargs):
-    # every named reference DeiT factory uses LayerNorm eps 1e-6
-    kwargs.setdefault("norm_eps", 1e-6)
-    return VisionTransformer(
         img_size=img_size, patch_size=14, embed_dim=1280, depth=32, num_heads=16,
         mlp_ratio=4.0, qkv_bias=True, **kwargs,
     )
@@ -127,6 +122,77 @@ def dinov2_vit_huge_patch16(img_size=224, **kwargs):
         img_size=img_size, patch_size=16, embed_dim=1280, depth=32, num_heads=16,
         mlp_ratio=4.0, **{"layerscale_init": 1e-5, **kwargs},
     )
+
+
+@register_model
+def d8_inv_early_dinov2_vit_large_patch16(img_size=224, **kwargs):
+    return OcticDinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=4.0, invariant=True, **{"init_scale": 1e-5, **kwargs},
+    )
+
+
+@register_model
+def d8_inv_early_dinov2_vit_huge_patch16(img_size=224, **kwargs):
+    return OcticDinoVisionTransformer(
+        img_size=img_size, patch_size=16, embed_dim=1280, depth=32, num_heads=16,
+        mlp_ratio=4.0, invariant=True, **{"init_scale": 1e-5, **kwargs},
+    )
+
+
+# DeiT III LS baselines (the reference's deit/vit.py:397-683): size -> (embed
+# dim, depth, heads), at patch 14 and 16
+_DEIT_DIMS = {
+    "tiny": (192, 12, 3),
+    "small": (384, 12, 6),
+    "medium": (512, 12, 8),
+    "base": (768, 12, 12),
+    "large": (1024, 24, 16),
+    "huge": (1280, 32, 16),
+}
+
+
+def _register_deit_ls():
+    for size, (dim, depth, heads) in _DEIT_DIMS.items():
+        for patch in (14, 16):
+            def factory(img_size=224, _d=dim, _depth=depth, _h=heads, _p=patch, **kwargs):
+                # every named reference DeiT factory uses LayerNorm eps 1e-6
+                kwargs.setdefault("norm_eps", 1e-6)
+                return VisionTransformer(img_size=img_size, patch_size=_p, embed_dim=_d,
+                                         depth=_depth, num_heads=_h, mlp_ratio=4.0,
+                                         qkv_bias=True, **kwargs)
+
+            factory.__name__ = f"deit_{size}_patch{patch}_LS"
+            register_model(factory)
+
+
+_register_deit_ls()
+
+# the upstream DINOv2 hub backbones (the reference's dinov2/hub/backbones.py:
+# 64-156): ViT-S/B/L/g at patch 14, 518^2, LayerScale 1.0, 0 or 4 registers;
+# the giant with the SwiGLU FFN
+_UPSTREAM_DINOV2 = {
+    "dinov2_vits14": dict(embed_dim=384, depth=12, num_heads=6),
+    "dinov2_vitb14": dict(embed_dim=768, depth=12, num_heads=12),
+    "dinov2_vitl14": dict(embed_dim=1024, depth=24, num_heads=16),
+    "dinov2_vitg14": dict(embed_dim=1536, depth=40, num_heads=24, ffn_layer="swiglu"),
+}
+
+
+def _register_upstream_dinov2():
+    for tag, arch in _UPSTREAM_DINOV2.items():
+        for n_reg in (0, 4):
+            def factory(img_size=518, _arch=arch, _n_reg=n_reg, **kwargs):
+                merged = dict(patch_size=14, mlp_ratio=4.0, layerscale_init=1.0,
+                              num_register_tokens=_n_reg, **_arch)
+                merged.update(kwargs)
+                return DinoVisionTransformer(img_size=img_size, **merged)
+
+            factory.__name__ = tag + ("_reg" if n_reg else "")
+            register_model(factory)
+
+
+_register_upstream_dinov2()
 
 
 @register_model

@@ -15,9 +15,16 @@ mechanical:
   hybrid model continuing after ``model.break_layer``;
 * flax ``Dense.kernel [in, out]`` -> torch ``Linear.weight [out, in]``;
 * flax ``LayerNorm.scale`` -> ``weight`` (``bias`` keeps its name);
-* every other leaf (the D8 parameters, pos-embed, cls and mask tokens,
-  LayerScale gammas, the DINO head's ``last_layer`` ``v`` and ``g``) keeps
-  its name and layout.
+* every other leaf (the D8 parameters, pos-embed, cls, mask and register
+  tokens, LayerScale gammas, the invariants' ``references`` and
+  ``reference``, the DINO head's ``last_layer`` ``v`` and ``g``) keeps its
+  name and layout.
+
+The modules carry the flax names, so the newer layers map the same way: the
+SwiGLU FFN's ``mlp.w12`` / ``mlp.w3``, the hMLP stem's ``proj{i}`` /
+``norm{i}``, the parallel block's ``norm1_a`` ... ``gamma_2_b``,
+``IsotypicToPatchD8``'s ``lin8`` and ``InvariantHead``'s ``LayerNorm_0``,
+``Dense_0``, ``Dense_1``.
 
 A tree of several models (the DINOv2 student ``{"backbone": ..., "dino_head":
 ...}``) maps onto an ``nn.ModuleDict`` with the same keys.

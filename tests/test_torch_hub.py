@@ -1,9 +1,10 @@
 """Parity of the port's checkpoint converters and hub with the JAX package on
 the CPU. Reference-layout state_dicts are drawn at random (the function below
 follows tests/test_convert_and_utils.py:_fake_octic_state_dict), written to
-temporary ``.pth`` files and loaded by both hubs; the tiny registry models
-stand in for the full-size entries through extra hub entries set with
-monkeypatch. f32 on both sides, tolerance 1e-5."""
+temporary ``.pth`` files and loaded by both hubs; tiny models stand in for
+the full-size entries (the hybrid and invariant-early octic DINOv2 backbones,
+the upstream DINOv2 with registers and SwiGLU) through extra hub and
+registry entries set with monkeypatch. f32 on both sides, tolerance 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +17,10 @@ from octic_vits_tpu.models import DinoVisionTransformer as JDino
 from octic_vits_tpu.models import OcticDinoVisionTransformer as JOcticDino
 from octic_vits_tpu.utils import convert as J_conv
 from octic_vits_tpu_torch import create_model, hub
-from octic_vits_tpu_torch.models import DinoVisionTransformer
+from octic_vits_tpu_torch.models import DinoVisionTransformer, OcticDinoVisionTransformer
+from octic_vits_tpu_torch.models import registry as T_reg
 from octic_vits_tpu_torch.utils import convert as T_conv
+from octic_vits_tpu_torch.utils.convert import params_from_jax
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -156,6 +159,88 @@ def tiny_entries(monkeypatch):
     return entries
 
 
+# tiny stand-ins of the entries ported after the hub: an invariant-early octic
+# DINOv2, and an upstream DINOv2 with 4 registers and the SwiGLU FFN
+UPSTREAM_TINY = dict(img_size=32, patch_size=8, embed_dim=32, depth=2, num_heads=2,
+                     mlp_ratio=2.0, num_register_tokens=4, ffn_layer="swiglu")
+NEW_ENTRIES = {
+    "d8_inv_early_dinov2_vit_tiny_test": (
+        hub.HubEntry("d8_inv_early_dinov2_vit_tiny_test", 2, "dinov2", 8),
+        dict(DINO_TINY, invariant=True), JOcticDino, OcticDinoVisionTransformer),
+    "dinov2_vit_tiny_reg_test": (
+        hub.HubEntry("dinov2_vit_tiny_reg_test", 2, "dinov2", 8, num_register_tokens=4,
+                     family="dinov2_std", embed_dim=32),
+        UPSTREAM_TINY, JDino, DinoVisionTransformer),
+}
+
+
+@pytest.fixture
+def new_entries(monkeypatch):
+    """The two stand-ins as entries of both hubs and both registries."""
+    for name, (e, cfg, jcls, tcls) in NEW_ENTRIES.items():
+        monkeypatch.setitem(hub.HUB_ENTRIES, name, e)
+        monkeypatch.setitem(J_hub.HUB_ENTRIES, name, J_hub.HubEntry(
+            e.arch, e.depth, e.style, e.patch_size, e.num_register_tokens, e.family,
+            e.embed_dim))
+        monkeypatch.setitem(J_reg._REGISTRY, name,
+                            lambda img_size=32, _c=cfg, _k=jcls, **kw: _k(**dict(
+                                _c, img_size=img_size), **kw))
+        monkeypatch.setitem(T_reg._REGISTRY, name,
+                            lambda img_size=32, _c=cfg, _k=tcls, **kw: _k(**dict(
+                                _c, img_size=img_size), **kw))
+    return NEW_ENTRIES
+
+
+def _fake_new_entry_state_dict(name, seed):
+    """The reference layout of a stand-in: the octic DINOv2 one with its
+    ``invariant_proj``; the upstream one with ``register_tokens`` and the
+    SwiGLU FFN's ``w12`` / ``w3`` in place of fc1 / fc2 (hidden 48)."""
+    rng = np.random.RandomState(seed)
+    if name.startswith("d8"):
+        sd = _fake_octic_state_dict(2, 32, style="dinov2", hidden=64, seed=seed)
+        sd["invariant_proj.weight"] = (0.2 * rng.randn(32, 24)).astype(np.float32)
+        sd["invariant_proj.bias"] = rng.randn(32).astype(np.float32)
+        return sd
+    sd = _fake_dinov2_state_dict(seed=seed)
+    sd["register_tokens"] = rng.randn(1, 4, 32).astype(np.float32)
+    for i in range(2):
+        for nm in ("fc1", "fc2"):
+            del sd[f"blocks.{i}.mlp.{nm}.weight"], sd[f"blocks.{i}.mlp.{nm}.bias"]
+        for nm, (o, n) in (("w12", (96, 32)), ("w3", (32, 48))):
+            sd[f"blocks.{i}.mlp.{nm}.weight"] = (0.2 * rng.randn(o, n)).astype(np.float32)
+            sd[f"blocks.{i}.mlp.{nm}.bias"] = rng.randn(o).astype(np.float32)
+    return sd
+
+
+@pytest.mark.parametrize("name", sorted(NEW_ENTRIES))
+def test_load_new_entries_match_jax(new_entries, tmp_path, name):
+    """The stand-ins of the invariant-early octic DINOv2 and of the upstream
+    DINOv2 with registers and SwiGLU load through both hubs from one random
+    reference-layout .pth file: the backbones' cls features, and the linear
+    classifier (its get_intermediate_layers skips the registers), against
+    JAX's."""
+    sd = _fake_new_entry_state_dict(name, 11)
+    path = _save(tmp_path / "ckpt.pth", {"teacher": {"module." + k: v for k, v in sd.items()}})
+    img = _images(12, 32)
+    jmodel, jparams = J_hub.load_backbone(name, path, img_size=32, dtype=jnp.float32)
+    ours = hub.load_backbone(name, path, img_size=32, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        got = ours.eval()(torch.from_numpy(img))
+    assert tuple(got.shape) == (2, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jmodel.apply({"params": jparams},
+                                                                    jnp.asarray(img))),
+                               atol=TOL, rtol=TOL)
+    classify_fn, variables = J_hub.load_linear_classifier(name, path, layers=1, img_size=32,
+                                                          dtype=jnp.float32)
+    model = hub.load_linear_classifier(name, path, layers=1, img_size=32, dtype=torch.float32,
+                                       device="cpu")
+    model.head.load_state_dict(params_from_jax(variables["head"], model.head), strict=True)
+    with torch.no_grad():
+        logits = model.eval()(torch.from_numpy(img))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(classify_fn(variables, jnp.asarray(img))),
+                               atol=TOL, rtol=TOL)
+
+
 # ---- the converters ------------------------------------------------------------
 
 
@@ -242,12 +327,12 @@ def test_hub_entries_and_unsupported(tmp_path):
     assert hub.HUB_ENTRIES.keys() == J_hub.HUB_ENTRIES.keys() and len(hub.HUB_ENTRIES) == 16
     for name, e in J_hub.HUB_ENTRIES.items():
         assert dataclasses_equal(hub.HUB_ENTRIES[name], e), name
-    for name in ("d8_inv_early_dinov2_vit_large_patch16", "d8_inv_early_dinov2_vit_huge_patch16"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            hub.load_backbone(name, device="cpu")
-    for name in ("dinov2_vits14", "dinov2_vitl14_reg", "dinov2_vitg14"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            hub.load_backbone(name, device="cpu")
+    # every entry's model builds (the invariant-early and upstream DINOv2 ones
+    # too, on the meta device), with the entry's depth and registers
+    for name, e in hub.HUB_ENTRIES.items():
+        model = create_model(e.arch, device="meta")
+        assert len(model.blocks) == e.depth, name
+        assert getattr(model, "num_register_tokens", 0) == e.num_register_tokens, name
     with pytest.raises(NotImplementedError, match="item 7"):
         hub.load_backbone("hybrid_dinov2_vit_large_patch16", str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="DeiT-style"):

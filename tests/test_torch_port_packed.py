@@ -214,8 +214,9 @@ def test_power_spectrum_invariant_matches_jax():
     for i, (o, r) in enumerate(zip(tgrads, jgrads)):
         _close(o, r, msg=f"grad {i}")
     assert make_invariant("power_spectrum", 64).output_dim == 48
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_invariant("polynomial", 64)
+    assert make_invariant("polynomial", 64).output_dim == 256  # every kind is ported
+    with pytest.raises(ValueError, match="invariant_kind"):
+        make_invariant("no_such_kind", 64)
 
 
 # the sizes of tests/test_models_kernels.py (KW): the invariant-early model
@@ -393,17 +394,17 @@ def test_small_inv_early_deit_step_packed_matches_jax(inv_early_params):
 
 def test_packed_carry_options():
     """The registry names build the invariant-early models; the DINOv2
-    backbone refuses the options it does not take yet; drop path in the
-    packed trunk draws one mask per sample (the tuple path's draws)."""
+    backbone takes both options; drop path in the packed trunk draws one
+    mask per sample (the tuple path's draws)."""
     model = create_model("d8_inv_early_deit_huge_patch14", packed_carry=True, device="meta")
     assert model.invariant_proj.weight.shape == (1280, 960) and model.packed_carry
     assert len(model.blocks) == 32 and model.break_layer == 16
     assert create_model("d8_inv_early_deit_large_patch16",
                         device="meta").invariant_proj.weight.shape == (1024, 768)
-    for flag in ("invariant", "packed_carry"):
-        with pytest.raises(NotImplementedError):
-            OcticDinoVisionTransformer(img_size=32, patch_size=8, embed_dim=32, depth=2,
-                                       num_heads=2, device="cpu", **{flag: True})
+    dino = OcticDinoVisionTransformer(img_size=32, patch_size=8, embed_dim=32, depth=2,
+                                      num_heads=2, device="cpu", invariant=True,
+                                      packed_carry=True)
+    assert dino.invariant_proj.weight.shape == (32, 24) and dino.packed_carry
     kw = dict(KW, drop_path_rate=0.4)
     outs = []
     for packed in (False, True):
