@@ -218,6 +218,41 @@ Phases, one line each (any failure raises and exits non-zero):
              201) at B=64 (launches against HYBRID_REG_LAUNCHES, 2 images against
              the CPU f32 path); each part's seconds and peak memory.
              `python3 chip_smoke.py --p28` runs P28 alone after the build
+  P29 training loops  the loops end to end through their command lines, on a
+             seeded image folder written to a temporary directory (8 classes x
+             32 train and 8 val JPEGs of 256^2: 256 train images, so that
+             RASampler's 256-alignment gives 8 steps of B=32): (a) the data;
+             (b) the DeiT III CLI for hybrid ViT-H/14 at B=32 with the paper
+             recipe for one epoch (ImageFolder, PerSampleRng 3-Augment,
+             RASampler, the threaded loader, P7's step), with P7's step on a
+             state of its own taken in turns after each of the loop's steps:
+             the losses, each step's launches against TRAIN_LAUNCHES, the
+             loop's and P7's step ms and their ratio, the loop's host gap
+             between steps (the loader's wait and the batch's copy), eval
+             accuracy of the raw and EMA weights and the eval forwards'
+             launches (EVAL_FORWARD_LAUNCHES each), the checkpoint's and the
+             best export's bytes; then the CLI's train loader alone for an
+             epoch (ms per batch), and the best export written again from the
+             loop's state, its host copy and save_tree write timed (a
+             checkpoint's save is the same copy and write); (c) the saved state restored on the
+             card (bitwise equal to the state in memory: parameters, LAMB
+             moments, EMA, step) and one step from each on one batch and
+             generator (bitwise equal, or P6's bars with the differing
+             tensors named), then the CLI with --max-steps 10: it resumes at
+             step 8 and takes 2 steps whose labels are the targets of the
+             sampler's epoch-1 order; (d) the DINOv2 CLI on the port's
+             configs/train/hybrid_vitl16.yaml (hybrid ViT-L/16, B=32) for 4
+             iterations with a checkpoint and a teacher export at iteration
+             4: each iteration's data seconds (the serial multicrop; the
+             first from the loop's training_metrics.json, the others the
+             host gap between steps) against its step ms, launches against
+             SSL_LAUNCHES, a finite total_loss; then --eval-only, whose
+             re-export must be bitwise the first, and hub.load_backbone of
+             that export; (e) the clean-up and each part's seconds (budget
+             100 s). The loops run as a user runs them; P29 patches only the
+             two step factories (StepProbe), to bracket each step with a
+             synchronize and count its launches.
+             `python3 chip_smoke.py --p29` runs P29 alone after the build
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -229,6 +264,7 @@ phase prints its seconds.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -1008,6 +1044,9 @@ def main() -> int:
     if sys.argv[1:] == ["--p28"]:  # P28 alone, likewise
         surface_phases({"standard_attention": {}}, card)
         return 1
+    if sys.argv[1:] == ["--p29"]:  # P29 alone, likewise
+        loop_phases(card)
+        return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
 
@@ -1184,11 +1223,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     surface_launches = surface_phases(summary, card)
 
+    torch.cuda.empty_cache()
+    loop_launches = loop_phases(card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
               "probe_25": probe_25_launches, "probe_26": probe_26_launches,
-              "eval": eval_launches, **surface_launches}
+              "eval": eval_launches, **surface_launches, **loop_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -4047,6 +4089,507 @@ def surface_phases(summary, card) -> dict:
     counts["hybrid_reg"] = hybrid_registers_phase(card)
     torch.cuda.empty_cache()
     phase("P28", f"the model surface: {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+# ---- P29: the training loops through their CLIs ----------------------------------------
+
+# launches of one eval forward of the DeiT loop: the train model (f32
+# parameters, bf16 compute) in eval mode runs P3's fused inference kernels
+EVAL_FORWARD_LAUNCHES = {"octic_attention_fused_qkv": 16, "mlp_d8_fused": 16,
+                         "standard_attention": 16, "dense_gelu": 16}
+LOOP_BUDGET_S = 100.0
+# what P29 drives: hybrid ViT-H/14 through the DeiT III CLI at B=32 and the
+# DINOv2 CLI on the port's configs/train/hybrid_vitl16.yaml (B=32), both on
+# a seeded image folder of 8 classes x 32 train and 8 val JPEGs of 256^2:
+# 256 train images, RASampler's 256-alignment, so an epoch is 8 steps
+LOOP_SPEC = dict(deit_model="hybrid_deit_huge_patch14",
+                 ssl_config="octic_vits_tpu_torch/configs/train/hybrid_vitl16.yaml",
+                 ssl_arch="hybrid_dinov2_vit_large_patch16", ssl_img=224,
+                 classes=8, train_per_class=32, val_per_class=8, size=256, batch=32,
+                 input_size=224, seed=1337)
+
+
+def write_image_folder(root: str, classes: int, per_class: int, size: int, seed: int) -> int:
+    """Seeded JPEGs `root/class_<c>/<i>.jpg`: a 4 x 4 field of random colours
+    upsampled bicubically, plus noise, so that decoding, crops and jitter do
+    real work. Returns the number of images."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    npr = np.random.default_rng(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"class_{c:02d}")
+        os.makedirs(d)
+        for i in range(per_class):
+            field = Image.fromarray(npr.integers(0, 256, (4, 4, 3), dtype=np.uint8))
+            arr = np.asarray(field.resize((size, size), Image.BICUBIC), np.int16)
+            arr = arr + npr.integers(-20, 21, (size, size, 3))
+            Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i:03d}.jpg"), quality=90)
+    return classes * per_class
+
+
+def tree_diff(a, b, path="") -> list:
+    """(path, max abs difference) of every leaf where two state trees differ
+    (tensors bitwise, other leaves by ==); [] when they are equal."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        b = b.to(a.device)
+        if a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b):
+            return []
+        diff = ((a.double() - b.double()).abs().max().item() if a.shape == b.shape
+                else float("inf"))
+        return [(path, diff)]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [(path + "/<keys>", float("inf"))]
+        return [d for k in a for d in tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in tree_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [(path, float("inf"))]
+
+
+def tree_count(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if isinstance(tree, dict):
+        return sum(tree_count(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_count(v) for v in tree)
+    return 0
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+class StepProbe:
+    """P29's one instrument on a CLI run: the loops' step factories patched
+    (undone on exit, :meth:`patches`), so that each train step is bracketed by
+    a synchronize, as P7 times its steps, and its launches counted. Per step it
+    records the step it started from, its ms and loss, its launches, the
+    labels it was given (DeiT) and the host gap since the previous step handed
+    back: the loop's own time between steps (the loader's wait or the SSL
+    multicrop, the batch's copy to the card, the metric flush). `turn`, when
+    given, runs after each of the loop's steps and returns its ms: P7's step
+    in turns; its time is in neither the step's ms nor the gap."""
+
+    def __init__(self, turn=None):
+        self.turn = turn
+        self.steps, self.turns, self.captured = [], [], {}
+        self.after_last_step = None
+        self._handed_back = None
+
+    def wrap(self, step):
+        from octic_vits_tpu_torch import ops
+
+        def run(*args):
+            now = time.perf_counter()
+            gap = None if self._handed_back is None else (now - self._handed_back) * 1e3
+            start = args[0].step  # the step updates the state in place
+            labels = args[2].cpu() if isinstance(args[2], torch.Tensor) else None
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            loss = metrics["loss" if "loss" in metrics else "total_loss"].detach()
+            self.steps.append(dict(step=start, ms=ms, gap_ms=gap, loss=loss, labels=labels,
+                                   launches={k: after[k] - before[k] for k in after}))
+            if self.turn is not None:
+                self.turns.append(self.turn())
+            self.after_last_step = ops.launch_counts()
+            self._handed_back = time.perf_counter()
+            return state, metrics
+        return run
+
+    def patches(self):
+        from octic_vits_tpu_torch.train.deit import main as deit_main
+        from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLMetaArch
+
+        real_make, real_ssl_make = deit_main.make_deit_train_step, SSLMetaArch.make_train_step
+
+        def make_deit_step(*args, **kw):
+            step = real_make(*args, **kw)
+            self.captured.update(model=args[0], cfg=args[1], step=step)
+            return self.wrap(step)
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(patched(deit_main, "make_deit_train_step", make_deit_step))
+        stack.enter_context(patched(SSLMetaArch, "make_train_step",
+                                    lambda arch: self.wrap(real_ssl_make(arch))))
+        return stack
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def launches_each(records, table) -> bool:
+    want = expected_launches(table)
+    return all(r["launches"] == want for r in records)
+
+
+def p7_turn(cfg):
+    """P7's step on a state of its own (hybrid ViT-H/14, P7's flags, P7's
+    fixed batch and generator) as a closure that takes one synchronized step
+    and returns its ms."""
+    from octic_vits_tpu_torch import create_model, init_weights
+
+    b, size = LOOP_SPEC["batch"], LOOP_SPEC["input_size"]
+    model = create_model(LOOP_SPEC["deit_model"], remat=True, drop_path_rate=cfg.drop_path,
+                         num_classes=cfg.num_classes, compute_dtype=torch.bfloat16,
+                         device="cuda")
+    init_weights(model, torch.Generator("cuda").manual_seed(SEED))
+    set_drop_path(model, cfg.drop_path)
+    box = list(train_setup(model, cfg))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    images = torch.randn(b, size, size, 3, generator=gen).cuda()
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen).cuda()
+
+    def turn():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box[0], metrics = box[1](box[0], images, labels, gen)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(metrics["loss"])):
+            raise AssertionError("non-finite loss in P7's step")
+        return (time.perf_counter() - t0) * 1e3
+    return turn
+
+
+def deit_loop_phase(card, data, tmp, parts) -> dict:
+    """P29 (b) and (c): the DeiT III CLI for one epoch with P7's step in
+    turns, the loader alone, the checkpoint's host copy and write, the
+    restored state against the saved one and a step from each, and the CLI's
+    resume. Returns the launches of one loop step and of one eval forward."""
+    import functools
+    import json
+    import os
+
+    import shutil
+
+    from octic_vits_tpu_torch import create_model, ops
+    from octic_vits_tpu_torch.data.datasets import build_deit_dataset
+    from octic_vits_tpu_torch.data.loaders import DataLoader
+    from octic_vits_tpu_torch.data.samplers import RASampler
+    from octic_vits_tpu_torch.data.transforms import PerSampleRng, three_augment
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import cli, engine
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
+    from octic_vits_tpu_torch.train.deit.main import step_generator
+    from octic_vits_tpu_torch.utils.checkpoint import CheckpointManager, save_tree, to_host
+
+    spec = LOOP_SPEC
+    b, classes, seed, size = spec["batch"], spec["classes"], spec["seed"], spec["input_size"]
+    n_train = classes * spec["train_per_class"]
+    spe = n_train // b
+    out = os.path.join(tmp, "deit")
+    argv = ["--model", spec["deit_model"], "--data-set", "IMAGEFOLDER", "--data-path", data,
+            "--batch-size", str(b), "--input-size", str(size), "--epochs", "2",
+            "--seed", str(seed), "--output_dir", out, "--device", "cuda"]
+
+    # (b) one epoch of the paper recipe through the CLI, P7's step in turns
+    t0 = time.perf_counter()
+    probe = StepProbe(p7_turn(DeiTConfig(num_classes=classes)))
+    parts["b_p7_state"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with probe.patches():
+        state = cli.main(argv + ["--max-steps", str(spe)])
+    torch.cuda.synchronize()
+    parts["b_deit_epoch"] = time.perf_counter() - t0
+    eval_launches = {k: v - probe.after_last_step[k] for k, v in ops.launch_counts().items()}
+    probe.turn = None  # frees P7's state
+    n_val = classes * spec["val_per_class"]
+    forwards = 2 * math.ceil(n_val / b)  # the raw and the EMA weights
+    with open(os.path.join(out, "log.txt")) as f:
+        epoch_line = json.loads(f.read().splitlines()[-1])
+    ckpt_dir = os.path.join(out, "ckpt", str(spe))
+    ms = [r["ms"] for r in probe.steps]
+    gaps = [r["gap_ms"] for r in probe.steps[1:]]
+    losses = [round(r["loss"].item(), 5) for r in probe.steps]
+    # the first step and P7's first turn pay the warm-up
+    loop_ms, p7_ms = statistics.median(ms[1:]), statistics.median(probe.turns[1:])
+    train_ok = launches_each(probe.steps, TRAIN_LAUNCHES)
+    phase("P29", f"(b) DeiT CLI, {spec['deit_model']} B={b}, 1 epoch of {n_train} images "
+                 f"({len(probe.steps)} steps, from steps {[r['step'] for r in probe.steps]}): "
+                 f"losses {losses}; launches of each step "
+                 f"{'= TRAIN_LAUNCHES' if train_ok else probe.steps[0]['launches']}; in turns on "
+                 f"{card}: loop step ms {[round(t, 2) for t in ms]}, P7's step ms "
+                 f"{[round(t, 2) for t in probe.turns]}; medians after the first: loop "
+                 f"{loop_ms:.2f}, P7 {p7_ms:.2f}, loop/P7 {loop_ms / p7_ms:.4f}; the loop's host "
+                 f"gap before steps 1-{spe - 1} (loader wait + batch copy; the loader also had "
+                 f"each P7 step) ms {[round(t, 2) for t in gaps]}; eval acc1 "
+                 f"{epoch_line['acc1']:.3f} (EMA {epoch_line.get('ema_acc1', 0.0):.3f}) over "
+                 f"{n_val} images, {forwards} eval forwards launching "
+                 f"{ {k: v for k, v in eval_launches.items() if v} }; checkpoint "
+                 f"{dir_bytes(ckpt_dir)} bytes, best export "
+                 f"{dir_bytes(os.path.join(out, 'best'))} bytes; P7's state built in "
+                 f"{parts['b_p7_state']:.2f} s; {parts['b_deit_epoch']:.2f} s")
+    if len(probe.steps) != spe or [r["step"] for r in probe.steps] != list(range(spe)):
+        raise AssertionError(f"the DeiT epoch took steps {[r['step'] for r in probe.steps]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite DeiT loop loss")
+    if not train_ok:
+        raise AssertionError(f"DeiT loop launches {[r['launches'] for r in probe.steps]}")
+    want_eval = {k: v * forwards for k, v in expected_launches(EVAL_FORWARD_LAUNCHES).items()}
+    if eval_launches != want_eval:
+        raise AssertionError(f"eval launches {eval_launches}, expected {want_eval}")
+    if not (os.path.isdir(ckpt_dir) and os.path.isdir(os.path.join(out, "best"))):
+        raise AssertionError(f"no checkpoint or best export under {out}")
+
+    # (b) the loader alone: the CLI's train dataset (3-Augment at its
+    # defaults) and loader, an epoch with no steps
+    t0 = time.perf_counter()
+    train_ds, _ = build_deit_dataset("IMAGEFOLDER", data, True, transform=PerSampleRng(
+        functools.partial(three_augment, size=size), seed=seed))
+    sampler = RASampler(n_train, seed=seed)
+    loader_ms, t_batch = [], time.perf_counter()
+    for _ in DataLoader(train_ds, sampler, batch_size=b, num_workers=10):
+        loader_ms.append((time.perf_counter() - t_batch) * 1e3)
+        t_batch = time.perf_counter()
+    parts["b_loader_alone"] = time.perf_counter() - t0
+
+    # (b) the checkpoint's host copy and write, timed on the loop's state:
+    # CheckpointManager.save copies the state to the host, and its writer
+    # and the best export are save_tree of that copy; the loop's best export
+    # (this same state) is written again, timed, in its place
+    t0 = time.perf_counter()
+    best = os.path.join(out, "best")
+    shutil.rmtree(best)
+    t1 = time.perf_counter()
+    host = to_host(state.state_dict())
+    copy_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    save_tree(best, host)
+    write_s = time.perf_counter() - t1
+    del host
+    parts["b_save_timing"] = time.perf_counter() - t0
+    phase("P29", f"(b) the loader alone, {len(loader_ms)} batches of {b} (10 threads): ms per "
+                 f"batch {[round(t, 2) for t in loader_ms]} (median after the first "
+                 f"{statistics.median(loader_ms[1:]):.2f}, loop step {loop_ms:.2f}); the best "
+                 f"export of step {spe} written again, timed: host copy {copy_s:.2f} s + "
+                 f"save_tree write {write_s:.2f} s (a checkpoint's save is the same copy and "
+                 f"write)")
+
+    # (c) the saved state restored on the card, bitwise; a step from each
+    t0 = time.perf_counter()
+    cfg, step_b, model_b = probe.captured["cfg"], probe.captured["step"], probe.captured["model"]
+    model_r = create_model(spec["deit_model"], img_size=size, drop_path_rate=cfg.drop_path,
+                           num_classes=cfg.num_classes, compute_dtype=torch.bfloat16,
+                           remat=True, device="cuda")
+    opt_r = engine.build_optimizer(cfg, model_r)
+    state_r = common.create_train_state(model_r, opt_r, ema=cfg.model_ema)
+    torch.cuda.synchronize()
+    t_r = time.perf_counter()
+    mgr = CheckpointManager(os.path.join(out, "ckpt"))
+    tree = mgr.restore()
+    mgr.close()
+    state_r.load_state_dict(tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t_r
+    del tree
+    diff = tree_diff(state_r.state_dict(), state.state_dict())
+    n_leaves = tree_count(state.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 29)
+    images = torch.randn(b, size, size, 3, generator=gen).cuda()
+    labels = torch.randint(0, classes, (b,), generator=gen).cuda()
+    step_r = engine.make_deit_train_step(model_r, cfg, opt_r)
+    state, m_b = step_b(state, images, labels, step_generator(seed, spe))
+    state_r, m_r = step_r(state_r, images, labels, step_generator(seed, spe))
+    torch.cuda.synchronize()
+    step_diff = tree_diff(state_r.state_dict(), state.state_dict())
+    grad_diff = [(n, (p.grad.double() - q.grad.double()).abs().max().item())
+                 for (n, p), q in zip(model_r.named_parameters(), model_b.parameters())
+                 if not torch.equal(p.grad, q.grad)]
+    loss_equal = torch.equal(m_b["loss"], m_r["loss"])
+    step_said = ("bitwise equal" if not step_diff and not grad_diff and loss_equal else
+                 f"differs in {len(step_diff)} tensors and {len(grad_diff)} gradients, first "
+                 f"{(step_diff + grad_diff)[:5]}")
+    phase("P29", f"(c) restore of step {spe} on the card (read and copy into the state) "
+                 f"{restore_s:.2f} s: "
+                 f"{'bitwise equal to the saved state' if not diff else f'DIFFERS at {diff[:5]}'} "
+                 f"({n_leaves} tensors: parameters, LAMB moments, EMA; step {state_r.step - 1}); "
+                 f"one step from each on one batch and generator: loss {m_b['loss'].item():.6f} vs "
+                 f"{m_r['loss'].item():.6f}, {step_said}")
+    if diff:
+        raise AssertionError(f"the restored state differs from the saved one: {diff[:10]}")
+    if step_diff or grad_diff or not loss_equal:
+        cos, _, _, count = grad_cosine(model_r, model_b)
+        rel = abs(m_b["loss"].item() - m_r["loss"].item()) / abs(m_b["loss"].item())
+        phase("P29", f"(c) the two steps differ: loss rel err {rel:.3e} (P6's bar "
+                     f"{SLICE_REL_TOL}), gradient cosine {cos:.6f} over {count} values (P6's bar "
+                     f"{GRAD_COS_MIN})")
+        if not (rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+            raise AssertionError("the restored state's step disagrees with the saved state's")
+    del state_r, model_r, opt_r, step_r, m_r, model_b, state, step_b, m_b, probe
+    torch.cuda.empty_cache()
+    parts["c_restore_and_steps"] = time.perf_counter() - t0
+
+    # (c) the CLI resumes at step spe, starts epoch 1 and takes 2 steps
+    t0 = time.perf_counter()
+    probe = StepProbe()
+    ops.reset_launch_counts()
+    with probe.patches():
+        state = cli.main(argv + ["--max-steps", str(spe + 2)])
+    torch.cuda.synchronize()
+    parts["c_deit_resume"] = time.perf_counter() - t0
+    sampler.set_epoch(1)
+    want_labels = [train_ds.get_target(i) for i in list(sampler)[: 2 * b]]
+    got_labels = [int(y) for r in probe.steps for y in r["labels"]]
+    kept = sorted(int(d) for d in os.listdir(os.path.join(out, "ckpt")) if d.isdigit())
+    in_order = got_labels == want_labels
+    phase("P29", f"(c) DeiT CLI resume --max-steps {spe + 2}: steps from "
+                 f"{[r['step'] for r in probe.steps]}, their {2 * b} labels "
+                 f"{'=' if in_order else 'DIFFER from'} the targets of the sampler's epoch-1 "
+                 f"order; step ms {[round(r['ms'], 2) for r in probe.steps]}; the loop's host gap "
+                 f"before the second {probe.steps[1]['gap_ms']:.2f} ms (no P7 step in turns); "
+                 f"checkpoints kept {kept}; {parts['c_deit_resume']:.2f} s")
+    if [r["step"] for r in probe.steps] != [spe, spe + 1] or state.step != spe + 2:
+        raise AssertionError(f"the resumed run took steps {[r['step'] for r in probe.steps]}")
+    if not in_order:
+        raise AssertionError("the resumed run did not start epoch 1 in the sampler's order")
+    if not launches_each(probe.steps, TRAIN_LAUNCHES):
+        raise AssertionError(f"resumed DeiT loop launches {[r['launches'] for r in probe.steps]}")
+    if kept != [spe, spe + 2]:
+        raise AssertionError(f"checkpoints kept {kept}, expected [{spe}, {spe + 2}]")
+    del state
+    return {"deit_loop": probe.steps[0]["launches"],
+            "deit_loop_eval": {k: v // forwards for k, v in eval_launches.items()}}
+
+
+def ssl_loop_phase(card, data, tmp, parts) -> dict:
+    """P29 (d): the DINOv2 CLI for 4 iterations (a checkpoint and a teacher
+    export at iteration 4), then --eval-only, whose export must be bitwise
+    the first, and the hub loading that export. Returns the launches of one
+    loop iteration."""
+    import json
+    import os
+
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.hub import load_backbone
+    from octic_vits_tpu_torch.train.dinov2 import cli
+    from octic_vits_tpu_torch.utils.checkpoint import load_teacher, to_host
+
+    spec = LOOP_SPEC
+    out = os.path.join(tmp, "ssl")
+    argv = ["--config-file", spec["ssl_config"], "--output-dir", out, "--device", "cuda",
+            f"train.dataset_path=ImageFolder:root={os.path.join(data, 'train')}",
+            "train.saveckp_freq_iterations=4", "evaluation.eval_period_iterations=4"]
+    t0 = time.perf_counter()
+    probe = StepProbe()
+    ops.reset_launch_counts()
+    with probe.patches():
+        state = cli.main(["--max-iter", "4"] + argv)
+    torch.cuda.synchronize()
+    parts["d_ssl_4_iterations"] = time.perf_counter() - t0
+    export = os.path.join(out, "eval", "4", "teacher")
+    ckpts = sorted(int(d) for d in os.listdir(os.path.join(out, "ckpt")) if d.isdigit())
+    losses = [round(r["loss"].item(), 5) for r in probe.steps]
+    ssl_ok = launches_each(probe.steps, SSL_LAUNCHES)
+    # iteration 0's data seconds from the loop's own log (it logs
+    # iteration 0), the others from the gaps between steps
+    with open(os.path.join(out, "training_metrics.json")) as f:
+        first_data_s = json.loads(f.readline())["data_time"]
+    data_s = [first_data_s] + [r["gap_ms"] / 1e3 for r in probe.steps[1:]]
+    step_ms = [r["ms"] for r in probe.steps]
+    data_per_step = statistics.median(data_s) * 1e3 / statistics.median(step_ms)
+    phase("P29", f"(d) DINOv2 CLI, {spec['ssl_config']}, 4 iterations from "
+                 f"{[r['step'] for r in probe.steps]}: total_loss {losses}; data s per "
+                 f"iteration (the serial multicrop on the host; the first from "
+                 f"training_metrics.json, the others the loop's host gap between steps) "
+                 f"{[round(t, 3) for t in data_s]} against step ms "
+                 f"{[round(t, 2) for t in step_ms]} (data/step {data_per_step:.3f}); "
+                 f"launches of each iteration "
+                 f"{'= SSL_LAUNCHES' if ssl_ok else probe.steps[0]['launches']}; "
+                 f"checkpoints at {ckpts} ({dir_bytes(os.path.join(out, 'ckpt', '4'))} bytes "
+                 f"at 4); teacher export {dir_bytes(export)} bytes; "
+                 f"{parts['d_ssl_4_iterations']:.2f} s")
+    if [r["step"] for r in probe.steps] != [0, 1, 2, 3] or state.step != 4:
+        raise AssertionError(f"the SSL run took iterations {[r['step'] for r in probe.steps]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite SSL loop loss")
+    if not ssl_ok:
+        raise AssertionError(f"SSL loop launches {[r['launches'] for r in probe.steps]}")
+    if 4 not in ckpts or not os.path.isdir(export):
+        raise AssertionError(f"no checkpoint at 4 ({ckpts}) or no teacher export")
+    launches = probe.steps[0]["launches"]
+    del state, probe
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    first = to_host(load_teacher(export))
+    state = cli.main(["--eval-only"] + argv)
+    torch.cuda.synchronize()
+    diff = tree_diff(to_host(load_teacher(export)), first)
+    restored_step = state.step
+    del state
+    img = spec["ssl_img"]
+    model = load_backbone(spec["ssl_arch"], checkpoint=export, device="cuda", img_size=img)
+    loaded = tree_diff({k: v.float() for k, v in model.state_dict().items()},
+                       {k: v.to(torch.bfloat16).float() for k, v in first["backbone"].items()})
+    with torch.no_grad():
+        feats = model.eval()(torch.randn(2, img, img, 3, generator=torch.Generator().manual_seed(
+            SEED)).cuda())
+    torch.cuda.synchronize()
+    parts["d_ssl_eval_only_and_hub"] = time.perf_counter() - t0
+    phase("P29", f"(d) --eval-only restored step {restored_step}; the re-export "
+                 f"{'bitwise equal to the first' if not diff else f'DIFFERS at {diff[:5]}'} "
+                 f"({tree_count(first)} tensors); hub.load_backbone of the export: "
+                 f"{'its parameters (bf16) equal' if not loaded else f'DIFFERS at {loaded[:5]} from'} "
+                 f"the export, "
+                 f"features {tuple(feats.shape)} finite {bool(feats.isfinite().all())}; "
+                 f"{parts['d_ssl_eval_only_and_hub']:.2f} s")
+    if restored_step != 4 or diff or loaded or not bool(feats.isfinite().all()):
+        raise AssertionError("the teacher export after --eval-only or its hub load disagrees")
+    return {"ssl_loop": launches}
+
+
+def loop_phases(card) -> dict:
+    """P29: the training loops end to end through their CLIs on a seeded image
+    folder in a temporary directory: (a) the data, (b)-(c) the DeiT III loop,
+    (d) the DINOv2 loop, (e) the clean-up and each part's seconds. Returns
+    each loop's launches."""
+    import shutil
+    import tempfile
+
+    spec = LOOP_SPEC
+    t_all = time.perf_counter()
+    parts = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p29_")
+    try:
+        t0 = time.perf_counter()
+        data = f"{tmp}/data"
+        n = write_image_folder(f"{data}/train", spec["classes"], spec["train_per_class"],
+                               spec["size"], SEED)
+        n_val = write_image_folder(f"{data}/val", spec["classes"], spec["val_per_class"],
+                                   spec["size"], SEED + 1)
+        parts["a_data"] = time.perf_counter() - t0
+        phase("P29", f"(a) {n} train + {n_val} val JPEGs of {spec['size']}^2 in "
+                     f"{spec['classes']} classes under {tmp}: {parts['a_data']:.2f} s")
+        counts = deit_loop_phase(card, data, tmp, parts)
+        torch.cuda.empty_cache()
+        counts.update(ssl_loop_phase(card, data, tmp, parts))
+    finally:
+        t0 = time.perf_counter()
+        shutil.rmtree(tmp, ignore_errors=True)
+        parts["e_cleanup"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_all
+    phase("P29", f"(e) removed {tmp}; seconds {({k: round(v, 2) for k, v in parts.items()})}; "
+                 f"P29 {total:.2f} s of its {LOOP_BUDGET_S:.0f} s budget on {card}")
     return counts
 
 

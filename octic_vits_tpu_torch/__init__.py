@@ -2,9 +2,10 @@
 
 The inference, DeiT III and DINOv2 training and evaluation slices of the
 hybrid octic ViT: the D8 group algebra, the equivariant and standard layers,
-the hybrid and standard models with the DINOv2 backbones and head,
-mixup/cutmix (``data``), the train state, LAMB, the DeiT III train step and
-the DINOv2 SSL step (``train``), k-NN, the probe grids and segmentation
+the hybrid and standard models with the DINOv2 backbones and head, the
+image data pipeline and mixup/cutmix (``data``), the train state, LAMB, the
+DeiT III and DINOv2 steps, loops and command lines (``train``), checkpoints,
+finetuning and configs (``utils``), k-NN, the probe grids and segmentation
 probing (``eval``), the hub and the reference-checkpoint converters
 (``hub``, ``utils.convert``), and the hand-written Hopper kernels those paths
 run (``csrc/``, built and bound by ``kernels/``). The JAX package stays the
@@ -28,6 +29,15 @@ Training (f32 parameters, bf16 compute, remat; see train/deit/engine.py):
     opt = build_optimizer(cfg, model)
     state, step = create_train_state(model, opt, ema=True), make_deit_train_step(model, cfg, opt)
     state, metrics = step(state, images, labels, torch.Generator().manual_seed(0))
+
+The training recipes from an image folder (``--device cpu`` for the plain
+f32 path):
+
+    python -m octic_vits_tpu_torch.train.deit.cli --model hybrid_deit_huge_patch14 \
+        --data-set IMAGEFOLDER --data-path DIR --batch-size 32 --output_dir OUT
+    python -m octic_vits_tpu_torch.train.dinov2.cli \
+        --config-file octic_vits_tpu_torch/configs/train/hybrid_vitl16.yaml \
+        --output-dir OUT train.dataset_path=ImageFolder:root=DIR/train
 
 The octic block's fused-glue configurations (the JAX flags of the same
 names; the D8 LayerNorm kernel also needs ``OCTIC_PALLAS_LN=1`` in the

@@ -5,8 +5,10 @@ dinov2/hub/backbones.py:64-156, dinov2/hub/classifiers.py:52-268).
 Each entry names a registered model and the layout of its released
 checkpoint. A ``.pth`` file is read with ``torch.load(weights_only=True)``,
 its `checkpoint_key` sub-dict converted by ``params_from_reference`` and
-loaded strictly. Nothing is downloaded: the caller gives local files. The
-orbax checkpoints of the JAX package and the depth heads are not ported yet.
+loaded strictly; a checkpoint directory of the port (``utils.checkpoint``)
+is loaded as it is. Nothing is downloaded: the caller gives local files. The
+orbax checkpoints of the JAX package need JAX and are refused; the depth
+heads are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from octic_vits_tpu_torch.utils.convert import (
     params_from_jax,
     params_from_reference,
 )
+from octic_vits_tpu_torch.utils.checkpoint import backbone_state_dict, load_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,19 +77,25 @@ def load_backbone(name: str, checkpoint: Optional[str] = None, checkpoint_key: s
                   img_size: int = 224, dtype: torch.dtype = torch.bfloat16, device=None,
                   **model_kwargs) -> nn.Module:
     """Build a named backbone (parameters in `dtype`, on the card unless
-    `device` names another) and load `checkpoint`, a torch ``.pth`` file,
+    `device` names another) and load `checkpoint`: a torch ``.pth`` file,
     from its `checkpoint_key` sub-dict ('teacher' / 'model', else the whole
-    file: the reference's load_pretrained_weights, dinov2/utils/utils.py:20-33).
+    file: the reference's load_pretrained_weights, dinov2/utils/utils.py:20-33),
+    or a checkpoint directory of the port (a teacher export of the SSL loop,
+    a train-state checkpoint or a ``best`` export, ``utils.checkpoint``); an
+    orbax directory of the JAX package raises ``NotImplementedError``.
     Without a checkpoint the parameters are drawn by ``init_weights`` from a
     generator seeded 0, so the model is always callable."""
     if name not in HUB_ENTRIES:
         raise KeyError(f"unknown hub entry {name}; known: {sorted(HUB_ENTRIES)}")
+    tree = None
     if checkpoint is not None and os.path.isdir(checkpoint):
-        raise NotImplementedError("orbax checkpoint directories are not ported yet (ROADMAP.md "
-                                  "Queue 1 item 7); pass a .pth file")
+        tree = load_tree(checkpoint)  # the port's format; an orbax directory raises
     model = create_model(name, img_size=img_size, dtype=dtype, device=device, **model_kwargs)
     if checkpoint is None:
         init_weights(model, torch.Generator(model.pos_embed.device).manual_seed(0))
+        return model
+    if tree is not None:
+        model.load_state_dict(backbone_state_dict(tree, checkpoint_key), strict=True)
         return model
     blob = torch.load(checkpoint, map_location="cpu", weights_only=True)
     sd = blob.get(checkpoint_key, blob.get("model", blob))

@@ -1,2 +1,3 @@
-"""Training machinery of the port: the train state, the losses, LAMB, and
-the DeiT III supervised step (``train.deit``)."""
+"""Training machinery of the port: the train state, the losses, LAMB, the
+DeiT III recipe (``train.deit``) and the DINOv2 recipe (``train.dinov2``),
+each with its step, loop and command line."""

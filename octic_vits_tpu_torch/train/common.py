@@ -20,6 +20,24 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[Dict[str, torch.Tensor]] = None  # parameter name -> EMA value
 
+    def state_dict(self) -> dict:
+        """The state as a tree of references, no copy (``utils.checkpoint``
+        copies it to the host): step, model, optimizer and EMA."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "ema": self.ema}
+
+    def load_state_dict(self, tree: dict) -> None:
+        """Copy a tree of :meth:`state_dict`'s layout into this state."""
+        if (tree["ema"] is None) != (self.ema is None):
+            raise ValueError("the checkpoint and the state disagree on the EMA")
+        self.model.load_state_dict(tree["model"], strict=True)
+        self.optimizer.load_state_dict(tree["optimizer"])
+        if self.ema is not None:
+            with torch.no_grad():
+                for name, t in self.ema.items():
+                    t.copy_(tree["ema"][name])
+        self.step = int(tree["step"])
+
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                        ema: bool = False) -> TrainState:

@@ -86,6 +86,32 @@ class SSLState:
     dino_center: torch.Tensor     # [dino_out_dim] f32
     ibot_center: torch.Tensor     # [ibot_out_dim] f32
 
+    def state_dict(self) -> dict:
+        """The state as a tree of references, no copy (``utils.checkpoint``
+        copies it to the host)."""
+        return {"step": self.step, "student": self.student.state_dict(),
+                "teacher": self.teacher.state_dict(), "mu": self.mu, "nu": self.nu,
+                "dino_center": self.dino_center, "ibot_center": self.ibot_center}
+
+    def teacher_state_dict(self) -> dict:
+        """The teacher by submodule ({"backbone": ..., "dino_head": ...}),
+        the tree of a teacher export."""
+        return {name: module.state_dict() for name, module in self.teacher.items()}
+
+    def load_state_dict(self, tree: dict) -> None:
+        """Copy a tree of :meth:`state_dict`'s layout into this state."""
+        self.student.load_state_dict(tree["student"], strict=True)
+        self.teacher.load_state_dict(tree["teacher"], strict=True)
+        with torch.no_grad():
+            for ours, theirs in ((self.mu, tree["mu"]), (self.nu, tree["nu"])):
+                if ours.keys() != theirs.keys():
+                    raise ValueError("the checkpoint's moments name other parameters")
+                for name, t in ours.items():
+                    t.copy_(theirs[name])
+            self.dino_center.copy_(tree["dino_center"])
+            self.ibot_center.copy_(tree["ibot_center"])
+        self.step = int(tree["step"])
+
 
 def split_student_generators(generator: Optional[torch.Generator]) -> tuple:
     """Two generators, for the global-crop and the local-crop student

@@ -1,4 +1,5 @@
-"""Utilities: weights carried across from the JAX package."""
+"""Utilities: weights carried across from the JAX package (``convert``),
+checkpoints, finetuning, the config system and metric logging."""
 
 from octic_vits_tpu_torch.utils.convert import params_from_jax
 

@@ -225,6 +225,24 @@ def convert_octic_vit(state_dict: Mapping, depth: int, break_layer: Optional[int
     return params
 
 
+def convert_standard_vit(state_dict: Mapping, depth: int) -> Dict:
+    """Reference deit/vit.py ``vit_models`` state_dict -> flax params dict."""
+    sd = normalize_keys(state_dict)
+    w = sd["patch_embed.proj.weight"]
+    params: Dict = {
+        "pos_embed": np.asarray(sd["pos_embed"]),
+        "cls_token": np.asarray(sd["cls_token"]),
+        "patch_embed": {"proj": {"kernel": _conv(w).reshape(-1, w.shape[0]),
+                                 "bias": np.asarray(sd["patch_embed.proj.bias"])}},
+        "norm": _layer_norm(sd, "norm"),
+    }
+    for i in range(depth):
+        params[f"blocks_{i}"] = _standard_block(sd, f"blocks.{i}")
+    if "head.weight" in sd:
+        params["head"] = _dense(sd, "head")
+    return params
+
+
 def _dinov2_block(sd, p):
     """DINOv2-layout standard block: ls1/ls2 LayerScale, Mlp or SwiGLU FFN
     (reference: dinov2/layers/block.py:43-130, swiglu_ffn.py:14-33)."""

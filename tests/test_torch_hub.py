@@ -333,14 +333,56 @@ def test_hub_entries_and_unsupported(tmp_path):
         model = create_model(e.arch, device="meta")
         assert len(model.blocks) == e.depth, name
         assert getattr(model, "num_register_tokens", 0) == e.num_register_tokens, name
-    with pytest.raises(NotImplementedError, match="item 7"):
-        hub.load_backbone("hybrid_dinov2_vit_large_patch16", str(tmp_path), device="cpu")
+    # an orbax checkpoint of the JAX package: the port reads only its own format
+    import orbax.checkpoint as ocp
+
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(str(tmp_path / "orbax"), {"w": np.ones(2, np.float32)})
+    ckptr.wait_until_finished()
+    with pytest.raises(NotImplementedError, match="orbax checkpoint of the JAX package needs JAX"):
+        hub.load_backbone("hybrid_dinov2_vit_large_patch16", str(tmp_path / "orbax"),
+                          device="cpu")
     with pytest.raises(ValueError, match="DeiT-style"):
         hub.load_linear_classifier("hybrid_deit_large_patch16", device="cpu")
     with pytest.raises(ValueError, match="layers"):
         hub.load_linear_classifier("hybrid_dinov2_vit_large_patch16", layers=2, device="cpu")
     with pytest.raises(KeyError):
         hub.load_backbone("no_such_model", device="cpu")
+
+
+def test_load_backbone_from_port_checkpoints(tiny_entries, tmp_path):
+    """A teacher export of the SSL loop (``utils.checkpoint.save_teacher``)
+    and a DeiT train-state checkpoint load as the JAX hub's orbax branch does
+    (octic_vits_tpu/hub.py:88-91), into the model the port builds."""
+    from octic_vits_tpu_torch import init_weights
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLConfig, SSLMetaArch
+    from octic_vits_tpu_torch.utils import checkpoint as C
+
+    arch = SSLMetaArch(SSLConfig(arch="hybrid_dinov2_vit_tiny_test", img_size=32,
+                                 local_crop_size=16, patch_size=8, dino_out_dim=64,
+                                 dino_head_hidden_dim=32, dino_head_bottleneck_dim=16,
+                                 ibot_out_dim=64, n_local_crops=2, compute_dtype=None),
+                       device="cpu")
+    state = arch.init(torch.Generator().manual_seed(3))
+    export = C.save_teacher(str(tmp_path), 7, state.teacher_state_dict())
+    img = torch.from_numpy(_images(5, 32))
+    for source in (export, None):
+        if source is None:  # the whole SSL state: its teacher's backbone
+            source = C.save_tree(str(tmp_path / "state"), state.state_dict())
+        model = hub.load_backbone("hybrid_dinov2_vit_tiny_test", source, img_size=32,
+                                  dtype=torch.float32, device="cpu")
+        for k, v in state.teacher["backbone"].state_dict().items():
+            assert torch.equal(model.state_dict()[k], v), k
+        with torch.no_grad():
+            torch.testing.assert_close(model.eval()(img), state.teacher["backbone"].eval()(img),
+                                       rtol=0, atol=0)
+    deit = create_model("hybrid_vit_small_test", img_size=64, device="cpu")
+    init_weights(deit, torch.Generator().manual_seed(4))
+    path = C.save_tree(str(tmp_path / "best"), {"step": 3, "model": deit.state_dict()})
+    model = hub.load_backbone("hybrid_vit_small_test", path, checkpoint_key="model", img_size=64,
+                              dtype=torch.bfloat16, device="cpu")
+    for k, v in deit.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v.to(torch.bfloat16)), k
 
 
 def dataclasses_equal(ours, theirs) -> bool:
