@@ -1047,6 +1047,9 @@ def main() -> int:
     if sys.argv[1:] == ["--p29"]:  # P29 alone, likewise
         loop_phases(card)
         return 1
+    if sys.argv[1:] == ["--p30"]:  # P30 alone, likewise
+        dense_phases({"standard_attention": {}, "dense_gelu": {}}, card)
+        return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
 
@@ -1226,11 +1229,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_launches = loop_phases(card)
 
+    torch.cuda.empty_cache()
+    dense_launches = dense_phases(summary, card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
               "probe_25": probe_25_launches, "probe_26": probe_26_launches,
-              "eval": eval_launches, **surface_launches, **loop_launches}
+              "eval": eval_launches, **surface_launches, **loop_launches, **dense_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -4590,6 +4596,412 @@ def loop_phases(card) -> dict:
     total = time.perf_counter() - t_all
     phase("P29", f"(e) removed {tmp}; seconds {({k: round(v, 2) for k, v in parts.items()})}; "
                  f"P29 {total:.2f} s of its {LOOP_BUDGET_S:.0f} s budget on {card}")
+    return counts
+
+
+# ---- P30: dense prediction and the eval command lines ----------------------------------
+
+# one backbone forward of the dinov2_vitl14 depthers: 24 standard blocks, each one
+# launch of the standard attention and one of dense + GELU (fc1)
+DEPTH_LAUNCHES = {"standard_attention": 24, "dense_gelu": 24}
+# NYU Depth v2 frames (B, H, W), whole inference: centre-padded to 490 x 644, 35 x 46
+# patches, N = 1611; the KITTI Eigen crop 352 x 1216 pads to 364 x 1218, N = 2263; the
+# reference's NYU slide windows, 352^2 (N = 677) at stride 171: 6 windows on 480 x 640
+NYU_FRAMES, KITTI_FRAMES = (8, 480, 640), (4, 352, 1216)
+SLIDE_CROP, SLIDE_STRIDE = (352, 352), (171, 171)
+# the eval command lines on hybrid_dinov2_vit_large_patch16: P29's image folder (8
+# classes x 32 train and 8 val JPEGs of 256^2; k-NN's largest k is 200) and an
+# ADE20K-layout folder of 64 training and 16 validation 683 x 512 JPEGs
+CLI_BATCH, LINEAR_ITERS, ADE_FRAMES, ADE_HW = 32, 20, (64, 16), (512, 683)
+DENSE_BUDGET_S = 90.0
+# the seeded DPT head's output bias (metres): NYU's depths lie in 0.001-10
+DPT_DEPTH_BIAS = 3.0
+# the clamp's floor and ceiling of a depth map, less the rounding of the
+# bilinear resize that follows the clamp
+DEPTH_RANGE_SLACK = 1e-6
+
+
+def write_depth_head(path: str, kind: str, dim: int, seed: int) -> str:
+    """A released depth head's checkpoint with seeded values, in the
+    reference's layout under ``decode_head.`` (dinov2/hub/depth/
+    decode_heads.py:223-296, 528-747): "linear" the 4-level BNHead's 1x1
+    conv (256 bins), "dpt" the DPTHead of 256 channels. Weights have std
+    1 / sqrt(fan-in), biases 0.1, but the DPT's last conv has a bias of
+    DPT_DEPTH_BIAS: its maps then lie inside NYU's range, as a trained
+    head's do, and not on the clamp's floor (with a bias of 0.1 they spanned
+    0.001-0.46, and the card's bf16 map was 4.7e-2 from the CPU's in relative
+    L2, rounding near the floor of a map of small norm)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(prefix, o, i, k, bias=True):
+        sd[f"decode_head.{prefix}.weight"] = torch.randn(o, i, k, k, generator=gen) / math.sqrt(
+            i * k * k)
+        if bias:
+            sd[f"decode_head.{prefix}.bias"] = 0.1 * torch.randn(o, generator=gen)
+
+    if kind == "linear":
+        conv("conv_depth", 256, 8 * dim, 1)
+    else:
+        ch, ppc, rb = 256, [dim // 2 ** (3 - i) for i in range(4)], "reassemble_blocks"
+        for i in range(4):
+            sd[f"decode_head.{rb}.readout_projects.{i}.0.weight"] = torch.randn(
+                dim, 2 * dim, generator=gen) / math.sqrt(2 * dim)
+            sd[f"decode_head.{rb}.readout_projects.{i}.0.bias"] = 0.1 * torch.randn(
+                dim, generator=gen)
+            conv(f"{rb}.projects.{i}.conv", ppc[i], dim, 1)
+            conv(f"convs.{i}.conv", ch, ppc[i], 3, bias=False)
+            conv(f"fusion_blocks.{i}.project.conv", ch, ch, 1)
+            for u in (1, 2) if i else (2,):
+                for j in (1, 2):
+                    conv(f"fusion_blocks.{i}.res_conv_unit{u}.conv{j}.conv", ch, ch, 3, False)
+        for i, s in ((0, 4), (1, 2)):  # ConvTranspose2d weights are [I, O, s, s]
+            conv(f"{rb}.resize_layers.{i}", ppc[i], ppc[i], s)
+        conv(f"{rb}.resize_layers.3", ppc[3], ppc[3], 3)
+        conv("project.conv", ch, ch, 3)
+        conv("conv_depth.head.0", ch // 2, ch, 3)
+        conv("conv_depth.head.2", 32, ch // 2, 3)
+        conv("conv_depth.head.4", 1, 32, 1)
+        sd["decode_head.conv_depth.head.4.bias"] = torch.full((1,), DPT_DEPTH_BIAS)
+    torch.save({"state_dict": sd}, path)
+    return path
+
+
+def depth_in_range(depth: torch.Tensor, lo: float, hi: float) -> bool:
+    return (bool(depth.isfinite().all()) and depth.min().item() >= lo * (1 - DEPTH_RANGE_SLACK)
+            and depth.max().item() <= hi * (1 + DEPTH_RANGE_SLACK))
+
+
+def cpu_depther(card_depther, head):
+    """The f32 plain-path twin of `card_depther` on the CPU: `head` (built on
+    the CPU) on a dinov2_vitl14 backbone, both loaded from the card's weights."""
+    from octic_vits_tpu_torch import create_model
+    from octic_vits_tpu_torch.models.depth import DepthEncoderDecoder
+
+    d = card_depther
+    backbone = create_model("dinov2_vitl14", img_size=d.backbone.grid * d.patch_size,
+                            device="cpu")
+    cpu = DepthEncoderDecoder(backbone, head, d.out_index, d.patch_size, d.min_depth,
+                              d.max_depth).eval()
+    cpu.load_state_dict(d.state_dict(), strict=True)
+    return cpu
+
+
+def depth_phase(card, tmp) -> dict:
+    """P30 (a), (b): the dinov2_vitl14 depthers of hub.load_depther in bf16 on
+    the card, seeded backbone weights and seeded reference-layout heads read
+    through convert_depth_head: (a) DPT, NYU range, B=8 480 x 640 whole
+    inference (launches against DEPTH_LAUNCHES, one frame against the CPU f32
+    plain path, every value in [0.001, 10], img/s and peak memory), then
+    slide (6 windows: 6 x DEPTH_LAUNCHES) and flip; (b) the linear-4 head,
+    KITTI range, B=4 352 x 1216 (the same checks, values in [0.001, 80])."""
+    from octic_vits_tpu_torch import hub, ops
+    from octic_vits_tpu_torch.models.depth import BNHead, DPTHead
+
+    counts = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b, h, w = NYU_FRAMES
+    head = write_depth_head(f"{tmp}/dinov2_vitl14_nyu_dpt_head.pth", "dpt", 1024, SEED + 40)
+    depther = hub.load_depther("dinov2_vitl14", head_type="dpt", weights="NYU",
+                               head_checkpoint=head, dtype=torch.bfloat16)
+    frames = torch.randn(b, h, w, 3, generator=torch.Generator().manual_seed(SEED + 41))
+    x = frames.to("cuda", torch.bfloat16)
+    ops.reset_launch_counts()
+    depth = depther.predict(x)
+    torch.cuda.synchronize()
+    counts["depth_nyu"] = launches = ops.launch_counts()
+    cpu = cpu_depther(depther, DPTHead(1024, min_depth=0.001, max_depth=10.0, device="cpu"))
+    ref = cpu.predict(frames[:1].to(torch.bfloat16).float())
+    rel = rel_l2(depth[:1], ref)
+    ok = depth_in_range(depth, 0.001, 10.0)
+    ms = [time_ms(lambda: depther.predict(x), iters=5, warmup=2) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("P30", f"(a) dinov2_vitl14 DPT depther (NYU) B={b} {h}x{w} bf16 whole: depth "
+                 f"{tuple(depth.shape)} in [{depth.min().item():.4f}, {depth.max().item():.4f}] "
+                 f"({'inside' if ok else 'OUTSIDE'} [0.001, 10]), launches {launches}; 1 frame vs "
+                 f"CPU f32 plain path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL}); "
+                 f"{ms[0]:.2f} / {ms[1]:.2f} ms a batch ({b / min(ms) * 1e3:.1f} img/s), peak "
+                 f"{peak:.2f} GiB on {card}")
+    if launches != expected_launches(DEPTH_LAUNCHES):
+        raise AssertionError(f"depther launches {launches}, expected {DEPTH_LAUNCHES}")
+    if not (ok and tuple(depth.shape) == (b, h, w, 1) and rel <= SLICE_REL_TOL):
+        raise AssertionError("the DPT depther disagrees with the CPU f32 path or its range")
+    del cpu, ref
+
+    windows = depther.slide_windows(h, w, SLIDE_STRIDE, SLIDE_CROP)
+    ops.reset_launch_counts()
+    slid = depther.predict(x, mode="slide", stride=SLIDE_STRIDE, crop_size=SLIDE_CROP)
+    torch.cuda.synchronize()
+    counts["depth_slide"] = slide_launches = ops.launch_counts()
+    slide_ms = time_ms(lambda: depther.predict(x, mode="slide", stride=SLIDE_STRIDE,
+                                               crop_size=SLIDE_CROP), iters=3, warmup=1)
+    flipped = depther.predict(x, flip=True)
+    flip_rel = rel_l2(flipped, depth.flip(2))
+    slide_ok = depth_in_range(slid, 0.001, 10.0) and tuple(slid.shape) == (b, h, w, 1)
+    phase("P30", f"(a) slide {SLIDE_CROP} stride {SLIDE_STRIDE}: {len(windows)} windows "
+                 f"{windows}, launches {slide_launches}, depth in range {slide_ok}, "
+                 f"{slide_ms:.2f} ms a batch ({b / slide_ms * 1e3:.1f} img/s); flip=True "
+                 f"against the whole map flipped: rel L2 {flip_rel:.3e}")
+    if len(windows) != 6 or slide_launches != expected_launches(
+            {k: 6 * v for k, v in DEPTH_LAUNCHES.items()}):
+        raise AssertionError(f"slide launches {slide_launches}, expected 6 x {DEPTH_LAUNCHES}")
+    if not (slide_ok and flip_rel <= 1e-3):
+        raise AssertionError("slide or flip inference is wrong")
+    del depther, depth, slid, flipped, x
+    torch.cuda.empty_cache()
+    segment("P30", card, "(a) DPT depther at NYU size", t0)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b, h, w = KITTI_FRAMES
+    head = write_depth_head(f"{tmp}/dinov2_vitl14_kitti_linear4_head.pth", "linear", 1024,
+                            SEED + 42)
+    depther = hub.load_depther("dinov2_vitl14", head_type="linear", layers=4, weights="KITTI",
+                               head_checkpoint=head, dtype=torch.bfloat16)
+    frames = torch.randn(b, h, w, 3, generator=torch.Generator().manual_seed(SEED + 43))
+    x = frames.to("cuda", torch.bfloat16)
+    ops.reset_launch_counts()
+    depth = depther.predict(x)
+    torch.cuda.synchronize()
+    counts["depth_kitti"] = launches = ops.launch_counts()
+    cpu = cpu_depther(depther, BNHead(1024, in_index=(0, 1, 2, 3), min_depth=0.001,
+                                      max_depth=80.0, device="cpu"))
+    ref = cpu.predict(frames[:1].to(torch.bfloat16).float())
+    rel = rel_l2(depth[:1], ref)
+    ok = depth_in_range(depth, 0.001, 80.0)
+    ms = [time_ms(lambda: depther.predict(x), iters=5, warmup=2) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase("P30", f"(b) dinov2_vitl14 linear-4 depther (KITTI) B={b} {h}x{w} bf16 whole: depth "
+                 f"{tuple(depth.shape)} in [{depth.min().item():.4f}, {depth.max().item():.4f}] "
+                 f"({'inside' if ok else 'OUTSIDE'} [0.001, 80]), launches {launches}; 1 frame "
+                 f"vs CPU f32 plain path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL}); "
+                 f"{ms[0]:.2f} / {ms[1]:.2f} ms a batch ({b / min(ms) * 1e3:.1f} img/s), peak "
+                 f"{peak:.2f} GiB on {card}")
+    if launches != expected_launches(DEPTH_LAUNCHES):
+        raise AssertionError(f"depther launches {launches}, expected {DEPTH_LAUNCHES}")
+    if not (ok and tuple(depth.shape) == (b, h, w, 1) and rel <= SLICE_REL_TOL):
+        raise AssertionError("the linear depther disagrees with the CPU f32 path or its range")
+    del depther, depth, cpu, x
+    torch.cuda.empty_cache()
+    segment("P30", card, "(b) linear depther at KITTI size", t0)
+    return counts
+
+
+def depth_kernel_phase(summary, card) -> None:
+    """P30 (c): rows 1 and 3 at the depthers' shapes (NYU B=8 N=1611, KITTI
+    B=4 N=2263; dense + GELU at M = B N, 1024 -> 4096) against their plain
+    versions at P2's bar, then by CUDA-graph replay in turns with SDPA and
+    with _addmm_activation, beside their bounds; the times go under each
+    kernel's "cases"."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.tools.timing import in_turns
+
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 44)
+    failed = []
+    with torch.no_grad():
+        for label, (b, n) in (("nyu", (NYU_FRAMES[0], 1611)), ("kitti", (KITTI_FRAMES[0], 2263))):
+            heads, c = 16, 1024
+            qkv = randn(gen, b, n, 3 * c)
+            err, ok = compare(ops.standard_attention(qkv, heads),
+                              ops.standard_attention_reference(qkv, heads))
+            plain_ms = time_ms(lambda: ops.standard_attention_reference(qkv, heads), iters=3)
+            res = in_turns({"kernel": lambda: ops.standard_attention(qkv, heads),
+                            "SDPA": library_sdpa(qkv, heads)}, graph=True)
+            bms, bby = bound_of(*std_work(b, n, heads, 64))
+            kms, lms = res["median"]["kernel"], res["median"]["SDPA"]
+            phase("P30", f"(c) standard_attention [{label} B={b} N={n} H={heads} dh=64] "
+                         f"max_abs_err {err:.3e} (tol {ATOL}+{RTOL}*|ref|) "
+                         f"{'ok' if ok else 'FAIL'}; graph replay in turns on {card}: kernel "
+                         f"{res['ms']['kernel']} ms, SDPA {res['ms']['SDPA']} ms; bound "
+                         f"{bms:.4f} ms ({bby}), kernel {bms / kms:.1%} of it, SDPA "
+                         f"{bms / lms:.1%}; plain {plain_ms:.4f} ms")
+            summary["standard_attention"].setdefault("cases", {})[f"{label}_b{b}_n{n}"] = {
+                "ms": kms, "library_ms": lms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "max_abs_err": err}
+            failed += [] if ok else [f"standard_attention[{label}]"]
+            del qkv
+
+            m = b * n
+            x, wt, bias = randn(gen, m, c), randn(gen, 4 * c, c, scale=c ** -0.5), randn(
+                gen, 4 * c, scale=0.1)
+            err, ok = compare(ops.dense_gelu(x, wt, bias), ops.dense_gelu_reference(x, wt, bias))
+            plain_ms = time_ms(lambda: ops.dense_gelu_reference(x, wt, bias), iters=3)
+            res = in_turns({"kernel": lambda: ops.dense_gelu(x, wt, bias),
+                            "_addmm_activation": library_dense_gelu(x, wt, bias)}, graph=True)
+            bms, bby = bound_of(*dense_work(m, c, 4 * c))
+            kms, lms = res["median"]["kernel"], res["median"]["_addmm_activation"]
+            phase("P30", f"(c) dense_gelu [{label} M={m} K={c} F={4 * c}] max_abs_err {err:.3e} "
+                         f"(tol {ATOL}+{RTOL}*|ref|) {'ok' if ok else 'FAIL'}; graph replay in "
+                         f"turns on {card}: kernel {res['ms']['kernel']} ms, _addmm_activation "
+                         f"{res['ms']['_addmm_activation']} ms; bound {bms:.4f} ms ({bby}), "
+                         f"kernel {bms / kms:.1%} of it, _addmm_activation {bms / lms:.1%}; "
+                         f"plain {plain_ms:.4f} ms")
+            summary["dense_gelu"].setdefault("cases", {})[f"{label}_m{m}"] = {
+                "ms": kms, "library_ms": lms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "max_abs_err": err}
+            failed += [] if ok else [f"dense_gelu[{label}]"]
+            del x, wt, bias
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"kernels outside tolerance at the depthers' shapes: {failed}")
+    segment("P30", card, "(c) rows 1 and 3 at N = 1611, 2263", t0)
+
+
+def write_ade_folder(root: str, n_train: int, n_val: int, hw: tuple, seed: int) -> None:
+    """An ADE20K-layout folder (ADEChallengeData2016/{images,annotations}/
+    {training,validation}) of seeded JPEGs and PNG label maps: blocks of 32^2
+    pixels of one label in 1..150, a band of 0 (background) and one of 255
+    (void), so that every patch has a majority label or is ignored."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    npr = np.random.default_rng(seed)
+    h, w = hw
+    for sub, n in (("training", n_train), ("validation", n_val)):
+        for d in ("images", "annotations"):
+            os.makedirs(f"{root}/ADEChallengeData2016/{d}/{sub}")
+        for i in range(n):
+            blocks = npr.integers(1, 151, (-(-h // 32), -(-w // 32)))
+            lab = np.kron(blocks, np.ones((32, 32), np.int64))[:h, :w]
+            lab[: h // 8] = 0
+            lab[-h // 16:] = 255
+            img = (lab[..., None] * np.array([1.7, 0.9, 0.4]) + npr.normal(0, 12, (h, w, 3)))
+            name = f"ADE_{sub}_{i:08d}"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                f"{root}/ADEChallengeData2016/images/{sub}/{name}.jpg", quality=90)
+            Image.fromarray(lab.astype(np.uint8), "L").save(
+                f"{root}/ADEChallengeData2016/annotations/{sub}/{name}.png")
+
+
+def timed(fn, seconds: list):
+    """`fn` bracketed by synchronizes, each call's seconds appended to `seconds`."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def eval_cli_phase(card, tmp) -> dict:
+    """P30 (d): the eval command lines as a user runs them (in-process
+    ``main(argv)``, on the card by default) on a seeded teacher export of
+    hybrid_dinov2_vit_large_patch16 written by utils.checkpoint.save_teacher:
+    eval_dinov2 knn and linear on P29's image folder, eval_segmentation on an
+    ADE20K-layout folder (one quarter of the probe grid). Each CLI's
+    launches over its run against EVAL_LAUNCHES times its forwards, its
+    seconds and its feature img/s; then the export's features of 2 images
+    on the card against the CPU f32 path."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from octic_vits_tpu_torch import create_model, hub, init_weights, ops
+    from octic_vits_tpu_torch.data.transforms import eval_transform
+    from octic_vits_tpu_torch.eval import knn as eval_knn
+    from octic_vits_tpu_torch.eval import segmentation as eval_seg
+    from octic_vits_tpu_torch.scripts import eval_dinov2, eval_segmentation
+    from octic_vits_tpu_torch.utils.checkpoint import save_teacher
+
+    counts, t_all = {}, time.perf_counter()
+    name = "hybrid_dinov2_vit_large_patch16"
+    net = create_model(name, init_scale=1.0, device="cuda")
+    init_weights(net, torch.Generator("cuda").manual_seed(SEED + 45))
+    teacher = save_teacher(f"{tmp}/ssl", 0, {"backbone": net.to(torch.bfloat16).state_dict()})
+    del net
+    spec = LOOP_SPEC
+    data = f"{tmp}/folder"
+    n_train = write_image_folder(f"{data}/train", spec["classes"], spec["train_per_class"],
+                                 spec["size"], SEED + 46)
+    n_val = write_image_folder(f"{data}/val", spec["classes"], spec["val_per_class"],
+                               spec["size"], SEED + 47)
+    write_ade_folder(f"{tmp}/ade", *ADE_FRAMES, ADE_HW, SEED + 48)
+    phase("P30", f"(d) teacher export {teacher}, {n_train} + {n_val} JPEGs of {spec['size']}^2, "
+                 f"ADE20K layout {ADE_FRAMES[0]} + {ADE_FRAMES[1]} frames of {ADE_HW[1]}x"
+                 f"{ADE_HW[0]}: {time.perf_counter() - t_all:.2f} s")
+    common = ["--model", name, "--checkpoint", teacher]
+    folders = ["--train-data", f"{data}/train", "--val-data", f"{data}/val", "--batch",
+               str(CLI_BATCH), "--workers", "8", "--num-classes", str(spec["classes"])]
+    batches = -(-n_train // CLI_BATCH) + -(-n_val // CLI_BATCH)
+    # (label, command line, argv, backbone forwards, images, the extraction timed)
+    runs = (("knn", eval_dinov2, ["knn"] + common + folders, batches, n_train + n_val,
+             (eval_knn, "extract_features")),
+            ("linear", eval_dinov2, ["linear"] + common + folders + ["--iters", str(LINEAR_ITERS)],
+             LINEAR_ITERS + -(-n_val // CLI_BATCH), LINEAR_ITERS * CLI_BATCH + n_val, None),
+            ("segmentation", eval_segmentation, common + ["--dataset", "ade20k", "--root",
+                                                          f"{tmp}/ade", "--grid-total", "4"],
+             sum(ADE_FRAMES), sum(ADE_FRAMES), (eval_seg, "extract_patch_features")))
+    for label, cli, argv, forwards, images, extraction in runs:
+        torch.cuda.reset_peak_memory_stats()
+        spent = []
+        with contextlib.ExitStack() as stack:
+            if extraction:
+                module, attr = extraction
+                stack.enter_context(patched(module, attr, timed(getattr(module, attr), spent)))
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        per_forward = {k: v / forwards for k, v in launches.items() if v}
+        counts[f"eval_cli_{label}"] = {k: v // forwards for k, v in launches.items()}
+        if extraction:
+            feats = (f"feature extraction of {images} images {sum(spent):.2f} s "
+                     f"({images / sum(spent):.1f} img/s)")
+        else:  # the probes train between the forwards
+            feats = f"{images} images through the backbone ({images / seconds:.1f} img/s)"
+        phase("P30", f"(d) eval {label} on {card}: {seconds:.2f} s, {feats}, launches per "
+                     f"forward {per_forward}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                     f"GiB")
+        if launches != expected_launches({k: forwards * v for k, v in EVAL_LAUNCHES.items()}):
+            raise AssertionError(f"eval {label}: launches {launches} over {forwards} forwards, "
+                                 f"expected {EVAL_LAUNCHES} each")
+
+    card_model = hub.load_backbone(name, checkpoint=teacher)
+    cpu_model = hub.load_backbone(name, checkpoint=teacher, dtype=torch.float32, device="cpu")
+    paths = sorted(os.listdir(f"{data}/val/class_00"))[:2]
+    imgs = torch.from_numpy(np.stack([eval_transform(Image.open(f"{data}/val/class_00/{p}")
+                                                     .convert("RGB")) for p in paths]))
+    with torch.no_grad():
+        got = card_model.forward_features(imgs.to("cuda", torch.bfloat16))
+        ref = cpu_model.forward_features(imgs.to(torch.bfloat16).float())
+    keys = ("x_norm_clstoken", "x_norm_patchtokens")
+    rel = rel_l2(torch.cat([got[k].float().flatten() for k in keys]),
+                 torch.cat([ref[k].flatten() for k in keys]))
+    phase("P30", f"(d) the export's features of 2 val images (normed cls and patch tokens) vs "
+                 f"CPU f32 plain path: rel L2 err {rel:.3e} (tol {SLICE_REL_TOL})")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError("the exported backbone's features disagree with the CPU f32 path")
+    del card_model, cpu_model
+    segment("P30", card, "(d) the eval command lines", t_all)
+    return counts
+
+
+def dense_phases(summary, card) -> dict:
+    """P30: the depthers and the eval command lines in a temporary directory.
+    Returns each path's launches per forward."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    with_ln_kernel(False)  # the command lines' default: the LN kernel off
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p30_")
+    try:
+        counts = depth_phase(card, tmp)
+        depth_kernel_phase(summary, card)
+        counts.update(eval_cli_phase(card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("P30", f"dense prediction and the eval command lines: {time.perf_counter() - t0:.2f} s "
+                 f"of its {DENSE_BUDGET_S:.0f} s budget on {card}")
     return counts
 
 

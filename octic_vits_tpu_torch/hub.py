@@ -7,8 +7,9 @@ checkpoint. A ``.pth`` file is read with ``torch.load(weights_only=True)``,
 its `checkpoint_key` sub-dict converted by ``params_from_reference`` and
 loaded strictly; a checkpoint directory of the port (``utils.checkpoint``)
 is loaded as it is. Nothing is downloaded: the caller gives local files. The
-orbax checkpoints of the JAX package need JAX and are refused; the depth
-heads are not ported yet.
+orbax checkpoints of the JAX package need JAX and are refused. The depthers
+(:func:`load_depther`, reference: dinov2/hub/depthers.py) put a depth head of
+models/depth.py on a DINOv2 backbone.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from octic_vits_tpu_torch.layers.init import init_weights
 from octic_vits_tpu_torch.layers.vit_layers import Linear
 from octic_vits_tpu_torch.models.registry import create_model
 from octic_vits_tpu_torch.utils.convert import (
+    convert_depth_head,
     convert_linear_head,
     params_from_jax,
     params_from_reference,
@@ -148,3 +150,76 @@ def load_linear_classifier(name: str, backbone_checkpoint: Optional[str] = None,
         trunc_normal_(head.weight, std, torch.Generator(p.device).manual_seed(0))
         nn.init.zeros_(head.bias)
     return HubLinearClassifier(backbone, head, layers)
+
+
+# depther out_index per arch (reference: dinov2/hub/depthers.py:103-119)
+_DEPTH_OUT_INDEX = {
+    "dinov2_vits14": [2, 5, 8, 11],
+    "dinov2_vitb14": [2, 5, 8, 11],
+    "dinov2_vitl14": [4, 11, 17, 23],
+    "dinov2_vitg14": [9, 19, 29, 39],
+}
+_DEPTH_RANGES = {"NYU": (0.001, 10.0), "KITTI": (0.001, 80.0)}
+
+
+def load_depther(name: str, head_type: str = "dpt", weights: str = "NYU", layers: int = 4,
+                 backbone_checkpoint: Optional[str] = None, head_checkpoint: Optional[str] = None,
+                 img_size: int = 224, dtype: torch.dtype = torch.float32, device=None,
+                 **model_kwargs):
+    """Backbone + depth head, the reference's ``*_ld`` / ``*_dd`` hub entries
+    (reference: dinov2/hub/depthers.py:70-140 linear, 180-246 DPT), as a
+    ``models.depth.DepthEncoderDecoder`` in eval mode whose ``predict(images
+    [B, H, W, 3], mode="whole" | "slide", flip=...)`` returns ``[B, H, W, 1]``
+    depth. The backbone comes through :func:`load_backbone`
+    (`backbone_checkpoint`, else seeded weights), the head from
+    `head_checkpoint` (a released ``*_head.pth``, its ``state_dict`` sub-dict
+    or the whole file) through ``utils.convert.convert_depth_head``. Both are
+    built with parameters in `dtype` on `device` (the card unless it names
+    another).
+
+    `head_type` "linear" is a BNHead on the last block (`layers` 1) or on
+    the four blocks of ``_DEPTH_OUT_INDEX`` (`layers` 4), its bins on (0.001,
+    80) whatever the dataset, as the reference factory (depthers.py:53-67)
+    and JAX (hub.py:221-222) have them; "dpt" a DPTHead on those four
+    blocks. `weights` ("NYU" or "KITTI") sets the clamp range of the depth.
+    Without a head checkpoint the head is drawn as flax's defaults draw it
+    (``models.depth.lecun_normal_``) from a ``torch.Generator`` seeded 0: the
+    same distribution as JAX's ``PRNGKey(0)`` init, not the same numbers."""
+    from octic_vits_tpu_torch.models.depth import (
+        BNHead,
+        DepthEncoderDecoder,
+        DPTHead,
+        lecun_normal_,
+    )
+
+    base = name.removesuffix("_reg")
+    if base not in _DEPTH_OUT_INDEX:
+        raise KeyError(f"no depther for {name}; known: {sorted(_DEPTH_OUT_INDEX)}")
+    if weights not in _DEPTH_RANGES:
+        raise KeyError(f"unknown weights {weights}; known NYU, KITTI")
+    min_depth, max_depth = _DEPTH_RANGES[weights]
+    if head_type == "linear" and layers not in (1, 4):
+        raise ValueError(f"unsupported layers={layers}")
+    if head_type not in ("linear", "dpt"):
+        raise ValueError(f"unknown head_type {head_type}")
+
+    backbone = load_backbone(name, checkpoint=backbone_checkpoint, img_size=img_size,
+                             dtype=dtype, device=device, **model_kwargs)
+    entry = HUB_ENTRIES[name]
+    kw = dict(device=backbone.pos_embed.device, dtype=dtype)
+    if head_type == "linear":
+        out_index = _DEPTH_OUT_INDEX[base] if layers == 4 else [entry.depth - 1]
+        head = BNHead(entry.embed_dim, in_index=tuple(range(layers)), upsample=4,
+                      min_depth=0.001, max_depth=80.0, **kw)
+    else:
+        out_index = _DEPTH_OUT_INDEX[base]
+        head = DPTHead(entry.embed_dim, channels=256, min_depth=min_depth, max_depth=max_depth,
+                       **kw)
+    if head_checkpoint is not None:
+        blob = torch.load(head_checkpoint, map_location="cpu", weights_only=True)
+        sd = blob.get("state_dict", blob)
+        head.load_state_dict(params_from_jax(convert_depth_head(sd), head), strict=True)
+    else:
+        lecun_normal_(head, torch.Generator(kw["device"]).manual_seed(0))
+    return DepthEncoderDecoder(backbone, head, out_index, patch_size=entry.patch_size,
+                               min_depth=min_depth, max_depth=max_depth).eval()

@@ -3,7 +3,8 @@
 checkpoint -> that flax layout (the port's own copy of the numpy converters
 of octic_vits_tpu/utils/convert.py: :func:`convert_octic_vit`,
 :func:`convert_dinov2_vit`, :func:`convert_linear_head`), the two composed
-by :func:`params_from_reference`.
+by :func:`params_from_reference`; and a released depth head -> the flax
+layout of models/depth.py (:func:`convert_depth_head`).
 
 The port names its parameters after the flax tree, so the mapping is
 mechanical:
@@ -14,6 +15,9 @@ mechanical:
   octic_vits_tpu/models/scan_blocks.py) is unstacked, the standard stack of a
   hybrid model continuing after ``model.break_layer``;
 * flax ``Dense.kernel [in, out]`` -> torch ``Linear.weight [out, in]``;
+* flax ``Conv.kernel [kh, kw, in, out]`` -> ``Conv2d.weight [out, in, kh, kw]``,
+  and JAX's ``BlockExpand.kernel [s, s, in, out]`` (models/depth.py) ->
+  the ``ConvTranspose2d.weight [in, out, s, s]`` in its place;
 * flax ``LayerNorm.scale`` -> ``weight`` (``bias`` keeps its name);
 * every other leaf (the D8 parameters, pos-embed, cls, mask and register
   tokens, LayerScale gammas, the invariants' ``references`` and
@@ -81,7 +85,13 @@ def params_from_jax(flax_params: Mapping, model: nn.Module) -> Dict[str, torch.T
     sd = {}
     for path, arr in _unstack(_flatten(tree), model).items():
         leaf = path[-1]
-        if leaf == "kernel":
+        if leaf == "kernel" and arr.ndim == 4:
+            # a flax conv [kh, kw, I, O] -> [O, I, kh, kw]; JAX's BlockExpand [s, s, I, O]
+            # -> the ConvTranspose2d that the port has in its place, [I, O, s, s]
+            owner = model.get_submodule(".".join(path[:-1]))
+            perm = (2, 3, 0, 1) if isinstance(owner, nn.ConvTranspose2d) else (3, 2, 0, 1)
+            path, arr = path[:-1] + ("weight",), arr.transpose(perm)
+        elif leaf == "kernel":
             path, arr = path[:-1] + ("weight",), arr.T
         elif leaf == "scale":
             path = path[:-1] + ("weight",)
@@ -312,3 +322,62 @@ def params_from_reference(state_dict: Mapping, model: nn.Module) -> Dict[str, to
     else:
         raise TypeError(f"no reference layout for {type(model).__name__}")
     return params_from_jax(params, model)
+
+
+def _conv_head(sd, prefix, bias=True):
+    out = {"kernel": _conv(sd[prefix + ".weight"])}
+    if bias:
+        out["bias"] = np.asarray(sd[prefix + ".bias"])
+    return out
+
+
+def _rcu(sd, prefix):
+    return {f"conv{j}": _conv_head(sd, f"{prefix}.conv{j}.conv", bias=False) for j in (1, 2)}
+
+
+def convert_depth_head(state_dict: Mapping) -> Dict:
+    """A released depth head's state_dict -> the flax params of JAX's
+    models/depth.py, which :func:`params_from_jax` maps onto the port's
+    ``BNHead`` / ``DPTHead`` (reference: dinov2/hub/depthers.py:131-138,
+    220-226 load ``*_linear{,4}_head.pth`` / ``*_dpt_head.pth`` into
+    ``decode_head.*`` of a DepthEncoderDecoder). ``decode_head.`` prefixes
+    are stripped and ``backbone.`` keys dropped.
+
+    * BNHead: ``conv_depth.{weight,bias}`` (a 1x1 conv);
+    * DPTHead: the reassemble / convs / fusion / project / ``conv_depth.head``
+      tree (reference: dinov2/hub/depth/decode_heads.py:528-747). The
+      ConvTranspose2d reassemble upsamplers ``[I, O, s, s]`` become flax
+      ``BlockExpand`` kernels ``[s, s, I, O]``."""
+    sd = {(k[len("decode_head."):] if k.startswith("decode_head.") else k):
+          (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+          for k, v in state_dict.items() if not k.startswith("backbone.")}
+    if "reassemble_blocks.projects.0.conv.weight" not in sd:
+        return {"conv_depth": _conv_head(sd, "conv_depth")}  # BNHead: the 1x1 conv alone
+
+    rb = "reassemble_blocks"
+    reassemble: Dict = {}
+    for i in range(4):
+        reassemble[f"readout_{i}"] = {
+            "kernel": _t(sd[f"{rb}.readout_projects.{i}.0.weight"]),
+            "bias": np.asarray(sd[f"{rb}.readout_projects.{i}.0.bias"])}
+        reassemble[f"project_{i}"] = _conv_head(sd, f"{rb}.projects.{i}.conv")
+    for i in (0, 1):
+        reassemble[f"resize_{i}"] = {
+            "kernel": np.ascontiguousarray(np.transpose(sd[f"{rb}.resize_layers.{i}.weight"],
+                                                        (2, 3, 0, 1))),
+            "bias": np.asarray(sd[f"{rb}.resize_layers.{i}.bias"])}
+    reassemble["resize_3"] = _conv_head(sd, f"{rb}.resize_layers.3")
+
+    params: Dict = {"reassemble": reassemble}
+    for i in range(4):
+        params[f"conv_{i}"] = _conv_head(sd, f"convs.{i}.conv", bias=False)
+    for i in range(4):
+        fb = f"fusion_blocks.{i}"
+        params[f"fusion_{i}"] = {"project": _conv_head(sd, f"{fb}.project.conv"),
+                                 "res_conv_unit2": _rcu(sd, f"{fb}.res_conv_unit2")}
+        if i > 0:
+            params[f"fusion_{i}"]["res_conv_unit1"] = _rcu(sd, f"{fb}.res_conv_unit1")
+    params["project"] = _conv_head(sd, "project.conv")
+    for name, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+        params[name] = _conv_head(sd, f"conv_depth.head.{idx}")
+    return params

@@ -22,12 +22,15 @@ from octic_vits_tpu_torch.train import common
 from octic_vits_tpu_torch.train.deit import engine
 from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLConfig, SSLMetaArch, batch_to_device
 from octic_vits_tpu_torch.utils import checkpoint as C
+from torch_time_limit import time_limit  # noqa: F401
+
+# each test waits at most torch_time_limit.LIMIT_S seconds, then fails
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 torch.set_num_threads(1)
 SSL_CFG = dict(arch="hybrid_dinov2_vit_tiny_test", img_size=32, local_crop_size=16, patch_size=8,
                drop_path_rate=0.0, dino_out_dim=64, dino_head_hidden_dim=32,
                dino_head_bottleneck_dim=16, ibot_out_dim=64, n_local_crops=2, compute_dtype=None)
-
 
 def _equal_trees(a, b, path=""):
     if isinstance(a, torch.Tensor):

@@ -24,11 +24,14 @@ from octic_vits_tpu_torch.train.dinov2 import cli as ssl_cli
 from octic_vits_tpu_torch.train.dinov2 import train as ssl_train
 from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
 from octic_vits_tpu_torch.utils import checkpoint as C
+from torch_time_limit import time_limit  # noqa: F401
+
+# each test waits at most torch_time_limit.LIMIT_S seconds, then fails
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = "_tiny_octic_cli"
-
 
 def _actions(parser):
     return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.type, a.nargs, a.const,

@@ -29,6 +29,10 @@ from octic_vits_tpu_torch.data import loaders as tloaders
 from octic_vits_tpu_torch.data import native as tnative
 from octic_vits_tpu_torch.data import samplers as tsamplers
 from octic_vits_tpu_torch.data import transforms as ttf
+from torch_time_limit import time_limit  # noqa: F401
+
+# each test waits at most torch_time_limit.LIMIT_S seconds, then fails
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 
 def _take(it, n):

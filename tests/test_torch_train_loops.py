@@ -53,6 +53,10 @@ from octic_vits_tpu_torch.utils import config as tconfig
 from octic_vits_tpu_torch.utils import finetune as tfinetune
 from octic_vits_tpu_torch.utils.convert import params_from_jax
 from tests.test_torch_hub import _fake_octic_state_dict, _save
+from torch_time_limit import time_limit  # noqa: F401
+
+# each test waits at most torch_time_limit.LIMIT_S seconds, then fails
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 torch.set_num_threads(1)
 TINY = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, mlp_ratio=2.0, qkv_bias=True)
