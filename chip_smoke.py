@@ -49,7 +49,7 @@ Phases, one line each (any failure raises and exits non-zero):
              deterministic step on B=2 (drop path 0) against the same weights in
              f32 through the plain path on the CPU (loss and gradient cosine)
   P10 SSL timing  hybrid against dinov2_vit_large_patch16 at B=32: median ms
-             over 10 steps after 2 warm-up, range, img/s (B images a step),
+             over 5 steps after 1 warm-up, range, img/s (B images a step),
              ratio, peak device memory
   P11 glue kernels  the octic block's fused-glue kernels against their plain
              versions: the D8 LayerNorm forward with its affine, the
@@ -253,6 +253,23 @@ Phases, one line each (any failure raises and exits non-zero):
              two step factories (StepProbe), to bracket each step with a
              synchronize and count its launches.
              `python3 chip_smoke.py --p29` runs P29 alone after the build
+  P30 dense prediction  the dinov2_vitl14 depthers (DPT at NYU's 480 x 640,
+             whole, slide and flip; linear-4 at KITTI's 352 x 1216), rows 1 and
+             3 at their token counts against their plain versions and library
+             calls, the eval command lines on a seeded teacher export;
+             `python3 chip_smoke.py --p30` runs P30 alone after the build
+  P31 data parallelism  over NCCL on one card: (a) the DeiT III CLI of
+             hybrid ViT-H/14 at B=32 under `torchrun --nproc_per_node 1` and the
+             port's launcher, 2 steps and a checkpoint (the launcher's line must
+             read NCCL, rank 0 of 1), the checkpoint restored here bitwise;
+             (b) the DeiT step of the same model plain, under DDP and under
+             ZeRO-3 (FSDP2) from one state: launches against TRAIN_LAUNCHES,
+             loss, gradient norm and every tensor of the state after the step
+             bitwise equal to the plain step (else P6's bars, the difference
+             named), step ms in turns and each layout's memory; (c) the SSL
+             step of hybrid ViT-L/16 at B=32 under ZeRO-2 likewise
+             (SSL_LAUNCHES). One card holds one NCCL rank: no scaling shows.
+             `python3 chip_smoke.py --p31` runs P31 alone after the build
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -265,12 +282,14 @@ phase prints its seconds.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -1050,6 +1069,9 @@ def main() -> int:
     if sys.argv[1:] == ["--p30"]:  # P30 alone, likewise
         dense_phases({"standard_attention": {}, "dense_gelu": {}}, card)
         return 1
+    if sys.argv[1:] == ["--p31"]:  # P31 alone, likewise
+        parallel_phases(card)
+        return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
 
@@ -1168,7 +1190,7 @@ def main() -> int:
     state, step = train_setup(train_model, cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ms_th, times_h = time_train_steps(state, step, timages, tlabels, tgen)
+    ms_th, times_h = time_train_steps(state, step, timages, tlabels, tgen, steps=5, warmup=1)
     mem_h = torch.cuda.max_memory_allocated()
     del state, step, train_model
     torch.cuda.empty_cache()
@@ -1177,7 +1199,7 @@ def main() -> int:
     init_weights(std_model, torch.Generator("cuda").manual_seed(SEED))
     state, step = train_setup(std_model, cfg)
     torch.cuda.reset_peak_memory_stats()
-    ms_ts, times_s = time_train_steps(state, step, timages, tlabels, tgen)
+    ms_ts, times_s = time_train_steps(state, step, timages, tlabels, tgen, steps=5, warmup=1)
     mem_s = torch.cuda.max_memory_allocated()
     del state, step, std_model
     phase("P7", f"train step B={TRAIN_BATCH} 224^2 (f32 params, bf16 compute, remat, LAMB, EMA) "
@@ -1232,11 +1254,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_launches = dense_phases(summary, card)
 
+    torch.cuda.empty_cache()
+    parallel_launches = parallel_phases(card)
+
     counts = {"inference": launches, "train": train_launches, "ssl": ssl_launches,
               **glue_launches, **packed_launches, **wide_launches, "probe": probe_launches,
               "probe_14b": probe_14b_launches, "probe_14c": probe_14c_launches,
               "probe_25": probe_25_launches, "probe_26": probe_26_launches,
-              "eval": eval_launches, **surface_launches, **loop_launches, **dense_launches}
+              "eval": eval_launches, **surface_launches, **loop_launches, **dense_launches,
+              **parallel_launches}
     kernels = []
     for name, (source, replaces, path) in META.items():
         e = summary[name]
@@ -1365,7 +1391,7 @@ def ssl_phases(gen, summary, card) -> dict:
     # ---- P10: SSL step timing, hybrid against the standard ViT-L/16 ----
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ms_h, times_h = time_ssl_steps(state, step, batch, sched, sgen)
+    ms_h, times_h = time_ssl_steps(state, step, batch, sched, sgen, steps=5, warmup=1)
     mem_h = torch.cuda.max_memory_allocated()
     del state, step, arch
     torch.cuda.empty_cache()
@@ -1373,7 +1399,8 @@ def ssl_phases(gen, summary, card) -> dict:
                            device="cuda")
     std_state = std_arch.init(torch.Generator("cuda").manual_seed(SEED))
     torch.cuda.reset_peak_memory_stats()
-    ms_s, times_s = time_ssl_steps(std_state, std_arch.make_train_step(), batch, sched, sgen)
+    ms_s, times_s = time_ssl_steps(std_state, std_arch.make_train_step(), batch, sched, sgen,
+                                   steps=5, warmup=1)
     mem_s = torch.cuda.max_memory_allocated()
     del std_state, std_arch
     torch.cuda.empty_cache()
@@ -1643,10 +1670,10 @@ def glue_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
         with_ln_kernel(key == "path C")
         state, step = runs[key]
         _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
-                                steps=5, warmup=1)
+                                steps=3, warmup=1)
         times[key] += t
     med = {k: statistics.median(t) for k, t in times.items()}
-    phase("P14", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+    phase("P14", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (3 steps each, twice): "
                  + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
                              f"range {min(times[k]):.2f}-{max(times[k]):.2f})" for k in times)
                  + f"; ratio path C / P7 img/s {med['P7 hybrid'] / med['path C']:.4f}")
@@ -1831,12 +1858,12 @@ def packed_phases(gen, summary, card, cpu_model, images, det) -> dict:
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
-                                steps=5, warmup=1)
+                                steps=3, warmup=1)
         # the step's own peak above what the resident train states hold
         peak[key] = max(peak[key], torch.cuda.max_memory_allocated() - base_mem)
         times[key] += t
     med = {k: statistics.median(t) for k, t in times.items()}
-    phase("P17", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+    phase("P17", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (3 steps each, twice): "
                  + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
                              f"range {min(times[k]):.2f}-{max(times[k]):.2f}, step peak "
                              f"{peak[k] / 2**30:.2f} GiB above the states)" for k in times)
@@ -2123,11 +2150,11 @@ def wide_phases(gen, summary, card, cpu_model, images, ref, det) -> dict:
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _, t = time_train_steps(state, step, det["timages"], det["tlabels"], det["tgen"],
-                                steps=5, warmup=1)
+                                steps=3, warmup=1)
         peak[key] = max(peak[key], torch.cuda.max_memory_allocated() - base_mem)
         times[key] += t
     med = {k: statistics.median(t) for k, t in times.items()}
-    phase("P20", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (5 steps each, twice): "
+    phase("P20", f"train step B={TRAIN_BATCH} 224^2 on {card}, in turns (3 steps each, twice): "
                  + ", ".join(f"{k} median {med[k]:.2f} ms ({TRAIN_BATCH / med[k] * 1e3:.1f} img/s, "
                              f"range {min(times[k]):.2f}-{max(times[k]):.2f}, step peak "
                              f"{peak[k] / 2**30:.2f} GiB above the states)" for k in times)
@@ -5002,6 +5029,403 @@ def dense_phases(summary, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("P30", f"dense prediction and the eval command lines: {time.perf_counter() - t0:.2f} s "
                  f"of its {DENSE_BUDGET_S:.0f} s budget on {card}")
+    return counts
+
+
+# ---- P31: data-parallel and sharded training over NCCL --------------------------------
+
+P31_BUDGET_S = 45.0
+P31_CLI_STEPS = 2
+P31_CLI_TIMEOUT_S = 400.0
+P31_TURNS = 2
+# the launcher's line for each process (octic_vits_tpu_torch/launch.py)
+P31_LAUNCH_LINE = "launch: rank 0 of 1, backend nccl, device cuda:0"
+
+
+def free_local_port() -> int:
+    """A free TCP port on this machine's loopback interface."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def layout_tensors(params: dict, extra: dict) -> dict:
+    """Name -> whole tensor on the card (a DTensor gathered) of a state's
+    parameters, gradients and the given extra tensors (EMA, moments)."""
+    from octic_vits_tpu_torch.parallel.sharding import full
+
+    out = {}
+    for n, p in params.items():
+        out[n] = full(p.detach())
+        if p.grad is not None:
+            out[f"grad/{n}"] = full(p.grad)
+    out.update({k: full(v.detach()) for k, v in extra.items()})
+    return out
+
+
+def layout_diff(ours: dict, plain: dict) -> tuple:
+    """(count of tensors that differ from the plain step's, the name and max
+    abs difference of the worst, the cosine of the whole gradients)."""
+    differ, worst, dot, na, nb = 0, ("", 0.0), 0.0, 0.0, 0.0
+    for k, v in plain.items():
+        w = ours[k]
+        if not torch.equal(v, w):
+            differ += 1
+            d = (v.double() - w.double()).abs().max().item()
+            if d > worst[1]:
+                worst = (k, d)
+        if k.startswith("grad/"):
+            dot += (v.double() * w.double()).sum().item()
+            na += v.double().square().sum().item()
+            nb += w.double().square().sum().item()
+    cos = dot / math.sqrt(na * nb) if na and nb else 1.0
+    return differ, worst, cos
+
+
+def deit_tensors(state) -> dict:
+    params = dict(state.model.named_parameters())
+    extra = {f"ema/{n}": t for n, t in state.ema.items()}
+    for n, p in params.items():
+        for k, v in state.optimizer.state[p].items():
+            if isinstance(v, torch.Tensor) and v.ndim:
+                extra[f"{k}/{n}"] = v
+    return layout_tensors(params, extra)
+
+
+def ssl_tensors(state) -> dict:
+    params = {f"student/{n}": p for n, p in state.student.named_parameters()}
+    extra = {f"teacher/{n}": p for n, p in state.teacher.named_parameters()}
+    extra.update({f"mu/{n}": t for n, t in state.mu.items()})
+    extra.update({f"nu/{n}": t for n, t in state.nu.items()})
+    extra.update(dino_center=state.dino_center, ibot_center=state.ibot_center)
+    return layout_tensors(params, extra)
+
+
+def check_layout(tag, name, metrics, plain_metrics, keys, diff) -> str:
+    """Bitwise equal to the plain step, or within P6's bars (the loss and
+    the gradient norms at SLICE_REL_TOL, the gradient's cosine at
+    GRAD_COS_MIN) with the largest difference named; raises otherwise."""
+    differ, worst, cos = diff
+    same = all(metrics[k].item() == plain_metrics[k].item() for k in keys) and differ == 0
+    if same:
+        return "bitwise equal to the plain step (loss, gradient norms, every tensor of the state)"
+    rel = max(abs(metrics[k].item() - plain_metrics[k].item()) / abs(plain_metrics[k].item())
+              for k in keys)
+    text = (f"NOT bitwise: {differ} tensors differ, the largest {worst[1]:.3e} in {worst[0]}; "
+            f"metrics rel err {rel:.3e} (P6's bar {SLICE_REL_TOL}), gradient cosine {cos:.6f} "
+            f"(P6's bar {GRAD_COS_MIN})")
+    if not (rel <= SLICE_REL_TOL and cos >= GRAD_COS_MIN):
+        raise AssertionError(f"{tag} {name}: {text}")
+    return text
+
+
+def step_turns(runs: dict, turns: int) -> dict:
+    """Each run's synchronized step, in turns: name -> (ms list, [(resident
+    GiB before, peak GiB during)])."""
+    out = {name: ([], []) for name in runs}
+    for _ in range(turns):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out[name][0].append((time.perf_counter() - t0) * 1e3)
+            out[name][1].append((before / 2**30, torch.cuda.max_memory_allocated() / 2**30))
+    return out
+
+
+def turns_text(times: dict, base: str) -> str:
+    med = {k: statistics.median(v[0]) for k, v in times.items()}
+    return "; ".join(
+        f"{k} ms {[round(t, 2) for t in v[0]]} (median {med[k]:.2f}, {med[k] / med[base]:.4f}x "
+        f"{base}), resident before / peak during GiB "
+        f"{[(round(a, 2), round(b, 2)) for a, b in v[1]]}" for k, v in times.items())
+
+
+def p31_cli(card, tmp) -> None:
+    """P31 (a): P29's seeded image folder, the DeiT III CLI under torchrun
+    with one process and the port's launcher (NCCL), each line of its output
+    stamped with its second; then its exit code and launcher line, and
+    process 0's checkpoint restored here into a state of its own, bitwise."""
+    import os
+
+    from octic_vits_tpu_torch import create_model
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
+    from octic_vits_tpu_torch.utils.checkpoint import CheckpointManager, load_tree
+
+    spec = LOOP_SPEC
+    t0 = time.perf_counter()
+    data = f"{tmp}/data"
+    write_image_folder(f"{data}/train", spec["classes"], spec["train_per_class"], spec["size"],
+                       SEED)
+    write_image_folder(f"{data}/val", spec["classes"], spec["val_per_class"], spec["size"],
+                       SEED + 1)
+    out = f"{tmp}/deit"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "octic_vits_tpu_torch.launch", "octic_vits_tpu_torch.train.deit.cli",
+           "--model", spec["deit_model"], "--data-set", "IMAGEFOLDER", "--data-path", data,
+           "--batch-size", str(spec["batch"]), "--input-size", str(spec["input_size"]),
+           "--epochs", "1", "--max-steps", str(P31_CLI_STEPS), "--seed", str(spec["seed"]),
+           "--output_dir", out]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, PYTHONPATH=root))
+    watchdog = threading.Timer(P31_CLI_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    try:
+        lines = [(time.perf_counter() - t1, x.rstrip()) for x in proc.stdout]
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    run_s = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"torchrun exited {rc}: " + "\n".join(x for _, x in lines[-60:]))
+    launch_lines = [x for _, x in lines if x.startswith("launch:")]
+
+    def first(prefix):  # the second at which the CLI first printed `prefix`
+        return next((f"{t:.1f}" for t, x in lines if x.lstrip().startswith(prefix)), "-")
+    marks = (f"the launcher's line at {first('launch:')} s, the first step's at "
+             f"{first('Epoch 0')} s, the evaluation's at {first('* Acc@1')} s, exit at "
+             f"{run_s:.1f} s")
+    if launch_lines != [P31_LAUNCH_LINE]:
+        raise AssertionError(f"the launcher reported {launch_lines}, expected "
+                             f"[{P31_LAUNCH_LINE!r}]")
+    ckpt_dir = os.path.join(out, "ckpt")
+    steps = sorted(os.listdir(ckpt_dir))
+    if steps != [str(P31_CLI_STEPS)]:
+        raise AssertionError(f"checkpoints {steps} under {ckpt_dir}")
+    cfg = DeiTConfig(num_classes=spec["classes"])
+    model = create_model(spec["deit_model"], img_size=spec["input_size"],
+                         drop_path_rate=cfg.drop_path, num_classes=cfg.num_classes,
+                         compute_dtype=torch.bfloat16, remat=True, device="cuda")
+    state = common.create_train_state(model, engine.build_optimizer(cfg, model),
+                                      ema=cfg.model_ema)
+    mgr = CheckpointManager(ckpt_dir)
+    tree = mgr.restore()
+    mgr.close()
+    state.load_state_dict(tree)
+    diff = tree_diff(state.state_dict(), tree)
+    best_diff = tree_diff(state.state_dict()["model"],
+                          load_tree(os.path.join(out, "best"))["model"])
+    phase("P31", f"(a) torchrun --nproc_per_node 1 + the port's launcher, DeiT III CLI "
+                 f"{spec['deit_model']} B={spec['batch']}, {P31_CLI_STEPS} steps on {card}: "
+                 f"exit 0, {launch_lines[0]!r}; process 0 wrote checkpoint {steps[0]} "
+                 f"({dir_bytes(os.path.join(ckpt_dir, steps[0]))} bytes) and the best export; "
+                 f"restored here: {tree_count(tree)} tensors "
+                 f"{'bitwise equal' if not diff else f'DIFFER {diff[:3]}'} to the checkpoint, "
+                 f"the model {'bitwise equal' if not best_diff else f'DIFFERS {best_diff[:3]}'} to "
+                 f"the best export's; the run: {marks}; (a) {time.perf_counter() - t0:.2f} s")
+    if diff or best_diff or tree["step"] != P31_CLI_STEPS:
+        raise AssertionError("the torchrun checkpoint does not restore bitwise")
+
+
+def first_step(run) -> tuple:
+    """A layout's first step: (state, metrics, its launches, its peak above
+    what was allocated before it, bytes)."""
+    from octic_vits_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    return state, metrics, launches, peak - before
+
+
+def memory_text(foot: dict, peak: dict) -> str:
+    return (f"each layout's footprint after its first step + that step's peak above what was "
+            f"allocated before it, GiB: "
+            + ", ".join(f"{k} {foot[k]:.2f} + {peak[k] / 2**30:.2f}" for k in foot))
+
+
+def p31_deit_prepare(mesh) -> dict:
+    """P31 (b), first steps: the DeiT III step of hybrid ViT-H/14 at B=32 plain,
+    under DDP and under ZeRO-3 (FSDP2) from one state, each layout's first
+    step held to the plain one (launches, bitwise or P6's bars)."""
+    from octic_vits_tpu_torch import create_model, init_weights, ops
+    from octic_vits_tpu_torch.train import common
+    from octic_vits_tpu_torch.train.deit import engine
+    from octic_vits_tpu_torch.train.deit.engine import DeiTConfig
+
+    t0 = time.perf_counter()
+    cfg = DeiTConfig()
+    init = create_model("hybrid_deit_huge_patch14", remat=True, drop_path_rate=cfg.drop_path,
+                        compute_dtype=torch.bfloat16, device="cuda")
+    init_weights(init, torch.Generator("cuda").manual_seed(SEED))
+    start = {k: v.to("cpu") for k, v in init.state_dict().items()}
+    del init
+    gen = torch.Generator().manual_seed(SEED + 31)
+    images = torch.randn(TRAIN_BATCH, IMG, IMG, 3, generator=gen).cuda()
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen).cuda()
+    runs, metrics, launches, foot, peak = {}, {}, {}, {}, {}
+    for name, shard_params, fsdp2 in (("plain", False, None), ("ddp", False, False),
+                                      ("zero3", True, True)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        model = create_model("hybrid_deit_huge_patch14", remat=True,
+                             drop_path_rate=cfg.drop_path, compute_dtype=torch.bfloat16,
+                             device="cuda")
+        model.load_state_dict(start, strict=True)
+        state = common.create_train_state(model, engine.build_optimizer(cfg, model), ema=True)
+        if fsdp2 is not None:
+            common.state_shardings(state, mesh, shard_params=shard_params, fsdp2=fsdp2)
+        step = engine.make_deit_train_step(model, cfg, state.optimizer)
+        ops.reset_launch_counts()
+        _, metrics[name], launches[name], peak[name] = first_step(
+            lambda s=state, f=step: f(s, images, labels, torch.Generator().manual_seed(SEED + 32)))
+        foot[name] = (torch.cuda.memory_allocated() - before) / 2**30
+        runs[name] = (state, step)
+    want = expected_launches(TRAIN_LAUNCHES)
+    plain, texts = deit_tensors(runs["plain"][0]), {}
+    for name in ("ddp", "zero3"):  # one gathered copy at a time
+        if launches[name] != want:
+            raise AssertionError(f"P31 (b) {name}: launches {launches[name]}, expected {want}")
+        texts[name] = check_layout("P31 (b)", name, metrics[name], metrics["plain"],
+                                   ("loss", "grad_norm"),
+                                   layout_diff(deit_tensors(runs[name][0]), plain))
+    return dict(cfg=cfg, runs=runs, metrics=metrics, launches=launches, texts=texts,
+                memory=memory_text(foot, peak), images=images, labels=labels, gen=gen,
+                seconds=time.perf_counter() - t0)
+
+
+def p31_deit_report(card, ctx) -> dict:
+    """P31 (b), timed: the three layouts' steps in turns. Returns the DDP and
+    ZeRO-3 launches."""
+    t0 = time.perf_counter()
+    images, labels, gen, metrics = ctx["images"], ctx["labels"], ctx["gen"], ctx["metrics"]
+    times = step_turns({name: (lambda s=state, f=step: f(s, images, labels, gen))
+                        for name, (state, step) in ctx["runs"].items()}, P31_TURNS)
+    texts = ctx["texts"]
+    phase("P31", f"(b) hybrid_deit_huge_patch14 DeiT III step B={TRAIN_BATCH} (P7's flags, "
+                 f"LAMB, EMA, mixup/cutmix, drop path {ctx['cfg'].drop_path}) from one state, one "
+                 f"NCCL rank: loss {metrics['plain']['loss'].item():.6f}, grad norm "
+                 f"{metrics['plain']['grad_norm'].item():.6f}; DDP: launches = TRAIN_LAUNCHES, "
+                 f"{texts['ddp']}; ZeRO-3 (FSDP2, reshard after forward): launches = "
+                 f"TRAIN_LAUNCHES, {texts['zero3']}; {ctx['memory']}; in turns on {card}: "
+                 f"{turns_text(times, 'plain')}; {ctx['seconds']:.2f} + "
+                 f"{time.perf_counter() - t0:.2f} s")
+    return {f"deit_{k}": ctx["launches"][k] for k in ("ddp", "zero3")}
+
+
+def p31_ssl_prepare(mesh) -> dict:
+    """P31 (c), first steps: the SSL step of hybrid ViT-L/16 at B=32 plain and
+    under ZeRO-2 (FSDP2) from one state, the first steps held as in (b)."""
+    from octic_vits_tpu_torch import init_weights, ops
+    from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
+        SSLConfig,
+        SSLMetaArch,
+        batch_to_device,
+    )
+
+    t0 = time.perf_counter()
+    cfg = SSLConfig(backbone_remat=True)
+    arch = SSLMetaArch(cfg, device="cuda")
+    init = arch.build_student()
+    init_weights(init, torch.Generator("cuda").manual_seed(SEED))
+    start = {k: v.to("cpu") for k, v in init.state_dict().items()}
+    del init
+    lr = sqrt_lr_scaling(4e-3, SSL_BATCH)
+    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
+    batch = batch_to_device(ssl_batch(SSL_BATCH, SEED + 5), "cuda")
+    step = arch.make_train_step()
+    states, metrics, launches, foot, peak = {}, {}, {}, {}, {}
+    for name in ("plain", "zero2"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        student = arch.build_student()
+        student.load_state_dict(start, strict=True)
+        state = arch.state_from_student(student)
+        if name == "zero2":
+            arch.state_shardings(state, mesh, shard_params=False, fsdp2=True)
+        ops.reset_launch_counts()
+        _, metrics[name], launches[name], peak[name] = first_step(
+            lambda s=state: step(s, batch, sched, torch.Generator().manual_seed(SEED + 6)))
+        foot[name] = (torch.cuda.memory_allocated() - before) / 2**30
+        states[name] = state
+    if launches["zero2"] != expected_launches(SSL_LAUNCHES):
+        raise AssertionError(f"P31 (c) ZeRO-2 launches {launches['zero2']}, expected "
+                             f"{SSL_LAUNCHES}")
+    text = check_layout("P31 (c)", "zero2", metrics["zero2"], metrics["plain"],
+                        tuple(metrics["plain"]),
+                        layout_diff(ssl_tensors(states["zero2"]), ssl_tensors(states["plain"])))
+    return dict(arch=cfg.arch, states=states, step=step, batch=batch, sched=sched,
+                metrics=metrics, launches=launches, text=text, memory=memory_text(foot, peak),
+                seconds=time.perf_counter() - t0)
+
+
+def p31_ssl_report(card, ctx) -> dict:
+    """P31 (c), timed: the two layouts' steps in turns. Returns the ZeRO-2
+    launches."""
+    t0 = time.perf_counter()
+    step, batch, sched = ctx["step"], ctx["batch"], ctx["sched"]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    times = step_turns({name: (lambda s=state: step(s, batch, sched, gen))
+                        for name, state in ctx["states"].items()}, P31_TURNS)
+    phase("P31", f"(c) {ctx['arch']} SSL step B={SSL_BATCH} (P9's flags) from one state, one "
+                 f"NCCL rank: total loss {ctx['metrics']['plain']['total_loss'].item():.6f}; "
+                 f"ZeRO-2 (FSDP2 of student and teacher, parameters kept from the forwards to the "
+                 f"backward): launches = SSL_LAUNCHES, {ctx['text']}; {ctx['memory']}; in turns "
+                 f"on {card}: {turns_text(times, 'plain')}; {ctx['seconds']:.2f} + "
+                 f"{time.perf_counter() - t0:.2f} s")
+    return {"ssl_zero2": ctx["launches"]["zero2"]}
+
+
+def parallel_phases(card) -> dict:
+    """P31: (a) the DeiT III CLI under torchrun over NCCL, (b) the DeiT step
+    under DDP and ZeRO-3, (c) the SSL step under ZeRO-2, each held bitwise to
+    the plain step, on one NCCL rank (one card: NCCL puts no two ranks on one
+    device, so a single card shows no scaling). Returns each path's
+    launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from octic_vits_tpu_torch import launch
+    from octic_vits_tpu_torch.parallel import create_mesh
+
+    def release():  # the states that FSDP2's and DDP's hooks keep in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p31_")
+    try:
+        p31_cli(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    release()
+    t1 = time.perf_counter()
+    launch.bootstrap_distributed(
+        "cuda", world=launch.World(0, 1, 0, 1, "127.0.0.1", free_local_port()))
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"process group {dist.get_backend()} of "
+                                 f"{dist.get_world_size()}, expected nccl of 1")
+        mesh = create_mesh(device="cuda")
+        group_s = time.perf_counter() - t1
+        counts = p31_deit_report(card, p31_deit_prepare(mesh))
+        release()
+        counts.update(p31_ssl_report(card, p31_ssl_prepare(mesh)))
+    finally:
+        dist.destroy_process_group()
+    release()
+    phase("P31", f"data-parallel and sharded training: {time.perf_counter() - t0:.2f} s of its "
+                 f"{P31_BUDGET_S:.0f} s budget on {card} (the NCCL group and mesh "
+                 f"{group_s:.2f} s)")
     return counts
 
 

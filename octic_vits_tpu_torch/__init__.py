@@ -5,7 +5,9 @@ hybrid octic ViT: the D8 group algebra, the equivariant and standard layers,
 the hybrid and standard models with the DINOv2 backbones and head, the
 image data pipeline and mixup/cutmix (``data``), the train state, LAMB, the
 DeiT III and DINOv2 steps, loops and command lines (``train``), checkpoints,
-finetuning and configs (``utils``), k-NN, the probe grids and segmentation
+finetuning and configs (``utils``), data-parallel and sharded training over
+torch processes (``parallel``: DDP and FSDP2 for JAX's ``(data, fsdp)``
+mesh; ``launch``: the torchrun bootstrap), k-NN, the probe grids and segmentation
 probing (``eval``), the hub and the reference-checkpoint converters
 (``hub``, ``utils.convert``), and the hand-written Hopper kernels those paths
 run (``csrc/``, built and bound by ``kernels/``). The JAX package stays the

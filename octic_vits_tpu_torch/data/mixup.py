@@ -4,7 +4,7 @@ counterpart of octic_vits_tpu/data/mixup.py).
 The random draws of one batch (:func:`draw_mixup`, from an explicit
 ``torch.Generator``) are kept apart from the mixing (:func:`mixup_cutmix`),
 so that a test can hand the port and the JAX function the same draws. Each
-sample is paired with its partner in the reversed batch; CutMix's ``lam`` is
+sample is paired with its partner in the reversed (global) batch; CutMix's ``lam`` is
 corrected to the realized box area, as timm does.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,15 +89,20 @@ def cutmix_box(h: int, w: int, lam: float, cy: int, cx: int) -> tuple:
 
 
 def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor, num_classes: int, draws: MixDraws,
-                 label_smoothing: float = 0.0) -> tuple:
+                 label_smoothing: float = 0.0, partner: Optional[tuple] = None) -> tuple:
     """images ``[B, H, W, C]``, int labels ``[B]`` -> (mixed images, f32 soft
-    targets ``[B, K]``), with the given draws."""
+    targets ``[B, K]``), with the given draws. `partner` (images, labels),
+    row for row each sample's partner, stands in for the reversed batch:
+    under data parallelism the partners of a process's rows lie on another
+    process (``parallel.mesh.mirror_block``)."""
     _, h, w, _ = images.shape
     y1 = one_hot_smooth(labels, num_classes, label_smoothing)
-    y2 = y1.flip(0)
     if not draws.apply:
         return images, y1
-    flipped = images.flip(0)
+    if partner is None:
+        flipped, y2 = images.flip(0), y1.flip(0)
+    else:
+        flipped, y2 = partner[0], one_hot_smooth(partner[1], num_classes, label_smoothing)
     if draws.use_cutmix:
         yl, yh, xl, xh = cutmix_box(h, w, draws.lam_cut, draws.cy, draws.cx)
         mixed = images.clone()

@@ -1,9 +1,17 @@
 """Helpers that the octic and the standard layers and models share: the cast
 of parameters to the compute dtype, per-block remat, and the drop-path and
-dropout masks drawn before the forward."""
+dropout masks drawn before the forward.
+
+Under data parallelism each process holds some rows of a global batch;
+inside :func:`global_batch_rows` every mask is drawn for the whole global
+batch from the step's generator (the same on every process) and the
+process keeps its own rows, so that rank 0 and rank 1 do not drop the same
+rows and the N-process step draws what the one-process step draws on the
+global batch."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -29,12 +37,40 @@ def remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+_GLOBAL_ROWS: Optional[tuple] = None  # (global batch, this process's rows) of the draws
+
+
+@contextlib.contextmanager
+def global_batch_rows(total: int, rows: Optional[torch.Tensor]):
+    """Within this context every mask is drawn for a batch of `total` rows
+    and only `rows` (int64 indices of this process's rows, in order) are
+    kept; ``rows=None`` draws for the batch at hand, as outside it."""
+    global _GLOBAL_ROWS
+    previous, _GLOBAL_ROWS = _GLOBAL_ROWS, None if rows is None else (total, rows)
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS = previous
+
+
+def _uniform(shape: tuple, generator: torch.Generator) -> torch.Tensor:
+    """Uniforms of `shape` (batch first) from `generator`; inside
+    :func:`global_batch_rows`, this process's rows of the global batch's."""
+    if _GLOBAL_ROWS is None:
+        return torch.rand(shape, generator=generator, device=generator.device)
+    total, rows = _GLOBAL_ROWS
+    if shape[0] != len(rows):
+        raise ValueError(f"a draw of {shape[0]} rows inside global_batch_rows of {len(rows)}")
+    u = torch.rand((total,) + tuple(shape[1:]), generator=generator, device=generator.device)
+    return u[rows.to(u.device)]
+
+
 def drop_path_mask(batch: int, rate: float, generator: torch.Generator, *,
                    device=None, dtype=None) -> torch.Tensor:
     """Per-sample stochastic-depth mask ``[B, 1, 1]``: 1/keep with
     probability keep = 1 - rate, else 0, drawn from `generator`."""
     keep = 1.0 - rate
-    u = torch.rand(batch, generator=generator, device=generator.device)
+    u = _uniform((batch,), generator)
     mask = (u < keep).to(device=device, dtype=torch.float32)
     if keep > 0.0:
         mask = mask / keep
@@ -68,7 +104,7 @@ def dropout_mask(shape: tuple, generator: Optional[torch.Generator], *,
     1 - rate)."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return _uniform(tuple(shape), generator).to(device)
 
 
 def dropout(x: torch.Tensor, u: Optional[torch.Tensor], rate: float) -> torch.Tensor:

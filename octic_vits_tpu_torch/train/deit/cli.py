@@ -5,6 +5,14 @@ default, ``cpu`` for the plain f32 path.
 
     python -m octic_vits_tpu_torch.train.deit.cli --model hybrid_deit_huge_patch14 \\
         --data-set IMAGEFOLDER --data-path DIR --batch-size 32 --output_dir OUT
+
+Under torchrun it trains data parallel, ``--batch-size`` being the global
+batch (the JAX CLI's), split evenly over the processes:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \\
+        -m octic_vits_tpu_torch.launch octic_vits_tpu_torch.train.deit.cli \\
+        --model hybrid_deit_huge_patch14 --data-set IMAGEFOLDER --data-path DIR \\
+        --batch-size 2048 --output_dir OUT
 """
 
 from __future__ import annotations

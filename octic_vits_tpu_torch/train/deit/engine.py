@@ -6,10 +6,19 @@ AdamW update with the warmup-cosine schedule, and the EMA.
 
 Randomness comes from one explicit ``torch.Generator`` per step: the mixup
 draws first, then every forward's drop-path masks, in order.
+
+On a state laid out over processes (``train.common.state_shardings``) each
+process holds a contiguous block of the global batch and the step computes
+what the one-process step computes on the global batch: every process draws
+the same mixup draws, a row's mixup partner (row B - 1 - i of the global
+batch) comes from the process at the mirror position, the drop-path masks
+are drawn for the global batch and each process keeps its rows, and the
+metrics are averaged over the processes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -18,6 +27,9 @@ import torch
 from torch import nn
 
 from octic_vits_tpu_torch.data.mixup import draw_mixup, mixup_cutmix, one_hot_smooth
+from octic_vits_tpu_torch.layers.common import global_batch_rows
+from octic_vits_tpu_torch.parallel import sharding
+from octic_vits_tpu_torch.parallel.mesh import batch_sharding, mirror_block, reduce_mean
 from octic_vits_tpu_torch.train.common import TrainState, bce_target_loss, cross_entropy_loss
 from octic_vits_tpu_torch.train.deit.losses import distillation_loss
 from octic_vits_tpu_torch.train.optim import Lamb
@@ -104,7 +116,8 @@ def build_optimizer(cfg: DeiTConfig, model: nn.Module) -> torch.optim.Optimizer:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    """optax ``global_norm`` of whole tensors or DTensor shards."""
+    return sharding.global_norm(tensors)
 
 
 def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.optim.Optimizer,
@@ -128,14 +141,17 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
             return bce_target_loss(logits, targets)
         return cross_entropy_loss(logits, targets)
 
-    def compute(images, targets, generator):
+    def compute(forward, images, targets, generator):
+        # under DDP one call a backward goes through the wrapper, which
+        # readies its gradient hooks; a second forward (cosub) runs the model
+        # itself, and its gradients reach the same hooks summed
         if cfg.cosub:
-            logits1 = model(images, generator)
+            logits1 = forward(images, generator)
             logits2 = model(images, generator)
             return 0.25 * (loss_of(logits1, targets) + loss_of(logits2, targets)
                            + loss_of(logits1, torch.sigmoid(logits2.float()).detach())
                            + loss_of(logits2, torch.sigmoid(logits1.float()).detach()))
-        logits = model(images, generator)
+        logits = forward(images, generator)
         loss = loss_of(logits, targets)
         if cfg.distillation_type != "none":
             loss = distillation_loss(loss, logits, teacher_apply(images),
@@ -146,11 +162,16 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                 generator: torch.Generator):
         model.train()
+        shard = batch_sharding(state.mesh)
         if cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0:
             draws = draw_mixup(generator, images.shape[1], images.shape[2], cfg.mixup_alpha,
                                cfg.cutmix_alpha, cfg.mixup_prob, cfg.mixup_switch_prob)
+            partner = None
+            if draws.apply and shard.count > 1:
+                far_images, far_labels = mirror_block([images, labels], shard)
+                partner = (far_images.flip(0), far_labels.flip(0))
             images, targets = mixup_cutmix(images, labels, cfg.num_classes, draws,
-                                           cfg.smoothing)
+                                           cfg.smoothing, partner)
         else:
             targets = one_hot_smooth(labels, cfg.num_classes, cfg.smoothing)
         if cfg.loss_type == "bce":
@@ -163,9 +184,15 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
             raise ValueError(f"batch {images.shape[0]} not divisible by accum_steps {k}")
         optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=images.device)
-        for im, tg in zip(images.chunk(k), targets.chunk(k)):
-            micro = compute(im, tg, generator)
-            (micro / k).backward()
+        replica = state.replica
+        for i, (im, tg) in enumerate(zip(images.chunk(k), targets.chunk(k))):
+            # DDP averages the gradients once, after the last microbatch
+            quiet = replica.no_sync() if replica is not None and i < k - 1 else \
+                contextlib.nullcontext()
+            rows = shard.crop_rows(len(im)) if shard.count > 1 else None
+            with quiet, global_batch_rows(shard.count * len(im), rows):
+                micro = compute(replica or model, im, tg, generator)
+                (micro / k).backward()
             loss = loss + micro.detach() / k
 
         if trainable_mask is not None:
@@ -175,18 +202,21 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
         grads = [p.grad for _, p in named if p.grad is not None]
         gnorm = global_norm(grads)
         if cfg.clip_grad is not None:
-            torch._foreach_mul_(grads, torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0))
+            torch._foreach_mul_([sharding.local(g) for g in grads],
+                                torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0))
         lr = schedule(state.step)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
         if state.ema is not None:
             d = cfg.ema_decay
-            ema = [state.ema[n] for n, _ in named]
+            ema = [sharding.local(state.ema[n]) for n, _ in named]
             with torch.no_grad():
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, [p for _, p in named], alpha=1 - d)
+                torch._foreach_add_(ema, [sharding.local(p) for _, p in named], alpha=1 - d)
         state.step += 1
+        if shard.count > 1:
+            (loss,) = reduce_mean([loss])
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return step_fn

@@ -10,6 +10,16 @@ replays that epoch from its start with the count carried on. Each step's
 mixup draws and drop-path masks come from a CPU ``torch.Generator`` seeded
 from (seed, step) (:func:`step_generator`), as the JAX step folds its step
 into its key, so a resumed run draws what the straight run drew.
+
+Under a process group (``torchrun``, ``octic_vits_tpu_torch.launch``) the
+loop runs data parallel, as the JAX loop runs on its mesh: the state is laid
+out by ``state_shardings`` (DDP), each process samples its shard of each
+epoch (``RASampler(shard=rank, num_shards=world)``) and takes
+``batch_size // world`` rows of the global batch, the logged metrics are the
+processes' mean, and the checkpoints hold whole tensors, written by process
+0 alone in the one-process format and restored by every process. Where the
+JAX loop shrinks its mesh until it divides the batch, a process cannot sit
+idle: a world that does not divide ``batch_size`` raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -27,7 +37,14 @@ from octic_vits_tpu_torch.data.loaders import DataLoader
 from octic_vits_tpu_torch.data.samplers import EpochSampler, RASampler
 from octic_vits_tpu_torch.layers.init import init_weights
 from octic_vits_tpu_torch.models.registry import create_model, resolve_device
-from octic_vits_tpu_torch.train.common import create_train_state
+from octic_vits_tpu_torch.parallel.mesh import (
+    any_process,
+    create_mesh,
+    distributed,
+    process_count,
+    process_index,
+)
+from octic_vits_tpu_torch.train.common import create_train_state, state_shardings
 from octic_vits_tpu_torch.train.deit.engine import (
     DeiTConfig,
     build_optimizer,
@@ -82,6 +99,13 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
     model, enables ``cfg.distillation_type`` (deit/main.py:383-407)."""
     os.makedirs(output_dir, exist_ok=True)
     device = resolve_device(device)
+    world, rank = process_count(), process_index()
+    main_process = rank == 0
+    if cfg.batch_size % world:
+        raise ValueError(f"the global batch {cfg.batch_size} does not split over {world} "
+                         "processes (the JAX loop shrinks its mesh instead; a process cannot "
+                         "sit idle)")
+    local_bs = cfg.batch_size // world
     kwargs = dict(model_kwargs or {})
     if device.type == "cuda":
         # the measured train-step configuration on the card (chip_smoke.py
@@ -121,6 +145,8 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
 
     optimizer = build_optimizer(cfg, model)
     state = create_train_state(model, optimizer, ema=cfg.model_ema)
+    if distributed():
+        state_shardings(state, create_mesh(device=device))
     step = make_deit_train_step(model, cfg, optimizer, teacher_apply=teacher_apply,
                                 trainable_mask=trainable_mask)
     eval_step = make_eval_step(model)
@@ -132,9 +158,11 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
         if restored is not None:
             state.load_state_dict(restored)
             del restored
-        logger = MetricLogger(output_file=os.path.join(output_dir, "log.txt"))
-        maybe_wandb_init("octic-vits-deit", config=dataclasses.asdict(cfg))
-        sampler = RASampler(len(train_dataset), seed=seed,
+        logger = MetricLogger(output_file=os.path.join(output_dir, "log.txt")
+                              if main_process else None)
+        if main_process:
+            maybe_wandb_init("octic-vits-deit", config=dataclasses.asdict(cfg))
+        sampler = RASampler(len(train_dataset), shard=rank, num_shards=world, seed=seed,
                             repetitions=3 if cfg.repeated_aug else 1)
         best_acc = 0.0
         host_step = state.step
@@ -153,8 +181,9 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
             pending.clear()
 
         def val_loader():
+            # every process evaluates the whole set, as the JAX loop's hosts do
             return DataLoader(val_dataset, EpochSampler(len(val_dataset)),
-                              batch_size=cfg.batch_size, num_workers=num_workers,
+                              batch_size=local_bs, num_workers=num_workers,
                               drop_last=False)
 
         for epoch in range(start_epoch, cfg.epochs):
@@ -162,23 +191,27 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
             tf = getattr(train_dataset, "transform", None)
             if hasattr(tf, "set_epoch"):
                 tf.set_epoch(epoch)  # a fresh per-sample augment stream each epoch
-            loader = DataLoader(train_dataset, sampler, batch_size=cfg.batch_size,
+            loader = DataLoader(train_dataset, sampler, batch_size=local_bs,
                                 num_workers=num_workers)
             for images, labels in logger.log_every(loader, 50, f"Epoch {epoch}"):
                 images, labels = batch_to_device(images, labels, device)
                 state, metrics = step(state, images, labels, step_generator(seed, host_step))
                 host_step += 1
                 pending.append(metrics)
-                if len(pending) >= metric_flush_every:
+                synced = len(pending) >= metric_flush_every
+                if synced:
                     flush()
                 if max_steps and host_step >= max_steps:
                     break
-                if guard.preempted:
+                # the processes agree at the flushes (one sync); alone, every step
+                if (guard.preempted if world == 1 else
+                        synced and any_process(guard.preempted, device)):
                     break
             flush()
+            preempted = any_process(guard.preempted, device)
 
-            host = ckpt.save(host_step, state.state_dict(), force=guard.preempted)
-            if guard.preempted:
+            host = ckpt.save(host_step, state.state_dict(), force=preempted)
+            if preempted:
                 ckpt.wait()
                 print("preempted; checkpoint saved", flush=True)
                 return state
@@ -198,15 +231,19 @@ def train(model_name: str, cfg: DeiTConfig, train_dataset, val_dataset, output_d
                           f"loss {ema_stats['loss']:.3f}", flush=True)
                 print(f"* Acc@1 {stats['acc1']:.3f} Acc@5 {stats['acc5']:.3f} "
                       f"loss {stats['loss']:.3f}", flush=True)
-                with open(os.path.join(output_dir, "log.txt"), "a") as f:
-                    f.write(json.dumps(line) + "\n")
-                maybe_wandb_log(line, step=host_step)
+                if main_process:
+                    with open(os.path.join(output_dir, "log.txt"), "a") as f:
+                        f.write(json.dumps(line) + "\n")
+                    maybe_wandb_log(line, step=host_step)
                 if select_acc > best_acc:
                     best_acc = select_acc
                     # the whole state: raw and EMA weights travel in the export;
                     # the host copy of this epoch's checkpoint is that state
-                    save_tree(os.path.join(output_dir, "best"),
-                              host if host is not None else to_host(state.state_dict()))
+                    if host is None:
+                        host = (to_host(state.state_dict()) if main_process
+                                else to_host(state.state_dict(), keep=False))
+                    if main_process:
+                        save_tree(os.path.join(output_dir, "best"), host)
             del host
             if max_steps and host_step >= max_steps:
                 break

@@ -1,7 +1,11 @@
 """DINOv2 SSL training CLI (counterpart of octic_vits_tpu/train/dinov2/cli.py;
 reference: dinov2/train/train.py:30-64 + utils/config.py setup):
 ``--config-file`` and dotlist opts over the port's default YAML, plus
-``--device`` (the card by default).
+``--device`` (the card by default). Under torchrun each process trains on
+its shard of the stream with ``batch_size_per_gpu`` images a step:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m octic_vits_tpu_torch.launch octic_vits_tpu_torch.train.dinov2.cli ...
 
     python -m octic_vits_tpu_torch.train.dinov2.cli \\
         --config-file octic_vits_tpu_torch/configs/train/hybrid_vitl16.yaml \\
@@ -30,18 +34,21 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def setup(args):
-    """default <- yaml <- dotlist merge + sqrt lr scaling
-    (reference: dinov2/utils/config.py:21-73). One process: the global batch
-    is one device's."""
+    """default <- yaml <- dotlist merge + sqrt lr scaling by the global
+    batch, ``batch_size_per_gpu`` a process (reference:
+    dinov2/utils/config.py:21-73); process 0 writes the merged config."""
+    from octic_vits_tpu_torch.parallel.mesh import process_count, process_index
     from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
     from octic_vits_tpu_torch.utils.config import CONFIG_DIR, build_config, load_yaml, write_config
 
     cfg = build_config(load_yaml(os.path.join(CONFIG_DIR, "ssl_default_config.yaml")),
                        args.config_file or None, args.opts)
     if not cfg.optim.lr:
-        cfg.optim.lr = sqrt_lr_scaling(cfg.optim.base_lr, cfg.train.batch_size_per_gpu)
+        cfg.optim.lr = sqrt_lr_scaling(cfg.optim.base_lr,
+                                       cfg.train.batch_size_per_gpu * process_count())
     os.makedirs(args.output_dir, exist_ok=True)
-    write_config(cfg, args.output_dir)
+    if process_index() == 0:
+        write_config(cfg, args.output_dir)
     return cfg
 
 
@@ -51,6 +58,7 @@ def main(argv: Optional[List[str]] = None):
     from octic_vits_tpu_torch.data.loaders import make_dataset
     from octic_vits_tpu_torch.data.samplers import ShardedInfiniteSampler
     from octic_vits_tpu_torch.data.transforms import DataAugmentationDINO
+    from octic_vits_tpu_torch.parallel.mesh import process_count, process_index
     from octic_vits_tpu_torch.train.dinov2.masking import MaskingGenerator
     from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLConfig, SSLMetaArch
     from octic_vits_tpu_torch.train.dinov2.train import do_train, ssl_batch_iterator
@@ -103,18 +111,20 @@ def main(argv: Optional[List[str]] = None):
                            num_masking_patches=n_tokens // 2)
     batch = cfg.train.batch_size_per_gpu
 
+    rank, world = process_index(), process_count()
+
     def make_batch_iter(start_iter: int):
-        # deterministic data resume: the stream has consumed `batch` indices
-        # per completed iteration, so the sampler skips them (reference:
-        # dinov2/data/samplers.py:174-182). The augmentation's Random starts
-        # again at the seed, as the JAX CLI's does.
-        sampler = iter(ShardedInfiniteSampler(len(dataset), seed=cfg.train.seed,
-                                              advance=start_iter * batch))
+        # deterministic data resume: this process's stream has consumed
+        # `batch` indices per completed iteration, so the sampler skips them
+        # (reference: dinov2/data/samplers.py:174-182). The augmentation's
+        # Random starts again at the seed + rank, as the JAX CLI's does.
+        sampler = iter(ShardedInfiniteSampler(len(dataset), shard=rank, num_shards=world,
+                                              seed=cfg.train.seed, advance=start_iter * batch))
         return ssl_batch_iterator(dataset, sampler, augmenter, batch_size=batch,
                                   n_tokens=n_tokens, mask_generator=gen,
                                   mask_probability=cfg.ibot.mask_sample_probability,
                                   mask_ratio_tuple=tuple(cfg.ibot.mask_ratio_min_max),
-                                  rng=random.Random(cfg.train.seed))
+                                  rng=random.Random(cfg.train.seed + rank))
 
     return do_train(arch, cfg, None, args.output_dir, max_iter=args.max_iter,
                     seed=cfg.train.seed, make_batch_iter=make_batch_iter,

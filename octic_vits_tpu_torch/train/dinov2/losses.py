@@ -2,8 +2,14 @@
 
 The centering buffers are explicit state handed to and returned by the step.
 Softmaxes, logs and the Sinkhorn iterations run in f32 whatever the logits'
-dtype. ``koleo_loss_per_device`` (the per-GPU batch scope) waits for the
-port's data parallelism.
+dtype.
+
+Under data parallelism each process holds some rows of the global batch.
+The centre and Sinkhorn-Knopp take means and sums over the global batch
+(the JAX step's over its sharded batch axis): given a process `group` they
+all-reduce their sums over it (the reference's all_reduce). The losses are
+means over a process's rows, whose mean over equal processes is the global
+mean; :func:`koleo_loss_per_device` is the per-GPU KoLeo.
 """
 
 from __future__ import annotations
@@ -11,6 +17,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the processes of `group` (itself for None)."""
+    if group is not None:
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+    return t
 
 
 class CenterState(NamedTuple):
@@ -26,34 +41,43 @@ def softmax_center_teacher(teacher_logits: torch.Tensor, center: torch.Tensor,
 
 
 def update_center(state: CenterState, teacher_logits: torch.Tensor, momentum: float = 0.9,
-                  weights: Optional[torch.Tensor] = None) -> CenterState:
+                  weights: Optional[torch.Tensor] = None, group=None) -> CenterState:
     """EMA of the batch mean of the teacher logits; `weights` (0/1) keeps
-    only the valid rows of the padded iBOT buffer."""
+    only the valid rows of the padded iBOT buffer. With a process `group`
+    the mean is over the rows of every process (one all-reduce)."""
     t = teacher_logits.float().reshape(-1, teacher_logits.shape[-1])
-    if weights is None:
-        batch_center = t.mean(0)
+    if group is None:
+        if weights is None:
+            batch_center = t.mean(0)
+        else:
+            w = weights.float().reshape(-1, 1)
+            batch_center = (t * w).sum(0) / torch.clamp(w.sum(), min=1.0)
     else:
-        w = weights.float().reshape(-1, 1)
-        batch_center = (t * w).sum(0) / torch.clamp(w.sum(), min=1.0)
+        w = (torch.ones(len(t), 1, device=t.device) if weights is None
+             else weights.float().reshape(-1, 1))
+        sums = _sum(torch.cat(((t * w).sum(0), w.sum().reshape(1))), group)
+        batch_center = sums[:-1] / torch.clamp(sums[-1], min=1.0)
     return CenterState(state.center * momentum + batch_center * (1.0 - momentum))
 
 
 def sinkhorn_knopp_teacher(teacher_logits: torch.Tensor, teacher_temp: float,
                            n_iterations: int = 3,
-                           sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           sample_mask: Optional[torch.Tensor] = None,
+                           group=None) -> torch.Tensor:
     """Sinkhorn-Knopp assignment in f32; `sample_mask` gives the padded rows
-    of the iBOT buffer no mass."""
+    of the iBOT buffer no mass. With a process `group` the sums over samples
+    run over every process's rows (the reference's all_reduce)."""
     q = torch.exp(teacher_logits.float() / teacher_temp).t()  # [K, B]
     k, b = q.shape
     if sample_mask is not None:
         m = sample_mask.float()
         q = q * m[None, :]
-        n_samples = torch.clamp(m.sum(), min=1.0)
+        n_samples = torch.clamp(_sum(m.sum(), group), min=1.0)
     else:
-        n_samples = torch.tensor(float(b), device=q.device)
-    q = q / q.sum()
+        n_samples = _sum(torch.tensor(float(b), device=q.device), group)
+    q = q / _sum(q.sum(), group)
     for _ in range(n_iterations):
-        q = q / q.sum(1, keepdim=True)
+        q = q / _sum(q.sum(1, keepdim=True), group)
         q = q / k
         q = q / torch.clamp(q.sum(0, keepdim=True), min=1e-30)
         q = q / n_samples
@@ -101,3 +125,12 @@ def koleo_loss(student_cls: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     diffs = x - x[nn_idx]
     dists = torch.sqrt(diffs.square().sum(-1) + eps * eps)
     return -torch.log(dists + eps).mean()
+
+
+def koleo_loss_per_device(student_cls: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """KoLeo with the reference's per-GPU batch scope (koleo_loss.py:38-48):
+    the nearest neighbours of this process's rows searched among its own rows
+    (no gather). This is the process's term; the JAX function's ``pmean``
+    over the mesh is the step's mean over the processes (of the gradients,
+    by DDP or FSDP, and of the logged loss)."""
+    return koleo_loss(student_cls, eps)

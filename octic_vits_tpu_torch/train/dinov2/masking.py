@@ -92,21 +92,29 @@ def collate_crops_and_masks(global_crops: np.ndarray, local_crops: np.ndarray, n
     rng.shuffle(masks_list)
 
     masks = np.stack(masks_list)
-    flat_idx = np.nonzero(masks.flatten())[0].astype(np.int32)
-    n_masked = len(flat_idx)
-    if n_masked > upperbound:
-        raise AssertionError(f"{n_masked} masked tokens above the bound {upperbound}")
-    mask_indices = np.zeros(upperbound, dtype=np.int32)
-    mask_indices[:n_masked] = flat_idx
-    per_img_weight = 1.0 / np.clip(masks.sum(-1), 1.0, None)
-    weights = np.repeat(per_img_weight, masks.sum(-1).astype(np.int64))
-    masks_weight = np.zeros(upperbound, dtype=np.float32)
-    masks_weight[:n_masked] = weights
     return {
         "global_crops": global_crops.astype(dtype),
         "local_crops": local_crops.astype(dtype),
         "masks": masks,
-        "mask_indices": mask_indices,
-        "masks_weight": masks_weight,
-        "n_masked_patches": np.asarray(n_masked, np.int32),
+        **shard_masked_buffers(masks, upperbound),
     }
+
+
+def shard_masked_buffers(masks: np.ndarray, length: int) -> Dict[str, np.ndarray]:
+    """The masked-token buffers of `masks` ``[2B, N]`` padded to `length`:
+    the flat indices of the masked tokens, each one's weight (1 / its
+    image's count of masked tokens; 0 on the padding) and their count. Of a
+    process's rows of a global batch, padded to the global buffer's length."""
+    masks = np.asarray(masks)
+    flat_idx = np.nonzero(masks.flatten())[0].astype(np.int32)
+    n_masked = len(flat_idx)
+    if n_masked > length:
+        raise AssertionError(f"{n_masked} masked tokens above the bound {length}")
+    mask_indices = np.zeros(length, dtype=np.int32)
+    mask_indices[:n_masked] = flat_idx
+    per_img_weight = 1.0 / np.clip(masks.sum(-1), 1.0, None)
+    weights = np.repeat(per_img_weight, masks.sum(-1).astype(np.int64))
+    masks_weight = np.zeros(length, dtype=np.float32)
+    masks_weight[:n_masked] = weights
+    return {"mask_indices": mask_indices, "masks_weight": masks_weight,
+            "n_masked_patches": np.asarray(n_masked, np.int32)}

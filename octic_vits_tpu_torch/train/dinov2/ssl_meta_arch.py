@@ -10,10 +10,17 @@ and, for an octic backbone, the fused qkv + attention op whose backward is
 the K-lin-d8-bwd chain (``fuse_qkv``, the JAX package's accelerator flags).
 Drop-path masks come from an explicit ``torch.Generator``: the step draws
 one stream for the global-crop pass and one for the local-crop pass
-(:func:`split_student_generators`). ``state_shardings``,
-``batch_shardings`` and the per-device KoLeo scope wait for the port's data
-parallelism; the port runs on one device, where the KoLeo neighbours are
-searched over the whole batch, as the JAX step does without a mesh.
+(:func:`split_student_generators`).
+
+On one device the KoLeo neighbours are searched over the whole batch, as the
+JAX step does without a mesh. :meth:`SSLMetaArch.state_shardings` lays the
+state out over a ``(data, fsdp)`` mesh of processes: each process then holds
+its own images (both global crops and the local crops of each, the masks,
+and its own masked-token buffers), the centre and Sinkhorn-Knopp sums run
+over every process, the KoLeo is per device (the reference's per-GPU scope,
+JAX's ``koleo_loss_per_device``), the iBOT loss divides by the process's
+own count of masked images (so the mean over processes is the global one),
+and the drop-path masks are the global batch's rows of this process.
 
     arch = SSLMetaArch(SSLConfig(), device="cuda")
     state = arch.init(torch.Generator("cuda").manual_seed(0))
@@ -26,16 +33,22 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from octic_vits_tpu_torch.layers.common import global_batch_rows
 from octic_vits_tpu_torch.layers.init import init_weights
 from octic_vits_tpu_torch.models.dino_head import DINOHead
 from octic_vits_tpu_torch.models.registry import create_model, resolve_device
+from octic_vits_tpu_torch.parallel import sharding
+from octic_vits_tpu_torch.parallel.mesh import BatchShard, batch_sharding, reduce_mean
+from octic_vits_tpu_torch.train.common import use_fsdp2
 from octic_vits_tpu_torch.train.dinov2 import losses as L
+from octic_vits_tpu_torch.train.dinov2.masking import shard_masked_buffers
 from octic_vits_tpu_torch.train.dinov2.param_groups import build_multiplier_trees
 
 
@@ -85,6 +98,8 @@ class SSLState:
     nu: Dict[str, torch.Tensor]
     dino_center: torch.Tensor     # [dino_out_dim] f32
     ibot_center: torch.Tensor     # [ibot_out_dim] f32
+    mesh: Any = None              # the DeviceMesh it is laid out on (state_shardings)
+    replica: Optional[nn.Module] = None  # DDP of the student pass under data parallelism
 
     def state_dict(self) -> dict:
         """The state as a tree of references, no copy (``utils.checkpoint``
@@ -99,15 +114,16 @@ class SSLState:
         return {name: module.state_dict() for name, module in self.teacher.items()}
 
     def load_state_dict(self, tree: dict) -> None:
-        """Copy a tree of :meth:`state_dict`'s layout into this state."""
-        self.student.load_state_dict(tree["student"], strict=True)
-        self.teacher.load_state_dict(tree["teacher"], strict=True)
+        """Copy a tree of :meth:`state_dict`'s layout, of whole tensors, into
+        this state, each sharded tensor taking its shard."""
+        sharding.load_module_state(self.student, tree["student"])
+        sharding.load_module_state(self.teacher, tree["teacher"])
         with torch.no_grad():
             for ours, theirs in ((self.mu, tree["mu"]), (self.nu, tree["nu"])):
                 if ours.keys() != theirs.keys():
                     raise ValueError("the checkpoint's moments name other parameters")
                 for name, t in ours.items():
-                    t.copy_(theirs[name])
+                    sharding.load_full_(t, theirs[name])
             self.dino_center.copy_(tree["dino_center"])
             self.ibot_center.copy_(tree["ibot_center"])
         self.step = int(tree["step"])
@@ -121,6 +137,20 @@ def split_student_generators(generator: Optional[torch.Generator]) -> tuple:
         return None, None
     seeds = torch.randint(0, 2**62, (2,), generator=generator, device=generator.device)
     return tuple(torch.Generator(generator.device).manual_seed(int(s)) for s in seeds)
+
+
+class StudentPass(nn.Module):
+    """The student's part of the loss as one module call (the two backbone
+    passes and the packed head), so that DDP sees one forward a step."""
+
+    def __init__(self, arch: "SSLMetaArch", student: nn.ModuleDict):
+        super().__init__()
+        self.student = student
+        self.__dict__["arch"] = arch  # not a submodule
+
+    def forward(self, gc, lc, masks, mask_indices, gen_g, gen_l, shard: BatchShard):
+        return self.arch.student_outputs(self.student, gc, lc, masks, mask_indices, gen_g,
+                                         gen_l, shard)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -183,13 +213,51 @@ class SSLMetaArch:
 
     # ---- loss -------------------------------------------------------------
 
+    def student_outputs(self, student: nn.ModuleDict, gc, lc, masks, mask_indices,
+                        gen_g: Optional[torch.Generator], gen_l: Optional[torch.Generator],
+                        shard: BatchShard = BatchShard()) -> tuple:
+        """The student's forward: (cls of the global crops, head outputs of
+        the local and the global cls, head outputs of the masked patches or
+        None). Under a mesh each pass's drop-path masks are its rows of the
+        global batch's draws (``BatchShard.crop_rows``)."""
+        cfg = self.cfg
+        do_ibot, shared = cfg.do_ibot, not cfg.ibot_separate_head
+        b = gc.shape[0] // cfg.n_global_crops
+        student.train()
+
+        def rows(n_crops):
+            return shard.crop_rows(b, n_crops) if shard.count > 1 else None
+
+        with global_batch_rows(shard.count * len(gc), rows(cfg.n_global_crops)):
+            s_out_g = student["backbone"].forward_features(gc, masks, gen_g)
+        with global_batch_rows(shard.count * len(lc), rows(cfg.n_local_crops)):
+            s_out_l = student["backbone"].forward_features(lc, None, gen_l)
+        s_cls_g = s_out_g["x_norm_clstoken"]
+        s_cls_l = s_out_l["x_norm_clstoken"]
+        s_patch = s_out_g["x_norm_patchtokens"]
+        s_masked = s_patch.reshape(-1, s_patch.shape[-1])[mask_indices]
+        pieces = [s_cls_l, s_cls_g] + ([s_masked] if do_ibot and shared else [])
+        packed_after = student["dino_head"](torch.cat(pieces))
+        nl_b, two_b = s_cls_l.shape[0], s_cls_g.shape[0]
+        s_patch_after = None
+        if do_ibot:
+            s_patch_after = (packed_after[nl_b + two_b:] if shared
+                             else student["ibot_head"](s_masked))
+        return (s_cls_g, packed_after[:nl_b], packed_after[nl_b:nl_b + two_b], s_patch_after)
+
     def loss_fn(self, student: nn.ModuleDict, teacher: nn.ModuleDict,
                 dino_center: torch.Tensor, ibot_center: torch.Tensor,
                 batch: Dict[str, torch.Tensor], teacher_temp: float,
-                generator: Optional[torch.Generator] = None) -> tuple:
+                generator: Optional[torch.Generator] = None, mesh=None,
+                student_pass: Optional[nn.Module] = None) -> tuple:
         """(total loss, aux) with aux = {"loss_dict", "dino_center",
-        "ibot_center"}; the order of the JAX ``loss_fn``."""
+        "ibot_center"}; the order of the JAX ``loss_fn``. With `mesh` the
+        batch is this process's share and the centre and Sinkhorn sums run
+        over every process; `student_pass` (a :class:`StudentPass`, or its
+        DDP) runs the student."""
         cfg = self.cfg
+        shard = batch_sharding(mesh)
+        group = dist.group.WORLD if shard.count > 1 else None
         gen_g, gen_l = split_student_generators(generator)
         dt = cfg.compute_dtype or torch.float32
         gc = batch["global_crops"].to(dt)
@@ -225,39 +293,27 @@ class SSLMetaArch:
             if cfg.centering == "centering":
                 t_dino_probs = L.softmax_center_teacher(t_cls_after, dino_center, teacher_temp)
                 new_dino_center = L.update_center(L.CenterState(dino_center), t_cls_after,
-                                                  cfg.center_momentum).center
+                                                  cfg.center_momentum, group=group).center
                 if do_ibot:
                     t_ibot_probs = L.softmax_center_teacher(t_patch_after, ibot_center,
                                                             teacher_temp)
                     new_ibot_center = L.update_center(L.CenterState(ibot_center), t_patch_after,
-                                                      cfg.center_momentum, mask_valid).center
+                                                      cfg.center_momentum, mask_valid,
+                                                      group=group).center
             elif cfg.centering == "sinkhorn_knopp":
-                t_dino_probs = L.sinkhorn_knopp_teacher(t_cls_after, teacher_temp)
+                t_dino_probs = L.sinkhorn_knopp_teacher(t_cls_after, teacher_temp, group=group)
                 new_dino_center = dino_center
                 if do_ibot:
                     t_ibot_probs = L.sinkhorn_knopp_teacher(t_patch_after, teacher_temp,
-                                                            sample_mask=mask_valid)
+                                                            sample_mask=mask_valid, group=group)
             else:
                 raise NotImplementedError(cfg.centering)
             t_dino_groups = t_dino_probs.reshape(cfg.n_global_crops, b, -1)
 
         # ---------------- student ----------------
-        student.train()
-        s_out_g = student["backbone"].forward_features(gc, masks, gen_g)
-        s_out_l = student["backbone"].forward_features(lc, None, gen_l)
-        s_cls_g = s_out_g["x_norm_clstoken"]
-        s_cls_l = s_out_l["x_norm_clstoken"]
-        s_patch = s_out_g["x_norm_patchtokens"]
-        s_masked = s_patch.reshape(-1, s_patch.shape[-1])[mask_indices]
-        pieces = [s_cls_l, s_cls_g] + ([s_masked] if do_ibot and shared else [])
-        packed_after = student["dino_head"](torch.cat(pieces))
-        nl_b = s_cls_l.shape[0]
-        s_cls_l_after = packed_after[:nl_b]
-        s_cls_g_after = packed_after[nl_b:nl_b + two_b]
-        s_patch_after = None
-        if do_ibot:
-            s_patch_after = (packed_after[nl_b + two_b:] if shared
-                             else student["ibot_head"](s_masked))
+        run = student_pass if student_pass is not None else StudentPass(self, student)
+        s_cls_g, s_cls_l_after, s_cls_g_after, s_patch_after = run(
+            gc, lc, masks, mask_indices, gen_g, gen_l, shard)
 
         loss_dict = {}
         total = 0.0
@@ -273,11 +329,14 @@ class SSLMetaArch:
         loss_dict["dino_global_crops_loss"] = dino_global
         total = total + cfg.dino_loss_weight * dino_global
         if cfg.koleo_loss_weight > 0:
+            koleo_fn = L.koleo_loss_per_device if shard.count > 1 else L.koleo_loss
             koleo = cfg.koleo_loss_weight * sum(
-                L.koleo_loss(chunk) for chunk in s_cls_g.reshape(cfg.n_global_crops, b, -1))
+                koleo_fn(chunk) for chunk in s_cls_g.reshape(cfg.n_global_crops, b, -1))
             loss_dict["koleo_loss"] = koleo / loss_scales
             total = total + koleo
         if do_ibot:
+            # this process's count of masked images: the mean over equal
+            # processes of the local means is the global one
             ibot = (L.ibot_patch_loss_masked(s_patch_after, t_ibot_probs, masks_weight,
                                              n_samples=two_b, student_temp=cfg.student_temp)
                     * loss_scales * (1.0 / cfg.n_global_crops))
@@ -292,12 +351,66 @@ class SSLMetaArch:
         parameter gets one, zeros where the loss does not reach it)."""
         state.student.zero_grad(set_to_none=True)
         loss, aux = self.loss_fn(state.student, state.teacher, state.dino_center,
-                                 state.ibot_center, batch, teacher_temp, generator)
+                                 state.ibot_center, batch, teacher_temp, generator,
+                                 mesh=state.mesh, student_pass=state.replica)
         loss.backward()
         for p in state.student.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return loss.detach(), aux
+
+    # ---- layout over processes ------------------------------------------------
+
+    def state_shardings(self, state: SSLState, mesh, shard_params: bool = False,
+                        fsdp2: Optional[bool] = None) -> SSLState:
+        """Lay `state` out over `mesh` in place and return it (the JAX
+        method's shardings, applied): data parallel (DDP of the student
+        pass) where the fsdp axis has one rank; else FSDP2 of the student
+        and the teacher over the fsdp axis, the student's parameters whole
+        from its forwards to the backward (ZeRO-2) or gathered again
+        (`shard_params`, ZeRO-3), the teacher's gathered for its forward
+        only, ``mu`` and ``nu`` sharded as the parameters; the centres
+        whole (`fsdp2`: see ``train.common.use_fsdp2``)."""
+        if mesh is None:
+            return state
+        if not use_fsdp2(mesh, shard_params, fsdp2):
+            state.replica = sharding.data_parallel(StudentPass(self, state.student), mesh)
+        else:
+            methods = ("forward_features",)
+            for name, module in state.student.items():
+                sharding.fully_shard_module(module, mesh, shard_params,
+                                            methods if name == "backbone" else ())
+            for name, module in state.teacher.items():
+                sharding.fully_shard_module(module, mesh, True,
+                                            methods if name == "backbone" else ())
+            params = dict(state.student.named_parameters())
+            state.mu = sharding.shard_tensors_like(state.mu, params)
+            state.nu = sharding.shard_tensors_like(state.nu, params)
+        state.mesh = mesh
+        return state
+
+    def batch_shardings(self, mesh):
+        """This process's share of a global collated batch, as a function of
+        the numpy batch: its images' crops and masks (both
+        global crops and every local crop of each), and the masked-token
+        buffers of those masks alone, padded to the global buffer's length
+        (JAX keeps the global buffers whole on every device and gathers)."""
+        shard = batch_sharding(mesh)
+        cfg = self.cfg
+
+        def local(batch: dict) -> dict:
+            if shard.count == 1:
+                return dict(batch)
+            b = len(batch["global_crops"]) // cfg.n_global_crops // shard.count
+            g = shard.crop_rows(b, cfg.n_global_crops).numpy()
+            out = dict(batch, global_crops=batch["global_crops"][g],
+                       local_crops=batch["local_crops"][shard.crop_rows(b, cfg.n_local_crops)
+                                                        .numpy()],
+                       masks=batch["masks"][g])
+            out.update(shard_masked_buffers(out["masks"], len(batch["mask_indices"])))
+            return out
+
+        return local
 
     # ---- train step -------------------------------------------------------
 
@@ -306,9 +419,13 @@ class SSLMetaArch:
         ``sched`` holds the host-side scalars lr, wd, last_layer_lr, momentum
         and teacher_temp of this step. The state is updated in place (the
         parameters, moments and teacher by ``torch._foreach_*`` ops) and
-        returned."""
+        returned. On a state laid out by :meth:`state_shardings` the batch is
+        this process's share, the arithmetic runs on the local shards, the
+        gradient norms are those of the whole gradients, and the metrics are
+        the processes' mean."""
         cfg = self.cfg
         b1, b2 = cfg.adamw_beta1, cfg.adamw_beta2
+        local = sharding.local
 
         def step(state: SSLState, batch, sched, generator=None):
             student, teacher = state.student, state.teacher
@@ -317,19 +434,23 @@ class SSLMetaArch:
                 names, student["backbone"].depth, cfg.layerwise_decay, cfg.patch_embed_lr_mult)
             loss, aux = self.forward_backward(state, batch, sched["teacher_temp"], generator)
             metrics = dict(aux["loss_dict"], total_loss=loss)
+            if batch_sharding(state.mesh).count > 1:
+                metrics = dict(zip(metrics, reduce_mean(list(metrics.values()))))
             with torch.no_grad():
                 # per-submodule clipping of the global gradient norm
                 for key, mod in student.items():
                     grads = [p.grad for p in mod.parameters()]
-                    gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-                    torch._foreach_mul_(grads, torch.clamp(cfg.clip_grad / (gn + 1e-6), max=1.0))
+                    gn = sharding.global_norm(grads)
+                    torch._foreach_mul_([local(g) for g in grads],
+                                        torch.clamp(cfg.clip_grad / (gn + 1e-6), max=1.0))
                     metrics[f"grad_norm/{key}"] = gn
                 # AdamW with per-parameter lr and weight-decay multipliers
                 t = state.step + 1
                 bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-                grads = [p.grad for p in params]
-                mu = [state.mu[n] for n in names]
-                nu = [state.nu[n] for n in names]
+                grads = [local(p.grad) for p in params]
+                mu = [local(state.mu[n]) for n in names]
+                nu = [local(state.nu[n]) for n in names]
+                ps = [local(p) for p in params]
                 torch._foreach_mul_(mu, b1)
                 torch._foreach_add_(mu, grads, alpha=1.0 - b1)
                 torch._foreach_mul_(nu, b2)
@@ -341,17 +462,17 @@ class SSLMetaArch:
                 torch._foreach_div_(upd, denom)
                 del denom
                 torch._foreach_add_(upd, torch._foreach_mul(
-                    list(params), [sched["wd"] * wd_mult[n] for n in names]))
+                    ps, [sched["wd"] * wd_mult[n] for n in names]))
                 torch._foreach_mul_(upd, [
                     (sched["last_layer_lr"] * last[n] + sched["lr"] * (1.0 - last[n])) * lr_mult[n]
                     for n in names])
-                torch._foreach_sub_(list(params), upd)
+                torch._foreach_sub_(ps, upd)
                 del upd
-                # teacher EMA towards the updated student
+                # teacher EMA towards the updated student (the same layout)
                 m = sched["momentum"]
-                tparams = list(teacher.parameters())
+                tparams = [local(p) for p in teacher.parameters()]
                 torch._foreach_mul_(tparams, m)
-                torch._foreach_add_(tparams, list(params), alpha=1.0 - m)
+                torch._foreach_add_(tparams, ps, alpha=1.0 - m)
             state.step += 1
             state.dino_center = aux["dino_center"]
             state.ibot_center = aux["ibot_center"]

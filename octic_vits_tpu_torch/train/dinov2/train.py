@@ -3,14 +3,23 @@ octic_vits_tpu/train/dinov2/train.py; reference: dinov2/train/train.py:140-361):
 the schedules, the SSL step, metrics, the periodic teacher export and keep-3
 checkpoints; deterministic data resume through the sampler's ``advance``.
 
-One process on one device: the JAX loop's mesh sizing waits for the port's
-data parallelism. Each iteration's drop-path masks come from a CPU
-``torch.Generator`` seeded from (seed + 1, iteration), as the JAX step folds
-its step into its key.
+Each iteration's drop-path masks come from a CPU ``torch.Generator`` seeded
+from (seed + 1, iteration), as the JAX step folds its step into its key.
+
+Under a process group (``torchrun``, ``octic_vits_tpu_torch.launch``) the
+loop runs data parallel over a ``(data, 1)`` mesh, as the JAX loop's mesh of
+every device: each process collates its own batch of ``batch_size_per_gpu``
+images from its shard of the stream (the reference's per-GPU batch), so the
+global batch is ``world`` of them and nothing has to divide. The JAX loop
+sizes its mesh from the first batch and shrinks it until it divides the
+crops; here a process cannot sit idle, and a first batch whose shapes differ
+between processes raises ``ValueError``. Process 0 alone writes logs,
+checkpoints and teacher exports.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import random
 import time
@@ -19,6 +28,13 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from octic_vits_tpu_torch.parallel.mesh import (
+    any_process,
+    create_mesh,
+    distributed,
+    process_index,
+    same_on_every_process,
+)
 from octic_vits_tpu_torch.train.dinov2.masking import MaskingGenerator, collate_crops_and_masks
 from octic_vits_tpu_torch.train.dinov2.schedules import build_ssl_schedules
 from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLMetaArch, SSLState, batch_to_device
@@ -88,8 +104,20 @@ def do_train(arch: SSLMetaArch, cfg, batch_iter: Optional[Iterator], output_dir:
             return state
         if make_batch_iter is not None:
             batch_iter = make_batch_iter(state.step)
-        logger = MetricLogger(output_file=os.path.join(output_dir, "training_metrics.json"))
-        maybe_wandb_init("octic-vits-dinov2")
+        main_process = process_index() == 0
+        if distributed():
+            first = next(batch_iter)
+            batch_iter = itertools.chain([first], batch_iter)
+            if not same_on_every_process(first["global_crops"].shape
+                                         + first["local_crops"].shape
+                                         + first["mask_indices"].shape):
+                raise ValueError("the processes' first batches differ in shape: every process "
+                                 "must collate the same batch_size_per_gpu")
+            arch.state_shardings(state, create_mesh(device=arch.device))
+        logger = MetricLogger(output_file=os.path.join(output_dir, "training_metrics.json")
+                              if main_process else None)
+        if main_process:
+            maybe_wandb_init("octic-vits-dinov2")
         step = arch.make_train_step()
         eval_period = cfg.get("evaluation", {}).get("eval_period_iterations", 12500)
         t_end = time.time()
@@ -101,15 +129,17 @@ def do_train(arch: SSLMetaArch, cfg, batch_iter: Optional[Iterator], output_dir:
                      "teacher_temp": temp_s[it], "last_layer_lr": last_lr_s[it]}
             state, metrics = step(state, batch, sched, iteration_generator(seed, it))
 
-            if it % log_every == 0:
+            synced = it % log_every == 0
+            if synced:
                 host_metrics = {k: float(v.detach()) for k, v in metrics.items()}
                 if not np.isfinite(host_metrics["total_loss"]):
                     raise RuntimeError(f"NaN/Inf loss at iter {it}: {host_metrics}")
-                maybe_wandb_log(host_metrics, step=it)
                 logger.update(lr=sched["lr"], wd=sched["wd"], mom=sched["momentum"],
                               **host_metrics)
-                logger.dump_in_output_file(it, time.time() - t_end, data_time)
-                print(f"iter {it}: {logger}", flush=True)
+                if main_process:
+                    maybe_wandb_log(host_metrics, step=it)
+                    logger.dump_in_output_file(it, time.time() - t_end, data_time)
+                    print(f"iter {it}: {logger}", flush=True)
 
             if (it + 1) % eval_period == 0:
                 save_teacher(output_dir, it + 1, state.teacher_state_dict())
@@ -118,7 +148,9 @@ def do_train(arch: SSLMetaArch, cfg, batch_iter: Optional[Iterator], output_dir:
             if ckpt.should_save(it + 1):
                 ckpt.save(it + 1, state.state_dict())
 
-            if guard.preempted:
+            # the processes agree where the loop syncs anyway; alone, every iteration
+            if (synced and any_process(guard.preempted, arch.device) if distributed()
+                    else guard.preempted):
                 ckpt.save(it + 1, state.state_dict(), force=True)
                 ckpt.wait()
                 print(f"preempted at iter {it + 1}; checkpoint saved", flush=True)

@@ -12,11 +12,18 @@ which is what zeroed gradients and masked updates amount to in the JAX
 step's ``trainable_mask``. The update runs as ``torch._foreach_*`` ops over
 each group's tensors: a few launches per group instead of a dozen per
 tensor (the octic model has ~600 parameter tensors).
+
+Under FSDP2 the parameters, gradients and moments are DTensor shards: the
+arithmetic runs on the local shards, and |p| and |u| are the norms of the
+whole tensors (``parallel.sharding.norms``), as optax's trust ratio is per
+whole tensor; a shard's own norm would give each process another ratio.
 """
 
 from __future__ import annotations
 
 import torch
+
+from octic_vits_tpu_torch.parallel.sharding import local, norms
 
 
 class Lamb(torch.optim.Optimizer):
@@ -44,11 +51,13 @@ class Lamb(torch.optim.Optimizer):
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
                 st["step"] += 1
-                grads.append(p.grad)
-                ms.append(st["exp_avg"])
-                vs.append(st["exp_avg_sq"])
+                grads.append(local(p.grad))
+                ms.append(local(st["exp_avg"]))
+                vs.append(local(st["exp_avg_sq"]))
                 bc1.append(1 - b1 ** st["step"])
                 bc2.append(1 - b2 ** st["step"])
+            whole = params  # for the norms of whole tensors
+            params = [local(p) for p in params]
             torch._foreach_mul_(ms, b1)
             torch._foreach_add_(ms, grads, alpha=1 - b1)
             torch._foreach_mul_(vs, b2)
@@ -62,9 +71,10 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_div_(u, den)
             if group["weight_decay"]:
                 torch._foreach_add_(u, params, alpha=group["weight_decay"])
-            pn = torch.stack(torch._foreach_norm(params))
-            un = torch.stack(torch._foreach_norm(u))
+            pn = norms(whole)
+            un = norms(u, like=whole)
             trust = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
             torch._foreach_mul_(u, list((trust * -group["lr"]).unbind()))
             torch._foreach_add_(params, u)
         return loss
+

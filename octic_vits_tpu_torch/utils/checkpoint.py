@@ -14,6 +14,13 @@ steps update their tensors in place, so :meth:`CheckpointManager.save` first
 copies the state to host memory (:func:`to_host`), in the caller's thread,
 and only the writing runs in the background: the checkpoint holds the state
 of the step it names, whatever the loop does next.
+
+Under a process group the checkpoint holds whole tensors: :func:`to_host`
+gathers each sharded tensor (a collective that every process takes, in the
+same order), process 0 alone keeps the copy and writes it, and the others
+wait on a barrier for the write to end before they go on, so that every
+process reads back what was written; every process restores. The files are
+those of a one-process run: the hub and a resume in one process read them.
 """
 
 from __future__ import annotations
@@ -30,21 +37,33 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from octic_vits_tpu_torch.parallel.mesh import barrier, process_index
+from octic_vits_tpu_torch.parallel.sharding import full
+
 FORMAT = "octic_vits_tpu_torch/1"
 _META = "meta.json"
 _KEY = re.compile(r"[A-Za-z0-9_]+")
 
 
-def to_host(tree: Any) -> Any:
+def to_host(tree: Any, keep: bool = True) -> Any:
     """A copy of `tree` in host memory: every tensor copied to the CPU into
-    storage of its own, every dict, list and tuple rebuilt, other leaves
-    (ints, floats, strings) as they are."""
+    storage of its own (a sharded one gathered whole first), every dict,
+    list and tuple rebuilt, other leaves (ints, floats, strings) as they
+    are. With ``keep=False`` the sharded tensors are still gathered, as the
+    other processes need, and None is returned: a process that writes
+    nothing keeps no copy."""
+    out = _host_copy(tree, keep)
+    return out if keep else None
+
+
+def _host_copy(tree: Any, keep: bool) -> Any:
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        whole = full(tree.detach())
+        return whole.to("cpu", copy=True) if keep else None
     if isinstance(tree, dict):
-        return {k: to_host(v) for k, v in tree.items()}
+        return {k: _host_copy(v, keep) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_host(v) for v in tree)
+        return type(tree)(_host_copy(v, keep) for v in tree)
     return tree
 
 
@@ -128,7 +147,9 @@ class CheckpointManager:
     then only steps past the latest that are multiples of
     `save_interval_steps` (``force`` bypasses the gate). Loops ask
     :meth:`should_save` before building what they would save, since the host
-    copy of a ViT-H train state is several GB."""
+    copy of a ViT-H train state is several GB. The gate reads the steps on
+    disk once, at construction, and then the saves made since, so that every
+    process of a group decides alike while process 0 is still writing."""
 
     def __init__(self, directory: str, max_to_keep: Optional[int] = 3,
                  save_interval_steps: int = 1):
@@ -136,9 +157,12 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.writes = process_index() == 0
         self._writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
         self._pending = None
         self._pending_step: Optional[int] = None
+        steps = self.all_steps()
+        self._gate_step: Optional[int] = steps[-1] if steps else None
 
     def all_steps(self) -> List[int]:
         """The steps whose checkpoints are complete on disk, ascending."""
@@ -151,17 +175,22 @@ class CheckpointManager:
 
     def should_save(self, step: int) -> bool:
         """Whether ``save(step)`` would write (the interval gate)."""
-        last = self.latest_step()
+        last = self._gate_step
         if last is not None and step <= last:
             return False
         return last is None or step % self.save_interval_steps == 0
 
     def save(self, step: int, tree: Dict[str, Any], force: bool = False):
         """Copy `tree` to host memory now and write it in the background.
-        Returns the host copy, or None where the gate declines."""
+        Returns the host copy ({} on a process that does not write), or None
+        where the gate declines."""
         if not (force or self.should_save(step)):
             return None
         self.wait()  # one write at a time: at most one host copy in flight
+        self._gate_step = step if self._gate_step is None else max(self._gate_step, step)
+        if not self.writes:  # gathers what the writer needs, keeps nothing
+            to_host(tree, keep=False)
+            return {}
         host = to_host(tree)
         self._pending_step = step
         self._pending = self._writer.submit(self._write, step, host)
@@ -183,10 +212,13 @@ class CheckpointManager:
         return load_tree(os.path.join(self.directory, str(step)))
 
     def wait(self) -> None:
-        """Block until the background write has finished; raise its error."""
+        """Block until the background write has finished; raise its error.
+        Every process of a group calls it at the same points: the others
+        wait there for process 0's write."""
         pending, self._pending = self._pending, None
         if pending is not None:
             pending.result()
+        barrier()
 
     def close(self) -> None:
         try:
@@ -199,9 +231,15 @@ def save_teacher(directory: str, iteration: int, teacher_tree: Dict[str, Any]) -
     """Teacher-only export for the eval paths, written before it returns
     (reference: dinov2/train/train.py:128-137): ``<directory>/eval/
     <iteration>/teacher``, a checkpoint of `teacher_tree` ({"backbone":
-    state_dict, "dino_head": state_dict, ...})."""
-    path = os.path.join(directory, "eval", str(iteration), "teacher")
-    return save_tree(path, to_host(teacher_tree))
+    state_dict, "dino_head": state_dict, ...}). Every process of a group
+    calls it; process 0 writes, the others wait for it."""
+    path = os.path.abspath(os.path.join(directory, "eval", str(iteration), "teacher"))
+    if process_index() == 0:
+        save_tree(path, to_host(teacher_tree))
+    else:  # gathers what process 0 writes, keeps nothing
+        to_host(teacher_tree, keep=False)
+    barrier()
+    return path
 
 
 def load_teacher(path: str) -> Dict[str, Any]:

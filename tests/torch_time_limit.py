@@ -10,6 +10,7 @@ the main thread be stuck where Python cannot run the handler, faulthandler
 prints every thread's stack to the real stderr a minute later, to show where.
 The slowest of these tests takes ~41 s in a worker of the six-worker run."""
 
+import contextlib
 import faulthandler
 import signal
 import sys
@@ -19,17 +20,25 @@ import pytest
 LIMIT_S = 300
 
 
-@pytest.fixture
-def time_limit():
+@contextlib.contextmanager
+def alarm(limit_s: float = LIMIT_S):
+    """The limit as a context, for a module-scoped fixture that starts
+    processes once for several tests."""
     def expire(signum, frame):  # noqa: ARG001
-        raise TimeoutError(f"the test ran past its {LIMIT_S} s limit")
+        raise TimeoutError(f"the test ran past its {limit_s} s limit")
 
     previous = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, LIMIT_S)
-    faulthandler.dump_traceback_later(LIMIT_S + 60, file=sys.__stderr__)
+    signal.setitimer(signal.ITIMER_REAL, limit_s)
+    faulthandler.dump_traceback_later(limit_s + 60, file=sys.__stderr__)
     try:
-        yield LIMIT_S
+        yield limit_s
     finally:
         signal.setitimer(signal.ITIMER_REAL, 0)
         signal.signal(signal.SIGALRM, previous)
         faulthandler.cancel_dump_traceback_later()
+
+
+@pytest.fixture
+def time_limit():
+    with alarm(LIMIT_S) as limit:
+        yield limit
