@@ -270,6 +270,23 @@ Phases, one line each (any failure raises and exits non-zero):
              step of hybrid ViT-L/16 at B=32 under ZeRO-2 likewise
              (SSL_LAUNCHES). One card holds one NCCL rank: no scaling shows.
              `python3 chip_smoke.py --p31` runs P31 alone after the build
+  P32 sharded evaluation  in P31's one-rank NCCL group: (a)
+             extract_features_sharded of hybrid ViT-L/16 (bf16, B=64, seeded)
+             over P29's seeded train folder against extract_features:
+             features and labels bitwise in dataset order, launches against
+             EVAL_LAUNCHES per forward, img/s of both in turns; (b)
+             knn_classify_sharded at P27's IN1K size (1,281,167 x 1024 bf16,
+             10,000 queries) against knn_classify, bitwise (else P27's bar),
+             seconds and peak memory of both; (c) the eval_dinov2 knn command
+             (main(argv)) on P30 (d)'s seeded teacher export without a group
+             (before the group is made) and under it: launches under the group
+             against EVAL_LAUNCHES per forward, equal results; (d) P31 (c)'s
+             SSL step from the same seeded state, plain and under ZeRO-2 with
+             koleo_global=True (the class tokens gathered over NCCL):
+             launches against SSL_LAUNCHES, bitwise equal to the plain step;
+             its seconds against a 30 s budget. One rank shows
+             equality with the one-process path, not scaling.
+             `python3 chip_smoke.py --p32` runs P32 alone after the build
 P15 also times row 4's backward as it was (the hidden's cotangent and the
 recomputed pre-activation rounded to bf16), with the cotangent in f32, and
 with both in f32 (the shipped rule), each against the f32 plain backward.
@@ -1070,7 +1087,10 @@ def main() -> int:
         dense_phases({"standard_attention": {}, "dense_gelu": {}}, card)
         return 1
     if sys.argv[1:] == ["--p31"]:  # P31 alone, likewise
-        parallel_phases(card)
+        parallel_phases(card, p32=False)
+        return 1
+    if sys.argv[1:] == ["--p32"]:  # P32 alone, likewise
+        parallel_phases(card, p31=False)
         return 1
     kernel_phase("P2", p2_cases, (("vith14_b64", (BATCH, 257, 1280, 16, True)),
                                   ("ragged", (3, 65, 64, 2, False))), gen, summary)
@@ -4916,6 +4936,20 @@ def timed(fn, seconds: list):
     return run
 
 
+EXPORT_MODEL = "hybrid_dinov2_vit_large_patch16"
+
+
+def seeded_teacher_export(tmp) -> str:
+    """A teacher export (``utils.checkpoint.save_teacher``) of EXPORT_MODEL
+    in bf16 with seeded weights under `tmp`; returns its path."""
+    from octic_vits_tpu_torch import create_model, init_weights
+    from octic_vits_tpu_torch.utils.checkpoint import save_teacher
+
+    net = create_model(EXPORT_MODEL, init_scale=1.0, device="cuda")
+    init_weights(net, torch.Generator("cuda").manual_seed(SEED + 45))
+    return save_teacher(f"{tmp}/ssl", 0, {"backbone": net.to(torch.bfloat16).state_dict()})
+
+
 def eval_cli_phase(card, tmp) -> dict:
     """P30 (d): the eval command lines as a user runs them (in-process
     ``main(argv)``, on the card by default) on a seeded teacher export of
@@ -4930,19 +4964,15 @@ def eval_cli_phase(card, tmp) -> dict:
     import numpy as np
     from PIL import Image
 
-    from octic_vits_tpu_torch import create_model, hub, init_weights, ops
+    from octic_vits_tpu_torch import hub, ops
     from octic_vits_tpu_torch.data.transforms import eval_transform
-    from octic_vits_tpu_torch.eval import knn as eval_knn
+    from octic_vits_tpu_torch.eval import distributed as eval_dist
     from octic_vits_tpu_torch.eval import segmentation as eval_seg
     from octic_vits_tpu_torch.scripts import eval_dinov2, eval_segmentation
-    from octic_vits_tpu_torch.utils.checkpoint import save_teacher
 
     counts, t_all = {}, time.perf_counter()
-    name = "hybrid_dinov2_vit_large_patch16"
-    net = create_model(name, init_scale=1.0, device="cuda")
-    init_weights(net, torch.Generator("cuda").manual_seed(SEED + 45))
-    teacher = save_teacher(f"{tmp}/ssl", 0, {"backbone": net.to(torch.bfloat16).state_dict()})
-    del net
+    name = EXPORT_MODEL
+    teacher = seeded_teacher_export(tmp)
     spec = LOOP_SPEC
     data = f"{tmp}/folder"
     n_train = write_image_folder(f"{data}/train", spec["classes"], spec["train_per_class"],
@@ -4959,7 +4989,7 @@ def eval_cli_phase(card, tmp) -> dict:
     batches = -(-n_train // CLI_BATCH) + -(-n_val // CLI_BATCH)
     # (label, command line, argv, backbone forwards, images, the extraction timed)
     runs = (("knn", eval_dinov2, ["knn"] + common + folders, batches, n_train + n_val,
-             (eval_knn, "extract_features")),
+             (eval_dist, "extract_features")),
             ("linear", eval_dinov2, ["linear"] + common + folders + ["--iters", str(LINEAR_ITERS)],
              LINEAR_ITERS + -(-n_val // CLI_BATCH), LINEAR_ITERS * CLI_BATCH + n_val, None),
             ("segmentation", eval_segmentation, common + ["--dataset", "ade20k", "--root",
@@ -5319,10 +5349,11 @@ def p31_deit_report(card, ctx) -> dict:
     return {f"deit_{k}": ctx["launches"][k] for k in ("ddp", "zero3")}
 
 
-def p31_ssl_prepare(mesh) -> dict:
-    """P31 (c), first steps: the SSL step of hybrid ViT-L/16 at B=32 plain and
-    under ZeRO-2 (FSDP2) from one state, the first steps held as in (b)."""
-    from octic_vits_tpu_torch import init_weights, ops
+def ssl_inputs() -> dict:
+    """P31 (c)'s and P32 (d)'s SSL inputs: the config, the seeded student's
+    state on the host, the batch and the schedule of hybrid ViT-L/16 at
+    B=32."""
+    from octic_vits_tpu_torch import init_weights
     from octic_vits_tpu_torch.train.dinov2.schedules import sqrt_lr_scaling
     from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import (
         SSLConfig,
@@ -5330,39 +5361,63 @@ def p31_ssl_prepare(mesh) -> dict:
         batch_to_device,
     )
 
-    t0 = time.perf_counter()
     cfg = SSLConfig(backbone_remat=True)
-    arch = SSLMetaArch(cfg, device="cuda")
-    init = arch.build_student()
+    init = SSLMetaArch(cfg, device="cuda").build_student()
     init_weights(init, torch.Generator("cuda").manual_seed(SEED))
     start = {k: v.to("cpu") for k, v in init.state_dict().items()}
     del init
     lr = sqrt_lr_scaling(4e-3, SSL_BATCH)
-    sched = dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04)
-    batch = batch_to_device(ssl_batch(SSL_BATCH, SEED + 5), "cuda")
+    return dict(cfg=cfg, start=start, batch=batch_to_device(ssl_batch(SSL_BATCH, SEED + 5), "cuda"),
+                sched=dict(lr=lr, wd=0.04, last_layer_lr=lr, momentum=0.992, teacher_temp=0.04))
+
+
+def ssl_first_steps(cfg, inputs, mesh, layouts) -> tuple:
+    """The first SSL step of `cfg` from `inputs` in each of `layouts`
+    ("plain", or "zero2": FSDP2 of student and teacher over `mesh`):
+    (the arch's step, and name -> state, metrics, launches, footprint GiB,
+    peak above what was allocated before it)."""
+    from octic_vits_tpu_torch import ops
+    from octic_vits_tpu_torch.train.dinov2.ssl_meta_arch import SSLMetaArch
+
+    arch = SSLMetaArch(cfg, device="cuda")
     step = arch.make_train_step()
-    states, metrics, launches, foot, peak = {}, {}, {}, {}, {}
-    for name in ("plain", "zero2"):
+    runs = {}
+    for name in layouts:
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         student = arch.build_student()
-        student.load_state_dict(start, strict=True)
+        student.load_state_dict(inputs["start"], strict=True)
         state = arch.state_from_student(student)
         if name == "zero2":
             arch.state_shardings(state, mesh, shard_params=False, fsdp2=True)
         ops.reset_launch_counts()
-        _, metrics[name], launches[name], peak[name] = first_step(
-            lambda s=state: step(s, batch, sched, torch.Generator().manual_seed(SEED + 6)))
-        foot[name] = (torch.cuda.memory_allocated() - before) / 2**30
-        states[name] = state
+        _, metrics, launches, peak = first_step(
+            lambda s=state: step(s, inputs["batch"], inputs["sched"],
+                                 torch.Generator().manual_seed(SEED + 6)))
+        runs[name] = (state, metrics, launches,
+                      (torch.cuda.memory_allocated() - before) / 2**30, peak)
+    return step, runs
+
+
+def p31_ssl_prepare(mesh) -> dict:
+    """P31 (c), first steps: the SSL step of hybrid ViT-L/16 at B=32 plain and
+    under ZeRO-2 (FSDP2) from one state, the first steps held as in (b)."""
+    t0 = time.perf_counter()
+    inputs = ssl_inputs()
+    step, runs = ssl_first_steps(inputs["cfg"], inputs, mesh, ("plain", "zero2"))
+    states = {k: r[0] for k, r in runs.items()}
+    metrics = {k: r[1] for k, r in runs.items()}
+    launches = {k: r[2] for k, r in runs.items()}
     if launches["zero2"] != expected_launches(SSL_LAUNCHES):
         raise AssertionError(f"P31 (c) ZeRO-2 launches {launches['zero2']}, expected "
                              f"{SSL_LAUNCHES}")
     text = check_layout("P31 (c)", "zero2", metrics["zero2"], metrics["plain"],
-                        tuple(metrics["plain"]),
-                        layout_diff(ssl_tensors(states["zero2"]), ssl_tensors(states["plain"])))
-    return dict(arch=cfg.arch, states=states, step=step, batch=batch, sched=sched,
-                metrics=metrics, launches=launches, text=text, memory=memory_text(foot, peak),
+                        tuple(metrics["plain"]), layout_diff(ssl_tensors(states["zero2"]),
+                                                             ssl_tensors(states["plain"])))
+    return dict(arch=inputs["cfg"].arch, states=states, step=step, batch=inputs["batch"],
+                sched=inputs["sched"], metrics=metrics, launches=launches, text=text,
+                memory=memory_text({k: r[3] for k, r in runs.items()},
+                                   {k: r[4] for k, r in runs.items()}),
                 seconds=time.perf_counter() - t0)
 
 
@@ -5383,50 +5438,296 @@ def p31_ssl_report(card, ctx) -> dict:
     return {"ssl_zero2": ctx["launches"]["zero2"]}
 
 
-def parallel_phases(card) -> dict:
-    """P31: (a) the DeiT III CLI under torchrun over NCCL, (b) the DeiT step
-    under DDP and ZeRO-3, (c) the SSL step under ZeRO-2, each held bitwise to
-    the plain step, on one NCCL rank (one card: NCCL puts no two ranks on one
-    device, so a single card shows no scaling). Returns each path's
-    launches."""
-    import shutil
-    import tempfile
+def release() -> None:
+    """Free the states that FSDP2's and DDP's hooks keep in reference cycles."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
+
+@contextlib.contextmanager
+def nccl_group():
+    """A one-rank NCCL process group on the card (one card: NCCL puts no two
+    ranks on one device, so a single card shows no scaling); yields the
+    port's mesh over it and destroys the group after."""
     import torch.distributed as dist
 
     from octic_vits_tpu_torch import launch
     from octic_vits_tpu_torch.parallel import create_mesh
 
-    def release():  # the states that FSDP2's and DDP's hooks keep in reference cycles
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_p31_")
-    try:
-        p31_cli(card, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    release()
-    t1 = time.perf_counter()
     launch.bootstrap_distributed(
         "cuda", world=launch.World(0, 1, 0, 1, "127.0.0.1", free_local_port()))
     try:
         if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
             raise AssertionError(f"process group {dist.get_backend()} of "
                                  f"{dist.get_world_size()}, expected nccl of 1")
-        mesh = create_mesh(device="cuda")
-        group_s = time.perf_counter() - t1
-        counts = p31_deit_report(card, p31_deit_prepare(mesh))
-        release()
-        counts.update(p31_ssl_report(card, p31_ssl_prepare(mesh)))
+        yield create_mesh(device="cuda")
     finally:
         dist.destroy_process_group()
-    release()
-    phase("P31", f"data-parallel and sharded training: {time.perf_counter() - t0:.2f} s of its "
-                 f"{P31_BUDGET_S:.0f} s budget on {card} (the NCCL group and mesh "
-                 f"{group_s:.2f} s)")
+        release()
+
+
+def parallel_phases(card, p31: bool = True, p32: bool = True) -> dict:
+    """P31, data-parallel and sharded training, and P32, the sharded
+    evaluation, in one one-rank NCCL group; ``--p31`` and ``--p32`` run one
+    of them. Each times its own parts. Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    counts, seconds = {}, {"P31": 0.0, "P32": 0.0}
+
+    def part(name, run):
+        t0 = time.perf_counter()
+        out = run()
+        release()
+        seconds[name] += time.perf_counter() - t0
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p31_")
+    try:
+        if p31:
+            part("P31", lambda: p31_cli(card, tmp))
+        if p32:
+            files = part("P32", lambda: p32_without_group(card, tmp))
+        t0 = time.perf_counter()
+        with nccl_group() as mesh:
+            group_s = time.perf_counter() - t0
+            if p31:
+                counts.update(part("P31", lambda: p31_phases(card, mesh)))
+            if p32:
+                counts.update(part("P32", lambda: p32_phases(card, mesh, files)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if p31:
+        phase("P31", f"data-parallel and sharded training: {seconds['P31']:.2f} s of its "
+                     f"{P31_BUDGET_S:.0f} s budget on {card} (the NCCL group and mesh "
+                     f"{group_s:.2f} s besides)")
+    if p32:
+        phase("P32", f"sharded evaluation over one NCCL rank: {seconds['P32']:.2f} s of its "
+                     f"{P32_BUDGET_S:.0f} s budget on {card}")
     return counts
+
+
+def p31_phases(card, mesh) -> dict:
+    """P31 (b) and (c) in the group: each layout's first step held to the
+    plain step, then the steps in turns. Returns their launches."""
+    counts = p31_deit_report(card, p31_deit_prepare(mesh))
+    release()
+    counts.update(p31_ssl_report(card, p31_ssl_prepare(mesh)))
+    return counts
+
+
+# ---- P32: the sharded evaluation over NCCL on one card ---------------------------------
+
+P32_BUDGET_S = 30.0
+P32_BATCH = 64
+
+
+def p32_koleo_global(mesh) -> dict:
+    """P32 (d): P31 (c)'s SSL step from the same seeded state and batch, plain
+    and under ZeRO-2 with ``koleo_global=True``: launches against
+    SSL_LAUNCHES and the state after the step bitwise equal to the plain
+    step's (at one rank the gather and its backward are copies); raises
+    otherwise."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    inputs = ssl_inputs()
+    _, plain = ssl_first_steps(inputs["cfg"], inputs, mesh, ("plain",))
+    _, koleo = ssl_first_steps(dataclasses.replace(inputs["cfg"], koleo_global=True), inputs,
+                               mesh, ("zero2",))
+    (plain_state, plain_metrics, *_), (state, metrics, launches, _, peak) = (plain["plain"],
+                                                                           koleo["zero2"])
+    differ, worst, _ = layout_diff(ssl_tensors(state), ssl_tensors(plain_state))
+    same = differ == 0 and all(metrics[k].item() == plain_metrics[k].item()
+                               for k in plain_metrics)
+    text = (f"koleo loss {metrics['koleo_loss'].item():.6f}; launches "
+            f"{'= SSL_LAUNCHES' if launches == expected_launches(SSL_LAUNCHES) else launches}; "
+            + ("bitwise equal to the plain step (loss, every metric, every tensor of the state)"
+               if same else f"NOT bitwise: {differ} tensors differ, the largest {worst[1]:.3e} "
+                            f"in {worst[0]}"))
+    if launches != expected_launches(SSL_LAUNCHES) or not same:
+        raise AssertionError(f"P32 (d) koleo_global: {text}")
+    return {"text": text, "launches": launches, "peak": peak,
+            "seconds": time.perf_counter() - t0}
+
+
+def p32_without_group(card, tmp) -> dict:
+    """P32's inputs and the run that (c) compares with: P29's seeded image
+    folder (written by P31 (a) where it ran), P30 (d)'s seeded teacher
+    export, and the eval_dinov2 knn command (main(argv)) on them without a
+    process group, with P3's inference kernels."""
+    import os
+
+    from octic_vits_tpu_torch.parallel.mesh import distributed
+    from octic_vits_tpu_torch.scripts import eval_dinov2
+
+    if distributed():
+        raise AssertionError("P32 (c): a process group is up before the group's run")
+    spec = LOOP_SPEC
+    t0 = time.perf_counter()
+    data = f"{tmp}/data"
+    if not os.path.isdir(data):
+        write_image_folder(f"{data}/train", spec["classes"], spec["train_per_class"],
+                           spec["size"], SEED)
+        write_image_folder(f"{data}/val", spec["classes"], spec["val_per_class"], spec["size"],
+                           SEED + 1)
+    teacher = seeded_teacher_export(tmp)
+    argv = ["knn", "--model", EXPORT_MODEL, "--checkpoint", teacher, "--train-data",
+            f"{data}/train", "--val-data", f"{data}/val", "--batch", str(CLI_BATCH), "--workers",
+            "8", "--num-classes", str(spec["classes"])]
+    phase("P32", f"P29's folder {data} and P30 (d)'s teacher export {teacher} on {card}: "
+                 f"{time.perf_counter() - t0:.2f} s")
+    with_ln_kernel(False)  # P3's inference kernels
+    t0 = time.perf_counter()
+    result = eval_dinov2.main(argv)
+    torch.cuda.synchronize()
+    return {"data": data, "argv": argv, "result": result, "seconds": time.perf_counter() - t0}
+
+
+def p32_phases(card, mesh, files) -> dict:
+    """P32 (a)-(d) inside the one-rank NCCL group: (a) extract_features_sharded
+    of hybrid ViT-L/16 (bf16, B=64, seeded) over P29's train folder against
+    extract_features, features and labels bitwise in dataset order, launches
+    against EVAL_LAUNCHES per forward, img/s of both; (b) knn_classify_sharded
+    at P27's IN1K size against knn_classify, bitwise or within P27's bar,
+    seconds and peak memory of both; (c) the eval_dinov2 knn command through
+    main(argv), its launches against EVAL_LAUNCHES per forward and its result
+    against the run without a group (`files`); (d) the SSL step with
+    koleo_global. Returns the launches of (a)'s sharded extraction per
+    forward, (c)'s and (d)'s."""
+    import torch.distributed as dist
+
+    from octic_vits_tpu_torch import create_model, init_weights, ops
+    from octic_vits_tpu_torch.data.loaders import DataLoader
+    from octic_vits_tpu_torch.data.samplers import EpochSampler
+    from octic_vits_tpu_torch.eval import (
+        extract_features,
+        extract_features_sharded,
+        knn_classify,
+        knn_classify_sharded,
+    )
+    from octic_vits_tpu_torch.scripts import eval_dinov2
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"P32 needs the NCCL group, got {dist.get_backend()}")
+    # ---- (a) the sharded extraction ----
+    t0 = time.perf_counter()
+    with_ln_kernel(False)  # P3's inference kernels
+    model = create_model(EXPORT_MODEL, init_scale=1.0, device="cuda",
+                         dtype=torch.bfloat16).eval()
+    init_weights(model, torch.Generator("cuda").manual_seed(SEED))
+
+    def fwd(x):
+        with torch.no_grad():
+            return model(torch.from_numpy(x).to("cuda", torch.bfloat16))
+
+    ds = eval_dinov2.eval_folder(f"{files['data']}/train")
+    forwards = -(-len(ds) // P32_BATCH)
+    runs, seconds = {}, {}
+    for name in ("plain", "sharded", "plain2", "sharded2"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        if name.startswith("plain"):
+            loader = DataLoader(ds, EpochSampler(len(ds)), batch_size=P32_BATCH, num_workers=8,
+                                drop_last=False)
+            runs[name] = extract_features(fwd, loader)
+        else:
+            runs[name] = extract_features_sharded(fwd, ds, batch_size=P32_BATCH, num_workers=8)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+        if name == "sharded":
+            launches = ops.launch_counts()
+    (pf, py), (sf, sy) = runs["plain"], runs["sharded"]
+    same = torch.equal(pf, sf) and torch.equal(py, sy) and torch.equal(sf, runs["sharded2"][0])
+    per_forward = {k: v / forwards for k, v in launches.items() if v}
+    phase("P32", f"(a) extract_features_sharded of {EXPORT_MODEL} bf16 B={P32_BATCH} over "
+                 f"{len(ds)} JPEGs ({forwards} forwards) on one NCCL rank: features {tuple(sf.shape)} "
+                 f"{sf.dtype} and labels {'bitwise equal to' if same else 'DIFFER from'} "
+                 f"extract_features' in dataset order; launches per forward {per_forward}; in "
+                 f"turns on {card}: " + ", ".join(f"{k} {v:.2f} s ({len(ds) / v:.1f} img/s)"
+                                                  for k, v in seconds.items())
+                 + f"; (a) {time.perf_counter() - t0:.2f} s")
+    if launches != expected_launches({k: forwards * v for k, v in EVAL_LAUNCHES.items()}):
+        raise AssertionError(f"P32 (a) launches {launches} over {forwards} forwards, expected "
+                             f"{EVAL_LAUNCHES} each")
+    if not (same and bool(sf.isfinite().all())):
+        raise AssertionError("P32 (a): the sharded extraction differs from extract_features")
+    counts = {"sharded_eval": {k: v // forwards for k, v in launches.items()}}
+    del model, runs, pf, sf
+    release()
+
+    # ---- (b) the sharded k-NN at IN1K size ----
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 28)  # P27 (b)'s bank
+    centers = torch.randn(IN1K_CLASSES, 1024, generator=kgen, device="cuda")
+    bank, bank_labels = class_bank(kgen, IN1K_TRAIN, centers, 3.0)
+    queries, _ = class_bank(kgen, KNN_QUERIES, centers, 3.0)
+    votes, knn_s, peaks = {}, {}, {}
+    resident = torch.cuda.memory_allocated()
+    for name, fn in (("knn_classify", lambda: knn_classify(bank, bank_labels, queries,
+                                                            IN1K_CLASSES)),
+                     ("knn_classify_sharded", lambda: knn_classify_sharded(
+                         bank, bank_labels, queries, IN1K_CLASSES, mesh))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        votes[name] = fn()
+        torch.cuda.synchronize()
+        knn_s[name] = time.perf_counter() - t1
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        votes[name] = {k: v.cpu() for k, v in votes[name].items()}
+    texts, ok = [], True
+    for k, v in votes["knn_classify"].items():
+        w = votes["knn_classify_sharded"][k]
+        if torch.equal(v, w):
+            texts.append(f"k={k} bitwise")
+            continue
+        within = (w - v).abs().amax(1) <= KNN_REL_TOL * v.abs().amax(1)
+        share, argmax = within.float().mean().item(), (w.argmax(1) == v.argmax(1))[within].all()
+        texts.append(f"k={k} NOT bitwise: within {KNN_REL_TOL} for {share:.4f} of queries, "
+                     f"same argmax there {bool(argmax)}")
+        ok = ok and share >= KNN_MIN_SHARE and bool(argmax)
+    phase("P32", f"(b) k-NN over {IN1K_TRAIN} x 1024 bf16, {IN1K_CLASSES} classes, "
+                 f"{KNN_QUERIES} queries, ks (10, 20, 100, 200), one NCCL rank: "
+                 f"knn_classify_sharded against knn_classify: {', '.join(texts)}; on {card}: "
+                 + ", ".join(f"{n} {knn_s[n]:.2f} s, peak {peaks[n]:.2f} GiB" for n in knn_s)
+                 + f" (the bank and queries {resident / 2**30:.2f} GiB resident); (b) "
+                   f"{time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError("P32 (b): the sharded k-NN disagrees with knn_classify")
+    del bank, bank_labels, queries, centers, votes
+    release()
+
+    # ---- (c) the eval command line under the group ----
+    forwards = sum(-(-len(eval_dinov2.eval_folder(f"{files['data']}/{split}")) // CLI_BATCH)
+                   for split in ("train", "val"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = eval_dinov2.main(files["argv"])
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    cli_launches = ops.launch_counts()
+    same = result == files["result"]
+    phase("P32", f"(c) eval_dinov2 knn (main(argv), {EXPORT_MODEL} export, P29's folder, "
+                 f"{forwards} forwards) without a group {files['seconds']:.2f} s, under the "
+                 f"one-rank NCCL group {group_s:.2f} s on {card}: launches per forward under the "
+                 f"group {({k: v / forwards for k, v in cli_launches.items() if v})}; results "
+                 f"{'equal' if same else 'DIFFER'} ({json.dumps(result)})")
+    if cli_launches != expected_launches({k: forwards * v for k, v in EVAL_LAUNCHES.items()}):
+        raise AssertionError(f"P32 (c) launches {cli_launches} over {forwards} forwards, "
+                             f"expected {EVAL_LAUNCHES} each")
+    if not same:
+        raise AssertionError(f"P32 (c): under the group {result}, without {files['result']}")
+
+    # ---- (d) the SSL step with the global KoLeo ----
+    koleo = p32_koleo_global(mesh)
+    phase("P32", f"(d) hybrid_dinov2_vit_large_patch16 SSL step B={SSL_BATCH} plain and under "
+                 f"ZeRO-2 with koleo_global=True from P31 (c)'s seeded state and batch, one NCCL "
+                 f"rank: {koleo['text']}; the step's peak {koleo['peak'] / 2**30:.2f} GiB above "
+                 f"what was allocated; (d) {koleo['seconds']:.2f} s")
+    return {**counts, "sharded_eval_cli": {k: v // forwards for k, v in cli_launches.items()},
+            "ssl_koleo_global": koleo["launches"]}
 
 
 def bound_lin_d8_bwd(b: int, n: int, c: int) -> tuple:

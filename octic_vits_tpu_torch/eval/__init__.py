@@ -5,8 +5,9 @@ Functional analogs of the reference wrapper modules
 (reference: dinov2/eval/utils.py:21-45): `with_normalize(fn)` L2-normalizes
 features; `with_intermediate_layers(model, n)` returns the frozen
 n-last-blocks feature extractor the linear probe uses. The suites compute
-where their input tensors live. The sharded k-NN and ``eval.distributed``
-are not ported yet.
+where their input tensors live; ``eval.distributed`` extracts a dataset's
+features over processes and merges them on every process, and
+``knn_classify_sharded`` splits the k-NN bank over a mesh.
 """
 
 import torch
@@ -17,7 +18,16 @@ from octic_vits_tpu_torch.eval.attnpool import (
     train_attnpool_probe,
     train_probe_grid,
 )
-from octic_vits_tpu_torch.eval.knn import evaluate_knn, extract_features, knn_classify
+from octic_vits_tpu_torch.eval.distributed import (
+    extract_features_sharded,
+    gather_features_across_processes,
+)
+from octic_vits_tpu_torch.eval.knn import (
+    evaluate_knn,
+    extract_features,
+    knn_classify,
+    knn_classify_sharded,
+)
 from octic_vits_tpu_torch.eval.linear import (
     LinearProbeBank,
     ProbeVariant,
@@ -65,7 +75,8 @@ def with_intermediate_layers(model, n: int = 4):
 __all__ = [
     "AttnPoolClassifier", "KNNSegProbe", "LinearClassifier", "LinearProbeBank", "LogregSegProbe",
     "ProbeVariant", "build_probe_features", "confusion_matrix", "evaluate_knn",
-    "evaluate_seg_probes", "extract_features", "extract_patch_features", "knn_classify",
-    "miou_from_confusion", "real_labels_accuracy", "topk_accuracy", "train_and_eval_linear_probes",
+    "evaluate_seg_probes", "extract_features", "extract_features_sharded",
+    "extract_patch_features", "gather_features_across_processes", "knn_classify",
+    "knn_classify_sharded", "miou_from_confusion", "real_labels_accuracy", "topk_accuracy", "train_and_eval_linear_probes",
     "train_attnpool_probe", "train_probe_grid", "with_intermediate_layers", "with_normalize",
 ]

@@ -8,7 +8,10 @@ tensor stays on its device, an array goes to the card. The
 similarities and their top-k are in the features' dtype, as in JAX; the
 votes are f32 sums of the neighbours' weights, scattered into ``[B, C]``
 (the JAX one-hot einsum's sum without its ``[B, max_k, C]`` intermediate).
-The mesh-sharded form (``knn_classify_sharded``) is not ported yet.
+
+``knn_classify_sharded`` splits the bank over the processes of a mesh: each
+ranks its own block, and the blocks' candidates are merged on every process
+(JAX's shard_map with a tiled all-gather and a second top-k).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from octic_vits_tpu_torch.eval.metrics import as_tensor, to_numpy, topk_accuracy
+from octic_vits_tpu_torch.parallel.mesh import all_gather_rows, batch_sharding
 
 DEFAULT_KS = (10, 20, 100, 200)
 DEFAULT_T = 0.07
@@ -75,29 +79,83 @@ def knn_classify(
     batch_size: int = 1024,
 ) -> Dict[int, torch.Tensor]:
     """Returns {k: [Nte, num_classes] f32 vote scores} on the bank's device
-    (reference KnnModule semantics, dinov2/eval/knn.py:100-185)."""
+    (reference KnnModule semantics, dinov2/eval/knn.py:100-185):
+    :func:`knn_classify_sharded` of one process, the whole bank one block."""
+    return knn_classify_sharded(train_features, train_labels, test_features, num_classes, None,
+                                ks, temperature, batch_size)
+
+
+def knn_classify_sharded(
+    train_features,             # [Ntr, D], whole on every process
+    train_labels,               # [Ntr]
+    test_features,              # [Nte, D], whole on every process
+    num_classes: int,
+    mesh,
+    ks: Sequence[int] = DEFAULT_KS,
+    temperature: float = DEFAULT_T,
+    batch_size: int = 1024,
+) -> Dict[int, torch.Tensor]:
+    """Mesh-sharded k-NN: the bank is split over the mesh's processes, rank r
+    taking its contiguous block of ``ceil(Ntr / world)`` rows (the block
+    JAX's ``P(axis_names)`` gives device r); each process takes its block's
+    top-k, the candidates ``(similarity, label)`` of every process are
+    all-gathered in rank order and the top-k is taken again, the lower
+    position first among ties (JAX's ``lax.top_k`` over its tiled gather:
+    the lower device, then the lower row). Every process returns the votes
+    of every query (reference: dinov2/eval/knn.py:100-185). Without a mesh
+    the bank is one block (:func:`knn_classify`).
+
+    Three differences from JAX (eval/knn.py:69), each pinned by a test: JAX
+    pads the bank to a multiple of the devices with zero rows labelled -1,
+    whose similarity 0 displaces a real neighbour wherever a query's k-th
+    similarity is below 0 (and then votes 0); here no padding ranks. Where a
+    block has fewer rows than ``max(ks)`` JAX's ``lax.top_k`` raises; here
+    the block gives all its rows and the merge picks the top k. And JAX's
+    sharded weights ``exp(s / T)`` are f32 where its single-device ones are
+    in the features' dtype; here both are in the features' dtype, so one
+    process's votes are :func:`knn_classify`'s, bitwise."""
+    shard = batch_sharding(mesh)
+    world, rank = shard.count, shard.index
     train = as_tensor(train_features)
-    test = as_tensor(test_features, train.device).to(train.device)
+    dev = train.device
+    test = as_tensor(test_features, dev).to(dev)
     dt = torch.promote_types(train.dtype, test.dtype)
-    n = train.shape[0]
-    bank = torch.zeros(padded_rows(n), train.shape[1], device=train.device, dtype=dt)
-    l2_normalize(train.to(dt), out=bank[:n])
+    n, max_k = train.shape[0], max(ks)
+    if n < max_k:
+        raise ValueError(f"k up to {max_k} over a bank of {n} rows")
+    per = -(-n // world)
+    lo, hi = min(rank * per, n), min((rank + 1) * per, n)
+    rows, local_k = hi - lo, min(max_k, hi - lo)
+    bank = torch.zeros(padded_rows(rows), train.shape[1], device=dev, dtype=dt)
+    l2_normalize(train[lo:hi].to(dt), out=bank[:rows])
+    labels = as_tensor(train_labels, dev).to(dev, torch.int64)[lo:hi]
     test = l2_normalize(test.to(dt))
-    labels = as_tensor(train_labels, train.device).to(train.device, torch.int64)
-    max_k = max(ks)
 
     out = {k: [] for k in ks}
     for start in range(0, test.shape[0], batch_size):
         chunk = test[start: start + batch_size]
-        sims = chunk @ bank.T
-        sims[:, n:] = float("-inf")  # the padding rows never rank
-        sims, idx = topk_lowest_index_first(sims, max_k)
-        neighbor_labels = labels[idx]                     # [B, max_k]
+        b = chunk.shape[0]
+        # a block's candidates, filled up to max_k with -inf of label -1 so
+        # that every process gives the gather one shape; at least max_k
+        # finite candidates come from all blocks together, so no filler ranks
+        cand = torch.full((b, max_k), float("-inf"), device=dev, dtype=dt)
+        cand_labels = torch.full((b, max_k), -1, device=dev, dtype=torch.int64)
+        if local_k:
+            sims = chunk @ bank.T
+            sims[:, rows:] = float("-inf")  # the padding rows never rank
+            sims, idx = topk_lowest_index_first(sims, local_k)
+            cand[:, :local_k] = sims
+            cand_labels[:, :local_k] = labels[idx]
+        if mesh is not None:  # rank-major along the candidates, as JAX's tiled gather
+            cand = all_gather_rows(cand).permute(1, 0, 2).reshape(b, world * max_k)
+            cand_labels = all_gather_rows(cand_labels).permute(1, 0, 2).reshape(b, world * max_k)
+            cand, pos = topk_lowest_index_first(cand, max_k)
+            cand_labels = cand_labels.gather(1, pos)
         # the temperature in the features' dtype, as JAX's weakly typed scalar
-        weights = torch.exp(sims / torch.tensor(temperature, dtype=sims.dtype)).float()
+        weights = torch.exp(cand / torch.tensor(temperature, dtype=cand.dtype)).float()
         for k in ks:
-            votes = torch.zeros(chunk.shape[0], num_classes, device=bank.device)
-            out[k].append(votes.scatter_add_(1, neighbor_labels[:, :k], weights[:, :k]))
+            votes = torch.zeros(b, num_classes, device=dev)
+            out[k].append(votes.scatter_add_(1, cand_labels[:, :k], weights[:, :k]))
     return {k: torch.cat(v, dim=0) for k, v in out.items()}
 
 
@@ -126,8 +184,11 @@ def extract_features(apply_fn, data_iter: Iterable,
                      feature_dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``apply_fn(images) -> [B, D]`` over an iterator of ``(images,
     labels)`` batches; returns the stacked features on the device where
-    `apply_fn` put them and the labels as int64 on that device. The
-    multi-host extraction of ``eval.distributed`` is not ported yet."""
+    `apply_fn` put them and the labels as int64 on that device, for THIS
+    process's stream. The multi-process extraction (the reference's
+    all_gather + index_copy, dinov2/eval/utils.py:86-146) lives in
+    ``eval.distributed``: ``extract_features_sharded`` shards the dataset by
+    process index and merges the shards on every process."""
     feats, labels = [], []
     for images, ys in data_iter:
         f = apply_fn(images)

@@ -8,7 +8,13 @@ as ``[n_lr, D, C]`` tensors, one batched product a variant a step.
 Protocol: SGD momentum 0.9, no weight decay, cosine lr over `iters` (12500 =
 10 ep x 1250 it), feature = concat of the cls tokens of the last n blocks,
 optionally + the mean-pooled patch tokens of the last block; best classifier
-selected by top-1. The mesh (data-parallel) form is not ported yet.
+selected by top-1.
+
+With a mesh the grid trains data parallel over its processes, the SPMD
+analog of the reference's DDP-wrapped AllClassifiers
+(dinov2/eval/linear.py:254-258): each process feeds its own rows of the
+global batch, the classifiers are replicated, and the gradients are summed
+over the processes, so every process takes JAX's step on the global batch.
 """
 
 from __future__ import annotations
@@ -18,9 +24,11 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from octic_vits_tpu_torch.eval.metrics import as_tensor
 from octic_vits_tpu_torch.models.registry import resolve_device
+from octic_vits_tpu_torch.parallel.mesh import batch_sharding
 
 # The reference's 13-lr grid, verbatim (dinov2/eval/linear.py:147):
 # (1,2,5) x decades 1e-5..5e-2, plus 1e-1.
@@ -68,11 +76,22 @@ class LinearProbeBank:
     each one's mean cross-entropy, its gradient is taken in closed form
     (softmax - one-hot, over the batch), and ``m = 0.9 m + g; p -= lr_i s(it)
     m`` is SGD with momentum without dampening, which ``torch.optim.SGD``
-    cannot do with a learning rate per slice."""
+    cannot do with a learning rate per slice.
+
+    With `mesh` (the port's ``parallel.create_mesh()``) each process passes
+    :meth:`train_step` its own rows of the global batch; each process sums
+    its rows' gradients and losses, one all-reduce sums them and the row
+    counts over the processes, and the sums are divided by the global count:
+    the loss is the mean over the global batch (JAX's step with the batch
+    sharded over the mesh and the classifiers replicated), also where the
+    processes hold different numbers of rows, a split that JAX's sharded
+    batch refuses. An all-reduce leaves the same sum on every process, so
+    the classifiers stay bitwise equal everywhere."""
 
     def __init__(self, dim: int, num_classes: int, lrs: Sequence[float],
-                 momentum: float = 0.9, iters: int = 12500, device=None):
+                 momentum: float = 0.9, iters: int = 12500, device=None, mesh=None):
         device = resolve_device(device)
+        self.shard = batch_sharding(mesh)
         self.dim = dim
         self.num_classes = num_classes
         self.lrs = torch.tensor(lrs, dtype=torch.float32, device=device)
@@ -89,16 +108,28 @@ class LinearProbeBank:
 
     @torch.no_grad()
     def train_step(self, feats: torch.Tensor, labels: torch.Tensor, it: int) -> torch.Tensor:
-        """One step on f32 `feats` ``[B, D]``; returns each classifier's loss."""
+        """One step on f32 `feats` ``[B, D]`` (with a mesh, this process's
+        rows of the global batch, which may differ in number from the other
+        processes'); returns each classifier's loss (the global batch's)."""
         logits = self.predict(feats)                                  # [n, B, C]
         logp = torch.log_softmax(logits, dim=-1)
         labels = labels.to(logits.device, torch.int64)
         idx = labels.view(1, -1, 1).expand(logits.shape[0], -1, 1)
-        per_clf = -logp.gather(-1, idx).squeeze(-1).mean(dim=-1)
+        loss = -logp.gather(-1, idx).squeeze(-1).sum(dim=-1)
         g = logp.exp_().scatter_add_(-1, idx, torch.full_like(idx, -1, dtype=logp.dtype))
-        g /= feats.shape[0]
-        gw = torch.einsum("bd,nbc->ndc", feats, g)
+        # contiguous: einsum may return a permuted view, and its layout (which
+        # the all-reduce sums element by element) depends on the row count
+        gw = torch.einsum("bd,nbc->ndc", feats, g).contiguous()
         gb = g.sum(dim=1)
+        rows = float(feats.shape[0])
+        if self.shard.count > 1:  # the processes' sums of their rows, and their row count
+            small = torch.cat([gb.flatten(), loss, loss.new_tensor([rows])])
+            dist.all_reduce(gw)
+            dist.all_reduce(small)
+            gb, loss, rows = small[:gb.numel()].view_as(gb), small[gb.numel():-1], small[-1]
+        gw /= rows  # the global batch's mean
+        gb /= rows
+        per_clf = loss / rows
         lr = self.lrs * np.float32(self.lr_scale(it))
         self.mw.mul_(self.momentum).add_(gw)
         self.mb.mul_(self.momentum).add_(gb)
@@ -120,6 +151,7 @@ def train_and_eval_linear_probes(
     lrs: Sequence[float] = DEFAULT_LRS,
     variants: Sequence[ProbeVariant] = DEFAULT_VARIANTS,
     batch_size: int = 256,
+    mesh=None,
 ) -> Dict[str, float]:
     """Full grid training + best-classifier selection
     (reference: dinov2/eval/linear.py:465-628).
@@ -128,7 +160,18 @@ def train_and_eval_linear_probes(
     train_iter_factory() -> iterator of (images, labels) (repeats as
     needed); eval_iter -> finite iterator for the val set. Grid lrs are
     scaled by global batch / 256 (reference :233-243). The banks live where
-    the features do."""
+    the features do.
+
+    With `mesh`, `batch_size` is the global batch: both iterators yield this
+    process's rows (``batch_size / world`` a training batch), the banks
+    train data parallel (:class:`LinearProbeBank`) and the validation hits
+    are summed over the processes, so every process returns the same
+    results, those of the whole validation set. A world that does not
+    divide `batch_size` raises ``ValueError``."""
+    shard = batch_sharding(mesh)
+    if batch_size % shard.count:
+        raise ValueError(f"a global batch of {batch_size} does not split over {shard.count} "
+                         "processes")
     lrs = tuple(scale_lr(lr, batch_size) for lr in lrs)
     banks: Dict[str, LinearProbeBank] = {}
     it = 0
@@ -144,7 +187,7 @@ def train_and_eval_linear_probes(
             feats = build_probe_features(outs, v)
             if v.name not in banks:
                 banks[v.name] = LinearProbeBank(feats.shape[-1], num_classes, lrs, iters=iters,
-                                                device=feats.device)
+                                                device=feats.device, mesh=mesh)
             banks[v.name].train_step(feats, as_tensor(labels, feats.device), it)
         it += 1
 
@@ -157,8 +200,17 @@ def train_and_eval_linear_probes(
         for v in variants:
             feats = build_probe_features(outs, v)
             y = as_tensor(labels, feats.device).to(feats.device, torch.int64)
-            hits = (banks[v.name].predict(feats).argmax(-1) == y[None, :]).sum(-1).cpu().numpy()
+            hits = (banks[v.name].predict(feats).argmax(-1) == y[None, :]).sum(-1)
             correct[v.name] = hits if correct[v.name] is None else correct[v.name] + hits
+    if shard.count > 1:  # every process's hits: one all-reduce after the last batch
+        w = banks[variants[0].name].w
+        counts = torch.stack([torch.zeros(len(lrs), dtype=torch.int64, device=w.device)
+                              if correct[v.name] is None else correct[v.name] for v in variants]
+                             + [torch.full((len(lrs),), total, device=w.device)])
+        dist.all_reduce(counts)
+        correct = {v.name: counts[i] for i, v in enumerate(variants)}
+        total = int(counts[-1, 0])
+    correct = {k: c.cpu().numpy() for k, c in correct.items()}
 
     results = {}
     best_name, best_acc = None, -1.0

@@ -115,8 +115,9 @@ def main(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser("octic-vits-tpu launcher (torch)")
     parser.add_argument("training_module",
                         help="module with a main(argv) entry, e.g. "
-                             "octic_vits_tpu_torch.train.deit.cli or "
-                             "octic_vits_tpu_torch.train.dinov2.cli")
+                             "octic_vits_tpu_torch.train.deit.cli, "
+                             "octic_vits_tpu_torch.train.dinov2.cli or "
+                             "octic_vits_tpu_torch.scripts.eval_dinov2")
     parser.add_argument("--coordinator", default=None,
                         help="HOST:PORT of rank 0 (default: torchrun's MASTER_ADDR:MASTER_PORT)")
     parser.add_argument("--num-processes", type=int, default=None,

@@ -182,6 +182,16 @@ def reduce_mean(tensors: list, group=None) -> list:
     return list((flat / dist.get_world_size(group)).unbind())
 
 
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The tensors `t` of every process of `group` (the default group where
+    None) stacked in rank order, ``[world, *t.shape]``: one all-gather where
+    the tensors live (each process gives the same shape and dtype)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts)
+
+
 def any_process(flag: bool, device=None) -> bool:
     """Whether `flag` holds on any process (a MAX all-reduce); `flag` itself
     where there is one process. Waits for the processes: call it where the

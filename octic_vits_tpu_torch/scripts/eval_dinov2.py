@@ -11,10 +11,18 @@ by default, in bf16 as JAX's default; ``cpu`` for the plain f32 path) and
 
 ``--checkpoint`` is a teacher export or checkpoint directory of the port
 (``utils.checkpoint``) or a reference ``.pth``, as ``hub.load_backbone``
-reads them. The results print as one JSON object; ``main(argv)`` also
-returns them. One process only: the multi-process extraction of the JAX
-package (eval/distributed.py) is not ported yet, and the command raises
-rather than evaluate one process's shard.
+reads them. The results print as one JSON object, from process 0;
+``main(argv)`` returns them on every process.
+
+The k-NN mode extracts through ``eval.distributed.extract_features_sharded``
+(reference: dinov2/eval/utils.py:86-146). Under a process group
+(``torchrun ... -m octic_vits_tpu_torch.launch
+octic_vits_tpu_torch.scripts.eval_dinov2 knn ...``) each process extracts
+its shard of both folders and the shards are merged on every process, so
+every process holds and scores the whole banks and returns the one-process
+result; without one, the one process extracts both folders whole. The
+linear mode trains the whole grid on every process, as JAX's script does (it
+passes no mesh): every process returns the same results.
 """
 
 from __future__ import annotations
@@ -27,14 +35,21 @@ import numpy as np
 import torch
 
 
-def feature_loader(path: str, batch: int, workers: int):
-    """The eval images of an ImageFolder at 224^2, in order, in thread workers."""
+def eval_folder(path: str):
+    """An ImageFolder of eval images at 224^2."""
     from octic_vits_tpu_torch.data.datasets import ImageFolder
-    from octic_vits_tpu_torch.data.loaders import DataLoader
-    from octic_vits_tpu_torch.data.samplers import EpochSampler
     from octic_vits_tpu_torch.data.transforms import eval_transform
 
-    ds = ImageFolder(path, transform=lambda im: eval_transform(im, 224))
+    return ImageFolder(path, transform=lambda im: eval_transform(im, 224))
+
+
+def feature_loader(path: str, batch: int, workers: int):
+    """The eval images of an ImageFolder at 224^2, in order, in thread workers
+    (the linear mode's loaders)."""
+    from octic_vits_tpu_torch.data.loaders import DataLoader
+    from octic_vits_tpu_torch.data.samplers import EpochSampler
+
+    ds = eval_folder(path)
     return DataLoader(ds, EpochSampler(len(ds)), batch_size=batch, num_workers=workers,
                       drop_last=False)
 
@@ -48,16 +63,6 @@ def load_eval_backbone(name: str, checkpoint: str, device=None):
     on_cpu = device is not None and torch.device(device).type == "cpu"
     return load_backbone(name, checkpoint=checkpoint, device=device,
                          dtype=torch.float32 if on_cpu else torch.bfloat16).eval()
-
-
-def refuse_multi_process() -> None:
-    """Raise where torch.distributed runs more than one process: each would
-    evaluate its own shard and report it as the whole."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "the multi-process evaluation (the sharded feature extraction of the JAX "
-            "package's eval/distributed.py) is not ported; run one process")
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -80,11 +85,12 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    from octic_vits_tpu_torch.eval.knn import evaluate_knn, extract_features
+    from octic_vits_tpu_torch.eval.distributed import extract_features_sharded
+    from octic_vits_tpu_torch.eval.knn import evaluate_knn
     from octic_vits_tpu_torch.eval.linear import train_and_eval_linear_probes
+    from octic_vits_tpu_torch.parallel.mesh import process_index
 
     args = get_args_parser().parse_args(argv)
-    refuse_multi_process()
     if args.checkpoint is None:
         raise SystemExit("--checkpoint required (random weights are pointless here)")
     model = load_eval_backbone(args.model, args.checkpoint, args.device)
@@ -98,15 +104,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
             def fwd(x):
                 return model(on_device(x))
 
-            tr_f, tr_y = extract_features(fwd, feature_loader(args.train_data, args.batch,
-                                                              args.workers))
-            va_f, va_y = extract_features(fwd, feature_loader(args.val_data, args.batch,
-                                                              args.workers))
+            # each process extracts its shard, merged on every process (without
+            # a process group: the whole folder, in order)
+            def extract(path):
+                return extract_features_sharded(fwd, eval_folder(path), batch_size=args.batch,
+                                                num_workers=args.workers)
+
+            tr_f, tr_y = extract(args.train_data)
+            va_f, va_y = extract(args.val_data)
             res = evaluate_knn(tr_f, tr_y, va_f, va_y, num_classes=args.num_classes,
                                n_per_class=args.n_per_class)
         else:
             # patch tokens [B, N, C], as the reference's ModelWithIntermediateLayers
-            # gives them (the avgpool variants average over N)
+            # gives them (the avgpool variants average over N). No mesh, as in
+            # JAX: under a process group every process trains the whole grid
+            # on the whole folders and returns the same results
             def feats_fn(x):
                 return list(model.get_intermediate_layers(on_device(x), 4, reshape=False,
                                                           return_class_token=True))
@@ -115,7 +127,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 feats_fn, lambda: feature_loader(args.train_data, args.batch, args.workers),
                 feature_loader(args.val_data, args.batch, args.workers),
                 num_classes=args.num_classes, iters=args.iters, batch_size=args.batch)
-    print(json.dumps(res, indent=2, default=str), flush=True)
+    if process_index() == 0:
+        print(json.dumps(res, indent=2, default=str), flush=True)
     return res
 
 

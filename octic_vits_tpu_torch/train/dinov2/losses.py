@@ -9,7 +9,8 @@ The centre and Sinkhorn-Knopp take means and sums over the global batch
 (the JAX step's over its sharded batch axis): given a process `group` they
 all-reduce their sums over it (the reference's all_reduce). The losses are
 means over a process's rows, whose mean over equal processes is the global
-mean; :func:`koleo_loss_per_device` is the per-GPU KoLeo.
+mean; :func:`koleo_loss_per_device` is the per-GPU KoLeo and
+:func:`koleo_loss_global` the KoLeo over the gathered global batch.
 """
 
 from __future__ import annotations
@@ -134,3 +135,20 @@ def koleo_loss_per_device(student_cls: torch.Tensor, eps: float = 1e-8) -> torch
     over the mesh is the step's mean over the processes (of the gradients,
     by DDP or FSDP, and of the logged loss)."""
     return koleo_loss(student_cls, eps)
+
+
+def koleo_loss_global(student_cls: torch.Tensor, group=None,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """KoLeo with the nearest neighbours searched over the global batch: the
+    rows of every process of `group` all-gathered in rank order (with a
+    gradient), then :func:`koleo_loss` of the whole; JAX's ``koleo_global``
+    on its global batch. The gather's backward sums the cotangents of every
+    process, each of which holds the same global loss, so a process's rows
+    get `world` times the loss's gradient; the step's mean of the gradients
+    over the processes (DDP, FSDP2) then leaves the global loss's gradient
+    once. Without a group it is :func:`koleo_loss`."""
+    if group is None:
+        return koleo_loss(student_cls, eps)
+    from torch.distributed.nn.functional import all_gather
+
+    return koleo_loss(torch.cat(all_gather(student_cls.contiguous(), group=group)), eps)

@@ -18,9 +18,11 @@ state out over a ``(data, fsdp)`` mesh of processes: each process then holds
 its own images (both global crops and the local crops of each, the masks,
 and its own masked-token buffers), the centre and Sinkhorn-Knopp sums run
 over every process, the KoLeo is per device (the reference's per-GPU scope,
-JAX's ``koleo_loss_per_device``), the iBOT loss divides by the process's
-own count of masked images (so the mean over processes is the global one),
-and the drop-path masks are the global batch's rows of this process.
+JAX's ``koleo_loss_per_device``; with ``koleo_global`` it searches the class
+tokens of every process, gathered in the global batch's order), the iBOT
+loss divides by the process's own count of masked images (so the mean over
+processes is the global one), and the drop-path masks are the global batch's
+rows of this process.
 
     arch = SSLMetaArch(SSLConfig(), device="cuda")
     state = arch.init(torch.Generator("cuda").manual_seed(0))
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -66,6 +69,10 @@ class SSLConfig:
     dino_head_nlayers: int = 3
     dino_loss_weight: float = 1.0
     koleo_loss_weight: float = 0.1
+    # False: the reference's per-GPU KoLeo (neighbours within each process's
+    # rows, koleo_loss.py:38-48); True: one search over the global batch
+    # (the class tokens of every process gathered), as JAX's koleo_global
+    koleo_global: bool = False
     # ibot
     do_ibot: bool = True
     ibot_separate_head: bool = False
@@ -329,7 +336,10 @@ class SSLMetaArch:
         loss_dict["dino_global_crops_loss"] = dino_global
         total = total + cfg.dino_loss_weight * dino_global
         if cfg.koleo_loss_weight > 0:
-            koleo_fn = L.koleo_loss_per_device if shard.count > 1 else L.koleo_loss
+            if cfg.koleo_global and mesh is not None:  # a gather even at one rank
+                koleo_fn = functools.partial(L.koleo_loss_global, group=dist.group.WORLD)
+            else:
+                koleo_fn = L.koleo_loss_per_device if shard.count > 1 else L.koleo_loss
             koleo = cfg.koleo_loss_weight * sum(
                 koleo_fn(chunk) for chunk in s_cls_g.reshape(cfg.n_global_crops, b, -1))
             loss_dict["koleo_loss"] = koleo / loss_scales

@@ -186,15 +186,3 @@ def test_cli_without_checkpoint_exits_as_jax(jax_scripts, files, monkeypatch, na
     ours = T_cli if name == "eval_dinov2" else T_seg_cli
     with pytest.raises(SystemExit, match="--checkpoint required"):
         ours.main(argv + ["--device", "cpu"])
-
-
-def test_eval_dinov2_refuses_more_than_one_process(files, monkeypatch):
-    """JAX's multi-process branch (eval/distributed.py) is not ported: with a
-    process group of more than one process the CLI raises before it loads
-    anything, instead of reporting one process's shard."""
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        T_cli.main(["knn", "--model", "dinov2_vits14", "--checkpoint", files["pth"],
-                    "--train-data", files["train"], "--val-data", files["val"],
-                    "--device", "cpu"])

@@ -4,7 +4,8 @@ JAX's SSL mesh step on a CPU mesh of as many devices (f32 both sides), from
 its images' crops, masks and masked-token buffers:
 ``SSLMetaArch.batch_shardings``), two steps, randomness off: DP, ZeRO-2 and
 ZeRO-3, the centring and Sinkhorn-Knopp sums over the processes, KoLeo per
-device and the iBOT loss over the processes' own masked counts. Each group
+device or over the gathered global batch (``koleo_global``) and the iBOT
+loss over the processes' own masked counts. Each group
 of processes is started once a module (``tests/torch_dist.py``, spawn, a
 ``FileStore``) under the suite's time limit."""
 
@@ -53,12 +54,15 @@ def hybrid_dinov2_vit_tiny_test(img_size=32, **kwargs):
 SINKHORN = dict(centering="sinkhorn_knopp", ibot_separate_head=True)
 # name: (world, layout, config overrides). DP (the loop's layout), ZeRO-2 and
 # ZeRO-3, both centerings (Sinkhorn-Knopp with the separate iBOT head), KoLeo
-# per device in each
+# per device in each but the two global ones (the gather's gradient under DDP
+# and under FSDP2)
 SSL_CASES = {"w2_dp_centering": (2, "dp", {}),
              "w2_zero2_centering": (2, "zero2", {}),
              "w2_zero3_sinkhorn": (2, "zero3", SINKHORN),
              "w4_zero2_sinkhorn": (4, "zero2", SINKHORN),
-             "w4_zero3_centering": (4, "zero3", {})}
+             "w4_zero3_centering": (4, "zero3", {}),
+             "w2_dp_koleo_global": (2, "dp", {"koleo_global": True}),
+             "w4_zero2_koleo_global": (4, "zero2", {"koleo_global": True})}
 
 
 def _ssl_params(extra):
@@ -163,3 +167,13 @@ def test_ssl_step_matches_jax_mesh(ssl_groups, case):
         assert n_noise < 0.05 * n_total
         moved = max((got["student"][n] - old[n]).abs().max().item() for n in old)
         assert moved > 1e-4
+
+
+def test_koleo_global_one_process_is_koleo_loss():
+    """Without a process group ``koleo_global`` is ``koleo_loss``: two SSL
+    steps of the port with and without it are bitwise equal."""
+    sd = params_from_jax({"params": _ssl_params({})[1]}, _student({}))
+    batches = torch_dist.ssl_batches(8)
+    runs = [torch_dist.ssl_run("one", extra, sd, batches) for extra in ({}, {"koleo_global": True})]
+    assert torch_dist.tree_equal(runs[0], runs[1])
+    assert runs[0]["metrics"][0]["koleo_loss"] != 0.0

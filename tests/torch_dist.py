@@ -307,3 +307,146 @@ def zero3_checkpoint_worker(rank, world, directory):  # noqa: ARG001
     restored_equal = tree_equal(to_host(fresh.state_dict()), gathered)
     mgr.close()
     return {"gathered": gathered, "restored_equal": restored_equal}
+
+
+# ---- the sharded evaluation ---------------------------------------------------------
+
+
+class ToyDataset:
+    """`n` items: image i is a 2 x 2 x 3 array of i plus a per-channel offset
+    (0, 1/2, 1/4), label i % 3; the mean over the pixels is exact in f32."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return np.full((2, 2, 3), float(i), np.float32) + np.float32([0, 0.5, 0.25]), i % 3
+
+
+def toy_features(images):
+    """The toy extractor: each image's mean over its pixels, ``[B, 3]``."""
+    return torch.from_numpy(np.asarray(images)).mean(dim=(1, 2))
+
+
+def probe_features(x):
+    """A stand-in backbone for the probe grid: ``[B, 4, N + 1, D]`` arrays ->
+    the 4 blocks' ``(patch tokens [B, N, D], cls [B, D])``."""
+    x = torch.as_tensor(np.asarray(x))
+    return [(x[:, j, 1:], x[:, j, 0]) for j in range(x.shape[1])]
+
+
+def _gather_cases(rank, world, totals):
+    from octic_vits_tpu_torch.eval.distributed import gather_features_across_processes
+
+    out = {}
+    for total, dtype in totals:
+        feats = torch.from_numpy(np.random.default_rng(total).standard_normal((total, 3))
+                                 .astype(np.float32)).to(getattr(torch, dtype))
+        idx = torch.arange(rank, total, world)
+        out[(total, dtype)] = gather_features_across_processes(feats[idx], idx * 10, idx, total)
+    return out
+
+
+def _extract_cases(rank, world, sizes):
+    from octic_vits_tpu_torch.data.samplers import EpochSampler
+    from octic_vits_tpu_torch.eval.distributed import extract_features_sharded
+
+    out = {}
+    for n in sizes:
+        try:
+            bank = extract_features_sharded(toy_features, ToyDataset(n), batch_size=2,
+                                            num_workers=2)
+        except ValueError as e:
+            bank = repr(e)
+        out[n] = {"indices": list(EpochSampler(n, shard=rank, num_shards=world)), "bank": bank}
+    return out
+
+
+def _knn_cases(cases):
+    from octic_vits_tpu_torch.eval.knn import knn_classify, knn_classify_sharded
+    from octic_vits_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(device="cpu")
+    out = {}
+    for name, (xtr, ytr, xte, classes, ks, batch, dtype) in cases.items():
+        dt = getattr(torch, dtype)
+        args = (torch.from_numpy(xtr).to(dt), torch.from_numpy(ytr), torch.from_numpy(xte).to(dt),
+                classes)
+        out[name] = {"sharded": knn_classify_sharded(*args, mesh, ks=ks, batch_size=batch),
+                     "plain": knn_classify(*args, ks=ks, batch_size=batch)}
+    return out
+
+
+def _linear_cases(rank, world, bank_case, grid_case):
+    from octic_vits_tpu_torch.eval.linear import LinearProbeBank, train_and_eval_linear_probes
+    from octic_vits_tpu_torch.parallel import batch_sharding, create_mesh
+
+    mesh = create_mesh(device="cpu")
+    shard = batch_sharding(mesh)
+    feats, labels, lrs, classes = bank_case
+    bank = LinearProbeBank(feats[0].shape[1], classes, lrs, iters=5, device="cpu", mesh=mesh)
+    losses = [bank.train_step(shard(torch.from_numpy(f)), shard(torch.from_numpy(y)), it)
+              for it, (f, y) in enumerate(zip(feats, labels))]
+    # a global batch of 7 rows, dealt round robin: processes of unequal rows
+    ragged = LinearProbeBank(feats[0].shape[1], classes, lrs, iters=5, device="cpu", mesh=mesh)
+    ragged_losses = [ragged.train_step(torch.from_numpy(f[:7][rank::world]),
+                                       torch.from_numpy(y[:7][rank::world]), it)
+                     for it, (f, y) in enumerate(zip(feats, labels))]
+    train, val, classes, batch = grid_case
+    grid = train_and_eval_linear_probes(
+        probe_features, lambda: [(shard(x), shard(y)) for x, y in train],
+        [(x[rank::world], y[rank::world]) for x, y in val], classes, iters=len(train) + 1,
+        lrs=(1e-2, 1e-1), batch_size=batch, mesh=mesh)
+    try:  # a world that does not divide the batch
+        train_and_eval_linear_probes(probe_features, lambda: iter(()), [], classes, iters=1,
+                                     batch_size=world + 1, mesh=mesh)
+        uneven = None
+    except ValueError as e:
+        uneven = repr(e)
+    params = ("w", "b", "mw", "mb")
+    return {"bank": {"even": ({n: getattr(bank, n).clone() for n in params}, losses),
+                     "ragged": ({n: getattr(ragged, n).clone() for n in params}, ragged_losses)},
+            "grid": grid, "uneven": uneven}
+
+
+def _koleo_case(rank, world, cls):
+    from octic_vits_tpu_torch.train.dinov2 import losses as L
+
+    rows = torch.from_numpy(cls).chunk(world)[rank].clone().requires_grad_(True)
+    loss = L.koleo_loss_global(rows, group=dist.group.WORLD)
+    loss.backward()
+    return {"loss": loss.detach(), "grad": rows.grad}
+
+
+def _cli_cases(argvs):
+    import contextlib
+    import functools
+    import io
+
+    from octic_vits_tpu_torch.eval import knn as T_knn
+    from octic_vits_tpu_torch.scripts import eval_dinov2
+
+    T_knn.evaluate_knn = functools.partial(T_knn.evaluate_knn, ks=(1, 3))
+    out = {}
+    for mode, argv in argvs.items():
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            out[mode] = {"result": eval_dinov2.main(argv), "printed": printed.getvalue()}
+    return out
+
+
+def eval_worker(rank, world, cases):
+    """Every sharded-evaluation case of one group: the gather, the sharded
+    extraction, the sharded k-NN, the data-parallel probe bank and grid, the
+    global KoLeo, and (where given) the eval command line."""
+    out = {"gather": _gather_cases(rank, world, cases["gather"]),
+           "extract": _extract_cases(rank, world, cases["extract"]),
+           "knn": _knn_cases(cases["knn"]),
+           "linear": _linear_cases(rank, world, cases["bank"], cases["grid"]),
+           "koleo": _koleo_case(rank, world, cases["koleo"])}
+    if cases.get("cli"):
+        out["cli"] = _cli_cases(cases["cli"])
+    return out
