@@ -30,6 +30,7 @@ from octic_vits_tpu_torch.layers.common import draw_block_masks
 from octic_vits_tpu_torch.layers.d8_layers import normal_, trunc_normal_
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, PatchEmbed
 from octic_vits_tpu_torch.models.octic_vit import OcticVisionTransformer
+from octic_vits_tpu_torch.utils import tracing
 
 
 def _output_dict(z_norm: torch.Tensor, z: torch.Tensor, masks, r: int = 0) -> dict:
@@ -103,9 +104,13 @@ class OcticDinoVisionTransformer(OcticVisionTransformer):
     def forward_features(self, x, masks=None, generator: Optional[torch.Generator] = None):
         if isinstance(x, (list, tuple)):
             return self.forward_features_list(x, masks, generator)
-        x = x.to(self.compute_dtype or self.pos_embed.dtype)
-        z = self._trunk(self.prepare_tokens_with_masks(x, masks), generator)
-        return _output_dict(self.norm(z), z, masks, self.num_register_tokens)
+        with tracing.span("vit.forward"):
+            with tracing.span("vit.embed"):
+                x = x.to(self.compute_dtype or self.pos_embed.dtype)
+                xs = self.prepare_tokens_with_masks(x, masks)
+            z = self._trunk(xs, generator)
+            with tracing.span("vit.head"):
+                return _output_dict(self.norm(z), z, masks, self.num_register_tokens)
 
     def forward_features_list(self, x_list, masks_list,
                               generator: Optional[torch.Generator] = None) -> list:

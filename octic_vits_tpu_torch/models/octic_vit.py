@@ -41,6 +41,7 @@ from octic_vits_tpu_torch.layers.common import Dropout, draw_block_masks
 from octic_vits_tpu_torch.layers.d8_layers import BlockD8, PatchEmbedD8, normal_, trunc_normal_
 from octic_vits_tpu_torch.layers.invariants import make_invariant
 from octic_vits_tpu_torch.layers.vit_layers import Block, LayerNorm, Linear
+from octic_vits_tpu_torch.utils import tracing
 
 
 class OcticVisionTransformer(nn.Module):
@@ -204,12 +205,14 @@ class OcticVisionTransformer(nn.Module):
         """The octic blocks on the token tuple (packed first with
         ``packed_carry``) and the break: the ``[B, N, C]`` input of the first
         standard block. `masks` holds every block's drop-path masks."""
-        if self.packed_carry:
-            xs = pack_5_to_flat(xs)
-        rb = self.remat and self.training
-        for blk, m in zip(self.blocks[: self.break_layer], masks):
-            xs = blk(xs, m, rb)
-        return self._break_to_flat(xs)
+        with tracing.span("vit.octic_blocks"):
+            if self.packed_carry:
+                xs = pack_5_to_flat(xs)
+            rb = self.remat and self.training
+            for blk, m in zip(self.blocks[: self.break_layer], masks):
+                xs = blk(xs, m, rb)
+        with tracing.span("vit.break"):
+            return self._break_to_flat(xs)
 
     def _trunk(self, xs: tuple, generator: Optional[torch.Generator]) -> torch.Tensor:
         """The blocks on the token tuple: octic blocks, the break, standard
@@ -217,26 +220,43 @@ class OcticVisionTransformer(nn.Module):
         `generator` before the first block runs. Returns the pre-norm ``[B,
         N, C]``."""
         x0 = xs[0]
-        masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
-                                 dtype=x0.dtype, tokens=x0.shape[1])
+        with tracing.span("vit.masks"):
+            masks = draw_block_masks(self.blocks, x0.shape[0], generator, device=x0.device,
+                                     dtype=x0.dtype, tokens=x0.shape[1])
         z = self._run_to_break(xs, masks)
-        rb = self.remat and self.training
-        for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
-            z = blk(z, m, rb)
+        with tracing.span("vit.standard_blocks"):
+            rb = self.remat and self.training
+            for blk, m in zip(self.blocks[self.break_layer:], masks[self.break_layer:]):
+                z = blk(z, m, rb)
         return z
+
+    def _pre_norm(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """NHWC images -> the trunk's pre-norm ``[B, N, C]``."""
+        b, h, w, _ = x.shape
+        with tracing.span("vit.embed"):
+            x = x.to(self.compute_dtype or self.pos_embed.dtype)
+            grid_hw = (h // self.patch_size, w // self.patch_size)
+            xs = self._cat_cls_and_registers(self._add_pos(self.patch_embed(x), grid_hw), b)
+        return self._trunk(xs, generator)
+
+    def _pooled(self, z: torch.Tensor) -> torch.Tensor:
+        z = self.norm(z)
+        return z.mean(dim=1) if self.global_pool else z[:, 0]
 
     def forward_features(self, x: torch.Tensor,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, h, w, _ = x.shape
-        x = x.to(self.compute_dtype or self.pos_embed.dtype)
-        grid_hw = (h // self.patch_size, w // self.patch_size)
-        xs = self._cat_cls_and_registers(self._add_pos(self.patch_embed(x), grid_hw), b)
-        z = self.norm(self._trunk(xs, generator))
-        return z.mean(dim=1) if self.global_pool else z[:, 0]
+        with tracing.span("vit.forward"):
+            z = self._pre_norm(x, generator)
+            with tracing.span("vit.head"):
+                return self._pooled(z)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        # the head input's dropout mask is drawn after the trunk's masks
-        z = self.forward_features(x, generator)
-        z = self.head_drop(z, self.head_drop.draw(tuple(z.shape), generator, device=z.device))
-        return z if self.head is None else self.head(z)
+        with tracing.span("vit.forward"):
+            z = self._pre_norm(x, generator)
+            with tracing.span("vit.head"):
+                z = self._pooled(z)
+                # the head input's dropout mask is drawn after the trunk's masks
+                z = self.head_drop(z, self.head_drop.draw(tuple(z.shape), generator,
+                                                          device=z.device))
+                return z if self.head is None else self.head(z)
 

@@ -60,6 +60,7 @@ from octic_vits_tpu_torch.ops.linear import (
     lin_d8_wide_launch,
     linear_d8,
 )
+from octic_vits_tpu_torch.utils import tracing
 
 MAX_HEAD_DIM = 128  # the kernels' widest instantiation (csrc/attention*.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
@@ -449,6 +450,7 @@ def standard_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -
     return dqkv
 
 
+@tracing.op_spans
 class _StandardAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads):
@@ -647,6 +649,7 @@ def octic_attention_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     return _octic_bwd_launch(qs, gs, num_heads)
 
 
+@tracing.op_spans
 class _OcticAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, *qs):
@@ -760,6 +763,7 @@ def octic_attention_fused_qkv_bwd(xs: tuple, w1, we, bias: Optional[torch.Tensor
     return dxs + (dw1, dwe, dbias)
 
 
+@tracing.op_spans
 class _OcticAttentionFusedQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, w1, we, bias, *xs):
@@ -852,6 +856,7 @@ def octic_attention_fused_qkv_packed_bwd(x, w1, we, bias: Optional[torch.Tensor]
     return dx, dw1, dwe, dbias
 
 
+@tracing.op_spans
 class _OcticAttentionFusedQKVPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, x, w1, we, bias):
@@ -982,6 +987,7 @@ def octic_attention_wide1d_bwd(qs: tuple, gs: tuple, num_heads: int) -> tuple:
     return grads
 
 
+@tracing.op_spans
 class _OcticAttentionWide1d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, *qs):
@@ -1065,6 +1071,7 @@ def octic_attention_wide_bwd(qkv: torch.Tensor, gs: tuple, num_heads: int) -> to
     return dqkv
 
 
+@tracing.op_spans
 class _OcticAttentionWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, qkv):

@@ -12,6 +12,7 @@ import torch
 from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_exact, gelu_grad
+from octic_vits_tpu_torch.utils import tracing
 
 # The kernel's tiling (csrc/dense.cu): 128 x 128 output tiles, K blocks of
 # 64, a ring of 6 stages of one x and one W box each, two consumer
@@ -104,6 +105,7 @@ def dense_gelu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
     return dx, dw.to(weight.dtype), dbias
 
 
+@tracing.op_spans
 class _DenseGelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias):

@@ -31,6 +31,7 @@ from octic_vits_tpu_torch.d8.group import (
     unpack_5f_to_8,
 )
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
+from octic_vits_tpu_torch.utils import tracing
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -129,6 +130,7 @@ def gelu_d8_bwd(xs: tuple, gs: tuple) -> tuple:
 gelu_d8_bwd.launches = 0
 
 
+@tracing.op_spans
 class _GeluD8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *xs):

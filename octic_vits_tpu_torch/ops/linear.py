@@ -39,6 +39,7 @@ from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.d8.group import pack_5_to_flat, unpack_packed_5f
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda, row_stride
 from octic_vits_tpu_torch.ops.gelu_d8 import gelu_d8_eager, gelu_d8_vjp
+from octic_vits_tpu_torch.utils import tracing
 
 
 def linear_d8(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
@@ -481,6 +482,7 @@ def linear_d8_fused_bwd(xs: tuple, w1: torch.Tensor, we: torch.Tensor,
     return tuple(dxs), dw1.to(w1.dtype), dwe.to(we.dtype), dbias, dls1, dlse
 
 
+@tracing.op_spans
 class _LinearD8Fused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w1, we, bias, ls1, lse, fuse_gelu, *tensors):
@@ -624,6 +626,7 @@ def _mlp_launch(xs: tuple, w1a, wea, b1, w1b, web, b2, out: Optional[tuple] = No
     return lin_d8_launch(hid, w1b, web, b2, gelu=False, out=out)
 
 
+@tracing.op_spans
 class _MlpD8Fused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *tensors):
@@ -661,6 +664,7 @@ def mlp_d8_fused_packed_reference(x: torch.Tensor, w1a, wea, b1, w1b, web, b2) -
                                                  b2))
 
 
+@tracing.op_spans
 class _MlpD8FusedPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1a, wea, b1, w1b, web, b2):
@@ -747,6 +751,7 @@ def linear_d8_qkv_wide_reference(x1, xef, w1, we, bias: Optional[torch.Tensor],
     return interleave_wide(y, num_heads)
 
 
+@tracing.op_spans
 class _LinearD8QKVWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, x1, xef, w1, we, bias):
@@ -814,6 +819,7 @@ def linear_d8_wide1d_reference(xs: tuple, w1, we, bias: Optional[torch.Tensor],
     return (y1d[..., :w], y1d[..., w:2 * w], y1d[..., 2 * w:], y[4][..., :c4], y[4][..., c4:])
 
 
+@tracing.op_spans
 class _LinearD8Wide1d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, num_heads, w1, we, bias, *xs):

@@ -28,6 +28,7 @@ from octic_vits_tpu_torch import kernels
 from octic_vits_tpu_torch.d8.group import SQRT2_OVER_4
 from octic_vits_tpu_torch.ops._dispatch import check_kernel_arg, on_cuda
 from octic_vits_tpu_torch.ops.linear import NUM_SMS
+from octic_vits_tpu_torch.utils import tracing
 
 _K2 = SQRT2_OVER_4 * SQRT2_OVER_4
 MAX_C = 256  # the kernel holds a token row in the registers of one warp
@@ -236,6 +237,7 @@ def ln_affine_d8_bwd(xs: tuple, alpha, alpha_ef, us: tuple, eps: float = 1e-5) -
 ln_affine_d8_bwd.launches = 0
 
 
+@tracing.op_spans
 class _LnAffine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, alpha, alpha_ef, beta, eps, *xs):
@@ -278,6 +280,7 @@ def ln_d8_bwd(outs: tuple, var: torch.Tensor, us: tuple) -> tuple:
 ln_d8_bwd.launches = 0
 
 
+@tracing.op_spans
 class _LnStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eps, *xs):

@@ -37,6 +37,7 @@ from octic_vits_tpu_torch.ops.linear import (
     linear_d8_fused_reference,
 )
 from octic_vits_tpu_torch.ops.ln_d8 import ln_affine_d8_reference, ln_fwd_launch
+from octic_vits_tpu_torch.utils import tracing
 
 
 def _norm_affine(params: tuple) -> tuple:
@@ -68,6 +69,7 @@ def mlp_branch_d8_reference(xs: tuple, params: tuple, eps: float = 1e-5) -> tupl
     return linear_d8_fused_reference(h, w1b, web, b2, layerscale=(ls1, lse), residual=xs)
 
 
+@tracing.op_spans
 class _MlpBranch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eps, n_x, *tensors):

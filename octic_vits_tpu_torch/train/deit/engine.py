@@ -33,6 +33,7 @@ from octic_vits_tpu_torch.parallel.mesh import batch_sharding, mirror_block, red
 from octic_vits_tpu_torch.train.common import TrainState, bce_target_loss, cross_entropy_loss
 from octic_vits_tpu_torch.train.deit.losses import distillation_loss
 from octic_vits_tpu_torch.train.optim import Lamb
+from octic_vits_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,21 +162,26 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
 
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                 generator: torch.Generator):
+        with tracing.span("deit.step", root=state.step):
+            return _step(state, images, labels, generator)
+
+    def _step(state, images, labels, generator):
         model.train()
         shard = batch_sharding(state.mesh)
-        if cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0:
-            draws = draw_mixup(generator, images.shape[1], images.shape[2], cfg.mixup_alpha,
-                               cfg.cutmix_alpha, cfg.mixup_prob, cfg.mixup_switch_prob)
-            partner = None
-            if draws.apply and shard.count > 1:
-                far_images, far_labels = mirror_block([images, labels], shard)
-                partner = (far_images.flip(0), far_labels.flip(0))
-            images, targets = mixup_cutmix(images, labels, cfg.num_classes, draws,
-                                           cfg.smoothing, partner)
-        else:
-            targets = one_hot_smooth(labels, cfg.num_classes, cfg.smoothing)
-        if cfg.loss_type == "bce":
-            targets = targets.clamp(0.0, 1.0)
+        with tracing.span("deit.mixup"):
+            if cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0:
+                draws = draw_mixup(generator, images.shape[1], images.shape[2], cfg.mixup_alpha,
+                                   cfg.cutmix_alpha, cfg.mixup_prob, cfg.mixup_switch_prob)
+                partner = None
+                if draws.apply and shard.count > 1:
+                    far_images, far_labels = mirror_block([images, labels], shard)
+                    partner = (far_images.flip(0), far_labels.flip(0))
+                images, targets = mixup_cutmix(images, labels, cfg.num_classes, draws,
+                                               cfg.smoothing, partner)
+            else:
+                targets = one_hot_smooth(labels, cfg.num_classes, cfg.smoothing)
+            if cfg.loss_type == "bce":
+                targets = targets.clamp(0.0, 1.0)
 
         # microbatches (accum_steps > 1) average their gradients into ONE
         # update; mixup ran on the whole batch above
@@ -191,29 +197,34 @@ def make_deit_train_step(model: nn.Module, cfg: DeiTConfig, optimizer: torch.opt
                 contextlib.nullcontext()
             rows = shard.crop_rows(len(im)) if shard.count > 1 else None
             with quiet, global_batch_rows(shard.count * len(im), rows):
-                micro = compute(replica or model, im, tg, generator)
-                (micro / k).backward()
+                with tracing.span("deit.forward"):
+                    micro = compute(replica or model, im, tg, generator)
+                with tracing.span("deit.backward"):
+                    (micro / k).backward()
             loss = loss + micro.detach() / k
 
-        if trainable_mask is not None:
-            for n, p in named:
-                if not trainable_mask[n]:
-                    p.grad = None
-        grads = [p.grad for _, p in named if p.grad is not None]
-        gnorm = global_norm(grads)
-        if cfg.clip_grad is not None:
-            torch._foreach_mul_([sharding.local(g) for g in grads],
-                                torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0))
-        lr = schedule(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        if state.ema is not None:
-            d = cfg.ema_decay
-            ema = [sharding.local(state.ema[n]) for n, _ in named]
-            with torch.no_grad():
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, [sharding.local(p) for _, p in named], alpha=1 - d)
+        with tracing.span("deit.update"):
+            if trainable_mask is not None:
+                for n, p in named:
+                    if not trainable_mask[n]:
+                        p.grad = None
+            with tracing.span("deit.clip"):
+                grads = [p.grad for _, p in named if p.grad is not None]
+                gnorm = global_norm(grads)
+                if cfg.clip_grad is not None:
+                    torch._foreach_mul_([sharding.local(g) for g in grads],
+                                        torch.clamp(cfg.clip_grad / (gnorm + 1e-6), max=1.0))
+            with tracing.span("deit.optimizer"):
+                lr = schedule(state.step)
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                optimizer.step()
+            if state.ema is not None:
+                with tracing.span("deit.ema"), torch.no_grad():
+                    d = cfg.ema_decay
+                    ema = [sharding.local(state.ema[n]) for n, _ in named]
+                    torch._foreach_mul_(ema, d)
+                    torch._foreach_add_(ema, [sharding.local(p) for _, p in named], alpha=1 - d)
         state.step += 1
         if shard.count > 1:
             (loss,) = reduce_mean([loss])

@@ -53,6 +53,7 @@ from octic_vits_tpu_torch.train.common import use_fsdp2
 from octic_vits_tpu_torch.train.dinov2 import losses as L
 from octic_vits_tpu_torch.train.dinov2.masking import shard_masked_buffers
 from octic_vits_tpu_torch.train.dinov2.param_groups import build_multiplier_trees
+from octic_vits_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,8 +281,8 @@ class SSLMetaArch:
         n_l_terms = max(cfg.n_local_crops * cfg.n_global_crops, 1)
 
         # ---------------- teacher (no grad, eval mode) ----------------
-        teacher.eval()
-        with torch.no_grad():
+        with tracing.span("ssl.teacher"), torch.no_grad():
+            teacher.eval()
             t_out = teacher["backbone"].forward_features(gc)
             t_cls = t_out["x_norm_clstoken"]
             t_cls = torch.cat((t_cls[b:], t_cls[:b]))  # crop A is matched with crop B
@@ -319,39 +320,41 @@ class SSLMetaArch:
 
         # ---------------- student ----------------
         run = student_pass if student_pass is not None else StudentPass(self, student)
-        s_cls_g, s_cls_l_after, s_cls_g_after, s_patch_after = run(
-            gc, lc, masks, mask_indices, gen_g, gen_l, shard)
+        with tracing.span("ssl.student"):
+            s_cls_g, s_cls_l_after, s_cls_g_after, s_patch_after = run(
+                gc, lc, masks, mask_indices, gen_g, gen_l, shard)
 
-        loss_dict = {}
-        total = 0.0
-        if cfg.n_local_crops > 0:
-            local_chunks = list(s_cls_l_after.reshape(cfg.n_local_crops, b, -1).unbind(0))
-            dino_local = L.dino_loss(local_chunks, list(t_dino_groups.unbind(0)),
-                                     cfg.student_temp) / (n_g_terms + n_l_terms)
-            loss_dict["dino_local_crops_loss"] = dino_local
-            total = total + cfg.dino_loss_weight * dino_local
-        loss_scales = 2.0
-        dino_global = (L.dino_loss([s_cls_g_after], [t_dino_probs], cfg.student_temp)
-                       * loss_scales / (n_g_terms + n_l_terms))
-        loss_dict["dino_global_crops_loss"] = dino_global
-        total = total + cfg.dino_loss_weight * dino_global
-        if cfg.koleo_loss_weight > 0:
-            if cfg.koleo_global and mesh is not None:  # a gather even at one rank
-                koleo_fn = functools.partial(L.koleo_loss_global, group=dist.group.WORLD)
-            else:
-                koleo_fn = L.koleo_loss_per_device if shard.count > 1 else L.koleo_loss
-            koleo = cfg.koleo_loss_weight * sum(
-                koleo_fn(chunk) for chunk in s_cls_g.reshape(cfg.n_global_crops, b, -1))
-            loss_dict["koleo_loss"] = koleo / loss_scales
-            total = total + koleo
-        if do_ibot:
-            # this process's count of masked images: the mean over equal
-            # processes of the local means is the global one
-            ibot = (L.ibot_patch_loss_masked(s_patch_after, t_ibot_probs, masks_weight,
-                                             n_samples=two_b, student_temp=cfg.student_temp)
-                    * loss_scales * (1.0 / cfg.n_global_crops))
-            loss_dict["ibot_loss"] = ibot / 2
-            total = total + cfg.ibot_loss_weight * ibot
+        with tracing.span("ssl.loss"):
+            loss_dict = {}
+            total = 0.0
+            if cfg.n_local_crops > 0:
+                local_chunks = list(s_cls_l_after.reshape(cfg.n_local_crops, b, -1).unbind(0))
+                dino_local = L.dino_loss(local_chunks, list(t_dino_groups.unbind(0)),
+                                         cfg.student_temp) / (n_g_terms + n_l_terms)
+                loss_dict["dino_local_crops_loss"] = dino_local
+                total = total + cfg.dino_loss_weight * dino_local
+            loss_scales = 2.0
+            dino_global = (L.dino_loss([s_cls_g_after], [t_dino_probs], cfg.student_temp)
+                           * loss_scales / (n_g_terms + n_l_terms))
+            loss_dict["dino_global_crops_loss"] = dino_global
+            total = total + cfg.dino_loss_weight * dino_global
+            if cfg.koleo_loss_weight > 0:
+                if cfg.koleo_global and mesh is not None:  # a gather even at one rank
+                    koleo_fn = functools.partial(L.koleo_loss_global, group=dist.group.WORLD)
+                else:
+                    koleo_fn = L.koleo_loss_per_device if shard.count > 1 else L.koleo_loss
+                koleo = cfg.koleo_loss_weight * sum(
+                    koleo_fn(chunk) for chunk in s_cls_g.reshape(cfg.n_global_crops, b, -1))
+                loss_dict["koleo_loss"] = koleo / loss_scales
+                total = total + koleo
+            if do_ibot:
+                # this process's count of masked images: the mean over equal
+                # processes of the local means is the global one
+                ibot = (L.ibot_patch_loss_masked(s_patch_after, t_ibot_probs, masks_weight,
+                                                 n_samples=two_b, student_temp=cfg.student_temp)
+                        * loss_scales * (1.0 / cfg.n_global_crops))
+                loss_dict["ibot_loss"] = ibot / 2
+                total = total + cfg.ibot_loss_weight * ibot
         return total, {"loss_dict": loss_dict, "dino_center": new_dino_center,
                        "ibot_center": new_ibot_center}
 
@@ -363,10 +366,11 @@ class SSLMetaArch:
         loss, aux = self.loss_fn(state.student, state.teacher, state.dino_center,
                                  state.ibot_center, batch, teacher_temp, generator,
                                  mesh=state.mesh, student_pass=state.replica)
-        loss.backward()
-        for p in state.student.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with tracing.span("ssl.backward"):
+            loss.backward()
+            for p in state.student.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         return loss.detach(), aux
 
     # ---- layout over processes ------------------------------------------------
@@ -438,6 +442,10 @@ class SSLMetaArch:
         local = sharding.local
 
         def step(state: SSLState, batch, sched, generator=None):
+            with tracing.span("ssl.step", root=state.step):
+                return _step(state, batch, sched, generator)
+
+        def _step(state, batch, sched, generator):
             student, teacher = state.student, state.teacher
             names, params = zip(*student.named_parameters())
             lr_mult, wd_mult, last = build_multiplier_trees(
@@ -446,43 +454,46 @@ class SSLMetaArch:
             metrics = dict(aux["loss_dict"], total_loss=loss)
             if batch_sharding(state.mesh).count > 1:
                 metrics = dict(zip(metrics, reduce_mean(list(metrics.values()))))
-            with torch.no_grad():
-                # per-submodule clipping of the global gradient norm
-                for key, mod in student.items():
-                    grads = [p.grad for p in mod.parameters()]
-                    gn = sharding.global_norm(grads)
-                    torch._foreach_mul_([local(g) for g in grads],
-                                        torch.clamp(cfg.clip_grad / (gn + 1e-6), max=1.0))
-                    metrics[f"grad_norm/{key}"] = gn
-                # AdamW with per-parameter lr and weight-decay multipliers
-                t = state.step + 1
-                bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-                grads = [local(p.grad) for p in params]
-                mu = [local(state.mu[n]) for n in names]
-                nu = [local(state.nu[n]) for n in names]
-                ps = [local(p) for p in params]
-                torch._foreach_mul_(mu, b1)
-                torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-                torch._foreach_mul_(nu, b2)
-                torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-                denom = torch._foreach_div(nu, bc2)
-                torch._foreach_sqrt_(denom)
-                torch._foreach_add_(denom, 1e-8)
-                upd = torch._foreach_div(mu, bc1)
-                torch._foreach_div_(upd, denom)
-                del denom
-                torch._foreach_add_(upd, torch._foreach_mul(
-                    ps, [sched["wd"] * wd_mult[n] for n in names]))
-                torch._foreach_mul_(upd, [
-                    (sched["last_layer_lr"] * last[n] + sched["lr"] * (1.0 - last[n])) * lr_mult[n]
-                    for n in names])
-                torch._foreach_sub_(ps, upd)
-                del upd
-                # teacher EMA towards the updated student (the same layout)
-                m = sched["momentum"]
-                tparams = [local(p) for p in teacher.parameters()]
-                torch._foreach_mul_(tparams, m)
-                torch._foreach_add_(tparams, ps, alpha=1.0 - m)
+            with tracing.span("ssl.update"), torch.no_grad():
+                with tracing.span("ssl.clip"):
+                    # per-submodule clipping of the global gradient norm
+                    for key, mod in student.items():
+                        grads = [p.grad for p in mod.parameters()]
+                        gn = sharding.global_norm(grads)
+                        torch._foreach_mul_([local(g) for g in grads],
+                                            torch.clamp(cfg.clip_grad / (gn + 1e-6), max=1.0))
+                        metrics[f"grad_norm/{key}"] = gn
+                with tracing.span("ssl.optimizer"):
+                    # AdamW with per-parameter lr and weight-decay multipliers
+                    t = state.step + 1
+                    bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+                    grads = [local(p.grad) for p in params]
+                    mu = [local(state.mu[n]) for n in names]
+                    nu = [local(state.nu[n]) for n in names]
+                    ps = [local(p) for p in params]
+                    torch._foreach_mul_(mu, b1)
+                    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+                    torch._foreach_mul_(nu, b2)
+                    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+                    denom = torch._foreach_div(nu, bc2)
+                    torch._foreach_sqrt_(denom)
+                    torch._foreach_add_(denom, 1e-8)
+                    upd = torch._foreach_div(mu, bc1)
+                    torch._foreach_div_(upd, denom)
+                    del denom
+                    torch._foreach_add_(upd, torch._foreach_mul(
+                        ps, [sched["wd"] * wd_mult[n] for n in names]))
+                    torch._foreach_mul_(upd, [
+                        (sched["last_layer_lr"] * last[n] + sched["lr"] * (1.0 - last[n]))
+                        * lr_mult[n] for n in names])
+                    torch._foreach_sub_(ps, upd)
+                    del upd
+                with tracing.span("ssl.teacher_ema"):
+                    # teacher EMA towards the updated student (the same layout)
+                    m = sched["momentum"]
+                    tparams = [local(p) for p in teacher.parameters()]
+                    torch._foreach_mul_(tparams, m)
+                    torch._foreach_add_(tparams, ps, alpha=1.0 - m)
             state.step += 1
             state.dino_center = aux["dino_center"]
             state.ibot_center = aux["ibot_center"]
